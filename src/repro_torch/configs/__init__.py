@@ -1,0 +1,26 @@
+"""Model configurations of the PyTorch port."""
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig, SpoolIoConfig
+from repro_torch.configs.paper_models import (PAPER_SCENARIOS, gpt,
+                                              small_gpt)
+
+__all__ = ["ModelConfig", "SpoolIoConfig", "PAPER_SCENARIOS", "gpt",
+           "small_gpt", "resolve_config"]
+
+
+def resolve_config(name: str) -> ModelConfig:
+    """Arch string -> ModelConfig: small-gpt, gpt-124m or gpt-h<H>-l<L>
+    (the subset of the JAX package's `session.resolve_config` that the
+    port supports so far)."""
+    if name == "gpt-124m":
+        return dataclasses.replace(
+            gpt(768, 12, vocab=32768), num_heads=12, num_kv_heads=12,
+            head_dim=64)
+    if name == "small-gpt":
+        return small_gpt()
+    if name.startswith("gpt-h") and "-l" in name:
+        h, l = name[5:].split("-l")
+        return gpt(int(h), int(l))
+    raise ValueError(f"unknown arch {name!r} (the port knows small-gpt, "
+                     "gpt-124m and gpt-h<H>-l<L>)")

@@ -1,0 +1,183 @@
+"""Public model API of the port: build_model(config) -> ModelApi,
+mirroring the JAX package's `repro/models/api.py`.
+
+  init(generator)                               -> params
+  forward(params, batch, settings, emit_cache=False, cache_len=0)
+      -> logits_f32                       (emit_cache=False)
+      -> (logits_f32, caches)             (emit_cache=True)
+  prefill(params, batch, settings, cache_len=0) -> (last_logits, caches)
+  decode_step(params, cache, batch, pos, settings)  -> logits
+  decode_step_paged(params, pools, resident, tables, batch, pos, settings)
+      -> logits
+
+Parameters are a nested dict of tensors with the JAX pytree keys and
+stacked layer dims (`segments[0]["b0"]["attn"]["wq"]` is (L, D, H, hd)),
+so `models/convert.py` maps JAX weights over key for key. The decode
+steps update caches, pools and resident entries IN PLACE. Inputs and
+outputs are the JAX package's layouts; the embedding tables are untied
+and the vocab padded to a multiple of 256 with padded logits at -1e30.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (dtype_of, embed_init, init_norm,
+                                       rms_norm, softcap)
+from repro_torch.models.transformer import (BlockDef, RunSettings,
+                                            SegmentDef, apply_block,
+                                            apply_block_decode,
+                                            apply_block_decode_paged,
+                                            build_segments, init_block,
+                                            layer, stack)
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class ModelApi:
+    cfg: ModelConfig
+    segments: Tuple[SegmentDef, ...]
+    init: Callable
+    forward: Callable
+    prefill: Callable
+    decode_step: Callable
+    decode_step_paged: Callable
+
+
+def _to_decode_cache(bdef: BlockDef, cache, cache_len: int):
+    """A prefill (k, v) pair in the decode layout: sized
+    min(window, cache_len) (a ring for windowed layers, where position
+    p lives at slot p % W, so a prefill of S tokens contributes its
+    last W via a roll of (S - W) % W), zero-padded when shorter."""
+    k, v = cache
+    S = k.shape[1]
+    target = min(bdef.window, cache_len) if bdef.window else cache_len
+    if S >= target:
+        k, v = k[:, S - target:], v[:, S - target:]
+        shift = (S - target) % target
+        if shift:
+            k = torch.roll(k, shift, dims=1)
+            v = torch.roll(v, shift, dims=1)
+    else:
+        pad = (0, 0, 0, 0, 0, target - S)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    return {"k": k, "v": v}
+
+
+def _head(params, x, cfg: ModelConfig):
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = (x @ params["unembed"]).float()
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        bias = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
+                           device=logits.device)
+        bias[cfg.vocab_size:] = -1e30
+        logits = logits + bias
+    return logits
+
+
+def build_model(cfg: ModelConfig) -> ModelApi:
+    cfg = cfg.validate()
+    segs = tuple(build_segments(cfg))
+
+    def init(gen: torch.Generator) -> Params:
+        """Random weights on the generator's device, in cfg.dtype."""
+        dtype = dtype_of(cfg.dtype)
+        dev = gen.device
+        params: Params = {
+            "final_norm": init_norm(cfg.d_model, dtype, dev),
+            "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
+            "unembed": embed_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                  dtype),
+        }
+        params["segments"] = [
+            {f"b{i}": init_block(gen, cfg, dtype, seg.n_repeat)
+             for i in range(len(seg.blocks))} for seg in segs]
+        return params
+
+    def forward(params, batch, settings: RunSettings, *, emit_cache=False,
+                cache_len=0):
+        x = params["embed"][batch["tokens"]]
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        cache_len = cache_len or S
+        caches = []
+        for seg, p_stack in zip(segs, params["segments"]):
+            entries = {f"b{i}": [] for i in range(len(seg.blocks))}
+            for rep in range(seg.n_repeat):
+                p_layer = layer(p_stack, rep)
+                for i, bdef in enumerate(seg.blocks):
+                    x, kv = apply_block(bdef, p_layer[f"b{i}"], x, cfg,
+                                        settings, positions=positions)
+                    if emit_cache:
+                        entries[f"b{i}"].append(
+                            _to_decode_cache(bdef, kv, cache_len))
+            if emit_cache:
+                caches.append({bid: stack(e) for bid, e in entries.items()})
+        logits = _head(params, x, cfg)
+        return (logits, caches) if emit_cache else logits
+
+    def prefill(params, batch, settings: RunSettings, *, cache_len=0):
+        logits, caches = forward(params, batch, settings, emit_cache=True,
+                                 cache_len=cache_len)
+        return logits[:, -1:], caches
+
+    def decode_step(params, cache, batch, pos, settings: RunSettings):
+        """One token for the whole batch against dense caches (updated in
+        place). batch: {"tokens": (B, 1)}. pos: int / 0-d tensor, or a
+        (B,) tensor of per-row positions. Returns (B, 1, V) f32 logits."""
+        x = params["embed"][batch["tokens"]]
+        pos = torch.as_tensor(pos, device=x.device)
+        for seg, p_stack, c_stack in zip(segs, params["segments"], cache):
+            for rep in range(seg.n_repeat):
+                p_layer, c_layer = layer(p_stack, rep), layer(c_stack, rep)
+                for i, bdef in enumerate(seg.blocks):
+                    x = apply_block_decode(bdef, p_layer[f"b{i}"], x,
+                                           c_layer[f"b{i}"], pos, cfg,
+                                           settings)
+        return _head(params, x, cfg)
+
+    def decode_step_paged(params, pools, resident, tables, batch, pos,
+                          settings: RunSettings):
+        """One token per serving slot against a paged KV cache. Blocks
+        whose cache is pageable read/write the shared page pools through
+        each row's page table; the rest keep per-slot dense entries in
+        `resident`. All are updated in place.
+
+          pools:    per segment {f"b{i}": {"k","v"}} page-pool stacks,
+                    leading dim n_repeat, only for paged blocks.
+          resident: per segment {f"b{i}": cache} stacks for the rest.
+          tables:   (B, max_pages) physical page table per row.
+          pos:      (B,) per-row absolute positions.
+
+        Returns (B, 1, V) f32 logits."""
+        x = params["embed"][batch["tokens"]]
+        pos = torch.as_tensor(pos, device=x.device)
+        for seg, p_stack, pool_stack, res_stack in zip(
+                segs, params["segments"], pools, resident):
+            for rep in range(seg.n_repeat):
+                p_layer = layer(p_stack, rep)
+                for i, bdef in enumerate(seg.blocks):
+                    bid = f"b{i}"
+                    if bid in pool_stack:
+                        x = apply_block_decode_paged(
+                            bdef, p_layer[bid], x,
+                            layer(pool_stack[bid], rep), tables, pos, cfg,
+                            settings)
+                    else:
+                        x = apply_block_decode(
+                            bdef, p_layer[bid], x,
+                            layer(res_stack[bid], rep), pos, cfg, settings)
+        return _head(params, x, cfg)
+
+    return ModelApi(
+        cfg=cfg, segments=segs, init=init, forward=forward,
+        prefill=prefill, decode_step=decode_step,
+        decode_step_paged=decode_step_paged,
+    )

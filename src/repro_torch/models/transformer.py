@@ -1,0 +1,254 @@
+"""Model assembly of the port, mirroring the JAX package's
+`repro/models/transformer.py`: blocks -> segments (repeated super-layers
+with stacked parameters) -> decode caches.
+
+Where JAX scans a segment's stacked parameters, the port loops in Python
+over the layer index (`layer(tree, i)` takes the i-th slice of every
+leaf, as views). This slice ports the dense attention block with the
+dense (GELU) MLP; configurations needing anything else raise
+`NotImplementedError`.
+
+Decode steps update their caches IN PLACE (`index_put_` on views of the
+stacked cache tensors) where JAX returns new, donated arrays.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import attend, attend_decode
+from repro_torch.models.layers import (apply_mlp, apply_rope, dense_init,
+                                       init_mlp, init_norm, rms_norm)
+
+_NOT_PORTED = "not ported yet (ROADMAP §1, 'the other architectures')"
+
+Params = Dict[str, Any]
+
+
+# ====================================================================
+# Segment construction
+# ====================================================================
+
+@dataclass(frozen=True)
+class BlockDef:
+    mixer: str                    # "attn" (the only mixer ported so far)
+    window: int = 0               # sliding window for attn (0 = full)
+
+
+@dataclass(frozen=True)
+class SegmentDef:
+    blocks: Tuple[BlockDef, ...]
+    n_repeat: int
+
+
+def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
+    missing = [what for what, needed in (
+        ("ssm/rglru mixers", cfg.family == "ssm" or bool(cfg.hybrid_pattern)),
+        ("cross attention", bool(cfg.cross_attn_period)
+         or cfg.family == "encdec"),
+        ("MoE", bool(cfg.moe_num_experts)),
+        ("encoder-only models", not cfg.causal),
+        ("embedding inputs", cfg.input_kind != "tokens"),
+        ("learned positions", not cfg.use_rope),
+        ("embedding scaling", cfg.scale_embed),
+        ("qkv bias", cfg.qkv_bias),
+        ("post-block norms", cfg.post_block_norm),
+        ("gated MLPs", cfg.mlp_glu),
+        (f"activation {cfg.act!r}", cfg.act != "gelu")) if needed]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} "
+                                  f"{_NOT_PORTED}")
+    if cfg.local_global_period:
+        p = cfg.local_global_period
+        if cfg.num_layers % p:
+            raise ValueError("num_layers must be a multiple of "
+                             "local_global_period")
+        blocks = tuple(
+            BlockDef("attn", window=cfg.sliding_window if i < p - 1 else 0)
+            for i in range(p))
+        return [SegmentDef(blocks, cfg.num_layers // p)]
+    return [SegmentDef((BlockDef("attn", window=cfg.sliding_window),),
+                       cfg.num_layers)]
+
+
+# ====================================================================
+# Run-time settings
+# ====================================================================
+
+@dataclass(frozen=True)
+class RunSettings:
+    attn_impl: str = "torch"          # torch | cuda
+    attn_chunk: int = 1024
+    param_dtype: str = "bfloat16"
+    device: str = "cuda"
+
+
+# ====================================================================
+# Stacked-parameter helpers
+# ====================================================================
+
+def layer(tree, i: int):
+    """The i-th slice of every leaf of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def stack(trees: List):
+    """Stack a list of same-structure trees along a new leading dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+# ====================================================================
+# Block init (all n_repeat layers of a segment at once)
+# ====================================================================
+
+def _init_attn(gen, cfg: ModelConfig, dtype, lead) -> Params:
+    D, Hq, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    return {
+        "wq": dense_init(gen, lead + (D, Hq, hd), D, dtype),
+        "wk": dense_init(gen, lead + (D, KV, hd), D, dtype),
+        "wv": dense_init(gen, lead + (D, KV, hd), D, dtype),
+        "wo": dense_init(gen, lead + (Hq, hd, D), Hq * hd, dtype),
+    }
+
+
+def init_block(gen, cfg: ModelConfig, dtype, n_repeat: int) -> Params:
+    lead = (n_repeat,)
+    dev = gen.device
+    return {"norm": init_norm(cfg.d_model, dtype, dev, lead),
+            "attn": _init_attn(gen, cfg, dtype, lead),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead),
+            "mlp_norm": init_norm(cfg.d_model, dtype, dev, lead)}
+
+
+# ====================================================================
+# Block apply — full sequence (prefill)
+# ====================================================================
+
+def _proj(x, w):
+    """"bsd,dhk->bshk" as one matrix product."""
+    D, H, K = w.shape
+    return (x @ w.reshape(D, H * K)).unflatten(-1, (H, K))
+
+
+def _qkv(p, x, cfg: ModelConfig, positions):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(o, wo):
+    """"bshk,hkd->bsd" as one matrix product."""
+    H, K, D = wo.shape
+    return o.flatten(-2) @ wo.reshape(H * K, D)
+
+
+def _mixer_and_mlp(p, x, o, cfg: ModelConfig):
+    """x + attention output projection, then the MLP sublayer."""
+    x = x + _out_proj(o, p["attn"]["wo"])
+    h = rms_norm(x, p["mlp_norm"]["scale"], cfg.norm_eps)
+    return x + apply_mlp(p["mlp"], h)
+
+
+def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
+                settings: RunSettings, *, positions=None):
+    """Full-sequence block. Returns (x, (k, v))."""
+    h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    q, k, v = _qkv(p["attn"], h, cfg, positions)
+    o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
+               logit_cap=cfg.attn_logit_softcap, chunk=settings.attn_chunk,
+               impl=settings.attn_impl)
+    return _mixer_and_mlp(p, x, o, cfg), (k, v)
+
+
+# ====================================================================
+# Block apply — single-token decode against caches
+# ====================================================================
+
+def _decode_positions(pos):
+    """RoPE positions for one decode token: (1, 1) for a shared scalar
+    pos, (B, 1) for per-row positions."""
+    return pos[:, None] if pos.dim() == 1 else pos.reshape(1, 1)
+
+
+def apply_block_decode(bdef: BlockDef, p, x1, cache, pos,
+                       cfg: ModelConfig, settings: RunSettings):
+    """x1: (B, 1, D). cache: {"k", "v"}: (B, S, Hkv, D) views, written
+    in place. pos: 0-d tensor, or (B,) tensor of per-row positions.
+    Returns x1."""
+    h = rms_norm(x1, p["norm"]["scale"], cfg.norm_eps)
+    ck, cv = cache["k"], cache["v"]
+    S = ck.shape[1]
+    ring = bool(bdef.window) and S == bdef.window
+    q, k, v = _qkv(p["attn"], h, cfg, _decode_positions(pos))
+    slot = torch.remainder(pos, S) if ring else pos
+    if pos.dim() == 1:
+        rows = torch.arange(x1.shape[0], device=x1.device)
+        ck.index_put_((rows, slot), k[:, 0].to(ck.dtype))
+        cv.index_put_((rows, slot), v[:, 0].to(cv.dtype))
+    else:
+        s = int(slot)
+        ck[:, s:s + 1] = k.to(ck.dtype)
+        cv[:, s:s + 1] = v.to(cv.dtype)
+    o = attend_decode(q, ck, cv, pos, window=bdef.window,
+                      logit_cap=cfg.attn_logit_softcap, ring=ring)
+    return _mixer_and_mlp(p, x1, o, cfg)
+
+
+def apply_block_decode_paged(bdef: BlockDef, p, x1, pool, tables, pos,
+                             cfg: ModelConfig, settings: RunSettings):
+    """Paged-KV decode for one full-attention block.
+
+      pool:   {"k","v"}: (N, P, Hkv, D) — N physical pages of P tokens
+              for THIS layer (page 0 is the null page idle slots write
+              into); written in place.
+      tables: (B, max_pages) int64 — physical page of each logical page.
+      pos:    (B,) int64 — absolute position of the current token.
+
+    Scatters the new K/V into page pos//P at offset pos%P, gathers each
+    row's pages into a contiguous (B, max_pages*P, Hkv, D) view and runs
+    the dense decode attention on it, so the logits are bitwise those of
+    a dense cache of length max_pages*P holding the same sequence.
+    Returns x1."""
+    h = rms_norm(x1, p["norm"]["scale"], cfg.norm_eps)
+    ck, cv = pool["k"], pool["v"]
+    P = ck.shape[1]
+    B = x1.shape[0]
+    n_pages = tables.shape[1]
+    q, k, v = _qkv(p["attn"], h, cfg, _decode_positions(pos))
+    rows = torch.arange(B, device=x1.device)
+    phys = tables[rows, torch.div(pos, P, rounding_mode="floor")]
+    off = torch.remainder(pos, P)
+    ck.index_put_((phys, off), k[:, 0].to(ck.dtype))
+    cv.index_put_((phys, off), v[:, 0].to(cv.dtype))
+    gk = ck[tables].reshape(B, n_pages * P, *ck.shape[2:])
+    gv = cv[tables].reshape(B, n_pages * P, *cv.shape[2:])
+    o = attend_decode(q, gk, gv, pos, window=bdef.window,
+                      logit_cap=cfg.attn_logit_softcap)
+    return _mixer_and_mlp(p, x1, o, cfg)
+
+
+# ====================================================================
+# Decode-cache construction
+# ====================================================================
+
+def init_block_cache(bdef: BlockDef, cfg: ModelConfig, batch: int,
+                     seq_len: int, dtype, device, lead=()) -> Any:
+    """Zeroed cache entry for one block (a ring of `window` slots for a
+    windowed layer)."""
+    hd = cfg.resolved_head_dim
+    S = min(bdef.window, seq_len) if bdef.window else seq_len
+    shape = tuple(lead) + (batch, S, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+

@@ -1,0 +1,196 @@
+"""The port's model (`repro_torch.models`) against the JAX package on
+one set of weights: JAX `init` -> numpy -> `params_from_jax`. Layers,
+full-sequence forward with its emitted decode caches, dense and paged
+decode over several steps, in float32 at 1e-4, and one bf16 prefill."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.paper_models import small_gpt as jax_small_gpt  # noqa
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models.api import build_model as jax_build  # noqa: E402
+from repro.models.transformer import RunSettings as JaxSettings  # noqa
+from repro_torch.configs import resolve_config  # noqa: E402
+from repro_torch.configs.paper_models import small_gpt  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.transformer import RunSettings  # noqa: E402
+
+TOL = 1e-4
+B, S, CACHE = 2, 12, 24
+
+
+def _setup(dtype):
+    jcfg = dataclasses.replace(jax_small_gpt(), dtype=dtype)
+    japi = jax_build(jcfg)
+    jparams = japi.init(jax.random.key(0))
+    api = build_model(dataclasses.replace(small_gpt(), dtype=dtype))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    return (japi, jparams, JaxSettings(attn_impl="xla", attn_chunk=8,
+                                       param_dtype=dtype),
+            api, params, RunSettings(attn_impl="torch", attn_chunk=8,
+                                     param_dtype=dtype, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def f32():
+    return _setup("float32")
+
+
+def _tokens(seed=0, shape=(B, S)):
+    return np.random.default_rng(seed).integers(0, 2048, shape).astype(
+        np.int32)
+
+
+def test_configs_match_jax():
+    from repro.configs.paper_models import gpt as jax_gpt
+    for name, want in (("small-gpt", jax_small_gpt()),
+                       ("gpt-h8192-l4", jax_gpt(8192, 4))):
+        got = resolve_config(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    big = resolve_config("gpt-h8192-l4")
+    assert (big.num_heads, big.resolved_head_dim, big.d_ff,
+            big.padded_vocab) == (64, 128, 32768, 50432)
+    with pytest.raises(ValueError, match="unknown arch"):
+        resolve_config("qwen2.5-3b")
+    # configurations the slice does not carry are refused, not run wrong
+    with pytest.raises(NotImplementedError, match="gated MLPs, activation"):
+        build_model(dataclasses.replace(small_gpt(), mlp_glu=True,
+                                        act="silu"))
+
+
+def test_layers_match_jax():
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, 3, 16)).astype(np.float32)
+    scale = rng.normal(size=(16,)).astype(np.float32) * 0.1
+    np.testing.assert_allclose(
+        layers.rms_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                        1e-6).numpy(),
+        np.asarray(jlayers.rms_norm(jnp.asarray(x), jnp.asarray(scale),
+                                    1e-6)), rtol=1e-5, atol=1e-5)
+    for pos in (np.arange(5), np.array([[7], [11]])):
+        xr = x[:, :1] if pos.ndim == 2 else x
+        want = jlayers.apply_rope(jnp.asarray(xr), jnp.asarray(pos), 1e4)
+        got = layers.apply_rope(torch.from_numpy(xr), torch.from_numpy(pos),
+                                1e4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        layers.gelu(torch.from_numpy(x)).numpy(),
+        np.asarray(jlayers.gelu(jnp.asarray(x))), rtol=1e-6, atol=1e-6)
+
+
+def test_init_distribution():
+    gen = torch.Generator().manual_seed(0)
+    w = layers.dense_init(gen, (256, 512), 256, torch.float32)
+    assert float(w.abs().max()) <= 2.0 / 16 + 1e-6      # truncated at 2 std
+    # a normal truncated at +-2 sigma has std 0.8796 sigma
+    assert abs(float(w.std()) * 16 - 0.8796) < 0.01
+    api = build_model(small_gpt())
+    params = api.init(torch.Generator().manual_seed(0))
+    wq = params["segments"][0]["b0"]["attn"]["wq"]
+    assert wq.shape == (4, 256, 4, 64) and wq.dtype == torch.bfloat16
+    assert params["embed"].shape == (2048, 256)
+
+
+def test_forward_and_caches_match_jax(f32):
+    japi, jparams, jset, api, params, tset = f32
+    toks = _tokens()
+    jl, jc, _ = japi.forward(jparams, {"tokens": jnp.asarray(toks)}, jset,
+                             emit_cache=True, cache_len=CACHE)
+    with torch.inference_mode():
+        tl, tc = api.forward(params, {"tokens": torch.from_numpy(toks)},
+                             tset, emit_cache=True, cache_len=CACHE)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+    for name in ("k", "v"):
+        assert tc[0]["b0"][name].shape == (4, B, CACHE, 4, 64)
+        np.testing.assert_allclose(tc[0]["b0"][name].numpy(),
+                                   np.asarray(jc[0]["b0"][name]),
+                                   rtol=TOL, atol=TOL)
+
+
+def test_decode_steps_match_jax(f32):
+    """Prefill, then 4 dense decode steps, alternating per-row (B,)
+    positions and one shared scalar position."""
+    japi, jparams, jset, api, params, tset = f32
+    toks = _tokens(2)
+    _, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(toks)}, jset,
+                             cache_len=CACHE)
+    with torch.inference_mode():
+        _, tcache = api.prefill(params, {"tokens": torch.from_numpy(toks)},
+                                tset, cache_len=CACHE)
+        nxt = _tokens(3, (B, 4))
+        for t in range(4):
+            pos = (np.array([S + t, S + t], np.int32) if t % 2 == 0
+                   else np.array(S + t, np.int32))
+            jl, jcache = japi.decode_step(
+                jparams, jcache, {"tokens": jnp.asarray(nxt[:, t:t + 1])},
+                jnp.asarray(pos), jset)
+            tl = api.decode_step(
+                params, tcache, {"tokens": torch.from_numpy(nxt[:, t:t + 1])},
+                torch.from_numpy(pos).long(), tset)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(tcache[0]["b0"]["k"].numpy(),
+                                   np.asarray(jcache[0]["b0"]["k"]),
+                                   rtol=TOL, atol=TOL)
+
+
+def test_paged_decode_matches_jax(f32):
+    """Decode against page pools and tables (different physical pages
+    per row, null page 0 in the unused table entries)."""
+    japi, jparams, jset, api, params, tset = f32
+    P, n_pages, n_phys = 4, 6, 16
+    toks = _tokens(4, (B, 8))
+    _, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(toks)}, jset,
+                             cache_len=n_pages * P)
+    tables = np.zeros((B, n_pages), np.int32)
+    tables[0, :3] = [5, 2, 9]
+    tables[1, :3] = [1, 7, 3]
+    pools = []
+    for name in ("k", "v"):
+        dense = np.asarray(jcache[0]["b0"][name])        # (L, B, 24, H, D)
+        pool = np.zeros((4, n_phys, P) + dense.shape[3:], np.float32)
+        for b in range(B):
+            for j in range(2):                           # 8 tokens, 2 pages
+                pool[:, tables[b, j]] = dense[:, b, j * P:(j + 1) * P]
+        pools.append(pool)
+    jpools = [{"b0": {"k": jnp.asarray(pools[0]),
+                      "v": jnp.asarray(pools[1])}}]
+    tpools = [{"b0": {"k": torch.from_numpy(pools[0].copy()),
+                      "v": torch.from_numpy(pools[1].copy())}}]
+    nxt = _tokens(5, (B, 5))
+    with torch.inference_mode():
+        for t in range(5):                  # crosses into page 2 at t=0
+            pos = np.array([8 + t, 8 + t], np.int32)
+            jl, jpools, _ = japi.decode_step_paged(
+                jparams, jpools, [{}], jnp.asarray(tables),
+                {"tokens": jnp.asarray(nxt[:, t:t + 1])}, jnp.asarray(pos),
+                jset)
+            tl = api.decode_step_paged(
+                params, tpools, [{}], torch.from_numpy(tables).long(),
+                {"tokens": torch.from_numpy(nxt[:, t:t + 1])},
+                torch.from_numpy(pos).long(), tset)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       rtol=TOL, atol=TOL)
+
+
+def test_bf16_prefill_matches_jax():
+    """bf16 weights and activations: the frameworks round at different
+    places, so the logits agree to bf16 precision only."""
+    japi, jparams, jset, api, params, tset = _setup("bfloat16")
+    assert params["embed"].dtype == torch.bfloat16
+    toks = _tokens(6, (1, 16))
+    jl, _ = japi.prefill(jparams, {"tokens": jnp.asarray(toks)}, jset)
+    with torch.inference_mode():
+        tl, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, tset)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=5e-2,
+                               atol=5e-2)
