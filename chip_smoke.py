@@ -10,8 +10,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
   2. build: every CUDA source of the port, one nvcc per source at once;
   3. kernels: each kernel against its plain PyTorch version on the card
      (the flash-attention cases of tests/test_kernels.py plus the serve
-     prefill shapes), and, at the serve shape, the kernel's time beside
-     the plain version's, a library call's and the card's bound;
+     prefill shapes; the SSD-scan cases of tests/test_kernels.py plus the
+     mamba2-2.7b training shape with bf16 B/C), and, at the main path's
+     shapes, each kernel's time beside the plain version's, a library
+     call's where one exists, and the card's bound;
   4. serve: the paper's GPT (gpt-h8192-l4, random weights from seed 0)
      through `repro_torch.launch.serve`, paged KV with quantum
      preemption evicting pages through the spool to a directory, then
@@ -19,11 +21,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
      must be bitwise equal, every evicted page restored, the spool
      directory empty after close, and the kernel launched once per
      layer per prefill in the paged run;
-  5. a `kernels` JSON line, the nvidia-smi line, and the result line.
+  5. train: mamba2-2.7b at full width (64 layers, random weights from
+     seed 0) through `repro_torch.session.TrainSession`, adamw, B=1,
+     S=1024, 3 steps on the SSD-scan kernel, once with every residual
+     kept on the card and once spooled to a fresh directory (fs, raw).
+     Losses and final parameters must be bitwise equal, the spool run's
+     peak device memory lower, bytes offloaded, every stored stage
+     fetched, the directory empty after close, and the kernel launched
+     once per layer per step in each run; one full-width layer through
+     the kernel must agree with the plain path;
+  6. policy matrix at a depth-8 cut: Recompute, Adaptive, the mem
+     backend and the zlib codec, each bitwise equal to Keep; every spool
+     and adaptive run reads blobs back (the zlib run waits for its layer
+     stores before backward, so every layer goes through the codec both
+     ways on the card);
+  7. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -33,8 +51,13 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+# cuBLAS picks a reduction split per call unless its workspace is pinned:
+# the keep/spool parity of phases 5-6 needs one order (set before any
+# CUDA context exists)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "gpt-h8192-l4"
@@ -60,6 +83,24 @@ TOL_F32, TOL_BF16 = 2e-5, 3e-2
 # models, so they differ by bf16 roundings of the attention output that
 # propagate through 4 layers (4 bf16 ulps at |logit| ~ 8)
 TOL_E2E = 0.25
+
+# (B, S, H, P, N, chunk): tests/test_kernels.py::SSD_CASES
+SSD_CASES = [
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 3, 32, 16, 32),
+    (1, 256, 1, 64, 128, 128),
+    (2, 96, 2, 16, 8, 32),
+]
+TOL_SSD = 2e-4
+# the training shape with bf16 B/C: kernel and plain version read the same
+# bf16 values and both sum in f32, so only the order of the N=128 and
+# Q=128 sums differs; relative to the output's scale
+TOL_SSD_PATH = 1e-5
+# one full-width mamba2 layer, kernel vs plain scan: bf16 outputs, so one
+# or two bf16 roundings (2**-7 relative) of the output's scale
+TOL_LAYER = 2 ** -6
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ = "mamba2-2.7b", 3, 1024
+MATRIX_DEPTH = 8
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, and
 # operations/s for bf16 on the tensor cores and f32 on the CUDA cores.
@@ -136,6 +177,256 @@ def bound_ms(q, k, v, causal, window, peaks):
     t_ops = flops / peaks[str(q.dtype).split(".")[-1]]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def ssd_bound_ms(xh, dA_log, B_s, C_s, chunk, peaks):
+    """Least time for the SSD scan: inputs read once and y and the final
+    state written once over the memory rate, or the products the
+    chunked algorithm needs (C B^T once per chunk, then per head the
+    causal Q x Q x P product, C state^T and the state update) over the
+    f32 rate (the kernel computes in f32, as the TPU kernel does)."""
+    from repro_torch.kernels.ssd_scan import pick_chunk
+    B, S, H, P = xh.shape
+    N = B_s.shape[-1]
+    Q = pick_chunk(S, chunk)
+    nc = S // Q
+    tri = Q * (Q + 1) // 2
+    nbytes = (2 * xh.numel() * 4 + dA_log.numel() * 4
+              + 2 * B_s.numel() * B_s.element_size() + B * H * P * N * 4)
+    flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
+    t_bytes = nbytes / peaks["bytes"]
+    t_ops = flops / peaks["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssd_phase(gen, peaks, smi):
+    """The SSD-scan kernel against its plain version; its time at the
+    training shape. Returns (worst error, kernel_ms, plain_ms, bound)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_fwd
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    worst = 0.0
+    for B, S, H, P, N, chunk in SSD_CASES:
+        xh, a = rand((B, S, H, P)), -rand((B, S, H), 0.2).abs()
+        Bs, Cs = rand((B, S, N)), rand((B, S, N))
+        y, st = ssd_scan_fwd(xh, a, Bs, Cs, chunk=chunk)
+        torch.cuda.synchronize()
+        yr, sr = ssd_chunked(xh, a, Bs, Cs, chunk)
+        ok = all(bool(torch.all((g - w).abs() <= TOL_SSD + TOL_SSD * w.abs()))
+                 for g, w in ((y, yr), (st, sr)))
+        err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
+        worst = max(worst, err)
+        print(f"  ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
+              f"float32: max_abs_err {err:.3e} tol {TOL_SSD:g} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok and math.isfinite(err), "ssd_scan disagrees with its plain "
+              "version")
+    # the training shape: B and C are bf16 column slices of the conv
+    # output (strided views), decays of full-width size (dt ~ softplus)
+    conv = rand((1, 1024, 5376)).bfloat16()
+    Bs, Cs = conv[..., 5120:5248], conv[..., 5248:]
+    xh = rand((1, 1024, 80, 64))
+    a = -torch.nn.functional.softplus(rand((1, 1024, 80)))
+    y, st = ssd_scan_fwd(xh, a, Bs, Cs, chunk=128)
+    torch.cuda.synchronize()
+    yr, sr = ssd_chunked(xh, a, Bs, Cs, 128)
+    scale = yr.abs().max().item()
+    err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
+    ok = err <= TOL_SSD_PATH * scale and bool(torch.isfinite(y).all())
+    print(f"  ssd_scan training shape B=1 S=1024 H=80 P=64 N=128 chunk=128 "
+          f"bf16 B/C: max_abs_err {err:.3e} (output scale {scale:.1f}, "
+          f"tol {TOL_SSD_PATH:g} relative) {'ok' if ok else 'FAIL'}")
+    check(ok, "ssd_scan disagrees with its plain version at the training "
+          "shape")
+    kernel_ms = time_ms(lambda: ssd_scan_fwd(xh, a, Bs, Cs, chunk=128))
+    plain_ms = time_ms(lambda: ssd_chunked(xh, a, Bs, Cs, 128))
+    b_ms, b_by = ssd_bound_ms(xh, a, Bs, Cs, 128, peaks)
+    print(f"  ssd_scan training shape: kernel_ms {kernel_ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms none (no single PyTorch call computes "
+          f"the SSD scan) bound_us {1e3 * b_ms:.1f} ({b_by}) on {smi}")
+    return max(worst, err), kernel_ms, plain_ms, (b_ms, b_by)
+
+
+def layer_check(gen):
+    """One full-width mamba2 layer forward through the kernel against the
+    plain scan, bf16 weights from a seed."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.mamba2 import apply_mamba2, init_mamba2
+    cfg = resolve_config(TRAIN_ARCH)
+    p = init_mamba2(gen, cfg, torch.bfloat16)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    with torch.no_grad():
+        before = ssd_scan.launches
+        yk, _ = apply_mamba2(p, x, cfg, impl="cuda")
+        check(ssd_scan.launches == before + 1, "the layer did not launch "
+              "the ssd_scan kernel")
+        yp, _ = apply_mamba2(p, x, cfg, impl="torch")
+    scale = yp.float().abs().max().item()
+    err = (yk.float() - yp.float()).abs().max().item()
+    print(f"  one {TRAIN_ARCH} layer, kernel vs plain scan: max_abs_err "
+          f"{err:.3e} (output scale {scale:.3f}, tol {TOL_LAYER:g} "
+          f"relative)")
+    check(bool(torch.isfinite(yk).all()) and err <= TOL_LAYER * scale,
+          "the mamba2 layer through the kernel differs from the plain path")
+
+
+def drained_spool_policy():
+    """A SpoolPolicy that, before the head stage is stored, waits for the
+    store of every earlier stage to land: backward then reads each layer
+    back through the backend and the codec instead of forwarding the
+    host copy of a store still queued (zlib encodes slower than 8 layers
+    run forward, so without the wait nothing would be read back)."""
+    from repro_torch.core.policies import SpoolPolicy
+
+    class DrainedSpoolPolicy(SpoolPolicy):
+        spool = None
+
+        def should_offload(self, stage, profile=None):
+            if profile is not None and profile.name == "head":
+                self.spool.wait_io()
+            return True
+
+    return DrainedSpoolPolicy()
+
+
+def train_run(cfg, policy, io, label):
+    """TrainSession steps at B=1, S=TRAIN_SEQ on the card. Returns
+    (losses, params on the host, reports, ssd launches, run peak)."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.session import TrainSession
+    sess = TrainSession(cfg, policy=policy, io=io, optimizer="adamw",
+                        lr=3e-4, batch_size=1, seq_len=TRAIN_SEQ, seed=0,
+                        device="cuda", attn_impl="cuda")
+    if hasattr(policy, "spool"):
+        policy.spool = sess.spool
+    try:
+        sess.init()
+        ssd_scan.launches = 0
+        result = sess.run(TRAIN_STEPS)
+        launches = ssd_scan.launches
+        params = [t.detach().cpu() for t in tree_flatten(sess.params)[0]]
+        for r in result.reports:
+            st, ex = r.stats, r.extra
+            print(f"  {label} step {r.step}: loss {r.loss:.6f} "
+                  f"{r.step_time:.3f}s (fwd {ex['forward_s']:.3f} bwd "
+                  f"{ex['backward_s']:.3f} opt {ex['optimizer_s']:.3f}) "
+                  f"peak {ex['device_peak_bytes'] / 1e9:.2f}"
+                  f" GB bwd-begin {ex['device_backward_begin_bytes'] / 1e9:.2f}"
+                  f" GB (tracked act {r.backward_begin_bytes / 1e9:.2f} GB) "
+                  f"offloaded {st.bytes_offloaded / 1e9:.3f} GB (of "
+                  f"{st.bytes_offloaded_logical / 1e9:.3f} GB before the "
+                  f"codec) loaded "
+                  f"{st.bytes_loaded / 1e9:.3f} GB forwarded "
+                  f"{st.bytes_forwarded / 1e9:.3f} GB store {st.store_time:.2f}s"
+                  f" load {st.load_time:.2f}s fetch wait "
+                  f"{st.fetch_wait_time:.3f}s stages off/kept/recomp/fetched "
+                  f"{ex['stages_offloaded']}/{ex['stages_kept']}/"
+                  f"{ex['stages_recomputed']}/{ex['stages_fetched']}")
+        reports = result.reports
+        losses = [r.loss for r in reports]
+        peak = max(r.extra["device_peak_bytes"] for r in reports)
+    finally:
+        sess.close()
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    return losses, params, reports, launches, peak
+
+
+def deterministic():
+    """Deterministic kernels for the parity phases (warn, not raise, on an
+    op without one: the bitwise checks catch any that matters), without
+    the NaN fill of every new tensor that the mode turns on by default."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+def same_params(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def train_phase(smi):
+    """Full-width mamba2-2.7b, keep vs spool (fs, raw). Returns the ssd
+    launches of the spool run (the main path)."""
+    from repro_torch.configs import SpoolIoConfig, resolve_config
+    from repro_torch.core.policies import KeepPolicy, SpoolPolicy
+    cfg = resolve_config(TRAIN_ARCH)
+    deterministic()
+    lk, pk, _, nk, peak_k = train_run(cfg, KeepPolicy(), None, "keep")
+    spool_dir = tempfile.mkdtemp(prefix="chip_smoke_spool_")
+    mnt, fstype = mount_of(spool_dir)
+    ls, ps, rs, ns, peak_s = train_run(
+        cfg, SpoolPolicy(), SpoolIoConfig(backend="fs", directory=spool_dir,
+                                          codec="raw"), "spool")
+    left = os.listdir(spool_dir)
+    if not left:
+        os.rmdir(spool_dir)
+    n_layers = cfg.num_layers
+    print(f"train: {TRAIN_ARCH} {n_layers} layers, d_model {cfg.d_model}, "
+          f"{TRAIN_STEPS} steps at B=1 S={TRAIN_SEQ}; keep losses {lk}, "
+          f"spool losses {ls}; peak device memory keep "
+          f"{peak_k / 1e9:.2f} GB, spool {peak_s / 1e9:.2f} GB; ssd_scan "
+          f"launches keep {nk}, spool {ns}; spool dir on {mnt} ({fstype}) "
+          f"on {smi}")
+    check(lk == ls, f"keep and spool losses differ: {lk} vs {ls}")
+    check(same_params(pk, ps), "keep and spool parameters differ")
+    check(peak_s < peak_k, f"spool peak {peak_s} not below keep {peak_k}")
+    check(sum(r.stats.bytes_offloaded for r in rs) > 0, "nothing offloaded")
+    check(all(r.extra["stages_offloaded"] == r.extra["stages_fetched"]
+              == n_layers + 2 for r in rs), "a stored stage was not fetched")
+    check(not left, f"spool directory not empty after close: {left[:5]}")
+    check(nk == ns == n_layers * TRAIN_STEPS,
+          f"ssd_scan launches {nk}/{ns}, want {n_layers * TRAIN_STEPS}")
+    print(f"  keep vs spool: losses and {len(pk)} parameter leaves bitwise "
+          f"equal")
+    return ns
+
+
+def matrix_phase():
+    """Depth-cut policy matrix: every run bitwise equal to keep, and
+    every run that offloads reads blobs back."""
+    from repro_torch.configs import SpoolIoConfig, resolve_config
+    from repro_torch.core.policies import (AdaptivePolicy, KeepPolicy,
+                                           RecomputePolicy, SpoolPolicy)
+    cfg = dataclasses.replace(resolve_config(TRAIN_ARCH),
+                              num_layers=MATRIX_DEPTH)
+    deterministic()
+    lk, pk, _, _, _ = train_run(cfg, KeepPolicy(), None, f"d{MATRIX_DEPTH} keep")
+    runs = [("recompute", RecomputePolicy(), None, 2),
+            ("adaptive fs raw", AdaptivePolicy(),
+             SpoolIoConfig(backend="fs", codec="raw"), 1),
+            ("spool mem raw", SpoolPolicy(),
+             SpoolIoConfig(backend="mem", codec="raw"), 1),
+            ("spool fs zlib", drained_spool_policy(),
+             SpoolIoConfig(backend="fs", codec="zlib"), 1)]
+    for label, policy, io, fwd_per_layer in runs:
+        l, p, reps, n, peak = train_run(cfg, policy, io,
+                                        f"d{MATRIX_DEPTH} {label}")
+        plan = reps[-1].plan
+        print(f"  d{MATRIX_DEPTH} {label}: losses {l} peak "
+              f"{peak / 1e9:.2f} GB ssd launches {n}"
+              + (f" plan offloads stages 0..{plan.last_offloaded}"
+                 if plan is not None else ""))
+        check(l == lk, f"{label}: losses differ from keep: {l} vs {lk}")
+        check(same_params(p, pk), f"{label}: parameters differ from keep")
+        check(n == fwd_per_layer * MATRIX_DEPTH * TRAIN_STEPS,
+              f"{label}: {n} ssd_scan launches")
+        if label != "recompute":
+            check(all(r.stats.bytes_loaded > 0 for r in reps),
+                  f"{label}: a step read nothing back from the spool")
+        if "zlib" in label:
+            check(all(r.stats.num_loads >= MATRIX_DEPTH for r in reps),
+                  f"{label}: the layer stages were forwarded, not read "
+                  f"back through the codec")
+    print(f"  policy matrix at depth {MATRIX_DEPTH}: every run bitwise "
+          f"equal to keep")
 
 
 def main():
@@ -219,6 +510,10 @@ def main():
           f"{library_ms:.4f} (scaled_dot_product_attention, yardstick only) "
           f"bound_us {1e3 * b_ms:.1f} ({b_by}) on {smi}")
 
+    ssd_err, ssd_ms, ssd_plain_ms, (ssd_b_ms, ssd_b_by) = ssd_phase(
+        gen, peaks, smi)
+    layer_check(gen)
+
     # ---- 4. serve at full width
     t0 = time.perf_counter()
     rt = serve.build_runtime(ARCH, seed=0, device="cuda")
@@ -298,8 +593,17 @@ def main():
             rows += 1
     print(f"  paged vs dense: {rows} logits rows bitwise equal, tokens "
           f"equal for {len(p)} requests")
+    del rt, cfg, api, params, sp, sd, lk, lp
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- 5. result
+    # ---- 5. train at full width, keep vs spool; 6. policy matrix
+    t0 = time.perf_counter()
+    ssd_launches = train_phase(smi)
+    matrix_phase()
+    print(f"train phases: {time.perf_counter() - t0:.1f}s")
+
+    # ---- 7. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -318,6 +622,24 @@ def main():
         "bound_us": 1e3 * b_ms,
         "bound_by": b_by,
         "library_ms": library_ms,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_fwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:30",
+        "tpu_kernel": "src/repro/kernels/ssd_scan.py::_ssd_kernel",
+        "launches": ssd_launches,
+        "launches_per_train_run": ssd_launches,
+        "max_abs_err": ssd_err,
+        "max_err": ssd_err,
+        "tol": TOL_SSD,
+        "ms": ssd_ms,
+        "kernel_ms": ssd_ms,
+        "plain_ms": ssd_plain_ms,
+        "bound_ms": ssd_b_ms,
+        "bound_us": 1e3 * ssd_b_ms,
+        "bound_by": ssd_b_by,
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,9 +8,14 @@ sliding-window and tanh-softcap options, m/l/acc carried in f32. The
 source's header note says what bounds it and what its simple design does.
 
 A CPU tensor goes to the plain reference (`kernels/ref.py`); a CUDA
-tensor launches the kernel or raises. `flash_attention.launches` counts
-kernel launches (and nothing else), so a run can show that its path went
-through the kernel.
+tensor launches the kernel or raises. On the card the launch sits in a
+`torch.autograd.Function` mirroring the JAX package's
+`kernels/ops.py::flash_attention` (`custom_vjp`): forward saves only q, k
+and v, and backward is the VJP of `attention_reference` recomputed under
+`enable_grad` (the JAX package has no backward kernel either; the FA-2
+dq and dk/dv kernel pair is later speed work). `flash_attention.launches`
+counts kernel launches (and nothing else), so a run can show that its
+path went through the kernel.
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     On the card: D in (32, 64, 128), dtype float32 or bfloat16 (one for
     all three), last dimension contiguous (other strides are free). The
     output is allocated here and the kernel runs on the current stream
-    without synchronising."""
+    without synchronising. Differentiable either way."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
@@ -69,6 +74,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"not {q.device.type}")
+    return _FlashAttention.apply(q, k, v, causal, window, logit_cap)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, logit_cap=logit_cap)
+        return _launch(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            o = attention_reference(*qkv, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(o, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
+def _launch(q, k, v, *, causal, window, logit_cap):
+    """The kernel on CUDA tensors; raises on what it does not take."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:

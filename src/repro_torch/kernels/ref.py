@@ -1,7 +1,8 @@
-"""Plain PyTorch reference of the attention kernel: the simplest correct
-formulation (full score matrix), a copy of the JAX package's
-`repro/kernels/ref.py::attention_reference`. The CPU path of
-`flash_attention` and the comparisons on the card use it."""
+"""Plain PyTorch references, the simplest correct formulations, copied
+from the JAX package's `repro/kernels/ref.py`: `attention_reference`
+(full score matrix; the CPU path of `flash_attention`, its backward, and
+the comparisons on the card use it) and `ssd_reference` (the exact
+sequential SSD recurrence, for the tests)."""
 from __future__ import annotations
 
 import math
@@ -34,3 +35,23 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vx)
     return o.to(q.dtype)
+
+
+def ssd_reference(xh, dA_log, B_s, C_s):
+    """Exact sequential SSD recurrence (no chunking).
+
+    xh: (B,S,H,P); dA_log: (B,S,H); B_s, C_s: (B,S,N).
+    state_t = exp(dA_log_t) * state_{t-1} + B_t (x) xh_t
+    y_t     = C_t . state_t
+    Returns (y (B,S,H,P) f32, final state (B,H,P,N) f32)."""
+    B, S, H, P = xh.shape
+    N = B_s.shape[-1]
+    xh, dA_log = xh.float(), dA_log.float()
+    B_s, C_s = B_s.float(), C_s.float()
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(S):
+        state = (state * torch.exp(dA_log[:, t])[:, :, None, None]
+                 + torch.einsum("bn,bhp->bhpn", B_s[:, t], xh[:, t]))
+        ys.append(torch.einsum("bn,bhpn->bhp", C_s[:, t], state))
+    return torch.stack(ys, dim=1), state

@@ -1,0 +1,158 @@
+"""Training entry point of the port: the staged engine (SSDTrain's
+saved-tensor hooks -> spool -> SSD) through `TrainSession`, after the JAX
+package's `repro/launch/train.py`.
+
+  python -m repro_torch.launch.train --arch mamba2-2.7b --steps 3 \\
+      --batch 1 --seq 1024 --strategy spool --spool-backend fs --codec raw
+  python -m repro_torch.launch.train --arch small-gpt --device cpu \\
+      --attn-impl torch --steps 2 --batch 2 --seq 64 --min-offload 4096
+
+Runs on the card unless `--device cpu` is given; without CUDA it stops
+rather than fall back to the CPU. `--attn-impl cuda` (the default on the
+card) runs the hand-written kernels (flash attention, SSD scan);
+`--attn-impl torch` the plain paths. Flags of the JAX package's CLI that
+the port has not ported yet are refused with an error, never ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs import SpoolIoConfig
+from repro_torch.core.policies import STRATEGIES
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.session import TrainSession
+from repro_torch.session.session import resolve_optimizer
+
+# flags of the JAX package's CLI that wait for later slices
+_WAITING = {
+    "--ckpt": "checkpoints", "--ckpt-every": "checkpoints",
+    "--resume": "checkpoints", "--trace": "tracing",
+    "--trace-ring": "tracing", "--mesh": "multi-GPU meshes",
+    "--host-offload": "the jit engine's host offload",
+    "--opt-overlap": "the optimizer overlap",
+    "--retry-attempts": "resilience", "--retry-backoff-ms": "resilience",
+    "--stripe-dirs": "striped / tiered backends",
+    "--host-mem-budget-mb": "tiered backends",
+    "--spool-align": "the aligned data plane",
+    "--spool-queue-depth": "the aio backend",
+    "--spool-pool-mb": "the aligned data plane",
+    "--spool-no-dedupe": "multi-GPU meshes",
+}
+_FLAGS_WITH_VALUE = {"--resume": False, "--opt-overlap": False,
+                     "--spool-no-dedupe": False}
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="small-gpt")
+    ap.add_argument("--engine", choices=["jit", "staged"], default="staged")
+    ap.add_argument("--strategy", default="offload", choices=STRATEGIES,
+                    help="offload policy: keep | spool (every stage) | "
+                         "recompute | adaptive | offload (adaptive, the "
+                         "JAX package's default)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", choices=["adamw", "sgd"],
+                    default="adamw")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--min-offload", type=int, default=None,
+                    help="min elements to offload through the spool "
+                         "(default: the paper's 2**20)")
+    ap.add_argument("--spool-backend", default="fs", choices=["fs", "mem"],
+                    help="storage of the activation spool: fs (a "
+                         "directory) or mem (host RAM)")
+    ap.add_argument("--spool-dir", default=None,
+                    help="spool directory (default: a fresh temp dir, "
+                         "removed on close)")
+    ap.add_argument("--codec", default="raw",
+                    choices=["raw", "zlib", "byteplane"])
+    ap.add_argument("--clip-norm", type=float, default=None,
+                    help="global grad-norm clip (adamw defaults to 1.0); "
+                         "0 disables clipping")
+    ap.add_argument("--on-fetch-fail", default="recompute",
+                    choices=["recompute", "raise"],
+                    help="when a residual fetch fails: recompute the "
+                         "stage from its input, or raise")
+    ap.add_argument("--metrics", default=None,
+                    help="append one StepReport JSON line per step here")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; cpu runs the plain paths")
+    ap.add_argument("--attn-impl", default=None, choices=("cuda", "torch"),
+                    help="kernels: cuda (default on the card) or the "
+                         "plain torch paths (default on the CPU)")
+    for flag in _WAITING:
+        if _FLAGS_WITH_VALUE.get(flag, True):
+            ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+        else:
+            ap.add_argument(flag, action="store_true",
+                            help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag, what in _WAITING.items():
+        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
+            ap.error(f"{flag}: {what} is not ported to repro_torch yet")
+    if args.engine != "staged":
+        ap.error("--engine jit is not ported to repro_torch yet (the "
+                 "port trains with the staged engine)")
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    io = SpoolIoConfig(backend=args.spool_backend, directory=args.spool_dir,
+                       codec=args.codec)
+    optimizer = resolve_optimizer(args.optimizer, args.lr, args.clip_norm)
+    launches0 = (flash_attention.launches, ssd_scan.launches)
+    with TrainSession(
+            args.arch, policy=args.strategy, io=io, optimizer=optimizer,
+            batch_size=args.batch, seq_len=args.seq, seed=args.seed,
+            microbatches=args.microbatches, device=args.device,
+            attn_impl=args.attn_impl, metrics_path=args.metrics,
+            min_offload_elements=args.min_offload,
+            on_fetch_fail=args.on_fetch_fail) as session:
+        device = (torch.cuda.get_device_name(torch.device(args.device))
+                  if args.device != "cpu" else "cpu")
+        print(f"arch={session.cfg.name} params={session.n_params / 1e6:.1f}M"
+              f" device={device} policy={session.policy!r} "
+              f"spool={args.spool_backend}/{args.codec} "
+              f"kernels={session.settings.attn_impl}", flush=True)
+
+        def on_report(rep):
+            st = rep.stats
+            dev = rep.extra.get("device_peak_bytes")
+            print(f"step {rep.step:4d} loss {rep.loss:.4f} "
+                  f"t {rep.step_time:.3f}s act_peak "
+                  f"{rep.peak_activation_bytes / 1e6:.1f} MB"
+                  + (f" device_peak {dev / 1e9:.2f} GB" if dev else "")
+                  + f" offloaded {st.bytes_offloaded / 1e6:.1f} MB loaded "
+                  f"{st.bytes_loaded / 1e6:.1f} MB forwarded "
+                  f"{st.bytes_forwarded / 1e6:.1f} MB", flush=True)
+
+        t0 = time.perf_counter()
+        session.run(args.steps, on_report=on_report)
+        dt = time.perf_counter() - t0
+        session.spool.wait_io()
+        io_st = session.spool.backend.stats
+        print(f"done: {args.steps} steps in {dt:.2f}s; backend["
+              f"{session.spool.backend.kind}] wrote "
+              f"{io_st.bytes_written / 1e6:.1f} MB, read "
+              f"{io_st.bytes_read / 1e6:.1f} MB; fetch fallbacks "
+              f"{session.spool.stats.fetch_fallbacks}", flush=True)
+        plan = session.policy.plan
+        if plan is not None:
+            print(f"plan: offload stages 0..{plan.last_offloaded} of "
+                  f"{len(session.engine.stage_names)}")
+    print(f"kernels: flash_attention launches "
+          f"{flash_attention.launches - launches0[0]}, ssd_scan launches "
+          f"{ssd_scan.launches - launches0[1]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -5,6 +5,7 @@ mirroring the JAX package's `repro/models/api.py`.
   forward(params, batch, settings, emit_cache=False, cache_len=0)
       -> logits_f32                       (emit_cache=False)
       -> (logits_f32, caches)             (emit_cache=True)
+  loss(params, batch, settings)                 -> (loss, metrics)
   prefill(params, batch, settings, cache_len=0) -> (last_logits, caches)
   decode_step(params, cache, batch, pos, settings)  -> logits
   decode_step_paged(params, pools, resident, tables, batch, pos, settings)
@@ -16,6 +17,10 @@ so `models/convert.py` maps JAX weights over key for key. The decode
 steps update caches, pools and resident entries IN PLACE. Inputs and
 outputs are the JAX package's layouts; the embedding tables are untied
 and the vocab padded to a multiple of 256 with padded logits at -1e30.
+Models without RoPE add a learned `pos_embed` table (max_position x D).
+`embed_in` and `head` are the first and last pieces of the forward, which
+the staged training engine runs as stages of their own. Decode (and
+emitted caches) exist for attention blocks only so far.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ class ModelApi:
     segments: Tuple[SegmentDef, ...]
     init: Callable
     forward: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     decode_step_paged: Callable
@@ -69,7 +75,30 @@ def _to_decode_cache(bdef: BlockDef, cache, cache_len: int):
     return {"k": k, "v": v}
 
 
-def _head(params, x, cfg: ModelConfig):
+def embed_in(params, batch, cfg: ModelConfig):
+    """Token embeddings (plus learned positions for non-RoPE models)."""
+    x = params["embed"][batch["tokens"]]
+    if not cfg.use_rope:
+        S = x.shape[1]
+        x = x + params["pos_embed"][:S][None].to(x.dtype)
+    return x
+
+
+def ce_loss(logits, labels):
+    """Mean next-token cross-entropy over labels >= 0, with the JAX
+    package's masked-reduction label pick (`api.py::_ce_terms`): no
+    gather, so its backward has no scatter-add. Returns (loss, tokens)."""
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    vmask = vocab[None, None] == labels.clamp_min(0)[..., None]
+    picked = torch.where(vmask, logits, 0.0).sum(dim=-1)
+    tokens = mask.sum()
+    return ((lse - picked) * mask).sum() / tokens.clamp_min(1.0), tokens
+
+
+def head(params, x, cfg: ModelConfig):
+    """Final norm, unembedding and the padded-vocab mask: f32 logits."""
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = (x @ params["unembed"]).float()
     if cfg.final_logit_softcap:
@@ -96,16 +125,30 @@ def build_model(cfg: ModelConfig) -> ModelApi:
             "unembed": embed_init(gen, (cfg.d_model, cfg.padded_vocab),
                                   dtype),
         }
+        if not cfg.use_rope:
+            params["pos_embed"] = embed_init(
+                gen, (cfg.max_position, cfg.d_model), dtype)
         params["segments"] = [
-            {f"b{i}": init_block(gen, cfg, dtype, seg.n_repeat)
-             for i in range(len(seg.blocks))} for seg in segs]
+            {f"b{i}": init_block(gen, bdef, cfg, dtype, seg.n_repeat)
+             for i, bdef in enumerate(seg.blocks)} for seg in segs]
         return params
+
+    attn_only = all(b.mixer == "attn" for seg in segs for b in seg.blocks)
+
+    def _decode_ported():
+        if not attn_only:
+            raise NotImplementedError(
+                f"{cfg.name}: decode caches of ssm blocks are not ported "
+                "yet (serving mamba2 waits for a later slice)")
 
     def forward(params, batch, settings: RunSettings, *, emit_cache=False,
                 cache_len=0):
-        x = params["embed"][batch["tokens"]]
+        if emit_cache:
+            _decode_ported()
+        x = embed_in(params, batch, cfg)
         S = x.shape[1]
-        positions = torch.arange(S, device=x.device)
+        positions = (torch.arange(S, device=x.device) if cfg.use_rope
+                     else None)
         cache_len = cache_len or S
         caches = []
         for seg, p_stack in zip(segs, params["segments"]):
@@ -120,8 +163,14 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                             _to_decode_cache(bdef, kv, cache_len))
             if emit_cache:
                 caches.append({bid: stack(e) for bid, e in entries.items()})
-        logits = _head(params, x, cfg)
+        logits = head(params, x, cfg)
         return (logits, caches) if emit_cache else logits
+
+    def loss(params, batch, settings: RunSettings):
+        """Mean CE over labels >= 0 -> (loss, {"ce", "tokens", "loss"})."""
+        ce, tokens = ce_loss(forward(params, batch, settings),
+                             batch["labels"])
+        return ce, {"ce": ce, "tokens": tokens, "loss": ce}
 
     def prefill(params, batch, settings: RunSettings, *, cache_len=0):
         logits, caches = forward(params, batch, settings, emit_cache=True,
@@ -132,6 +181,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         """One token for the whole batch against dense caches (updated in
         place). batch: {"tokens": (B, 1)}. pos: int / 0-d tensor, or a
         (B,) tensor of per-row positions. Returns (B, 1, V) f32 logits."""
+        _decode_ported()
         x = params["embed"][batch["tokens"]]
         pos = torch.as_tensor(pos, device=x.device)
         for seg, p_stack, c_stack in zip(segs, params["segments"], cache):
@@ -141,7 +191,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                     x = apply_block_decode(bdef, p_layer[f"b{i}"], x,
                                            c_layer[f"b{i}"], pos, cfg,
                                            settings)
-        return _head(params, x, cfg)
+        return head(params, x, cfg)
 
     def decode_step_paged(params, pools, resident, tables, batch, pos,
                           settings: RunSettings):
@@ -157,6 +207,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
           pos:      (B,) per-row absolute positions.
 
         Returns (B, 1, V) f32 logits."""
+        _decode_ported()
         x = params["embed"][batch["tokens"]]
         pos = torch.as_tensor(pos, device=x.device)
         for seg, p_stack, pool_stack, res_stack in zip(
@@ -174,10 +225,10 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                         x = apply_block_decode(
                             bdef, p_layer[bid], x,
                             layer(res_stack[bid], rep), pos, cfg, settings)
-        return _head(params, x, cfg)
+        return head(params, x, cfg)
 
     return ModelApi(
-        cfg=cfg, segments=segs, init=init, forward=forward,
+        cfg=cfg, segments=segs, init=init, forward=forward, loss=loss,
         prefill=prefill, decode_step=decode_step,
         decode_step_paged=decode_step_paged,
     )

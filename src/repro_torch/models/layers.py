@@ -1,9 +1,14 @@
-"""Shared building blocks of the port (forward only), mirroring the JAX
-package's `repro/models/layers.py`.
+"""Shared building blocks of the port, mirroring the JAX package's
+`repro/models/layers.py`.
 
 Parameters are plain tensors in nested dicts with the JAX pytree keys.
-The `torch.autograd.Function` forms of rms_norm and GELU that save only
-their inputs belong to the training slice; serving needs the forward.
+rms_norm, GELU and SiLU are `torch.autograd.Function`s that save only
+their inputs and recompute the rest in backward, with the JAX package's
+backward formulas (its `custom_vjp` rules, `layers.py:34-75, 144-182`):
+the composite forms would save every primitive intermediate, and the
+saved tensors are what the training engine sends to the SSD. The
+depthwise causal conv1d is a Function for the same reason (the composite
+saves one shifted view of the padded input per tap).
 """
 from __future__ import annotations
 
@@ -56,13 +61,38 @@ def embed_init(gen, shape, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------- norms
 
 
-def rms_norm(x, scale, eps: float):
-    """RMSNorm with the (1 + scale) convention (scale stored as
-    "scale - 1", so zeros are the identity), in f32, cast back."""
+def _rms_norm_impl(x, scale, eps: float):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm_impl(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        x32, g32 = x.float(), g.float()
+        var = x32.square().mean(dim=-1, keepdim=True)
+        r = torch.rsqrt(var + ctx.eps)
+        xhat = x32 * r
+        gs = g32 * (1.0 + scale.float())
+        dx = r * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+        dscale = (g32 * xhat).sum(dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def rms_norm(x, scale, eps: float):
+    """RMSNorm with the (1 + scale) convention (scale stored as
+    "scale - 1", so zeros are the identity), in f32, cast back. Saves
+    x and scale only."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def init_norm(d, dtype, device, lead=()) -> Params:
@@ -101,9 +131,43 @@ def softcap(x, cap: float):
     return torch.tanh(x / cap) * cap
 
 
+class _Gelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.gelu(x, approximate="none")
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        x32 = x.float()
+        cdf = 0.5 * (1.0 + torch.erf(x32 / math.sqrt(2.0)))
+        pdf = torch.exp(-0.5 * x32 * x32) / math.sqrt(2.0 * math.pi)
+        return (g.float() * (cdf + x32 * pdf)).to(x.dtype)
+
+
+class _Silu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.silu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        x32 = x.float()
+        s = torch.sigmoid(x32)
+        return (g.float() * s * (1.0 + x32 * (1.0 - s))).to(x.dtype)
+
+
 def gelu(x):
-    """Exact (erf) GELU."""
-    return F.gelu(x, approximate="none")
+    """Exact (erf) GELU; saves its input only."""
+    return _Gelu.apply(x)
+
+
+def silu(x):
+    """x * sigmoid(x); saves its input only."""
+    return _Silu.apply(x)
 
 
 # ---------------------------------------------------------------- MLP
@@ -120,3 +184,58 @@ def init_mlp(gen, d_model, d_ff, dtype, lead=()) -> Params:
 def apply_mlp(p: Params, x):
     """The classic (non-gated) 2-layer GELU MLP of the paper's GPT."""
     return gelu(x @ p["w_in"]) @ p["w_out"]
+
+
+# ---------------------------------------------------------------- conv1d
+# (causal, depthwise)
+
+
+def init_conv1d(gen, width, channels, dtype, lead=()) -> Params:
+    lead = tuple(lead)
+    return {"w": dense_init(gen, lead + (width, channels), width, dtype),
+            "b": torch.zeros(lead + (channels,), dtype=dtype,
+                             device=gen.device)}
+
+
+def _conv1d_fwd(x, w, b):
+    """sum_i xp[:, i:i+S] * w[i] + b over the zero-left-padded input, in
+    the JAX package's order (taps summed from i = 0)."""
+    width, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, width):
+        y = y + xp[:, i:i + S] * w[i]
+    return y + b
+
+
+class _Conv1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return _conv1d_fwd(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        width, S = w.shape[0], x.shape[1]
+        xp = F.pad(x, (0, 0, width - 1, 0))
+        # y[t] = sum_i xp[t + i] w[i], xp[t'] = x[t' - (W-1)]:
+        # dx[s] = sum_i g[s + W-1 - i] w[i], dw[i] = sum_t xp[t+i] g[t]
+        gp = F.pad(g, (0, 0, 0, width - 1))
+        dx = gp[:, width - 1:width - 1 + S] * w[0]
+        for i in range(1, width):
+            dx = dx + gp[:, width - 1 - i:width - 1 - i + S] * w[i]
+        lead = tuple(range(g.dim() - 1))
+        dw = torch.stack([(xp[:, i:i + S] * g).sum(dim=lead)
+                          for i in range(width)])
+        return dx, dw, g.sum(dim=lead)
+
+
+def apply_conv1d(p: Params, x):
+    """Depthwise causal conv over zero-left-padded x: (B, S, C) (training
+    and prefill). Returns (y, state): state is the last W-1 inputs, the
+    cache a streaming decode starts from. Saves x and w only."""
+    width = p["w"].shape[0]
+    y = _Conv1d.apply(x, p["w"], p["b"])
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    return y, (xp[:, xp.shape[1] - (width - 1):] if width > 1 else None)

@@ -4,9 +4,10 @@ with stacked parameters) -> decode caches.
 
 Where JAX scans a segment's stacked parameters, the port loops in Python
 over the layer index (`layer(tree, i)` takes the i-th slice of every
-leaf, as views). This slice ports the dense attention block with the
-dense (GELU) MLP; configurations needing anything else raise
-`NotImplementedError`.
+leaf, as views). The port carries the dense attention block with the
+dense (GELU) MLP, and the attention-free Mamba-2 (`ssm`) block with no
+MLP (training and full-sequence forward; its decode is not ported yet);
+configurations needing anything else raise `NotImplementedError`.
 
 Decode steps update their caches IN PLACE (`index_put_` on views of the
 stacked cache tensors) where JAX returns new, donated arrays.
@@ -14,11 +15,12 @@ stacked cache tensors) where JAX returns new, donated arrays.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import attend, attend_decode
 from repro_torch.models.layers import (apply_mlp, apply_rope, dense_init,
                                        init_mlp, init_norm, rms_norm)
@@ -34,8 +36,9 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class BlockDef:
-    mixer: str                    # "attn" (the only mixer ported so far)
+    mixer: str                    # "attn" | "ssm" (the mixers ported so far)
     window: int = 0               # sliding window for attn (0 = full)
+    mlp: Optional[str] = "dense"  # "dense" | None
 
 
 @dataclass(frozen=True)
@@ -45,22 +48,26 @@ class SegmentDef:
 
 
 def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
+    ssm = cfg.family == "ssm"
     missing = [what for what, needed in (
-        ("ssm/rglru mixers", cfg.family == "ssm" or bool(cfg.hybrid_pattern)),
+        ("rglru mixers", bool(cfg.hybrid_pattern)),
         ("cross attention", bool(cfg.cross_attn_period)
          or cfg.family == "encdec"),
         ("MoE", bool(cfg.moe_num_experts)),
         ("encoder-only models", not cfg.causal),
         ("embedding inputs", cfg.input_kind != "tokens"),
-        ("learned positions", not cfg.use_rope),
         ("embedding scaling", cfg.scale_embed),
-        ("qkv bias", cfg.qkv_bias),
+        ("qkv bias", cfg.qkv_bias and not ssm),
         ("post-block norms", cfg.post_block_norm),
-        ("gated MLPs", cfg.mlp_glu),
-        (f"activation {cfg.act!r}", cfg.act != "gelu")) if needed]
+        # the ssm block has no MLP: its act / mlp_glu fields are unused
+        ("gated MLPs", cfg.mlp_glu and not ssm),
+        (f"activation {cfg.act!r}", cfg.act != "gelu" and not ssm))
+        if needed]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} "
                                   f"{_NOT_PORTED}")
+    if ssm:
+        return [SegmentDef((BlockDef("ssm", mlp=None),), cfg.num_layers)]
     if cfg.local_global_period:
         p = cfg.local_global_period
         if cfg.num_layers % p:
@@ -120,13 +127,21 @@ def _init_attn(gen, cfg: ModelConfig, dtype, lead) -> Params:
     }
 
 
-def init_block(gen, cfg: ModelConfig, dtype, n_repeat: int) -> Params:
+def init_block(gen, bdef: BlockDef, cfg: ModelConfig, dtype,
+               n_repeat: int) -> Params:
     lead = (n_repeat,)
     dev = gen.device
-    return {"norm": init_norm(cfg.d_model, dtype, dev, lead),
-            "attn": _init_attn(gen, cfg, dtype, lead),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead),
-            "mlp_norm": init_norm(cfg.d_model, dtype, dev, lead)}
+    p: Params = {"norm": init_norm(cfg.d_model, dtype, dev, lead)}
+    if bdef.mixer == "attn":
+        p["attn"] = _init_attn(gen, cfg, dtype, lead)
+    elif bdef.mixer == "ssm":
+        p["ssm"] = m2.init_mamba2(gen, cfg, dtype, lead)
+    else:
+        raise ValueError(bdef.mixer)
+    if bdef.mlp == "dense":
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+        p["mlp_norm"] = init_norm(cfg.d_model, dtype, dev, lead)
+    return p
 
 
 # ====================================================================
@@ -162,8 +177,13 @@ def _mixer_and_mlp(p, x, o, cfg: ModelConfig):
 
 def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
                 settings: RunSettings, *, positions=None):
-    """Full-sequence block. Returns (x, (k, v))."""
+    """Full-sequence block. Returns (x, cache entry): (k, v) for an
+    attention block, {"conv", "state"} for an ssm block."""
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    if bdef.mixer == "ssm":
+        mix, cache = m2.apply_mamba2(p["ssm"], h, cfg,
+                                     impl=settings.attn_impl)
+        return x + mix, cache
     q, k, v = _qkv(p["attn"], h, cfg, positions)
     o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
                logit_cap=cfg.attn_logit_softcap, chunk=settings.attn_chunk,

@@ -1,16 +1,26 @@
-"""Card-only tests of the port: the hand-written CUDA flash-attention
-kernel against its plain PyTorch version, and the serve path through the
-kernel. A CUDA kernel has no CPU mode, so without a card these skip;
-on the card run `PYTHONPATH=src python -m pytest -m cuda
-tests/test_torch_cuda.py`. This file imports no jax (the card's machine
-has none)."""
+"""Card-only tests of the port: the hand-written CUDA kernels (flash
+attention, SSD scan) against their plain PyTorch versions, the serve path
+through the flash kernel, and training through both kernels. A CUDA
+kernel has no CPU mode, so without a card these skip; on the card run
+`PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`. This
+file imports no jax (the card's machine has none)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import MAMBA2_2_7B, SpoolIoConfig
+from repro_torch.configs.paper_models import small_gpt
+from repro_torch.core.policies import KeepPolicy, SpoolPolicy
+from repro_torch.core.tree import tree_flatten
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import attention_reference
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_scan_fwd
 from repro_torch.launch import serve
+from repro_torch.models.api import build_model
+from repro_torch.models.transformer import RunSettings
+from repro_torch.session import TrainSession
 
 pytestmark = pytest.mark.cuda
 
@@ -26,6 +36,16 @@ ATTN_CASES = [
     (1, 16, 16, 2, 2, 128, True, 0, 0.0),
 ]
 SERVE_CASES = [(1, S, S, 64, 64, 128, True, 0, 0.0) for S in (1000, 1024)]
+# (B, S, H, P, N, chunk): tests/test_kernels.py::SSD_CASES
+SSD_CASES = [
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 3, 32, 16, 32),
+    (1, 256, 1, 64, 128, 128),
+    (2, 96, 2, 16, 8, 32),
+]
+SMALL_MAMBA2 = dataclasses.replace(
+    MAMBA2_2_7B, num_layers=2, d_model=128, ssm_state_dim=32,
+    ssm_head_dim=32, ssm_chunk=32, vocab_size=1024, max_position=256)
 
 
 @pytest.fixture
@@ -88,3 +108,112 @@ def test_serve_through_the_kernel_paged_equals_dense(card, tmp_path):
         assert p[rid].tokens == d[rid].tokens
         for a, b in zip(p[rid].logits, d[rid].logits):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(card, case, dtype):
+    """f32 at the JAX bar (2e-4); bf16 B/C: both versions read the same
+    bf16 values and sum in f32, so the same bar holds."""
+    B, S, H, P, N, chunk = case
+    rng = np.random.default_rng(7)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(card)
+
+    xh, a = t((B, S, H, P)), -t((B, S, H), 0.2).abs()
+    Bs, Cs = t((B, S, N)).to(dtype), t((B, S, N)).to(dtype)
+    before = ssd_scan.launches
+    y, st = ssd_scan_fwd(xh, a, Bs, Cs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yr, sr = ssd_chunked(xh, a, Bs, Cs, chunk)
+    for got, want in ((y, yr), (st, sr)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(card):
+    xh = torch.zeros((1, 512, 2, 16), device=card)
+    a = torch.zeros((1, 512, 2), device=card)
+    bc = torch.zeros((1, 512, 8), device=card)
+    with pytest.raises(ValueError, match="does not fit"):
+        ssd_scan_fwd(xh, a, bc, bc, chunk=256)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_scan_fwd(xh, a, bc.half(), bc.half(), chunk=64)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan_fwd(xh.bfloat16(), a, bc, bc, chunk=64)
+
+
+def test_flash_attention_carries_gradient(card):
+    """The kernel's autograd Function: grads equal the plain reference's
+    VJP (the same computation, so f32 to 2e-4)."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 64, 4, 32)).astype(
+        np.float32)).to(card).requires_grad_(True) for _ in range(3))
+    g = torch.from_numpy(rng.normal(size=(1, 64, 4, 32)).astype(
+        np.float32)).to(card)
+    got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), g)
+    want = torch.autograd.grad(attention_reference(q, k, v), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert float(a.abs().max()) > 0
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("cfg", [small_gpt(128, 2), SMALL_MAMBA2],
+                         ids=["small-gpt", "mamba2"])
+def test_loss_and_grads_through_kernels_match_plain(card, cfg):
+    """bf16 models: loss and every gradient leaf through the kernels
+    (attn_impl="cuda") against the plain paths. They differ by bf16
+    roundings at other places, so the bar is relative to each leaf's
+    scale: 5e-2 of max |grad|."""
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    leaves = tree_flatten(params)[0]
+    for t in leaves:
+        t.requires_grad_(True)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129))).to(
+        card)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for impl in ("cuda", "torch"):
+        st = RunSettings(attn_impl=impl, attn_chunk=64,
+                         param_dtype=cfg.dtype, device="cuda")
+        before = (flash_attention.launches, ssd_scan.launches)
+        loss, _ = api.loss(params, batch, st)
+        out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        if impl == "cuda":
+            assert (flash_attention.launches, ssd_scan.launches) != before
+    assert abs(out["cuda"][0] - out["torch"][0]) < 2e-2
+    for a, b in zip(out["cuda"][1], out["torch"][1]):
+        assert bool(torch.isfinite(a).all())
+        scale = float(b.float().abs().max()) or 1.0
+        assert float((a.float() - b.float()).abs().max()) <= 5e-2 * scale
+
+
+def test_keep_vs_spool_bitwise_on_card(card, tmp_path):
+    """A small bf16 mamba2 trained through the SSD kernel, residuals kept
+    on the card vs spooled to a directory: losses and params bitwise."""
+    runs = {}
+    for name, policy, io in (
+            ("keep", KeepPolicy(), None),
+            ("spool", SpoolPolicy(), SpoolIoConfig(
+                backend="fs", directory=str(tmp_path)))):
+        with TrainSession(SMALL_MAMBA2, policy=policy, io=io,
+                          optimizer="adamw", batch_size=2, seq_len=128,
+                          device="cuda", min_offload_elements=1024) as s:
+            before = ssd_scan.launches
+            res = s.run(2)
+            assert ssd_scan.launches - before == 2 * 2
+            runs[name] = (res.losses, [t.detach().cpu() for t in
+                                       tree_flatten(res.params)[0]],
+                          res.reports)
+    assert runs["keep"][0] == runs["spool"][0]
+    for a, b in zip(runs["keep"][1], runs["spool"][1]):
+        assert torch.equal(a, b)
+    assert all(r.extra["stages_offloaded"] == r.extra["stages_fetched"] == 4
+               for r in runs["spool"][2])
+    assert list(tmp_path.iterdir()) == []

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.configs import SpoolIoConfig
-from repro_torch.core.spool import ActivationSpool, build_spool
+from repro_torch.core.spool import (ActivationSpool, SpoolLoadError,
+                                    build_spool)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.io import (FilesystemBackend, HostMemoryBackend,
                             deserialize_leaves, encode_parts,
@@ -219,3 +220,43 @@ def test_owned_temp_dir_removed_and_small_leaves_kept():
         SpoolIoConfig(backend="striped").validate()
     spool.close()
     assert not os.path.exists(d)
+
+
+@pytest.mark.parametrize("backend", ["fs", "mem"])
+def test_lost_blob_raises_spool_load_error(backend):
+    """A blob that vanished after its store landed fails the fetch with
+    SpoolLoadError (chained to the backend's error), the one error the
+    training engine answers with a recompute."""
+    spool = build_spool(SpoolIoConfig(backend=backend),
+                        min_offload_elements=0)
+    try:
+        tx = spool.lease("lost")
+        tx.offload(0, _tree(0))
+        spool.wait_io()
+        spool.backend.delete(tx.key(0))
+        with pytest.raises(SpoolLoadError) as info:
+            tx.fetch(0)
+        assert isinstance(info.value.__cause__, (OSError, KeyError))
+        tx.close()
+    finally:
+        spool.close()
+
+
+def test_reload_keeps_permuted_layouts_and_packs_views_with_gaps():
+    """A transposed leaf comes back with its strides (backward kernels see
+    the layout they were saved with); a slice with gaps comes back
+    contiguous, holding only its own elements, not its base's extent."""
+    spool = build_spool(SpoolIoConfig(backend="mem"), min_offload_elements=0)
+    try:
+        tx = spool.lease("lay")
+        base = torch.randn(6, 5, 4)
+        tr, gap = torch.randn(4, 7).t(), base[:, 2]
+        tx.offload(0, {"tr": tr, "gap": gap})
+        spool.wait_io()
+        got = tx.consume(0)
+        assert torch.equal(got["tr"], tr) and got["tr"].stride() == (1, 7)
+        assert torch.equal(got["gap"], gap) and got["gap"].is_contiguous()
+        assert got["gap"].untyped_storage().nbytes() == gap.numel() * 4
+        assert spool.stats.num_loads == 1
+    finally:
+        spool.close()

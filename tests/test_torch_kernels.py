@@ -146,7 +146,8 @@ def test_attend_decode_matches_jax(pos, window, ring):
 
 
 def test_build_names_one_library_per_source():
-    assert build.sources() == ["flash_attention_fwd"]
-    path = build.library_path("flash_attention_fwd")
-    assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
+    assert build.sources() == ["flash_attention_fwd", "ssd_scan_fwd"]
+    for name in build.sources():
+        path = build.library_path(name)
+        assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

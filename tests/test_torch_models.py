@@ -1,7 +1,10 @@
 """The port's model (`repro_torch.models`) against the JAX package on
 one set of weights: JAX `init` -> numpy -> `params_from_jax`. Layers,
 full-sequence forward with its emitted decode caches, dense and paged
-decode over several steps, in float32 at 1e-4, and one bf16 prefill."""
+decode over several steps, in float32 at 1e-4, and one bf16 prefill;
+the rms_norm / GELU / SiLU autograd Functions (their grads, and that they
+save only their inputs); training loss and every gradient of small-gpt
+and of a 2-layer mamba2 against `build_model(cfg).loss`."""
 import dataclasses
 
 import numpy as np
@@ -11,14 +14,16 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs.mamba2_2_7b import CONFIG as JAX_MAMBA2  # noqa: E402
 from repro.configs.paper_models import small_gpt as jax_small_gpt  # noqa
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models.api import build_model as jax_build  # noqa: E402
 from repro.models.transformer import RunSettings as JaxSettings  # noqa
-from repro_torch.configs import resolve_config  # noqa: E402
+from repro_torch.configs import MAMBA2_2_7B, resolve_config  # noqa: E402
 from repro_torch.configs.paper_models import small_gpt  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.core.tree import tree_flatten  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import RunSettings  # noqa: E402
 
@@ -194,3 +199,99 @@ def test_bf16_prefill_matches_jax():
         tl, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, tset)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=5e-2,
                                atol=5e-2)
+
+
+def test_mamba2_config_matches_jax():
+    got = resolve_config("mamba2-2.7b")
+    assert dataclasses.asdict(got) == dataclasses.asdict(JAX_MAMBA2)
+    api = build_model(dataclasses.replace(got, num_layers=2, d_model=64,
+                                          ssm_state_dim=16, ssm_head_dim=16,
+                                          max_position=32))
+    assert [b.mixer for b in api.segments[0].blocks] == ["ssm"]
+    params = api.init(torch.Generator().manual_seed(0))
+    ssm = params["segments"][0]["b0"]["ssm"]
+    assert ssm["w_zx"].shape == (2, 64, 256) and "mlp" not in \
+        params["segments"][0]["b0"]
+    assert ssm["A_log"].dtype == torch.float32
+    assert params["pos_embed"].shape == (32, 64)
+    with pytest.raises(NotImplementedError, match="decode caches"):
+        api.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                    RunSettings(device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["rms_norm", "gelu", "silu"])
+def test_layer_functions_save_only_inputs_and_match_jax(name):
+    """Each Function saves exactly its inputs (rms_norm: x and scale;
+    the activations: x) and its grads equal jax.grad of the JAX custom_vjp
+    at 1e-5."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 7, 16)).astype(np.float32)
+    g = rng.normal(size=(2, 7, 16)).astype(np.float32)
+    scale = (rng.normal(size=(16,)) * 0.1).astype(np.float32)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ts = torch.from_numpy(scale).requires_grad_(True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        if name == "rms_norm":
+            y = layers.rms_norm(tx, ts, 1e-6)
+        else:
+            y = getattr(layers, name)(tx)
+    ins = (tx, ts) if name == "rms_norm" else (tx,)
+    assert len(saved) == len(ins)
+    assert all(a is b for a, b in zip(saved, ins))
+    got = torch.autograd.grad(y, ins, torch.from_numpy(g))
+    if name == "rms_norm":
+        jf = lambda a, b: (jlayers.rms_norm(a, b, 1e-6)  # noqa: E731
+                           * jnp.asarray(g)).sum()
+        want = jax.grad(jf, (0, 1))(jnp.asarray(x), jnp.asarray(scale))
+    else:
+        want = jax.grad(lambda a: (getattr(jlayers, name)(a)
+                                   * jnp.asarray(g)).sum())(jnp.asarray(x))
+        want = (want,)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(
+        jlayers.rms_norm(jnp.asarray(x), jnp.asarray(scale), 1e-6)
+        if name == "rms_norm" else getattr(jlayers, name)(jnp.asarray(x))),
+        rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["small-gpt", "mamba2"])
+def test_loss_and_grads_match_jax(arch):
+    """float32 training loss and the gradient of every parameter against
+    the JAX package's `loss` on the same weights and batch: loss at 1e-5,
+    grads at 1e-4 (f32 sums in other orders through 2-4 layers)."""
+    if arch == "mamba2":
+        kw = dict(num_layers=2, d_model=64, ssm_state_dim=16,
+                  ssm_head_dim=16, ssm_chunk=16, vocab_size=512,
+                  max_position=64, dtype="float32")
+        jcfg = dataclasses.replace(JAX_MAMBA2, **kw)
+        tcfg = dataclasses.replace(MAMBA2_2_7B, **kw)
+    else:
+        jcfg = dataclasses.replace(jax_small_gpt(), dtype="float32")
+        tcfg = dataclasses.replace(small_gpt(), dtype="float32")
+    japi, api = jax_build(jcfg), build_model(tcfg)
+    jparams = japi.init(jax.random.key(3))
+    toks = _tokens(12, (2, 33)) % tcfg.vocab_size
+    toks[1, -5:] = -1                                   # masked labels
+    batch = {"tokens": toks[:, :-1].clip(0), "labels": toks[:, 1:]}
+    jset = JaxSettings(attn_impl="xla", attn_chunk=8, param_dtype="float32")
+    (jl, _), jg = jax.value_and_grad(japi.loss, has_aux=True)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jset)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    leaves = tree_flatten(params)[0]
+    for t in leaves:
+        t.requires_grad_(True)
+    tl, metrics = api.loss(params, {k: torch.from_numpy(v).long()
+                                    for k, v in batch.items()},
+                           RunSettings(attn_impl="torch", attn_chunk=8,
+                                       param_dtype="float32", device="cpu"))
+    assert int(metrics["tokens"]) == 2 * 32 - 5
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    got = torch.autograd.grad(tl, leaves)
+    want = params_from_jax(jax.tree.map(np.asarray, jg), device="cpu")
+    for a, b in zip(got, tree_flatten(want)[0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
