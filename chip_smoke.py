@@ -10,10 +10,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
   2. build: every CUDA source of the port, one nvcc per source at once;
   3. kernels: each kernel against its plain PyTorch version on the card
      (the flash-attention cases of tests/test_kernels.py plus the serve
-     prefill shapes; the SSD-scan cases of tests/test_kernels.py plus the
-     mamba2-2.7b training shape with bf16 B/C), and, at the main path's
-     shapes, each kernel's time beside the plain version's, a library
-     call's where one exists, and the card's bound;
+     prefill shapes and the recurrentgemma-9b MQA shapes at head_dim 256;
+     the SSD-scan cases of tests/test_kernels.py plus the mamba2-2.7b
+     training shape with bf16 B/C; the RG-LRU cases of
+     tests/test_kernels.py plus the recurrentgemma-9b shape, forward and
+     the backward's reverse mode, and log_a down to -20), and, at the
+     main paths' shapes, each kernel's time beside the plain version's, a
+     library call's where one exists, and the card's bound; one
+     full-width mamba2 layer and one full-width rglru mixer through the
+     kernel against the plain path;
   4. serve: the paper's GPT (gpt-h8192-l4, random weights from seed 0)
      through `repro_torch.launch.serve`, paged KV with quantum
      preemption evicting pages through the spool to a directory, then
@@ -35,7 +40,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and adaptive run reads blobs back (the zlib run waits for its layer
      stores before backward, so every layer goes through the codec both
      ways on the card);
-  7. a `kernels` JSON line, the nvidia-smi line, and the result line.
+  7. train: recurrentgemma-9b at full width (38 layers: 12 super-layers
+     of rglru, rglru, local attention and a remainder of two rglru
+     blocks; random weights from seed 0) through `TrainSession`, sgd
+     (lr 3e-4, no momentum, clip 1.0), B=1, S=2048, 3 steps on the
+     RG-LRU and flash kernels, kept and spooled (fs, raw). The checks of
+     phase 5, with the stage count taken from the engine (15 stages),
+     and the RG-LRU kernel launched once per rglru block per step in
+     forward and once in backward, the flash kernel once per attention
+     block per step;
+  8. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -45,6 +59,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +117,20 @@ TOL_LAYER = 2 ** -6
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ = "mamba2-2.7b", 3, 1024
 MATRIX_DEPTH = 8
 
+# (B, S, W): tests/test_kernels.py::RGLRU_CASES (their chunk and block
+# width are the Pallas kernel's tiling, which the CUDA kernel has not)
+RGLRU_CASES = [(1, 64, 16), (2, 128, 32), (1, 100, 8)]
+TOL_RGLRU = 1e-5
+# recurrentgemma-9b's attention at head_dim 256: (B, S, Hq, Hkv, D,
+# causal, window, dtype, tol); the path's shape (window 2048 masks
+# nothing at S=2048), a window that masks at S=4096, and an f32 case
+FLASH_D256_CASES = [
+    (1, 2048, 16, 1, 256, True, 2048, torch.bfloat16, TOL_BF16),
+    (1, 4096, 16, 1, 256, True, 2048, torch.bfloat16, TOL_BF16),
+    (1, 512, 16, 1, 256, True, 128, torch.float32, TOL_F32),
+]
+RG_ARCH, RG_SEQ, RG_LR, RG_CLIP = "recurrentgemma-9b", 2048, 3e-4, 1.0
+
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, and
 # operations/s for bf16 on the tensor cores and f32 on the CUDA cores.
 PEAKS = {
@@ -153,6 +182,26 @@ def mount_of(path):
                     and len(mnt) > len(best[0]):
                 best = (mnt, fstype)
     return best
+
+
+def ptxas_report(log):
+    """One line per kernel instance from `nvcc -Xptxas -v` output: its
+    name with the template arguments of the mangled name (D=256 bf16
+    reads `attn_fwd_kernel<256,bf16>`, the RG-LRU reverse mode
+    `rglru_scan_kernel<true>`), then registers and spills."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"\d([a-z][a-z_]*kernel)I(\w+?)EE+v", line)
+        if "Compiling entry" in line and m:
+            args = m.group(2).replace("Lb0", "false,").replace("Lb1", "true,")
+            args = re.sub(r"Li(\d+)E", r"\1,", args)
+            args = args.replace("13__nv_bfloat16", "bf16").rstrip(",")
+            name = f"{m.group(1)}<{re.sub(r'(^|,)f$', r'\1f32', args)}>"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def unmasked_pairs(Sq, Skv, causal, window):
@@ -250,6 +299,138 @@ def ssd_phase(gen, peaks, smi):
     return max(worst, err), kernel_ms, plain_ms, (b_ms, b_by)
 
 
+def rglru_bound_ms(log_a, x, peaks):
+    """Least time for the RG-LRU scan: log_a and x read once and h written
+    once over the memory rate, or one exp and one FMA per element over the
+    f32 rate (the memory side bounds it by far)."""
+    nbytes = 3 * x.numel() * 4
+    flops = 2 * x.numel()
+    t_bytes = nbytes / peaks["bytes"]
+    t_ops = flops / peaks["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rglru_phase(gen, peaks, smi):
+    """The RG-LRU kernel against its plain version, both modes (forward,
+    and the reverse recurrence its backward runs); its time at the
+    recurrentgemma-9b shape. Returns (worst error, kernel_ms, plain_ms,
+    bound)."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan_fwd,
+                                                rglru_sequential)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = [(c, 0.5) for c in RGLRU_CASES] + [((1, RG_SEQ, 4096), 0.5),
+                                              ((1, RG_SEQ, 4096), 20.0)]
+    worst = 0.0
+    for (B, S, W), depth in cases:
+        if depth == 0.5:        # -|N(0, 0.5)|, the JAX tests' decays
+            la = -(rand((B, S, W)) * 0.5).abs()
+        else:                   # uniform in [-20, 0]
+            la = -torch.rand((B, S, W), generator=gen, device="cuda") * 20
+        x = rand((B, S, W))
+        for reverse in (False, True):
+            h = rglru_scan_fwd(la, x, reverse=reverse)
+            torch.cuda.synchronize()
+            want = rglru_sequential(la, x, reverse=reverse)
+            err = (h - want).abs().max().item()
+            ok = bool(torch.all((h - want).abs()
+                                <= TOL_RGLRU + TOL_RGLRU * want.abs()))
+            worst = max(worst, err)
+            print(f"  rglru_scan B={B} S={S} W={W} log_a "
+                  f"{'-|N(0,0.5)|' if depth == 0.5 else 'U[-20,0]'} "
+                  f"{'reverse' if reverse else 'forward'}: max_abs_err "
+                  f"{err:.3e} tol {TOL_RGLRU:g} {'ok' if ok else 'FAIL'}")
+            check(ok and math.isfinite(err), "rglru_scan disagrees with its "
+                  "plain version")
+    la = -(rand((1, RG_SEQ, 4096)) * 0.5).abs()
+    x = rand((1, RG_SEQ, 4096))
+    kernel_ms = time_ms(lambda: rglru_scan_fwd(la, x))
+    plain_ms = time_ms(lambda: rglru_sequential(la, x))
+    b_ms, b_by = rglru_bound_ms(la, x, peaks)
+    print(f"  rglru_scan recurrentgemma-9b shape B=1 S={RG_SEQ} W=4096 f32: "
+          f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"none (no single PyTorch call computes this scan) bound_us "
+          f"{1e3 * b_ms:.1f} ({b_by}) on {smi}")
+    return worst, kernel_ms, plain_ms, (b_ms, b_by)
+
+
+def flash_d256_phase(gen, peaks, smi):
+    """The flash kernel at recurrentgemma-9b's MQA head_dim 256 against
+    the plain attention; at the path's shape its time beside the bound
+    and scaled_dot_product_attention's. Returns (worst bf16 error,
+    kernel_ms, plain_ms, library_ms, bound)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_reference
+    worst, path = 0.0, None
+    for B, S, Hq, Hkv, D, causal, window, dtype, tol in FLASH_D256_CASES:
+        q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = attention_reference(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+        err = (out.float() - want).abs().max().item()
+        ok = bool(torch.all((out.float() - want).abs()
+                            <= tol + tol * want.abs()))
+        print(f"  flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+              f"causal={causal} window={window} {str(dtype)[6:]}: "
+              f"max_abs_err {err:.3e} tol {tol:g} {'ok' if ok else 'FAIL'}")
+        check(ok and math.isfinite(err), "flash_attention disagrees with "
+              "its plain version at head_dim 256")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+        if path is None:
+            path = (q, k, v, window)
+    q, k, v, window = path
+    kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                window=window))
+    plain_ms = time_ms(lambda: attention_reference(q, k, v, causal=True,
+                                                   window=window))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True,
+                                                      enable_gqa=True))
+    b_ms, b_by = bound_ms(q, k, v, True, window, peaks)
+    B, S, Hq, D = q.shape
+    print(f"  recurrentgemma-9b shape B={B} S={S} Hq={Hq} Hkv={k.shape[2]} "
+          f"D={D} causal window {window} bf16: kernel_ms {kernel_ms:.4f} "
+          f"plain_ms "
+          f"{plain_ms:.4f} library_ms {library_ms:.4f} "
+          f"(scaled_dot_product_attention, yardstick only) bound_us "
+          f"{1e3 * b_ms:.1f} ({b_by}) on {smi}")
+    return worst, kernel_ms, plain_ms, library_ms, (b_ms, b_by)
+
+
+def rg_layer_check(gen):
+    """One full-width rglru mixer forward through the kernel against the
+    plain recurrence, bf16 weights from a seed."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models.rglru import apply_rglru, init_rglru
+    cfg = resolve_config(RG_ARCH)
+    p = init_rglru(gen, cfg, torch.bfloat16)
+    x = torch.randn((1, RG_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    with torch.no_grad():
+        before = rglru_scan.launches
+        yk, _ = apply_rglru(p, x, cfg, impl="cuda")
+        check(rglru_scan.launches == before + 1, "the rglru mixer did not "
+              "launch the rglru_scan kernel")
+        yp, _ = apply_rglru(p, x, cfg, impl="torch")
+    scale = yp.float().abs().max().item()
+    err = (yk.float() - yp.float()).abs().max().item()
+    print(f"  one {RG_ARCH} rglru mixer, kernel vs plain recurrence: "
+          f"max_abs_err {err:.3e} (output scale {scale:.3f}, tol "
+          f"{TOL_LAYER:g} relative)")
+    check(bool(torch.isfinite(yk).all()) and err <= TOL_LAYER * scale,
+          "the rglru mixer through the kernel differs from the plain path")
+
+
 def layer_check(gen):
     """One full-width mamba2 layer forward through the kernel against the
     plain scan, bf16 weights from a seed."""
@@ -294,23 +475,38 @@ def drained_spool_policy():
     return DrainedSpoolPolicy()
 
 
-def train_run(cfg, policy, io, label):
-    """TrainSession steps at B=1, S=TRAIN_SEQ on the card. Returns
-    (losses, params on the host, reports, ssd launches, run peak)."""
+def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
+              keep_params=None):
+    """TrainSession steps at B=1, S=seq on the card. Every kernel's launch
+    count is set to 0 just before the steps and read just after. Returns
+    (losses, params, reports, {kernel: launches}, run peak, stage
+    count): params are the final parameters on the host, or, given the
+    host parameters of an earlier run as `keep_params`, whether they are
+    bitwise equal to those (one host copy of a large model, not two)."""
     from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.session import TrainSession
-    sess = TrainSession(cfg, policy=policy, io=io, optimizer="adamw",
-                        lr=3e-4, batch_size=1, seq_len=TRAIN_SEQ, seed=0,
+    kernels = (flash_attention, ssd_scan, rglru_scan)
+    sess = TrainSession(cfg, policy=policy, io=io, optimizer=optimizer,
+                        lr=3e-4, batch_size=1, seq_len=seq, seed=0,
                         device="cuda", attn_impl="cuda")
     if hasattr(policy, "spool"):
         policy.spool = sess.spool
     try:
         sess.init()
-        ssd_scan.launches = 0
+        for k in kernels:
+            k.launches = 0
         result = sess.run(TRAIN_STEPS)
-        launches = ssd_scan.launches
-        params = [t.detach().cpu() for t in tree_flatten(sess.params)[0]]
+        launches = {k.__name__: k.launches for k in kernels}
+        n_stages = len(sess.engine.stage_names)
+        leaves = tree_flatten(sess.params)[0]
+        if keep_params is None:
+            params = [t.detach().cpu() for t in leaves]
+        else:
+            params = same_params(leaves, keep_params)
+        del leaves
         for r in result.reports:
             st, ex = r.stats, r.extra
             print(f"  {label} step {r.step}: loss {r.loss:.6f} "
@@ -337,7 +533,7 @@ def train_run(cfg, policy, io, label):
         gc.collect()
         torch.cuda.empty_cache()
     check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
-    return losses, params, reports, launches, peak
+    return losses, params, reports, launches, peak, n_stages
 
 
 def deterministic():
@@ -349,44 +545,82 @@ def deterministic():
 
 
 def same_params(a, b) -> bool:
-    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    """Leaf lists bitwise equal (b's leaves are moved to a's device one
+    at a time)."""
+    return len(a) == len(b) and all(torch.equal(x, y.to(x.device))
+                                    for x, y in zip(a, b))
 
 
-def train_phase(smi):
-    """Full-width mamba2-2.7b, keep vs spool (fs, raw). Returns the ssd
-    launches of the spool run (the main path)."""
-    from repro_torch.configs import SpoolIoConfig, resolve_config
+def keep_vs_spool(cfg, seq, optimizer, want, smi):
+    """Full-width training of `cfg` kept on the card, then spooled (fs,
+    raw) to a fresh directory: bitwise losses and parameters, a lower
+    peak, bytes offloaded, every stored stage fetched (the stage count
+    is the engine's), the directory empty after close, and each kernel's
+    launches equal to `want` in each run. Returns the spool run's
+    launches (the main path's)."""
+    from repro_torch.configs import SpoolIoConfig
     from repro_torch.core.policies import KeepPolicy, SpoolPolicy
-    cfg = resolve_config(TRAIN_ARCH)
     deterministic()
-    lk, pk, _, nk, peak_k = train_run(cfg, KeepPolicy(), None, "keep")
+    lk, pk, _, nk, peak_k, _ = train_run(cfg, KeepPolicy(), None,
+                                         f"{cfg.name} keep",
+                                         optimizer=optimizer, seq=seq)
     spool_dir = tempfile.mkdtemp(prefix="chip_smoke_spool_")
     mnt, fstype = mount_of(spool_dir)
-    ls, ps, rs, ns, peak_s = train_run(
+    ls, same, rs, ns, peak_s, n_stages = train_run(
         cfg, SpoolPolicy(), SpoolIoConfig(backend="fs", directory=spool_dir,
-                                          codec="raw"), "spool")
+                                          codec="raw"), f"{cfg.name} spool",
+        optimizer=optimizer, seq=seq, keep_params=pk)
+    n_leaves = len(pk)
+    del pk
     left = os.listdir(spool_dir)
     if not left:
         os.rmdir(spool_dir)
-    n_layers = cfg.num_layers
-    print(f"train: {TRAIN_ARCH} {n_layers} layers, d_model {cfg.d_model}, "
-          f"{TRAIN_STEPS} steps at B=1 S={TRAIN_SEQ}; keep losses {lk}, "
-          f"spool losses {ls}; peak device memory keep "
-          f"{peak_k / 1e9:.2f} GB, spool {peak_s / 1e9:.2f} GB; ssd_scan "
-          f"launches keep {nk}, spool {ns}; spool dir on {mnt} ({fstype}) "
+    print(f"train: {cfg.name} {cfg.num_layers} layers in {n_stages} "
+          f"stages, d_model {cfg.d_model}, {TRAIN_STEPS} steps at B=1 "
+          f"S={seq}; keep losses {lk}, spool losses {ls}; peak device "
+          f"memory keep {peak_k / 1e9:.2f} GB, spool {peak_s / 1e9:.2f} GB;"
+          f" launches keep {nk}, spool {ns}; spool dir on {mnt} ({fstype}) "
           f"on {smi}")
     check(lk == ls, f"keep and spool losses differ: {lk} vs {ls}")
-    check(same_params(pk, ps), "keep and spool parameters differ")
+    check(same, "keep and spool parameters differ")
     check(peak_s < peak_k, f"spool peak {peak_s} not below keep {peak_k}")
     check(sum(r.stats.bytes_offloaded for r in rs) > 0, "nothing offloaded")
     check(all(r.extra["stages_offloaded"] == r.extra["stages_fetched"]
-              == n_layers + 2 for r in rs), "a stored stage was not fetched")
+              == n_stages for r in rs), "a stored stage was not fetched")
     check(not left, f"spool directory not empty after close: {left[:5]}")
-    check(nk == ns == n_layers * TRAIN_STEPS,
-          f"ssd_scan launches {nk}/{ns}, want {n_layers * TRAIN_STEPS}")
-    print(f"  keep vs spool: losses and {len(pk)} parameter leaves bitwise "
+    for name, n in want.items():
+        check(nk[name] == ns[name] == n, f"{name} launches "
+              f"{nk[name]}/{ns[name]}, want {n}")
+    print(f"  keep vs spool: losses and {n_leaves} parameter leaves bitwise "
           f"equal")
     return ns
+
+
+def train_phase(smi):
+    """Full-width mamba2-2.7b with adamw: the SSD kernel once per layer
+    per step."""
+    from repro_torch.configs import resolve_config
+    cfg = resolve_config(TRAIN_ARCH)
+    return keep_vs_spool(cfg, TRAIN_SEQ, "adamw",
+                         {"ssd_scan": cfg.num_layers * TRAIN_STEPS}, smi)
+
+
+def rg_train_phase(smi):
+    """Full-width recurrentgemma-9b with sgd (no momentum: adamw's f32
+    moments, 83.6 GB, pass one card): the RG-LRU kernel once per rglru
+    block per step in forward and once in backward, the flash kernel once
+    per attention block per step (its backward is the plain VJP)."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.models.api import build_model
+    cfg = resolve_config(RG_ARCH)
+    kinds = [b.mixer for seg in build_model(cfg).segments
+             for _ in range(seg.n_repeat) for b in seg.blocks]
+    return keep_vs_spool(
+        cfg, RG_SEQ, sgd(RG_LR, clip_norm=RG_CLIP),
+        {"rglru_scan": 2 * kinds.count("rglru") * TRAIN_STEPS,
+         "flash_attention": kinds.count("attn") * TRAIN_STEPS,
+         "ssd_scan": 0}, smi)
 
 
 def matrix_phase():
@@ -398,7 +632,8 @@ def matrix_phase():
     cfg = dataclasses.replace(resolve_config(TRAIN_ARCH),
                               num_layers=MATRIX_DEPTH)
     deterministic()
-    lk, pk, _, _, _ = train_run(cfg, KeepPolicy(), None, f"d{MATRIX_DEPTH} keep")
+    lk, pk, _, _, _, _ = train_run(cfg, KeepPolicy(), None,
+                                   f"d{MATRIX_DEPTH} keep")
     runs = [("recompute", RecomputePolicy(), None, 2),
             ("adaptive fs raw", AdaptivePolicy(),
              SpoolIoConfig(backend="fs", codec="raw"), 1),
@@ -407,15 +642,16 @@ def matrix_phase():
             ("spool fs zlib", drained_spool_policy(),
              SpoolIoConfig(backend="fs", codec="zlib"), 1)]
     for label, policy, io, fwd_per_layer in runs:
-        l, p, reps, n, peak = train_run(cfg, policy, io,
-                                        f"d{MATRIX_DEPTH} {label}")
+        l, same, reps, launches, peak, _ = train_run(
+            cfg, policy, io, f"d{MATRIX_DEPTH} {label}", keep_params=pk)
+        n = launches["ssd_scan"]
         plan = reps[-1].plan
         print(f"  d{MATRIX_DEPTH} {label}: losses {l} peak "
               f"{peak / 1e9:.2f} GB ssd launches {n}"
               + (f" plan offloads stages 0..{plan.last_offloaded}"
                  if plan is not None else ""))
         check(l == lk, f"{label}: losses differ from keep: {l} vs {lk}")
-        check(same_params(p, pk), f"{label}: parameters differ from keep")
+        check(same, f"{label}: parameters differ from keep")
         check(n == fwd_per_layer * MATRIX_DEPTH * TRAIN_STEPS,
               f"{label}: {n} ssd_scan launches")
         if label != "recompute":
@@ -458,9 +694,8 @@ def main():
     print(f"build: {len(libs)} CUDA source(s) in "
           f"{time.perf_counter() - t0:.1f}s")
     for src in libs:
-        for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        for line in ptxas_report(build.build_log(src)):
+            print(f"  ptxas {src}: {line}")
 
     # ---- 3. kernel vs plain version
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -513,6 +748,10 @@ def main():
     ssd_err, ssd_ms, ssd_plain_ms, (ssd_b_ms, ssd_b_by) = ssd_phase(
         gen, peaks, smi)
     layer_check(gen)
+    rg_err, rg_ms, rg_plain_ms, (rg_b_ms, rg_b_by) = rglru_phase(
+        gen, peaks, smi)
+    d256 = flash_d256_phase(gen, peaks, smi)
+    rg_layer_check(gen)
 
     # ---- 4. serve at full width
     t0 = time.perf_counter()
@@ -597,13 +836,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 5. train at full width, keep vs spool; 6. policy matrix
+    # ---- 5. train mamba2 at full width, keep vs spool; 6. policy
+    # matrix; 7. train recurrentgemma at full width, keep vs spool
     t0 = time.perf_counter()
-    ssd_launches = train_phase(smi)
+    ssd_launches = train_phase(smi)["ssd_scan"]
     matrix_phase()
-    print(f"train phases: {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    rg_launches = rg_train_phase(smi)
+    print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
+          f"{time.perf_counter() - t1:.1f}s")
 
-    # ---- 7. result
+    # ---- 8. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -622,6 +865,14 @@ def main():
         "bound_us": 1e3 * b_ms,
         "bound_by": b_by,
         "library_ms": library_ms,
+        # recurrentgemma-9b training: MQA at head_dim 256, window 2048
+        "launches_per_train_run": rg_launches["flash_attention"],
+        "d256_max_abs_err": d256[0],
+        "d256_ms": d256[1],
+        "d256_plain_ms": d256[2],
+        "d256_library_ms": d256[3],
+        "d256_bound_ms": d256[4][0],
+        "d256_bound_by": d256[4][1],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -639,6 +890,24 @@ def main():
         "bound_ms": ssd_b_ms,
         "bound_us": 1e3 * ssd_b_ms,
         "bound_by": ssd_b_by,
+        "library_ms": None,
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan_fwd.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:29",
+        "tpu_kernel": "src/repro/kernels/rglru_scan.py::_rglru_kernel",
+        "launches": rg_launches["rglru_scan"],
+        "launches_per_train_run": rg_launches["rglru_scan"],
+        "max_abs_err": rg_err,
+        "max_err": rg_err,
+        "tol": TOL_RGLRU,
+        "ms": rg_ms,
+        "kernel_ms": rg_ms,
+        "plain_ms": rg_plain_ms,
+        "bound_ms": rg_b_ms,
+        "bound_us": 1e3 * rg_b_ms,
+        "bound_by": rg_b_by,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

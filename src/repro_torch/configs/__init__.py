@@ -5,19 +5,24 @@ from repro_torch.configs.base import ModelConfig, SpoolIoConfig
 from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
 from repro_torch.configs.paper_models import (PAPER_SCENARIOS, gpt,
                                               small_gpt)
+from repro_torch.configs.recurrentgemma_9b import \
+    CONFIG as RECURRENTGEMMA_9B
 
 __all__ = ["ModelConfig", "SpoolIoConfig", "PAPER_SCENARIOS", "gpt",
-           "small_gpt", "resolve_config", "MAMBA2_2_7B"]
+           "small_gpt", "resolve_config", "MAMBA2_2_7B",
+           "RECURRENTGEMMA_9B"]
 
 # registry ids the port carries so far (the JAX package's
 # `configs/registry.py` has more; they wait for their slices)
-_REGISTRY = {"mamba2-2.7b": MAMBA2_2_7B}
+_REGISTRY = {"mamba2-2.7b": MAMBA2_2_7B,
+             "recurrentgemma-9b": RECURRENTGEMMA_9B}
 
 
 def resolve_config(name: str) -> ModelConfig:
     """Arch string -> ModelConfig: small-gpt, gpt-124m, gpt-h<H>-l<L> or a
-    registry id the port carries (mamba2-2.7b); the subset of the JAX
-    package's `session.resolve_config` that the port supports so far."""
+    registry id the port carries (mamba2-2.7b, recurrentgemma-9b); the
+    subset of the JAX package's `session.resolve_config` that the port
+    supports so far."""
     if name == "gpt-124m":
         return dataclasses.replace(
             gpt(768, 12, vocab=32768), num_heads=12, num_kv_heads=12,

@@ -24,18 +24,20 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
 
 
 def tree_unflatten(treedef, leaves: List[Any]):
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, defs = d
-        if kind == "dict":
-            return {k: build(sub) for k, sub in zip(keys, defs)}
-        vals = [build(sub) for sub in defs]
-        return tuple(vals) if kind == "tuple" else vals
 
-    return build(treedef)
+def _build(d, it):
+    # module-level, not a closure over `it`: a recursive closure refers
+    # to itself, and that cycle would keep every leaf (a fetched stage's
+    # activations) alive until the cyclic garbage collector ran
+    if d is None:
+        return next(it)
+    kind, keys, defs = d
+    if kind == "dict":
+        return {k: _build(sub, it) for k, sub in zip(keys, defs)}
+    vals = [_build(sub, it) for sub in defs]
+    return tuple(vals) if kind == "tuple" else vals
 
 
 def tree_nbytes(tree) -> int:

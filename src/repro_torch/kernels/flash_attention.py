@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_reference
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -63,8 +63,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in
     q's dtype. Hq % Hkv == 0; query head h reads kv head h // (Hq/Hkv).
 
-    On the card: D in (32, 64, 128), dtype float32 or bfloat16 (one for
-    all three), last dimension contiguous (other strides are free). The
+    On the card: D in (32, 64, 128, 256), dtype float32 or bfloat16 (one
+    for all three), last dimension contiguous (other strides are free). The
     output is allocated here and the kernel runs on the current stream
     without synchronising. Differentiable either way."""
     _check(q, k, v)

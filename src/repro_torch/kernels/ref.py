@@ -1,8 +1,9 @@
 """Plain PyTorch references, the simplest correct formulations, copied
 from the JAX package's `repro/kernels/ref.py`: `attention_reference`
 (full score matrix; the CPU path of `flash_attention`, its backward, and
-the comparisons on the card use it) and `ssd_reference` (the exact
-sequential SSD recurrence, for the tests)."""
+the comparisons on the card use it), `ssd_reference` (the exact
+sequential SSD recurrence) and `rglru_reference` (the exact sequential
+RG-LRU recurrence), the last two for the tests."""
 from __future__ import annotations
 
 import math
@@ -55,3 +56,16 @@ def ssd_reference(xh, dA_log, B_s, C_s):
                  + torch.einsum("bn,bhp->bhpn", B_s[:, t], xh[:, t]))
         ys.append(torch.einsum("bn,bhpn->bhp", C_s[:, t], state))
     return torch.stack(ys, dim=1), state
+
+
+def rglru_reference(log_a, x):
+    """Exact sequential h_t = exp(log_a_t) h_{t-1} + x_t over axis 1, in
+    f32. log_a, x: (B, S, W). Returns h: (B, S, W) f32."""
+    log_a, x = log_a.float(), x.float()
+    h = torch.zeros((x.shape[0],) + x.shape[2:], dtype=torch.float32,
+                    device=x.device)
+    hs = []
+    for t in range(x.shape[1]):
+        h = torch.exp(log_a[:, t]) * h + x[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -4,14 +4,17 @@ package's `repro/launch/train.py`.
 
   python -m repro_torch.launch.train --arch mamba2-2.7b --steps 3 \\
       --batch 1 --seq 1024 --strategy spool --spool-backend fs --codec raw
+  python -m repro_torch.launch.train --arch recurrentgemma-9b \\
+      --optimizer sgd --steps 3 --batch 1 --seq 2048 --strategy spool
   python -m repro_torch.launch.train --arch small-gpt --device cpu \\
       --attn-impl torch --steps 2 --batch 2 --seq 64 --min-offload 4096
 
 Runs on the card unless `--device cpu` is given; without CUDA it stops
 rather than fall back to the CPU. `--attn-impl cuda` (the default on the
-card) runs the hand-written kernels (flash attention, SSD scan);
-`--attn-impl torch` the plain paths. Flags of the JAX package's CLI that
-the port has not ported yet are refused with an error, never ignored.
+card) runs the hand-written kernels (flash attention, SSD scan, RG-LRU
+scan); `--attn-impl torch` the plain paths. Flags of the JAX package's
+CLI that the port has not ported yet are refused with an error, never
+ignored.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.configs import SpoolIoConfig
 from repro_torch.core.policies import STRATEGIES
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.session import TrainSession
 from repro_torch.session.session import resolve_optimizer
@@ -109,7 +113,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     io = SpoolIoConfig(backend=args.spool_backend, directory=args.spool_dir,
                        codec=args.codec)
     optimizer = resolve_optimizer(args.optimizer, args.lr, args.clip_norm)
-    launches0 = (flash_attention.launches, ssd_scan.launches)
+    kernels = (flash_attention, ssd_scan, rglru_scan)
+    launches0 = [k.launches for k in kernels]
     with TrainSession(
             args.arch, policy=args.strategy, io=io, optimizer=optimizer,
             batch_size=args.batch, seq_len=args.seq, seed=args.seed,
@@ -149,9 +154,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         if plan is not None:
             print(f"plan: offload stages 0..{plan.last_offloaded} of "
                   f"{len(session.engine.stage_names)}")
-    print(f"kernels: flash_attention launches "
-          f"{flash_attention.launches - launches0[0]}, ssd_scan launches "
-          f"{ssd_scan.launches - launches0[1]}")
+    print("kernels: " + ", ".join(
+        f"{k.__name__} launches {k.launches - n}"
+        for k, n in zip(kernels, launches0)))
 
 
 if __name__ == "__main__":

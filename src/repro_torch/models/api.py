@@ -20,10 +20,12 @@ and the vocab padded to a multiple of 256 with padded logits at -1e30.
 Models without RoPE add a learned `pos_embed` table (max_position x D).
 `embed_in` and `head` are the first and last pieces of the forward, which
 the staged training engine runs as stages of their own. Decode (and
-emitted caches) exist for attention blocks only so far.
+emitted caches) exist for attention blocks only so far: rglru and ssm
+blocks train and run full sequences.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
@@ -76,8 +78,13 @@ def _to_decode_cache(bdef: BlockDef, cache, cache_len: int):
 
 
 def embed_in(params, batch, cfg: ModelConfig):
-    """Token embeddings (plus learned positions for non-RoPE models)."""
+    """Token embeddings, scaled by sqrt(d_model) in the parameter dtype
+    when `cfg.scale_embed` (gemma-style), plus learned positions for
+    non-RoPE models."""
     x = params["embed"][batch["tokens"]]
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
     if not cfg.use_rope:
         S = x.shape[1]
         x = x + params["pos_embed"][:S][None].to(x.dtype)
@@ -133,13 +140,15 @@ def build_model(cfg: ModelConfig) -> ModelApi:
              for i, bdef in enumerate(seg.blocks)} for seg in segs]
         return params
 
-    attn_only = all(b.mixer == "attn" for seg in segs for b in seg.blocks)
+    unserved = sorted({b.mixer for seg in segs for b in seg.blocks} - {
+        "attn"})
 
     def _decode_ported():
-        if not attn_only:
+        if unserved:
             raise NotImplementedError(
-                f"{cfg.name}: decode caches of ssm blocks are not ported "
-                "yet (serving mamba2 waits for a later slice)")
+                f"{cfg.name}: decode caches of {' and '.join(unserved)} "
+                "blocks are not ported yet (serving mamba2 and the hybrid "
+                "wait for a later slice)")
 
     def forward(params, batch, settings: RunSettings, *, emit_cache=False,
                 cache_len=0):

@@ -2,13 +2,16 @@
 `repro/models/layers.py`.
 
 Parameters are plain tensors in nested dicts with the JAX pytree keys.
-rms_norm, GELU and SiLU are `torch.autograd.Function`s that save only
-their inputs and recompute the rest in backward, with the JAX package's
-backward formulas (its `custom_vjp` rules, `layers.py:34-75, 144-182`):
-the composite forms would save every primitive intermediate, and the
-saved tensors are what the training engine sends to the SSD. The
-depthwise causal conv1d is a Function for the same reason (the composite
-saves one shifted view of the padded input per tap).
+rms_norm, GELU (exact and tanh-approximate) and SiLU are
+`torch.autograd.Function`s that save only their inputs and recompute the
+rest in backward, with the JAX package's backward formulas (its
+`custom_vjp` rules, `layers.py:34-75, 144-182`; the tanh form is the
+derivative of `jax.nn.gelu(approximate=True)`): the composite forms would
+save every primitive intermediate, and the saved tensors are what the
+training engine sends to the SSD. The depthwise causal conv1d is a
+Function for the same reason (the composite saves one shifted view of
+the padded input per tap), and so is `matmul_f32` (the f32 copy of a
+bf16 weight would be saved, and spooled, as if it were an activation).
 """
 from __future__ import annotations
 
@@ -160,9 +163,36 @@ class _Silu(torch.autograd.Function):
         return (g.float() * s * (1.0 + x32 * (1.0 - s))).to(x.dtype)
 
 
+_K_TANH = math.sqrt(2.0 / math.pi)
+_C_TANH = 0.044715
+
+
+class _GeluTanh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.gelu(x, approximate="tanh")
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        x32 = x.float()
+        t = torch.tanh(_K_TANH * (x32 + _C_TANH * x32 * x32 * x32))
+        dt = _K_TANH * (1.0 + 3.0 * _C_TANH * x32 * x32)
+        d = 0.5 * (1.0 + t) + 0.5 * x32 * (1.0 - t * t) * dt
+        return (g.float() * d).to(x.dtype)
+
+
 def gelu(x):
     """Exact (erf) GELU; saves its input only."""
     return _Gelu.apply(x)
+
+
+def gelu_tanh(x):
+    """tanh-approximate GELU, `jax.nn.gelu`'s default form (the RG-LRU
+    branch gate uses it; the MLPs use the exact one); saves its input
+    only."""
+    return _GeluTanh.apply(x)
 
 
 def silu(x):
@@ -170,20 +200,53 @@ def silu(x):
     return _Silu.apply(x)
 
 
+_ACTIVATIONS = {"gelu": gelu, "silu": silu}
+
+
+class _MatmulF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x32, w):
+        ctx.save_for_backward(x32, w)
+        return x32 @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x32, w = ctx.saved_tensors
+        dx = g @ w.float().t()
+        dw = x32.reshape(-1, x32.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return dx, dw.to(w.dtype)
+
+
+def matmul_f32(x32, w):
+    """x32 @ w.astype(f32) for an f32 x32 and a (K, N) weight of any
+    float dtype. Saves x32 and the weight itself, never its f32 copy
+    (which would be a fresh storage the training engine could not tell
+    from an activation); backward recasts the weight."""
+    return _MatmulF32.apply(x32, w)
+
+
 # ---------------------------------------------------------------- MLP
 
 
-def init_mlp(gen, d_model, d_ff, dtype, lead=()) -> Params:
+def init_mlp(gen, d_model, d_ff, dtype, lead=(), glu: bool = False
+             ) -> Params:
     lead = tuple(lead)
-    return {
+    p = {
         "w_in": dense_init(gen, lead + (d_model, d_ff), d_model, dtype),
         "w_out": dense_init(gen, lead + (d_ff, d_model), d_ff, dtype),
     }
+    if glu:
+        p["w_gate"] = dense_init(gen, lead + (d_model, d_ff), d_model, dtype)
+    return p
 
 
-def apply_mlp(p: Params, x):
-    """The classic (non-gated) 2-layer GELU MLP of the paper's GPT."""
-    return gelu(x @ p["w_in"]) @ p["w_out"]
+def apply_mlp(p: Params, x, act: str = "gelu", glu: bool = False):
+    """act(x @ w_gate) * (x @ w_in) @ w_out when gated, else the classic
+    2-layer act(x @ w_in) @ w_out of the paper's GPT."""
+    f = _ACTIVATIONS[act]
+    h = x @ p["w_in"]
+    h = f(x @ p["w_gate"]) * h if glu else f(h)
+    return h @ p["w_out"]
 
 
 # ---------------------------------------------------------------- conv1d

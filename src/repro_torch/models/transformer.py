@@ -4,9 +4,12 @@ with stacked parameters) -> decode caches.
 
 Where JAX scans a segment's stacked parameters, the port loops in Python
 over the layer index (`layer(tree, i)` takes the i-th slice of every
-leaf, as views). The port carries the dense attention block with the
-dense (GELU) MLP, and the attention-free Mamba-2 (`ssm`) block with no
-MLP (training and full-sequence forward; its decode is not ported yet);
+leaf, as views). The port carries the attention block (full or sliding
+window) and the RG-LRU (`rglru`) block, each followed by the dense MLP
+(classic or gated), and the attention-free Mamba-2 (`ssm`) block with no
+MLP; the hybrid pattern of recurrentgemma repeats (rglru, rglru, attn)
+and puts the remainder in a second segment. The rglru and ssm blocks
+have no decode step yet (training and full-sequence forward only);
 configurations needing anything else raise `NotImplementedError`.
 
 Decode steps update their caches IN PLACE (`index_put_` on views of the
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import rglru as rg
 from repro_torch.models.attention import attend, attend_decode
 from repro_torch.models.layers import (apply_mlp, apply_rope, dense_init,
                                        init_mlp, init_norm, rms_norm)
@@ -36,7 +40,7 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class BlockDef:
-    mixer: str                    # "attn" | "ssm" (the mixers ported so far)
+    mixer: str                    # "attn" | "rglru" | "ssm" (ported so far)
     window: int = 0               # sliding window for attn (0 = full)
     mlp: Optional[str] = "dense"  # "dense" | None
 
@@ -50,17 +54,14 @@ class SegmentDef:
 def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
     ssm = cfg.family == "ssm"
     missing = [what for what, needed in (
-        ("rglru mixers", bool(cfg.hybrid_pattern)),
         ("cross attention", bool(cfg.cross_attn_period)
          or cfg.family == "encdec"),
         ("MoE", bool(cfg.moe_num_experts)),
         ("encoder-only models", not cfg.causal),
         ("embedding inputs", cfg.input_kind != "tokens"),
-        ("embedding scaling", cfg.scale_embed),
         ("qkv bias", cfg.qkv_bias and not ssm),
         ("post-block norms", cfg.post_block_norm),
-        # the ssm block has no MLP: its act / mlp_glu fields are unused
-        ("gated MLPs", cfg.mlp_glu and not ssm),
+        # the ssm block has no MLP: its act field is unused
         (f"activation {cfg.act!r}", cfg.act != "gelu" and not ssm))
         if needed]
     if missing:
@@ -68,6 +69,15 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
                                   f"{_NOT_PORTED}")
     if ssm:
         return [SegmentDef((BlockDef("ssm", mlp=None),), cfg.num_layers)]
+    if cfg.hybrid_pattern:
+        pat = tuple(
+            BlockDef("attn", window=cfg.sliding_window) if k == "attn"
+            else BlockDef("rglru") for k in cfg.hybrid_pattern)
+        full, rem = divmod(cfg.num_layers, len(pat))
+        segs = [SegmentDef(pat, full)] if full else []
+        if rem:
+            segs.append(SegmentDef(pat[:rem], 1))
+        return segs
     if cfg.local_global_period:
         p = cfg.local_global_period
         if cfg.num_layers % p:
@@ -134,12 +144,15 @@ def init_block(gen, bdef: BlockDef, cfg: ModelConfig, dtype,
     p: Params = {"norm": init_norm(cfg.d_model, dtype, dev, lead)}
     if bdef.mixer == "attn":
         p["attn"] = _init_attn(gen, cfg, dtype, lead)
+    elif bdef.mixer == "rglru":
+        p["rglru"] = rg.init_rglru(gen, cfg, dtype, lead)
     elif bdef.mixer == "ssm":
         p["ssm"] = m2.init_mamba2(gen, cfg, dtype, lead)
     else:
         raise ValueError(bdef.mixer)
     if bdef.mlp == "dense":
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead,
+                            glu=cfg.mlp_glu)
         p["mlp_norm"] = init_norm(cfg.d_model, dtype, dev, lead)
     return p
 
@@ -168,27 +181,33 @@ def _out_proj(o, wo):
     return o.flatten(-2) @ wo.reshape(H * K, D)
 
 
-def _mixer_and_mlp(p, x, o, cfg: ModelConfig):
-    """x + attention output projection, then the MLP sublayer."""
-    x = x + _out_proj(o, p["attn"]["wo"])
+def _mlp_sublayer(bdef: BlockDef, p, x, cfg: ModelConfig):
+    """x + MLP(rms_norm(x)) after a mixer whose block has a dense MLP."""
+    if bdef.mlp is None:
+        return x
     h = rms_norm(x, p["mlp_norm"]["scale"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h)
+    return x + apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_glu)
 
 
 def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
                 settings: RunSettings, *, positions=None):
     """Full-sequence block. Returns (x, cache entry): (k, v) for an
-    attention block, {"conv", "state"} for an ssm block."""
+    attention block, {"conv", "state"} for an ssm block, {"conv", "h"}
+    for an rglru block."""
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     if bdef.mixer == "ssm":
         mix, cache = m2.apply_mamba2(p["ssm"], h, cfg,
                                      impl=settings.attn_impl)
-        return x + mix, cache
-    q, k, v = _qkv(p["attn"], h, cfg, positions)
-    o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
-               logit_cap=cfg.attn_logit_softcap, chunk=settings.attn_chunk,
-               impl=settings.attn_impl)
-    return _mixer_and_mlp(p, x, o, cfg), (k, v)
+    elif bdef.mixer == "rglru":
+        mix, cache = rg.apply_rglru(p["rglru"], h, cfg,
+                                    impl=settings.attn_impl)
+    else:
+        q, k, v = _qkv(p["attn"], h, cfg, positions)
+        o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
+                   logit_cap=cfg.attn_logit_softcap,
+                   chunk=settings.attn_chunk, impl=settings.attn_impl)
+        mix, cache = _out_proj(o, p["attn"]["wo"]), (k, v)
+    return _mlp_sublayer(bdef, p, x + mix, cfg), cache
 
 
 # ====================================================================
@@ -222,7 +241,7 @@ def apply_block_decode(bdef: BlockDef, p, x1, cache, pos,
         cv[:, s:s + 1] = v.to(cv.dtype)
     o = attend_decode(q, ck, cv, pos, window=bdef.window,
                       logit_cap=cfg.attn_logit_softcap, ring=ring)
-    return _mixer_and_mlp(p, x1, o, cfg)
+    return _mlp_sublayer(bdef, p, x1 + _out_proj(o, p["attn"]["wo"]), cfg)
 
 
 def apply_block_decode_paged(bdef: BlockDef, p, x1, pool, tables, pos,
@@ -255,7 +274,7 @@ def apply_block_decode_paged(bdef: BlockDef, p, x1, pool, tables, pos,
     gv = cv[tables].reshape(B, n_pages * P, *cv.shape[2:])
     o = attend_decode(q, gk, gv, pos, window=bdef.window,
                       logit_cap=cfg.attn_logit_softcap)
-    return _mixer_and_mlp(p, x1, o, cfg)
+    return _mlp_sublayer(bdef, p, x1 + _out_proj(o, p["attn"]["wo"]), cfg)
 
 
 # ====================================================================

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the hand-written CUDA kernels (flash
-attention, SSD scan) against their plain PyTorch versions, the serve path
-through the flash kernel, and training through both kernels. A CUDA
+attention, at head_dim 256 too; SSD scan; RG-LRU scan, both modes) against
+their plain PyTorch versions, the serve path through the flash kernel,
+and training through the kernels. A CUDA
 kernel has no CPU mode, so without a card these skip; on the card run
 `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`. This
 file imports no jax (the card's machine has none)."""
@@ -10,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import MAMBA2_2_7B, SpoolIoConfig
+from repro_torch.configs import (MAMBA2_2_7B, RECURRENTGEMMA_9B,
+                                 SpoolIoConfig)
 from repro_torch.configs.paper_models import small_gpt
 from repro_torch.core.policies import KeepPolicy, SpoolPolicy
 from repro_torch.core.tree import tree_flatten
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import attention_reference
+from repro_torch.kernels.ref import attention_reference, rglru_reference
+from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_fwd,
+                                            rglru_sequential)
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_scan_fwd
 from repro_torch.launch import serve
 from repro_torch.models.api import build_model
@@ -46,6 +50,21 @@ SSD_CASES = [
 SMALL_MAMBA2 = dataclasses.replace(
     MAMBA2_2_7B, num_layers=2, d_model=128, ssm_state_dim=32,
     ssm_head_dim=32, ssm_chunk=32, vocab_size=1024, max_position=256)
+# recurrentgemma cut to both segments (rglru, rglru, attn) + (rglru,
+# rglru), keeping MQA at head_dim 256; S=128 > window 64
+SMALL_HYBRID = dataclasses.replace(
+    RECURRENTGEMMA_9B, num_layers=5, d_model=128, num_heads=2,
+    num_kv_heads=1, head_dim=256, d_ff=256, vocab_size=1024,
+    rglru_width=128, sliding_window=64)
+# recurrentgemma-9b's attention: (B, S, Hq, Hkv, D, causal, window)
+D256_CASES = [(1, 2048, 16, 1, 256, True, 2048),
+              (1, 4096, 16, 1, 256, True, 2048),
+              (1, 100, 4, 1, 256, True, 0)]
+# (B, S, W, log_a uniform depth or None for -|N(0, 0.5)|):
+# tests/test_kernels.py::RGLRU_CASES, the recurrentgemma-9b shape, and
+# log_a down to -20
+RGLRU_CASES = [(1, 64, 16, None), (2, 128, 32, None), (1, 100, 8, None),
+               (1, 2048, 4096, None), (1, 256, 64, 20.0)]
 
 
 @pytest.fixture
@@ -74,6 +93,81 @@ def test_kernel_matches_plain(card, case, dtype, tol):
     want = attention_reference(q.float(), k.float(), v.float(), **kw)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", D256_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 2e-5)])
+def test_flash_head_dim_256_matches_plain(card, case, dtype, tol):
+    """head_dim 256 (two threads per query row in the kernel), MQA, with
+    and without a window that masks, at the attention bars."""
+    B, S, Hq, Hkv, D, causal, window = case
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(card, dtype) for s in ((B, S, Hq, D), (B, S, Hkv, D),
+                                          (B, S, Hkv, D)))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = attention_reference(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+def _rglru_inputs(card, B, S, W, depth, seed=11):
+    rng = np.random.default_rng(seed)
+    la = (-np.abs(rng.normal(size=(B, S, W)) * 0.5) if depth is None
+          else -rng.uniform(0, depth, size=(B, S, W)))
+    x = rng.normal(size=(B, S, W))
+    return (torch.from_numpy(a.astype(np.float32)).to(card) for a in (la, x))
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rglru_kernel_matches_plain(card, case, reverse):
+    """Both modes against the plain recurrence at the JAX bar (1e-5)."""
+    la, x = _rglru_inputs(card, *case)
+    before = rglru_scan.launches
+    h = rglru_scan_fwd(la, x, reverse=reverse)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    want = rglru_sequential(la, x, reverse=reverse)
+    np.testing.assert_allclose(h.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_kernel_grads_match_the_oracle(card):
+    """Forward and backward (the reverse mode) through the Function
+    against autograd of the sequential oracle, at the gradient bar."""
+    la, x = _rglru_inputs(card, 2, 300, 96, 20.0)
+    la.requires_grad_(True)
+    x.requires_grad_(True)
+    g = torch.randn_like(x)
+    before = rglru_scan.launches
+    got = torch.autograd.grad(rglru_scan(la, x), (la, x), g)
+    assert rglru_scan.launches == before + 2
+    want = torch.autograd.grad(rglru_reference(la, x), (la, x), g)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=5e-4, atol=5e-4)
+
+
+def test_rglru_kernel_reads_strides_and_refuses_the_rest(card):
+    """Batch and time strides are read as given (views of a wider
+    tensor); a strided last dimension and other dtypes are refused."""
+    big = torch.randn((2, 64, 3, 40), device=card)
+    big[:, :, 0] = -big[:, :, 0].abs()
+    la, x = big[:, :, 0], big[:, :, 1]
+    assert not la.is_contiguous() and not x.is_contiguous()
+    h = rglru_scan_fwd(la, x)
+    np.testing.assert_allclose(h.cpu().numpy(),
+                               rglru_sequential(la, x).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_fwd(big[..., 0].transpose(1, 2), big[..., 1].transpose(
+            1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan_fwd(la.bfloat16(), x.bfloat16())
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
@@ -162,8 +256,9 @@ def test_flash_attention_carries_gradient(card):
                                    rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("cfg", [small_gpt(128, 2), SMALL_MAMBA2],
-                         ids=["small-gpt", "mamba2"])
+@pytest.mark.parametrize("cfg", [small_gpt(128, 2), SMALL_MAMBA2,
+                                 SMALL_HYBRID],
+                         ids=["small-gpt", "mamba2", "hybrid"])
 def test_loss_and_grads_through_kernels_match_plain(card, cfg):
     """bf16 models: loss and every gradient leaf through the kernels
     (attn_impl="cuda") against the plain paths. They differ by bf16
@@ -182,11 +277,13 @@ def test_loss_and_grads_through_kernels_match_plain(card, cfg):
     for impl in ("cuda", "torch"):
         st = RunSettings(attn_impl=impl, attn_chunk=64,
                          param_dtype=cfg.dtype, device="cuda")
-        before = (flash_attention.launches, ssd_scan.launches)
+        before = (flash_attention.launches, ssd_scan.launches,
+                  rglru_scan.launches)
         loss, _ = api.loss(params, batch, st)
         out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
         if impl == "cuda":
-            assert (flash_attention.launches, ssd_scan.launches) != before
+            assert (flash_attention.launches, ssd_scan.launches,
+                    rglru_scan.launches) != before
     assert abs(out["cuda"][0] - out["torch"][0]) < 2e-2
     for a, b in zip(out["cuda"][1], out["torch"][1]):
         assert bool(torch.isfinite(a).all())
@@ -208,6 +305,34 @@ def test_keep_vs_spool_bitwise_on_card(card, tmp_path):
             before = ssd_scan.launches
             res = s.run(2)
             assert ssd_scan.launches - before == 2 * 2
+            runs[name] = (res.losses, [t.detach().cpu() for t in
+                                       tree_flatten(res.params)[0]],
+                          res.reports)
+    assert runs["keep"][0] == runs["spool"][0]
+    for a, b in zip(runs["keep"][1], runs["spool"][1]):
+        assert torch.equal(a, b)
+    assert all(r.extra["stages_offloaded"] == r.extra["stages_fetched"] == 4
+               for r in runs["spool"][2])
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_hybrid_keep_vs_spool_bitwise_on_card(card, tmp_path):
+    """A small bf16 hybrid trained through the RG-LRU and flash kernels
+    with sgd, kept vs spooled to a directory: losses and params bitwise,
+    the RG-LRU kernel once per rglru block per step each way, every one
+    of the 4 stages stored and fetched."""
+    runs = {}
+    for name, policy, io in (
+            ("keep", KeepPolicy(), None),
+            ("spool", SpoolPolicy(), SpoolIoConfig(
+                backend="fs", directory=str(tmp_path)))):
+        with TrainSession(SMALL_HYBRID, policy=policy, io=io,
+                          optimizer="sgd", batch_size=2, seq_len=128,
+                          device="cuda", min_offload_elements=1024) as s:
+            before = (rglru_scan.launches, flash_attention.launches)
+            res = s.run(2)
+            assert (rglru_scan.launches - before[0],
+                    flash_attention.launches - before[1]) == (2 * 4 * 2, 2)
             runs[name] = (res.losses, [t.detach().cpu() for t in
                                        tree_flatten(res.params)[0]],
                           res.reports)

@@ -1,6 +1,7 @@
-"""The port stands alone: every `repro_torch` module, and the root
-`chip_smoke.py`, import with jax and ml_dtypes blocked and load nothing
-of the JAX package (`repro` / `repro.*`)."""
+"""The port stands alone: every `repro_torch` module (the hybrid's
+config, RG-LRU scan and mixer among them), and the root `chip_smoke.py`,
+import with jax and ml_dtypes blocked and load nothing of the JAX
+package (`repro` / `repro.*`)."""
 import os
 import subprocess
 import sys
@@ -22,6 +23,7 @@ spec = importlib.util.spec_from_file_location(
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 print(len(names), "modules;", "leaked:", bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -36,3 +38,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 20, proc.stdout
     assert "leaked: []" in proc.stdout
+    names = proc.stdout.splitlines()[1].split()
+    for module in ("configs.recurrentgemma_9b", "kernels.rglru_scan",
+                   "models.rglru", "models.layers", "models.transformer"):
+        assert f"repro_torch.{module}" in names, module

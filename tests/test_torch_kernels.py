@@ -146,7 +146,8 @@ def test_attend_decode_matches_jax(pos, window, ring):
 
 
 def test_build_names_one_library_per_source():
-    assert build.sources() == ["flash_attention_fwd", "ssd_scan_fwd"]
+    assert build.sources() == ["flash_attention_fwd", "rglru_scan_fwd",
+                               "ssd_scan_fwd"]
     for name in build.sources():
         path = build.library_path(name)
         assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
