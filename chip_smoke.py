@@ -8,16 +8,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA source of the port, one nvcc per source at once;
+     the tensor-core flash instances must not spill, and the Python
+     mirrors of the launch arithmetic that the CPU tests check must
+     agree with the libraries' own numbers;
   3. kernels: each kernel against its plain PyTorch version on the card
-     (the flash-attention cases of tests/test_kernels.py plus the serve
+     (the flash-attention cases of tests/test_kernels.py in f32, on the
+     FMA kernel, and in bf16, on the tensor-core kernel, plus the serve
      prefill shapes and the recurrentgemma-9b MQA shapes at head_dim 256;
      the SSD-scan cases of tests/test_kernels.py plus the mamba2-2.7b
      training shape with bf16 B/C; the RG-LRU cases of
      tests/test_kernels.py plus the recurrentgemma-9b shape, forward and
      the backward's reverse mode, and log_a down to -20), and, at the
      main paths' shapes, each kernel's time beside the plain version's, a
-     library call's where one exists, and the card's bound; one
-     full-width mamba2 layer and one full-width rglru mixer through the
+     library call's where one exists, and the card's bound (one call per
+     CUDA-event pair, and back to back); one full-width mamba2 layer and one full-width rglru mixer through the
      kernel against the plain path;
   4. serve: the paper's GPT (gpt-h8192-l4, random weights from seed 0)
      through `repro_torch.launch.serve`, paged KV with quantum
@@ -35,11 +39,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
      fetched, the directory empty after close, and the kernel launched
      once per layer per step in each run; one full-width layer through
      the kernel must agree with the plain path;
-  6. policy matrix at a depth-8 cut: Recompute, Adaptive, the mem
-     backend and the zlib codec, each bitwise equal to Keep; every spool
-     and adaptive run reads blobs back (the zlib run waits for its layer
-     stores before backward, so every layer goes through the codec both
-     ways on the card);
+  6. policy matrix at a depth-8 cut: Recompute, Adaptive on fs and on
+     mem, the mem backend and the zlib codec, each bitwise equal to
+     Keep; every spool run reads blobs back (the zlib run waits for its
+     layer stores before backward, so every layer goes through the codec
+     both ways on the card); each adaptive plan is the one the paper's
+     rule gives for the profiled stages and the calibrated write rate,
+     and its steps read blobs back where it stores bytes;
   7. train: recurrentgemma-9b at full width (38 layers: 12 super-layers
      of rglru, rglru, local attention and a remainder of two rglru
      blocks; random weights from seed 0) through `TrainSession`, sgd
@@ -93,7 +99,12 @@ ATTN_CASES = [
     (1, 96, 96, 2, 2, 32, True, 0, 0.0),
     (1, 16, 16, 2, 2, 128, True, 0, 0.0),
 ]
-TOL_F32, TOL_BF16 = 2e-5, 3e-2
+TOL_F32 = 2e-5
+# bf16 attention against the f32 reference, per row: 2^-6 of the row's
+# largest |output|. The output's own bf16 rounding is at most 2^-8 of it,
+# and the tensor-core kernel's bf16 P adds about as much again (the
+# source's header note); a mask a few keys off, or a coarser P, breaks it
+TOL_BF16_ROW = 2 ** -6
 # full-width prefill logits, kernel vs plain attention path: both bf16
 # models, so they differ by bf16 roundings of the attention output that
 # propagate through 4 layers (4 bf16 ulps at |logit| ~ 8)
@@ -125,8 +136,8 @@ TOL_RGLRU = 1e-5
 # causal, window, dtype, tol); the path's shape (window 2048 masks
 # nothing at S=2048), a window that masks at S=4096, and an f32 case
 FLASH_D256_CASES = [
-    (1, 2048, 16, 1, 256, True, 2048, torch.bfloat16, TOL_BF16),
-    (1, 4096, 16, 1, 256, True, 2048, torch.bfloat16, TOL_BF16),
+    (1, 2048, 16, 1, 256, True, 2048, torch.bfloat16, TOL_BF16_ROW),
+    (1, 4096, 16, 1, 256, True, 2048, torch.bfloat16, TOL_BF16_ROW),
     (1, 512, 16, 1, 256, True, 128, torch.float32, TOL_F32),
 ]
 RG_ARCH, RG_SEQ, RG_LR, RG_CLIP = "recurrentgemma-9b", 2048, 3e-4, 1.0
@@ -156,7 +167,8 @@ def peaks_for(name):
 
 
 def time_ms(fn, runs=30, warmup=3):
-    """Median over `runs` of one call timed with CUDA events."""
+    """Median over `runs` of one call timed with CUDA events (the host's
+    launch overhead included)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -169,6 +181,41 @@ def time_ms(fn, runs=30, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_back_to_back_ms(fn, runs=30, batch=10):
+    """Median over `runs` CUDA-event pairs, each around `batch` calls back
+    to back, divided by the batch: the host enqueues ahead of the card, so
+    its launch overhead hides behind the card's work, as on the main
+    paths. A second yardstick beside `time_ms`, never mixed with it."""
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(runs):
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / batch)
+    return statistics.median(times)
+
+
+def attn_error(out, want, tol):
+    """(max abs error, max error relative to its row's largest |output|,
+    within the bar) of attention `out` against the f32 reference `want`:
+    f32 at `tol` abs + rel per element, bf16 at `tol` of each row's
+    largest |output| (TOL_BF16_ROW)."""
+    d = (out.float() - want).abs()
+    rowmax = want.abs().amax(dim=-1, keepdim=True)
+    if out.dtype == torch.float32:
+        ok = bool(torch.all(d <= tol + tol * want.abs()))
+    else:
+        ok = bool(torch.all(d <= tol * rowmax))
+    rel = (d / rowmax.clamp_min(1e-30)).max().item()
+    return d.max().item(), rel, ok and math.isfinite(d.max().item())
 
 
 def mount_of(path):
@@ -186,22 +233,79 @@ def mount_of(path):
 
 def ptxas_report(log):
     """One line per kernel instance from `nvcc -Xptxas -v` output: its
-    name with the template arguments of the mangled name (D=256 bf16
-    reads `attn_fwd_kernel<256,bf16>`, the RG-LRU reverse mode
-    `rglru_scan_kernel<true>`), then registers and spills."""
+    name with the template arguments of the mangled name (D=256 on the
+    tensor cores reads `attn_fwd_mma_kernel<256>`, the RG-LRU reverse mode
+    `rglru_scan_kernel<true>`, an SSD pass on bf16 B/C
+    `ssd_states_kernel<bf16>`), then registers and spills."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"\d([a-z][a-z_]*kernel)I(\w+?)EE+v", line)
+        m = re.search(r"\d([a-z][a-z_]*kernel)(?:I(\w+?)E)?E", line)
         if "Compiling entry" in line and m:
-            args = m.group(2).replace("Lb0", "false,").replace("Lb1", "true,")
-            args = re.sub(r"Li(\d+)E", r"\1,", args)
+            args = (m.group(2) or "").replace("Lb0", "false,")
+            args = args.replace("Lb1", "true,")
+            args = re.sub(r"Li(\d+)E?", r"\1,", args)
             args = args.replace("13__nv_bfloat16", "bf16").rstrip(",")
-            name = f"{m.group(1)}<{re.sub(r'(^|,)f$', r'\1f32', args)}>"
+            args = re.sub(r"(^|,)f$", r"\1f32", args)
+            name = f"{m.group(1)}<{args}>" if args else m.group(1)
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
     return out
+
+
+def mirror_check():
+    """The Python mirrors of the launch arithmetic that the CPU tests
+    check (`flash_plan`, `kv_tiles`, `warp_live`, `ssd_plan`) against the
+    built libraries' own numbers: every flash instance's constants, the
+    kv tiles of every q tile and the live tiles of every warp at the
+    attention cases and the path shapes, and the SSD passes at the SSD
+    cases and the training shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    shapes = ATTN_CASES + [(1, S, S, 64, 64, 128, True, 0, 0.0)
+                           for S in (1024, 1000)]
+    shapes += [(B, S, S, Hq, Hkv, D, causal, window, 0.0) for
+               B, S, Hq, Hkv, D, causal, window, _, _ in FLASH_D256_CASES]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in fa.HEAD_DIMS:
+            plan = fa.flash_plan(D, dtype)
+            check(plan == fa.library_plan(D, dtype), f"flash_plan({D}, "
+                  f"{dtype}) {plan} is not the library's "
+                  f"{fa.library_plan(D, dtype)}")
+            n += 1
+        for B, Sq, Skv, Hq, Hkv, D, causal, window, _ in shapes:
+            plan = fa.flash_plan(D, dtype)
+            bq, bk = plan["bq"], plan["bk"]
+            for q0 in range(0, Sq, bq):
+                tiles = fa.kv_tiles(q0, bq, bk, Sq, Skv, causal, window)
+                check(tiles == fa.library_kv_tiles(D, dtype, q0, Sq, Skv,
+                                                   causal, window),
+                      f"kv_tiles differs from the library at D={D} "
+                      f"{dtype} Sq={Sq} q0={q0}")
+                n += 1
+                if dtype != torch.bfloat16:
+                    continue
+                for t in tiles:
+                    for r_lo in range(q0, q0 + bq, 16):
+                        check(fa.warp_live(t * bk, r_lo, bk, Sq, causal,
+                                           window)
+                              == fa.library_warp_live(D, t * bk, r_lo, Sq,
+                                                      causal, window),
+                              f"warp_live differs from the library at D={D}"
+                              f" Sq={Sq} tile {t} rows {r_lo}")
+                        n += 1
+    for B, S, H, P, N, chunk in SSD_CASES + [(1, TRAIN_SEQ, 80, 64, 128,
+                                              128)]:
+        Q = ssd.pick_chunk(S, chunk)
+        mine = ssd.ssd_plan(B, S, H, P, N, Q)["passes"]
+        check(mine == ssd.library_plan(B, S, H, P, N, Q),
+              f"ssd_plan {mine} is not the library's "
+              f"{ssd.library_plan(B, S, H, P, N, Q)}")
+        n += 1
+    print(f"  launch arithmetic: the Python mirrors agree with the "
+          f"libraries in {n} checks")
 
 
 def unmasked_pairs(Sq, Skv, causal, window):
@@ -251,7 +355,9 @@ def ssd_bound_ms(xh, dA_log, B_s, C_s, chunk, peaks):
 
 def ssd_phase(gen, peaks, smi):
     """The SSD-scan kernel against its plain version; its time at the
-    training shape. Returns (worst error, kernel_ms, plain_ms, bound)."""
+    training shape. Returns (worst error of the cases at the 2e-4 bar,
+    the training shape's error relative to its output scale, kernel_ms,
+    plain_ms, bound, back-to-back kernel ms)."""
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_fwd
 
     def rand(shape, scale=1.0):
@@ -291,12 +397,15 @@ def ssd_phase(gen, peaks, smi):
     check(ok, "ssd_scan disagrees with its plain version at the training "
           "shape")
     kernel_ms = time_ms(lambda: ssd_scan_fwd(xh, a, Bs, Cs, chunk=128))
+    b2b_ms = time_back_to_back_ms(lambda: ssd_scan_fwd(xh, a, Bs, Cs,
+                                                       chunk=128))
     plain_ms = time_ms(lambda: ssd_chunked(xh, a, Bs, Cs, 128))
     b_ms, b_by = ssd_bound_ms(xh, a, Bs, Cs, 128, peaks)
-    print(f"  ssd_scan training shape: kernel_ms {kernel_ms:.4f} plain_ms "
-          f"{plain_ms:.4f} library_ms none (no single PyTorch call computes "
-          f"the SSD scan) bound_us {1e3 * b_ms:.1f} ({b_by}) on {smi}")
-    return max(worst, err), kernel_ms, plain_ms, (b_ms, b_by)
+    print(f"  ssd_scan training shape: kernel_ms {kernel_ms:.4f} "
+          f"(back-to-back {b2b_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+          f"none (no single PyTorch call computes the SSD scan) bound_us "
+          f"{1e3 * b_ms:.1f} ({b_by}) on {smi}")
+    return worst, err / scale, kernel_ms, plain_ms, (b_ms, b_by), b2b_ms
 
 
 def rglru_bound_ms(log_a, x, peaks):
@@ -315,7 +424,7 @@ def rglru_phase(gen, peaks, smi):
     """The RG-LRU kernel against its plain version, both modes (forward,
     and the reverse recurrence its backward runs); its time at the
     recurrentgemma-9b shape. Returns (worst error, kernel_ms, plain_ms,
-    bound)."""
+    bound, back-to-back kernel ms)."""
     from repro_torch.kernels.rglru_scan import (rglru_scan_fwd,
                                                 rglru_sequential)
 
@@ -348,20 +457,21 @@ def rglru_phase(gen, peaks, smi):
     la = -(rand((1, RG_SEQ, 4096)) * 0.5).abs()
     x = rand((1, RG_SEQ, 4096))
     kernel_ms = time_ms(lambda: rglru_scan_fwd(la, x))
+    b2b_ms = time_back_to_back_ms(lambda: rglru_scan_fwd(la, x))
     plain_ms = time_ms(lambda: rglru_sequential(la, x))
     b_ms, b_by = rglru_bound_ms(la, x, peaks)
     print(f"  rglru_scan recurrentgemma-9b shape B=1 S={RG_SEQ} W=4096 f32: "
-          f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-          f"none (no single PyTorch call computes this scan) bound_us "
-          f"{1e3 * b_ms:.1f} ({b_by}) on {smi}")
-    return worst, kernel_ms, plain_ms, (b_ms, b_by)
+          f"kernel_ms {kernel_ms:.4f} (back-to-back {b2b_ms:.4f}) plain_ms "
+          f"{plain_ms:.4f} library_ms none (no single PyTorch call computes "
+          f"this scan) bound_us {1e3 * b_ms:.1f} ({b_by}) on {smi}")
+    return worst, kernel_ms, plain_ms, (b_ms, b_by), b2b_ms
 
 
 def flash_d256_phase(gen, peaks, smi):
     """The flash kernel at recurrentgemma-9b's MQA head_dim 256 against
     the plain attention; at the path's shape its time beside the bound
     and scaled_dot_product_attention's. Returns (worst bf16 error,
-    kernel_ms, plain_ms, library_ms, bound)."""
+    kernel_ms, plain_ms, library_ms, bound, back-to-back kernel ms)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_reference
     worst, path = 0.0, None
@@ -373,14 +483,14 @@ def flash_d256_phase(gen, peaks, smi):
         torch.cuda.synchronize()
         want = attention_reference(q.float(), k.float(), v.float(),
                                    causal=causal, window=window)
-        err = (out.float() - want).abs().max().item()
-        ok = bool(torch.all((out.float() - want).abs()
-                            <= tol + tol * want.abs()))
+        err, rel, ok = attn_error(out, want, tol)
         print(f"  flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
               f"causal={causal} window={window} {str(dtype)[6:]}: "
-              f"max_abs_err {err:.3e} tol {tol:g} {'ok' if ok else 'FAIL'}")
-        check(ok and math.isfinite(err), "flash_attention disagrees with "
-              "its plain version at head_dim 256")
+              f"max_abs_err {err:.3e} row_rel_err {rel:.3e} tol {tol:g}"
+              f"{' of the row max' if dtype == torch.bfloat16 else ''} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, "flash_attention disagrees with its plain version at "
+              "head_dim 256")
         if dtype == torch.bfloat16:
             worst = max(worst, err)
         if path is None:
@@ -388,6 +498,8 @@ def flash_d256_phase(gen, peaks, smi):
     q, k, v, window = path
     kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
                                                 window=window))
+    b2b_ms = time_back_to_back_ms(lambda: flash_attention(
+        q, k, v, causal=True, window=window))
     plain_ms = time_ms(lambda: attention_reference(q, k, v, causal=True,
                                                    window=window))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -399,11 +511,11 @@ def flash_d256_phase(gen, peaks, smi):
     B, S, Hq, D = q.shape
     print(f"  recurrentgemma-9b shape B={B} S={S} Hq={Hq} Hkv={k.shape[2]} "
           f"D={D} causal window {window} bf16: kernel_ms {kernel_ms:.4f} "
-          f"plain_ms "
+          f"(back-to-back {b2b_ms:.4f}) plain_ms "
           f"{plain_ms:.4f} library_ms {library_ms:.4f} "
           f"(scaled_dot_product_attention, yardstick only) bound_us "
           f"{1e3 * b_ms:.1f} ({b_by}) on {smi}")
-    return worst, kernel_ms, plain_ms, library_ms, (b_ms, b_by)
+    return worst, kernel_ms, plain_ms, library_ms, (b_ms, b_by), b2b_ms
 
 
 def rg_layer_check(gen):
@@ -623,6 +735,51 @@ def rg_train_phase(smi):
          "ssd_scan": 0}, smi)
 
 
+def adaptive_check(label, policy, reps):
+    """The adaptive plan against the paper's rule (§3.3.3), worked here
+    from the profiled stages and the calibrated write rate: offloading
+    stages 0..m needs (bytes of 0..m-1 + 2 x bytes of m) / (forward time
+    of 1..m + (1 + bwd_factor) x forward time of m+1..) within the rate,
+    and the plan takes the largest such m short of the last stage. The
+    profiling step offloads every stage and reads blobs back. A planned
+    step reads blobs back where it stores bytes, and it does store bytes
+    where its plan holds a layer stage (the embed stage's saved token ids
+    fall under the spool's size filter)."""
+    prof, bw, plan = policy.profiles, policy.bandwidths, policy.plan
+    nbytes = [p.bytes for p in prof]
+    fwd = [p.fwd_time for p in prof]
+
+    def need(m):
+        deadline = sum(fwd[1:m + 1]) + (1 + policy.bwd_factor) * sum(
+            fwd[m + 1:])
+        nb = sum(nbytes[:m]) + 2 * nbytes[m]
+        return nb / deadline if deadline > 0 else float("inf")
+
+    want = max((m for m in range(len(prof) - 1) if need(m) <= bw),
+               default=-1)
+    m = plan.last_offloaded
+    print(f"  d{MATRIX_DEPTH} {label}: calibrated write rate "
+          f"{bw / 1e9:.3f} GB/s, profiled forward {sum(fwd):.4f} s over "
+          f"{len(prof)} stages; plan 0..{m} needs "
+          f"{plan.required_bw / 1e9:.3f} GB/s"
+          + (f", 0..{m + 1} would need {need(m + 1) / 1e9:.3f} GB/s"
+             if m + 1 < len(prof) - 1 else "")
+          + f"; planned steps store "
+          f"{[r.stats.bytes_offloaded for r in reps[1:]]} bytes")
+    check(m == want and plan.offload == [i <= want
+                                         for i in range(len(prof))],
+          f"{label}: plan 0..{m}, the rule gives 0..{want}")
+    check(reps[0].stats.bytes_loaded > 0,
+          f"{label}: the profiling step read nothing back")
+    for r in reps[1:]:
+        if m >= 1:
+            check(r.stats.bytes_offloaded > 0,
+                  f"{label}: a plan with layer stages stored nothing")
+        if r.stats.bytes_offloaded > 0:
+            check(r.stats.bytes_loaded > 0,
+                  f"{label}: a planned step read nothing back")
+
+
 def matrix_phase():
     """Depth-cut policy matrix: every run bitwise equal to keep, and
     every run that offloads reads blobs back."""
@@ -634,9 +791,15 @@ def matrix_phase():
     deterministic()
     lk, pk, _, _, _, _ = train_run(cfg, KeepPolicy(), None,
                                    f"d{MATRIX_DEPTH} keep")
+    # Adaptive plans the offloaded prefix from the profiled forward time
+    # and the backend's calibrated write rate, so on a slow directory the
+    # plan may hold no layer stage: it is held to its own arithmetic
+    # (adaptive_check) and must read blobs back where it stores bytes
     runs = [("recompute", RecomputePolicy(), None, 2),
             ("adaptive fs raw", AdaptivePolicy(),
              SpoolIoConfig(backend="fs", codec="raw"), 1),
+            ("adaptive mem raw", AdaptivePolicy(),
+             SpoolIoConfig(backend="mem", codec="raw"), 1),
             ("spool mem raw", SpoolPolicy(),
              SpoolIoConfig(backend="mem", codec="raw"), 1),
             ("spool fs zlib", drained_spool_policy(),
@@ -654,7 +817,9 @@ def matrix_phase():
         check(same, f"{label}: parameters differ from keep")
         check(n == fwd_per_layer * MATRIX_DEPTH * TRAIN_STEPS,
               f"{label}: {n} ssd_scan launches")
-        if label != "recompute":
+        if label.startswith("adaptive"):
+            adaptive_check(label, policy, reps)
+        elif label != "recompute":
             check(all(r.stats.bytes_loaded > 0 for r in reps),
                   f"{label}: a step read nothing back from the spool")
         if "zlib" in label:
@@ -673,6 +838,7 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_reference
+    from repro_torch.kernels.ssd_scan import KERNELS_PER_CALL
     from repro_torch.launch import serve
     from repro_torch.models.transformer import RunSettings
 
@@ -696,6 +862,10 @@ def main():
     for src in libs:
         for line in ptxas_report(build.build_log(src)):
             print(f"  ptxas {src}: {line}")
+            if line.startswith("attn_fwd_mma_kernel"):
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"a tensor-core flash instance spills: {line}")
+    mirror_check()
 
     # ---- 3. kernel vs plain version
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -704,11 +874,10 @@ def main():
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     cases = [(c, torch.float32, TOL_F32) for c in ATTN_CASES]
-    cases.append(((2, 64, 64, 4, 2, 32, True, 0, 0.0), torch.bfloat16,
-                  TOL_BF16))
+    cases += [(c, torch.bfloat16, TOL_BF16_ROW) for c in ATTN_CASES]
     cases += [((1, S, S, 64, 64, 128, True, 0, 0.0), torch.bfloat16,
-               TOL_BF16) for S in (1024, 1000)]
-    worst = 0.0
+               TOL_BF16_ROW) for S in (1024, 1000)]
+    worst = worst_rel = 0.0
     serve_inputs = None
     for (B, Sq, Skv, Hq, Hkv, D, causal, window, cap), dtype, tol in cases:
         q, k, v = (rand((B, Sq, Hq, D), dtype), rand((B, Skv, Hkv, D), dtype),
@@ -719,21 +888,23 @@ def main():
         want = attention_reference(q.float(), k.float(), v.float(),
                                    causal=causal, window=window,
                                    logit_cap=cap)
-        err = (out.float() - want).abs().max().item()
-        ok = bool(torch.all((out.float() - want).abs()
-                            <= tol + tol * want.abs()))
+        err, rel, ok = attn_error(out, want, tol)
         print(f"  flash_attention B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} "
               f"D={D} causal={causal} window={window} cap={cap} "
-              f"{str(dtype)[6:]}: max_abs_err {err:.3e} tol {tol:g} "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e} row_rel_err "
+              f"{rel:.3e} tol {tol:g}"
+              f"{' of the row max' if dtype == torch.bfloat16 else ''} "
               f"{'ok' if ok else 'FAIL'}")
-        check(ok and math.isfinite(err), "flash_attention disagrees with "
-              "its plain version")
-        if tol == TOL_BF16:
+        check(ok, "flash_attention disagrees with its plain version")
+        if dtype == torch.bfloat16:
             worst = max(worst, err)
+            worst_rel = max(worst_rel, rel)
         if Sq == 1024:
             serve_inputs = (q, k, v)
     q, k, v = serve_inputs
     kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    b2b_ms = time_back_to_back_ms(lambda: flash_attention(q, k, v,
+                                                          causal=True))
     plain_ms = time_ms(lambda: attention_reference(q, k, v, causal=True))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = time_ms(lambda: torch.nn.functional.
@@ -741,14 +912,15 @@ def main():
                                                       is_causal=True))
     b_ms, b_by = bound_ms(q, k, v, True, 0, peaks)
     print(f"  serve shape B=1 S=1024 H=64 D=128 causal bf16: kernel_ms "
-          f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-          f"{library_ms:.4f} (scaled_dot_product_attention, yardstick only) "
+          f"{kernel_ms:.4f} (back-to-back {b2b_ms:.4f}) plain_ms "
+          f"{plain_ms:.4f} library_ms {library_ms:.4f} "
+          f"(scaled_dot_product_attention, yardstick only) "
           f"bound_us {1e3 * b_ms:.1f} ({b_by}) on {smi}")
 
-    ssd_err, ssd_ms, ssd_plain_ms, (ssd_b_ms, ssd_b_by) = ssd_phase(
-        gen, peaks, smi)
+    (ssd_err, ssd_rel, ssd_ms, ssd_plain_ms, (ssd_b_ms, ssd_b_by),
+     ssd_b2b_ms) = ssd_phase(gen, peaks, smi)
     layer_check(gen)
-    rg_err, rg_ms, rg_plain_ms, (rg_b_ms, rg_b_by) = rglru_phase(
+    rg_err, rg_ms, rg_plain_ms, (rg_b_ms, rg_b_by), rg_b2b_ms = rglru_phase(
         gen, peaks, smi)
     d256 = flash_d256_phase(gen, peaks, smi)
     rg_layer_check(gen)
@@ -857,22 +1029,31 @@ def main():
         "launches_per_serve_run": launches,
         "max_abs_err": worst,
         "max_err": worst,
-        "tol": TOL_BF16,
+        # bf16 cases: error over the largest |output| of its row
+        "max_row_rel_err": worst_rel,
+        "tol": TOL_BF16_ROW,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "ms_back_to_back": b2b_ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_us": 1e3 * b_ms,
         "bound_by": b_by,
         "library_ms": library_ms,
+        "redesigned": 14,
+        "ms_over_library_ms": kernel_ms / library_ms,
+        "bound_over_ms": b_ms / kernel_ms,
         # recurrentgemma-9b training: MQA at head_dim 256, window 2048
         "launches_per_train_run": rg_launches["flash_attention"],
         "d256_max_abs_err": d256[0],
         "d256_ms": d256[1],
+        "d256_ms_back_to_back": d256[5],
         "d256_plain_ms": d256[2],
         "d256_library_ms": d256[3],
         "d256_bound_ms": d256[4][0],
         "d256_bound_by": d256[4][1],
+        "d256_ms_over_library_ms": d256[1] / d256[3],
+        "d256_bound_over_ms": d256[4][0] / d256[1],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -884,13 +1065,21 @@ def main():
         "max_abs_err": ssd_err,
         "max_err": ssd_err,
         "tol": TOL_SSD,
+        # the training shape, relative to its output's scale
+        "path_rel_err": ssd_rel,
+        "path_tol_rel": TOL_SSD_PATH,
         "ms": ssd_ms,
         "kernel_ms": ssd_ms,
+        "ms_back_to_back": ssd_b2b_ms,
         "plain_ms": ssd_plain_ms,
         "bound_ms": ssd_b_ms,
         "bound_us": 1e3 * ssd_b_ms,
         "bound_by": ssd_b_by,
         "library_ms": None,
+        "redesigned": 14,
+        "ms_over_library_ms": None,
+        "bound_over_ms": ssd_b_ms / ssd_ms,
+        "kernels_per_call": KERNELS_PER_CALL,
     }, {
         "name": "rglru_scan",
         "route": "cuda",
@@ -904,6 +1093,7 @@ def main():
         "tol": TOL_RGLRU,
         "ms": rg_ms,
         "kernel_ms": rg_ms,
+        "ms_back_to_back": rg_b2b_ms,
         "plain_ms": rg_plain_ms,
         "bound_ms": rg_b_ms,
         "bound_us": 1e3 * rg_b_ms,

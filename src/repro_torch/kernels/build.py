@@ -23,6 +23,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block may use
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -11,7 +11,10 @@ per chunk of Q steps, with la = cumsum(dA_log) inside the chunk,
 
 carrying an f32 (P, N) state from chunk to chunk; the chunk is halved
 until it divides S. The source's header says what bounds it and what
-its design does.
+its design does: four chunk-parallel passes (`KERNELS_PER_CALL`) with
+f32 scratch allocated here; `ssd_plan` mirrors their grids, shared
+memory and scratch shapes for the CPU tests, and the card checks hold it
+against `library_plan`, the built library's own numbers.
 
 `ssd_scan` is a `torch.autograd.Function` mirroring the JAX package's
 `kernels/ops.py::ssd_scan`: forward runs the kernel (a CPU tensor runs
@@ -19,7 +22,8 @@ the plain version), saves only (xh, dA_log, B_s, C_s), and backward is
 the VJP of the plain chunked version recomputed under `enable_grad`.
 (The JAX package differentiates the sequential `ssd_reference`; the
 chunked form is the same function without a per-step saved state.)
-`ssd_scan.launches` counts kernel launches and nothing else.
+`ssd_scan.launches` counts calls of the kernel path (each launching
+`KERNELS_PER_CALL` CUDA kernels) and nothing else.
 """
 from __future__ import annotations
 
@@ -28,12 +32,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import SMEM_LIMIT
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-MAX_CHUNK = 128               # rows of the kernel's per-thread G tiling
-PB = 16                       # head-dim columns per block (csrc PB)
-SMEM_LIMIT = 232448           # bytes of shared memory a Hopper block may use
+# csrc constants: threads per block, chunk rows a tile holds (the largest
+# chunk), head-dim columns per block of passes 2 and 4, state columns per
+# tile, G rows per pass-1 block
+THREADS, MAX_CHUNK, PT, NT, GS = 256, 128, 64, 128, 32
+KERNELS_PER_CALL = 4          # gram, states, state pass, chunk scan
 
 
 def pick_chunk(S: int, chunk: int) -> int:
@@ -104,18 +111,50 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan_fwd")
     fn = lib.repro_ssd_scan_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _LL, _LL, _LL, _LL, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _I, _LL, _LL, _LL, _LL, _P]
         fn.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(Q: int, N: int) -> int:
-    """Dynamic shared memory of one block (csrc layout: B and C tiles and
-    the state slice with rows padded to N+1, the masked G tile with rows
-    padded to Q+1, the x slice, la and the decay-to-end vector)."""
-    return 4 * (2 * Q * (N + 1) + Q * (Q + 1) + Q * PB + PB * (N + 1)
-                + 2 * Q)
+def ssd_plan(B: int, S: int, H: int, P: int, N: int, Q: int) -> dict:
+    """The launch plan of one call for chunk Q (csrc `launch`): per pass,
+    in launch order, its grid (x, y, z) (the gram pass's y: Q/GS strips of
+    G, then blocks of 8 heads' cumsums), threads and dynamic shared memory
+    in bytes (float32 tiles; transposed tiles have rows of MAX_CHUNK + 4
+    or PT + 4 floats), and the scratch shapes (all float32)."""
+    nc = S // Q
+    pb, nb = -(-P // PT), -(-N // NT)
+    qld, sld = MAX_CHUNK + 4, PT + 4
+    scan = MAX_CHUNK + max(NT * qld + NT * sld, MAX_CHUNK * qld
+                           + MAX_CHUNK * PT)
+    return {
+        "passes": {
+            "gram": dict(grid=(B * nc, -(-Q // GS) + -(-H // (THREADS // 32)),
+                               1), threads=THREADS,
+                         smem=4 * (GS * NT + NT * qld)),
+            "states": dict(grid=(B * nc * H, pb, nb), threads=THREADS,
+                           smem=4 * (MAX_CHUNK * PT + MAX_CHUNK * NT
+                                     + MAX_CHUNK)),
+            "state_pass": dict(grid=(-(-P * N // THREADS), B * H, 1),
+                               threads=THREADS, smem=0),
+            "chunk_scan": dict(grid=(B * nc * H, pb, 1), threads=THREADS,
+                               smem=4 * scan),
+        },
+        "scratch": {"G": (B, nc, Q, Q), "La": (B, nc, H, Q),
+                    "states": (B, nc, H, P, N)},
+    }
+
+
+def library_plan(B: int, S: int, H: int, P: int, N: int, Q: int) -> dict:
+    """`ssd_plan`'s passes as the built library launches them."""
+    out = (ctypes.c_longlong * (5 * KERNELS_PER_CALL))()
+    if _lib().repro_ssd_scan_plan(B, S, H, P, N, Q, out):
+        raise ValueError(f"the kernel refuses S={S} Q={Q}")
+    names = ("gram", "states", "state_pass", "chunk_scan")
+    return {name: dict(grid=tuple(out[5 * i:5 * i + 3]),
+                       threads=out[5 * i + 3], smem=out[5 * i + 4])
+            for i, name in enumerate(names)}
 
 
 def _check(xh, dA_log, B_s, C_s):
@@ -133,19 +172,10 @@ def _check(xh, dA_log, B_s, C_s):
         raise ValueError("ssd_scan inputs must be on one device")
 
 
-def ssd_scan_fwd(xh, dA_log, B_s, C_s, *, chunk: int = 128):
-    """Forward only. CPU tensors run `ssd_chunked`; CUDA tensors launch
-    the kernel or raise. On the card: xh and dA_log float32 and
-    contiguous, B_s and C_s float32 or bfloat16 (one for both) with a
-    contiguous last dimension (other strides are free), chunk <= 128 and
-    the block's shared memory within the card's limit. Outputs are
-    allocated here; the kernel runs on the current stream."""
+def check_kernel_inputs(xh, dA_log, B_s, C_s, chunk: int):
+    """Raise ValueError on what the kernel does not take (metadata only,
+    so it also runs on CPU tensors); else return (the chunk, the plan)."""
     _check(xh, dA_log, B_s, C_s)
-    if xh.device.type == "cpu":
-        return ssd_chunked(xh, dA_log, B_s, C_s, chunk)
-    if xh.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
-                         f"{xh.device.type}")
     B, S, H, P = xh.shape
     N = B_s.shape[-1]
     Q = pick_chunk(S, chunk)
@@ -160,22 +190,47 @@ def ssd_scan_fwd(xh, dA_log, B_s, C_s, *, chunk: int = 128):
     if B_s.stride(2) != 1 or C_s.stride(2) != 1:
         raise ValueError("the last dimension of B_s and C_s must be "
                          "contiguous")
-    if Q > MAX_CHUNK or smem_bytes(Q, N) > SMEM_LIMIT:
+    plan = ssd_plan(B, S, H, P, N, Q)
+    smem = max(p["smem"] for p in plan["passes"].values())
+    if Q > MAX_CHUNK or smem > SMEM_LIMIT:
         raise ValueError(f"chunk {Q} with state dim {N} does not fit the "
-                         f"kernel (chunk <= {MAX_CHUNK}, "
-                         f"{smem_bytes(Q, N)} > {SMEM_LIMIT} bytes of "
-                         "shared memory)")
-    if B * H * ((P + PB - 1) // PB) > 2 ** 31 - 1:
+                         f"kernel (chunk <= {MAX_CHUNK}, {smem} bytes of "
+                         f"shared memory <= {SMEM_LIMIT})")
+    if any(g[0] > 2 ** 31 - 1 or max(g[1:]) > 65535
+           for g in (p["grid"] for p in plan["passes"].values())):
         raise ValueError("grid too large")
-    y = torch.empty((B, S, H, P), dtype=torch.float32, device=xh.device)
-    st = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
+    return Q, plan
+
+
+def ssd_scan_fwd(xh, dA_log, B_s, C_s, *, chunk: int = 128):
+    """Forward only. CPU tensors run `ssd_chunked`; CUDA tensors launch
+    the kernel or raise. On the card: xh and dA_log float32 and
+    contiguous, B_s and C_s float32 or bfloat16 (one for both) with a
+    contiguous last dimension (other strides are free), chunk <= 128 and
+    each pass's shared memory within the card's limit. Outputs and
+    scratch are allocated here; the passes run on the current stream."""
+    _check(xh, dA_log, B_s, C_s)
+    if xh.device.type == "cpu":
+        return ssd_chunked(xh, dA_log, B_s, C_s, chunk)
+    if xh.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
+                         f"{xh.device.type}")
+    B, S, H, P = xh.shape
+    N = B_s.shape[-1]
+    Q, plan = check_kernel_inputs(xh, dA_log, B_s, C_s, chunk)
+    f32 = dict(dtype=torch.float32, device=xh.device)
+    y = torch.empty((B, S, H, P), **f32)
+    st = torch.empty((B, H, P, N), **f32)
+    G, La, sc = (torch.empty(shape, **f32)
+                 for shape in plan["scratch"].values())
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream(xh.device).cuda_stream
         err = _lib().repro_ssd_scan_fwd(
             xh.data_ptr(), dA_log.data_ptr(), B_s.data_ptr(),
-            C_s.data_ptr(), y.data_ptr(), st.data_ptr(), _DTYPES[B_s.dtype],
-            B, S, H, P, N, Q, B_s.stride(0), B_s.stride(1), C_s.stride(0),
-            C_s.stride(1), stream)
+            C_s.data_ptr(), y.data_ptr(), st.data_ptr(), G.data_ptr(),
+            La.data_ptr(), sc.data_ptr(), _DTYPES[B_s.dtype], B, S, H, P, N,
+            Q, B_s.stride(0), B_s.stride(1), C_s.stride(0), C_s.stride(1),
+            stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_fwd launch failed: cudaError_t {err}")
     ssd_scan.launches += 1
