@@ -8,21 +8,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA source of the port, one nvcc per source at once;
-     the tensor-core flash instances must not spill, and the Python
-     mirrors of the launch arithmetic that the CPU tests check must
-     agree with the libraries' own numbers;
+     the tensor-core flash instances and every RG-LRU instance must not
+     spill, and the Python mirrors of the launch arithmetic that the CPU
+     tests check must agree with the libraries' own numbers;
   3. kernels: each kernel against its plain PyTorch version on the card
      (the flash-attention cases of tests/test_kernels.py in f32, on the
      FMA kernel, and in bf16, on the tensor-core kernel, plus the serve
      prefill shapes and the recurrentgemma-9b MQA shapes at head_dim 256;
      the SSD-scan cases of tests/test_kernels.py plus the mamba2-2.7b
      training shape with bf16 B/C; the RG-LRU cases of
-     tests/test_kernels.py plus the recurrentgemma-9b shape, forward and
-     the backward's reverse mode, and log_a down to -20), and, at the
-     main paths' shapes, each kernel's time beside the plain version's, a
-     library call's where one exists, and the card's bound (one call per
-     CUDA-event pair, and back to back); one full-width mamba2 layer and one full-width rglru mixer through the
-     kernel against the plain path;
+     tests/test_kernels.py plus ragged lengths and the recurrentgemma-9b
+     shape, forward and the backward's reverse mode, log_a down to -20
+     and the slow decay of trained gates, the fused backward against
+     autograd of the plain recurrence, and repeat calls bitwise equal),
+     and, at the main paths' shapes, each kernel's time beside the plain
+     version's, a library call's where one exists, and the card's bound
+     (one call per CUDA-event pair, and back to back; the RG-LRU scan's
+     reverse mode and fused backward too); one full-width mamba2 layer
+     and one full-width rglru mixer through the kernel against the plain
+     path;
   4. serve: the paper's GPT (gpt-h8192-l4, random weights from seed 0)
      through `repro_torch.launch.serve`, paged KV with quantum
      preemption evicting pages through the spool to a directory, then
@@ -132,6 +136,7 @@ MATRIX_DEPTH = 8
 # width are the Pallas kernel's tiling, which the CUDA kernel has not)
 RGLRU_CASES = [(1, 64, 16), (2, 128, 32), (1, 100, 8)]
 TOL_RGLRU = 1e-5
+TOL_RGLRU_GRAD = 5e-4     # the JAX package's RG-LRU gradient bar
 # recurrentgemma-9b's attention at head_dim 256: (B, S, Hq, Hkv, D,
 # causal, window, dtype, tol); the path's shape (window 2048 masks
 # nothing at S=2048), a window that masks at S=4096, and an f32 case
@@ -234,15 +239,15 @@ def mount_of(path):
 def ptxas_report(log):
     """One line per kernel instance from `nvcc -Xptxas -v` output: its
     name with the template arguments of the mangled name (D=256 on the
-    tensor cores reads `attn_fwd_mma_kernel<256>`, the RG-LRU reverse mode
-    `rglru_scan_kernel<true>`, an SSD pass on bf16 B/C
-    `ssd_states_kernel<bf16>`), then registers and spills."""
+    tensor cores reads `attn_fwd_mma_kernel<256>`, the RG-LRU fused
+    backward's rescan `rglru_rescan_kernel<true,true>`, an SSD pass on
+    bf16 B/C `ssd_states_kernel<bf16>`), then registers and spills."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
         m = re.search(r"\d([a-z][a-z_]*kernel)(?:I(\w+?)E)?E", line)
         if "Compiling entry" in line and m:
-            args = (m.group(2) or "").replace("Lb0", "false,")
-            args = args.replace("Lb1", "true,")
+            args = re.sub(r"Lb([01])E?", lambda b: ("false,", "true,")[
+                int(b.group(1))], m.group(2) or "")
             args = re.sub(r"Li(\d+)E?", r"\1,", args)
             args = args.replace("13__nv_bfloat16", "bf16").rstrip(",")
             args = re.sub(r"(^|,)f$", r"\1f32", args)
@@ -256,12 +261,14 @@ def ptxas_report(log):
 
 def mirror_check():
     """The Python mirrors of the launch arithmetic that the CPU tests
-    check (`flash_plan`, `kv_tiles`, `warp_live`, `ssd_plan`) against the
-    built libraries' own numbers: every flash instance's constants, the
-    kv tiles of every q tile and the live tiles of every warp at the
-    attention cases and the path shapes, and the SSD passes at the SSD
-    cases and the training shape."""
+    check (`flash_plan`, `kv_tiles`, `warp_live`, `ssd_plan`,
+    `rglru_plan`) against the built libraries' own numbers: every flash
+    instance's constants, the kv tiles of every q tile and the live tiles
+    of every warp at the attention cases and the path shapes, the SSD
+    passes at the SSD cases and the training shape, and the RG-LRU passes
+    at its cases, ragged lengths and the recurrentgemma-9b shape."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
     shapes = ATTN_CASES + [(1, S, S, 64, 64, 128, True, 0, 0.0)
                            for S in (1024, 1000)]
@@ -303,6 +310,13 @@ def mirror_check():
         check(mine == ssd.library_plan(B, S, H, P, N, Q),
               f"ssd_plan {mine} is not the library's "
               f"{ssd.library_plan(B, S, H, P, N, Q)}")
+        n += 1
+    for B, S, W in RGLRU_CASES + [(1, 300, 40), (2, 40, 8), (3, 129, 200),
+                                  (1, RG_SEQ, 4096)]:
+        mine = rg.rglru_plan(B, S, W)
+        del mine["scratch"]
+        check(mine == rg.library_plan(B, S, W), f"rglru_plan {mine} is not "
+              f"the library's {rg.library_plan(B, S, W)}")
         n += 1
     print(f"  launch arithmetic: the Python mirrors agree with the "
           f"libraries in {n} checks")
@@ -408,11 +422,12 @@ def ssd_phase(gen, peaks, smi):
     return worst, err / scale, kernel_ms, plain_ms, (b_ms, b_by), b2b_ms
 
 
-def rglru_bound_ms(log_a, x, peaks):
-    """Least time for the RG-LRU scan: log_a and x read once and h written
-    once over the memory rate, or one exp and one FMA per element over the
-    f32 rate (the memory side bounds it by far)."""
-    nbytes = 3 * x.numel() * 4
+def rglru_bound_ms(x, peaks, tensors=3):
+    """Least time for the RG-LRU scan: `tensors` f32 tensors of x's size
+    read or written once over the memory rate (3 forward: log_a, x, h; 5
+    in the backward: log_a, g, h, dx, dlog_a), or one exp and one FMA per
+    element over the f32 rate (the memory side bounds it by far)."""
+    nbytes = tensors * x.numel() * 4
     flops = 2 * x.numel()
     t_bytes = nbytes / peaks["bytes"]
     t_ops = flops / peaks["float32"]
@@ -420,51 +435,122 @@ def rglru_bound_ms(log_a, x, peaks):
                                        else "operations")
 
 
+def scan_err(got, want, tol, scale=None):
+    """(max abs error, worst error over its bar): the bar is tol (1 +
+    |want|), or given a `scale`, tol (1 + scale). A slow decay's check
+    gives the scale the scan has carried (`rglru_scan.scan_scale`) and
+    the exact (f64) recurrence as `want`: no f32 order, the plain
+    sequential one included, meets the elementwise bar there."""
+    d = (got.double() - want.double()).abs()
+    ref = want.double().abs() if scale is None else scale.double()
+    return d.max().item(), (d / (1 + ref)).max().item() / tol
+
+
 def rglru_phase(gen, peaks, smi):
     """The RG-LRU kernel against its plain version, both modes (forward,
-    and the reverse recurrence its backward runs); its time at the
-    recurrentgemma-9b shape. Returns (worst error, kernel_ms, plain_ms,
-    bound, back-to-back kernel ms)."""
-    from repro_torch.kernels.rglru_scan import (rglru_scan_fwd,
-                                                rglru_sequential)
+    and the reverse recurrence) and the fused backward, and repeat calls
+    bitwise equal; its times at the recurrentgemma-9b shape. Returns a
+    dict of the worst error and the times."""
+    from repro_torch.kernels.rglru_scan import (dlog_a_scale,
+                                                rglru_scan_bwd,
+                                                rglru_scan_fwd,
+                                                rglru_sequential, scan_scale)
 
     def rand(shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    cases = [(c, 0.5) for c in RGLRU_CASES] + [((1, RG_SEQ, 4096), 0.5),
-                                              ((1, RG_SEQ, 4096), 20.0)]
-    worst = 0.0
-    for (B, S, W), depth in cases:
-        if depth == 0.5:        # -|N(0, 0.5)|, the JAX tests' decays
+    path = (1, RG_SEQ, 4096)
+    cases = [(c, "-|N(0,0.5)|")
+             for c in RGLRU_CASES + [(1, 300, 40), (2, 40, 8), path]]
+    cases += [(path, "U[-20,0]"), (path, "U[-1e-3,0]")]
+    worst = worst_bar = 0.0
+
+    def report(what, err, bar, tol, slow):
+        how = " of the carried scale, against the f64 recurrence"
+        print(f"  rglru_scan {what}: max_abs_err {err:.3e}, {bar:.3f} of the "
+              f"bar (tol {tol:g}{how if slow else ''}) "
+              f"{'ok' if bar <= 1 else 'FAIL'}")
+        check(bar <= 1 and math.isfinite(err), f"rglru_scan {what} disagrees "
+              f"with its plain version")
+
+    for (B, S, W), decay in cases:
+        if decay == "-|N(0,0.5)|":      # the JAX tests' decays
             la = -(rand((B, S, W)) * 0.5).abs()
-        else:                   # uniform in [-20, 0]
-            la = -torch.rand((B, S, W), generator=gen, device="cuda") * 20
+        else:                           # uniform in [-20, 0] or [-1e-3, 0]
+            depth = 20.0 if decay == "U[-20,0]" else 1e-3
+            la = -torch.rand((B, S, W), generator=gen, device="cuda") * depth
+        # a slow decay's oracle is the exact recurrence: the f32 sequential
+        # one misses the bar there itself (printed)
+        slow = decay == "U[-1e-3,0]"
+        dt = torch.float64 if slow else torch.float32
         x = rand((B, S, W))
         for reverse in (False, True):
             h = rglru_scan_fwd(la, x, reverse=reverse)
             torch.cuda.synchronize()
-            want = rglru_sequential(la, x, reverse=reverse)
-            err = (h - want).abs().max().item()
-            ok = bool(torch.all((h - want).abs()
-                                <= TOL_RGLRU + TOL_RGLRU * want.abs()))
-            worst = max(worst, err)
-            print(f"  rglru_scan B={B} S={S} W={W} log_a "
-                  f"{'-|N(0,0.5)|' if depth == 0.5 else 'U[-20,0]'} "
-                  f"{'reverse' if reverse else 'forward'}: max_abs_err "
-                  f"{err:.3e} tol {TOL_RGLRU:g} {'ok' if ok else 'FAIL'}")
-            check(ok and math.isfinite(err), "rglru_scan disagrees with its "
-                  "plain version")
-    la = -(rand((1, RG_SEQ, 4096)) * 0.5).abs()
-    x = rand((1, RG_SEQ, 4096))
-    kernel_ms = time_ms(lambda: rglru_scan_fwd(la, x))
-    b2b_ms = time_back_to_back_ms(lambda: rglru_scan_fwd(la, x))
-    plain_ms = time_ms(lambda: rglru_sequential(la, x))
-    b_ms, b_by = rglru_bound_ms(la, x, peaks)
+            want = rglru_sequential(la.to(dt), x.to(dt), reverse=reverse)
+            scale = scan_scale(want, reverse=reverse) if slow else None
+            err, bar = scan_err(h, want, TOL_RGLRU, scale)
+            worst, worst_bar = max(worst, err), max(worst_bar, bar)
+            mode = "reverse" if reverse else "forward"
+            report(f"B={B} S={S} W={W} log_a {decay} {mode}", err, bar,
+                   TOL_RGLRU, slow)
+            if slow:
+                f32 = scan_err(rglru_sequential(la, x, reverse=reverse),
+                               want, TOL_RGLRU, scale)
+                print(f"    the plain f32 sequential {mode}: max_abs_err "
+                      f"{f32[0]:.3e}, {f32[1]:.3f} of the same bar")
+        if (B, S, W) != path or decay == "U[-20,0]":
+            continue
+        # the fused backward against autograd through the plain recurrence
+        g = rand((B, S, W))
+        h = rglru_scan_fwd(la, x)
+        dla, dx = rglru_scan_bwd(la, g, h)
+        torch.cuda.synchronize()
+        la_, x_ = (t.to(dt).requires_grad_(True) for t in (la, x))
+        h_ = rglru_sequential(la_, x_)
+        wla, wx = torch.autograd.grad(h_, (la_, x_), g.to(dt))
+        scales = ((scan_scale(wx, reverse=True), dlog_a_scale(wx, h_))
+                  if slow else (None, None))
+        for name, got, want, sc in (("dx", dx, wx, scales[0]),
+                                    ("dlog_a", dla, wla, scales[1])):
+            err, bar = scan_err(got, want, TOL_RGLRU_GRAD, sc)
+            report(f"fused backward B={B} S={S} W={W} log_a {decay}: {name}",
+                   err, bar, TOL_RGLRU_GRAD, slow)
+        del la_, x_, h_, wla, wx, scales
+        # two calls, the same bits
+        for name, fn in (("forward", lambda: (rglru_scan_fwd(la, x),)),
+                         ("reverse", lambda: (rglru_scan_fwd(
+                             la, g, reverse=True),)),
+                         ("backward", lambda: rglru_scan_bwd(la, g, h))):
+            first = [t.clone() for t in fn()]
+            check(all(torch.equal(a, b) for a, b in zip(first, fn())),
+                  f"two rglru_scan {name} calls differ")
+        print(f"  rglru_scan B={B} S={S} W={W} log_a {decay}: forward, "
+              f"reverse and backward bitwise equal on a repeat call")
+    la = -(rand(path) * 0.5).abs()
+    x, g = rand(path), rand(path)
+    h = rglru_scan_fwd(la, x)
+    fns = {"forward": lambda: rglru_scan_fwd(la, x),
+           "reverse": lambda: rglru_scan_fwd(la, g, reverse=True),
+           "backward": lambda: rglru_scan_bwd(la, g, h)}
+    out = {"max_abs_err": worst, "max_err_over_bar": worst_bar}
+    for name, fn in fns.items():
+        out[f"{name}_ms"] = time_ms(fn)
+        out[f"{name}_ms_back_to_back"] = time_back_to_back_ms(fn)
+    out["plain_ms"] = time_ms(lambda: rglru_sequential(la, x))
+    out["bound"] = rglru_bound_ms(x, peaks)
+    out["backward_bound"] = rglru_bound_ms(x, peaks, tensors=5)
     print(f"  rglru_scan recurrentgemma-9b shape B=1 S={RG_SEQ} W=4096 f32: "
-          f"kernel_ms {kernel_ms:.4f} (back-to-back {b2b_ms:.4f}) plain_ms "
-          f"{plain_ms:.4f} library_ms none (no single PyTorch call computes "
-          f"this scan) bound_us {1e3 * b_ms:.1f} ({b_by}) on {smi}")
-    return worst, kernel_ms, plain_ms, (b_ms, b_by), b2b_ms
+          f"kernel_ms {out['forward_ms']:.4f} (back-to-back "
+          f"{out['forward_ms_back_to_back']:.4f}), reverse "
+          f"{out['reverse_ms']:.4f} ({out['reverse_ms_back_to_back']:.4f}), "
+          f"fused backward {out['backward_ms']:.4f} "
+          f"({out['backward_ms_back_to_back']:.4f}; bound_us "
+          f"{1e3 * out['backward_bound'][0]:.1f}) plain_ms "
+          f"{out['plain_ms']:.4f} library_ms none (no single PyTorch call "
+          f"computes this scan) bound_us {1e3 * out['bound'][0]:.1f} "
+          f"({out['bound'][1]}) on {smi}")
+    return out
 
 
 def flash_d256_phase(gen, peaks, smi):
@@ -838,6 +924,8 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_reference
+    from repro_torch.kernels.rglru_scan import \
+        KERNELS_PER_CALL as RG_KERNELS_PER_CALL
     from repro_torch.kernels.ssd_scan import KERNELS_PER_CALL
     from repro_torch.launch import serve
     from repro_torch.models.transformer import RunSettings
@@ -862,9 +950,10 @@ def main():
     for src in libs:
         for line in ptxas_report(build.build_log(src)):
             print(f"  ptxas {src}: {line}")
-            if line.startswith("attn_fwd_mma_kernel"):
+            if line.startswith(("attn_fwd_mma_kernel", "rglru_")):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
-                      f"a tensor-core flash instance spills: {line}")
+                      f"a tensor-core flash or RG-LRU instance spills: "
+                      f"{line}")
     mirror_check()
 
     # ---- 3. kernel vs plain version
@@ -920,8 +1009,7 @@ def main():
     (ssd_err, ssd_rel, ssd_ms, ssd_plain_ms, (ssd_b_ms, ssd_b_by),
      ssd_b2b_ms) = ssd_phase(gen, peaks, smi)
     layer_check(gen)
-    rg_err, rg_ms, rg_plain_ms, (rg_b_ms, rg_b_by), rg_b2b_ms = rglru_phase(
-        gen, peaks, smi)
+    rg = rglru_phase(gen, peaks, smi)
     d256 = flash_d256_phase(gen, peaks, smi)
     rg_layer_check(gen)
 
@@ -1086,19 +1174,31 @@ def main():
         "source": "src/repro_torch/kernels/csrc/rglru_scan_fwd.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:29",
         "tpu_kernel": "src/repro/kernels/rglru_scan.py::_rglru_kernel",
+        # wrapper calls: one forward and one fused backward per rglru
+        # block per step
         "launches": rg_launches["rglru_scan"],
         "launches_per_train_run": rg_launches["rglru_scan"],
-        "max_abs_err": rg_err,
-        "max_err": rg_err,
+        "max_abs_err": rg["max_abs_err"],
+        "max_err": rg["max_abs_err"],
+        "max_err_over_bar": rg["max_err_over_bar"],
         "tol": TOL_RGLRU,
-        "ms": rg_ms,
-        "kernel_ms": rg_ms,
-        "ms_back_to_back": rg_b2b_ms,
-        "plain_ms": rg_plain_ms,
-        "bound_ms": rg_b_ms,
-        "bound_us": 1e3 * rg_b_ms,
-        "bound_by": rg_b_by,
+        "ms": rg["forward_ms"],
+        "kernel_ms": rg["forward_ms"],
+        "ms_back_to_back": rg["forward_ms_back_to_back"],
+        "plain_ms": rg["plain_ms"],
+        "bound_ms": rg["bound"][0],
+        "bound_us": 1e3 * rg["bound"][0],
+        "bound_by": rg["bound"][1],
         "library_ms": None,
+        "redesigned": 15,
+        "ms_over_library_ms": None,
+        "bound_over_ms": rg["bound"][0] / rg["forward_ms"],
+        "kernels_per_call": RG_KERNELS_PER_CALL,
+        "reverse_ms": rg["reverse_ms"],
+        "reverse_ms_back_to_back": rg["reverse_ms_back_to_back"],
+        "backward_ms": rg["backward_ms"],
+        "backward_ms_back_to_back": rg["backward_ms_back_to_back"],
+        "backward_bound_ms": rg["backward_bound"][0],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

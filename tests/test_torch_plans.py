@@ -1,20 +1,24 @@
-"""The launch arithmetic around the port's flash-attention and SSD-scan
-kernels, in the Python mirrors that the wrappers keep of the `.cu`
+"""The launch arithmetic around the port's flash-attention, SSD-scan and
+RG-LRU kernels, in the Python mirrors that the wrappers keep of the `.cu`
 constants (`flash_attention.flash_plan`, `kv_tiles`, `warp_live`;
-`ssd_scan.ssd_plan`; on the card, tests/test_torch_cuda.py and
+`ssd_scan.ssd_plan`; `rglru_scan.rglru_plan`; on the card,
+tests/test_torch_cuda.py and
 chip_smoke.py hold them against the built libraries' own numbers), the
 wrappers' refusals, which are metadata checks and run on CPU tensors,
 and the bar of the card's bf16 attention checks against an emulation of
 the tensor-core kernel's roundings. The kernels themselves run only on
-the card (tests/test_torch_cuda.py). Each test takes every attention or SSD
-case of the JAX package's kernel tests plus the shapes of the main paths:
-the serve prefill, recurrentgemma-9b's head_dim 256 and mamba2-2.7b's
-scan."""
+the card (tests/test_torch_cuda.py). Each test takes every attention,
+SSD or RG-LRU case of the JAX package's kernel tests plus the shapes of
+the main paths: the serve prefill, recurrentgemma-9b's head_dim 256 and
+RG-LRU scan, and mamba2-2.7b's scan."""
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.build import SMEM_LIMIT
 
@@ -45,6 +49,11 @@ SSD_CASES = [
     (1, 1024, 80, 64, 128, 128),
 ]
 SM_SMEM = 233472     # shared memory of one SM; each block reserves 1 KB
+# (B, S, W): tests/test_kernels.py::RGLRU_CASES, a ragged S, S shorter
+# than a chunk, a width that is no multiple of the block, and the
+# recurrentgemma-9b shape
+RGLRU_CASES = [(1, 64, 16), (2, 128, 32), (1, 100, 8), (1, 300, 8),
+               (2, 40, 8), (3, 129, 200), (1, 2048, 4096)]
 
 
 def _mask(Sq, Skv, causal, window):
@@ -200,6 +209,76 @@ def test_ssd_wrapper_refuses_what_it_refused():
         ssd.check_kernel_inputs(xh, a, t, t, 64)
     with pytest.raises(ValueError, match="shape mismatch"):
         ssd.check_kernel_inputs(xh, a[:, :16], bc, bc, 64)
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_plan_grids_and_scratch(case):
+    """Three passes; the summary and rescan give every (b, chunk of 64
+    steps, w) a thread, the carry pass every (b, w), in blocks of 128
+    columns; one f32 scratch of (B, chunks, W) each for e, A and c."""
+    B, S, W = case
+    plan = rg.rglru_plan(B, S, W)
+    nc = -(-S // rg.CHUNK)
+    assert rg.CHUNK == 64 and plan["chunk"] == 64 and plan["chunks"] == nc
+    assert (nc - 1) * 64 < S <= nc * 64
+    passes = plan["passes"]
+    assert list(passes) == list(rg.PASSES) == ["summary", "carry", "rescan"]
+    assert len(passes) == rg.KERNELS_PER_CALL
+    gx = -(-W // rg.THREADS)
+    assert (gx - 1) * rg.THREADS < W <= gx * rg.THREADS
+    assert passes["summary"]["grid"] == passes["rescan"]["grid"] == (
+        gx, nc, B)
+    assert passes["carry"]["grid"] == (gx, B, 1)
+    assert all(p["threads"] == rg.THREADS == 128 for p in passes.values())
+    assert plan["scratch"] == (3, B, nc, W)       # e, A and c
+    assert plan["scratch_bytes"] == 3 * 4 * B * nc * W
+    rg.check_kernel_inputs(torch.zeros(case), torch.zeros(case))
+
+
+def test_rglru_plan_fills_the_card_at_the_recurrentgemma_shape():
+    """(1, 2048, 4096): 32 chunks, 131072 threads in 1024 blocks for the
+    summary and the rescan (the parent kernel: 4096 threads in 64 blocks
+    on 132 SMs), the carry pass 32 steps long, 1.5 MB of scratch."""
+    plan = rg.rglru_plan(1, 2048, 4096)
+    assert [p["grid"] for p in plan["passes"].values()] == [
+        (32, 32, 1), (32, 1, 1), (32, 32, 1)]
+    summary = plan["passes"]["summary"]
+    assert math.prod(summary["grid"]) * summary["threads"] == 131072
+    assert math.prod(summary["grid"]) >= 132
+    assert plan["chunks"] == 32 and plan["scratch_bytes"] == 1572864
+
+
+def test_rglru_wrapper_refuses_what_the_kernel_does_not_take():
+    """The kernel's refusals (metadata checks, so CPU tensors reach
+    them): dtypes, a strided last dimension, shapes, batches or chunk
+    counts past the grid's 65535; batch and time strides are taken, and
+    the fused dlog_a is the reverse mode's."""
+    big = torch.zeros((2, 64, 3, 40))
+    la, x = big[:, :, 0], big[:, :, 1]
+    assert not la.is_contiguous()
+    assert rg.check_kernel_inputs(la, x, big[:, :, 2])["chunks"] == 1
+    with pytest.raises(ValueError, match="float32"):
+        rg.check_kernel_inputs(la.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="float32"):
+        rg.check_kernel_inputs(la, x, big[:, :, 2].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = big[..., 0].transpose(1, 2)
+        rg.check_kernel_inputs(t, t)
+    with pytest.raises(ValueError, match="one shape"):
+        rg.check_kernel_inputs(la, x[:, :8])
+    with pytest.raises(ValueError, match="one shape"):
+        rg.check_kernel_inputs(la, x, big[:, :8, 2])
+    with pytest.raises(ValueError, match="one shape"):
+        rg.check_kernel_inputs(la[0], x[0])
+    wide = torch.zeros((1, 1, 8))
+    rg.check_kernel_inputs(*[wide.expand(65535, 1, 8)] * 2)
+    with pytest.raises(ValueError, match="65535"):
+        rg.check_kernel_inputs(*[wide.expand(65536, 1, 8)] * 2)
+    rg.check_kernel_inputs(*[wide.expand(1, 65535 * 64, 8)] * 2)
+    with pytest.raises(ValueError, match="65535"):
+        rg.check_kernel_inputs(*[wide.expand(1, 65535 * 64 + 1, 8)] * 2)
+    with pytest.raises(ValueError, match="reverse"):
+        rg.rglru_chunked(la, x, h=x)
 
 
 # bf16 attention bar of the card checks (chip_smoke.TOL_BF16_ROW): 2^-6 of

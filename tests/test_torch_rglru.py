@@ -5,9 +5,13 @@ in interpret mode and its sequential oracle, the port's oracle
 `ref.rglru_reference` against JAX's, gradients through the `rglru_scan`
 autograd Function (its reverse-recurrence backward) against the JAX
 `ops.rglru_scan` VJP, the tanh-GELU and f32-product Functions, and the
-RG-LRU mixer `apply_rglru` on JAX weights. Inputs come from numpy seeds;
-the CUDA kernel itself runs only on the card (tests/test_torch_cuda.py)."""
+RG-LRU mixer `apply_rglru` on JAX weights. `rglru_chunked`, the
+kernel's three chunk-parallel passes in plain PyTorch, is held against
+the same oracles both ways, with its fused dlog_a against the JAX VJP.
+Inputs come from numpy seeds; the CUDA kernel itself runs only on the
+card (tests/test_torch_cuda.py)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -22,9 +26,11 @@ from repro.kernels import ops, ref as jref  # noqa: E402
 from repro.models import rglru as jrg  # noqa: E402
 from repro_torch.configs import ModelConfig  # noqa: E402
 from repro_torch.kernels.ref import rglru_reference  # noqa: E402
-from repro_torch.kernels.rglru_scan import (rglru_scan,  # noqa: E402
-                                            rglru_scan_fwd,
-                                            rglru_sequential)
+from repro_torch.kernels.rglru_scan import (CHUNK,  # noqa: E402
+                                            dlog_a_scale, rglru_chunked,
+                                            rglru_scan,
+                                            rglru_scan_bwd, rglru_scan_fwd,
+                                            rglru_sequential, scan_scale)
 from repro_torch.models import layers, rglru  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
@@ -36,6 +42,14 @@ RGLRU_CASES = [
 ]
 TOL = 1e-5           # the JAX package's forward bar for the RG-LRU kernel
 TOL_GRAD = 5e-4      # and its gradient bar
+# the chunked passes' shapes: the JAX cases, S ragged over chunks of 64,
+# S shorter than a chunk
+CHUNKED_CASES = [(B, S, W) for B, S, W, _, _ in RGLRU_CASES] + [
+    (1, 300, 8), (2, 40, 8)]
+# log_a: -|N(0, 0.5)| (the JAX tests'), uniform in [-20, 0], and Griffin's
+# trained, slow gates, uniform in [-1e-3, 0], where h grows to O(sqrt(S))
+DECAYS = {"decay": None, "log_a-20": 20.0, "slow": 1e-3}
+SLOW = (1, 2048, 64)
 
 
 def _inputs(seed, B, S, W, depth=None):
@@ -48,6 +62,29 @@ def _inputs(seed, B, S, W, depth=None):
         la = -rng.uniform(0.0, depth, size=(B, S, W))
     return la.astype(np.float32), rng.normal(size=(B, S, W)).astype(
         np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd(seed, B, S, W, depth):
+    """(log_a, x, the Pallas kernel in interpret mode, the oracle)."""
+    la, x = _inputs(seed, B, S, W, depth)
+    jh = ops.rglru_scan(jnp.asarray(la), jnp.asarray(x), interpret=True)
+    rh = jref.rglru_reference(jnp.asarray(la), jnp.asarray(x))
+    return la, x, np.asarray(jh), np.asarray(rh)
+
+
+def _assert_scan_close(got, want, tol, slow, *, reverse=False, scale=None):
+    """|got - want| <= tol (1 + |want|), or, for a slow decay, tol (1 +
+    the scale the scan has carried: `scan_scale`, or `scale`)."""
+    got, want = (torch.from_numpy(np.array(t, dtype=np.float64))
+                 for t in (got, want))
+    if slow:
+        ref = scan_scale(want, reverse=reverse) if scale is None else scale
+    else:
+        ref = want.abs()
+    err = (got - want).abs()
+    worst = float((err / (1 + ref.double())).max()) / tol
+    assert worst <= 1.0, f"error {worst:.3f} of the bar"
 
 
 def _t(*arrs, grad=False):
@@ -116,6 +153,73 @@ def test_grads_match_jax(depth):
         assert torch.isfinite(got).all()
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=TOL_GRAD, atol=TOL_GRAD)
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+@pytest.mark.parametrize("decay", ["decay", "log_a-20"])
+@pytest.mark.parametrize("chunk", [CHUNK, 16])
+def test_chunked_matches_jax_kernel_and_oracle(case, decay, chunk):
+    """The kernel's three passes in plain PyTorch against the JAX Pallas
+    kernel (interpret) and its sequential oracle at the JAX bar, at the
+    kernel's chunk of 64 and at 16 (many chunks at the JAX cases)."""
+    la, x, jh, rh = _jax_fwd(10, *case, DECAYS[decay])
+    h = rglru_chunked(*_t(la, x), chunk=chunk)
+    for want in (jh, rh):
+        np.testing.assert_allclose(h.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES + [SLOW])
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_chunked_reverse_matches_the_sequential_reverse(case, decay):
+    la, x = _t(*_inputs(11, *case, DECAYS[decay]))
+    _assert_scan_close(rglru_chunked(la, x, reverse=True),
+                       rglru_sequential(la, x, reverse=True), TOL,
+                       decay == "slow", reverse=True)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_chunked_slow_decay_is_as_close_to_exact_as_the_oracle(reverse):
+    """log_a in [-1e-3, 0] at S=2048: h carries O(sqrt(S)) values through
+    zero, so no f32 order meets tol (1 + |h_t|) against another (the JAX
+    kernel misses it against the exact float64 recurrence too). The
+    chunked passes meet tol (1 + the carried scale) against the JAX
+    kernel (forward) or the sequential reverse, and are at least as close
+    to the exact recurrence as the sequential f32 oracle."""
+    la_np, x_np, jh, _ = _jax_fwd(12, *SLOW, DECAYS["slow"])
+    la, x = _t(la_np, x_np)
+    got = rglru_chunked(la, x, reverse=reverse)
+    oracle = rglru_sequential(la, x, reverse=True) if reverse else _t(jh)[0]
+    _assert_scan_close(got, oracle, TOL, True, reverse=reverse)
+    exact = rglru_sequential(la.double(), x.double(), reverse=reverse)
+    scale = 1 + scan_scale(exact, reverse=reverse).double()
+
+    def err(h):
+        return float(((h.double() - exact).abs() / scale).max())
+
+    assert err(got) <= err(oracle)
+    assert float(((oracle.double() - exact).abs()
+                  / (1 + exact.abs())).max()) > TOL
+
+
+@pytest.mark.parametrize("case,decay", [((2, 300, 16), d) for d in DECAYS]
+                         + [(SLOW, "slow")])
+def test_fused_dlog_a_matches_the_jax_vjp(case, decay):
+    """The fused backward's (dx, dlog_a) as `rglru_chunked` computes them
+    from the forward's output, and the CPU backward `rglru_scan_bwd`,
+    against jax.vjp of the JAX oracle at the gradient bar; for a slow
+    decay relative to the carried scales (`scan_scale`,
+    `dlog_a_scale`)."""
+    la, x = _inputs(13, *case, DECAYS[decay])
+    g = np.random.default_rng(14).normal(size=la.shape).astype(np.float32)
+    h, vjp = jax.vjp(jref.rglru_reference, jnp.asarray(la), jnp.asarray(x))
+    jdla, jdx = (np.asarray(t) for t in vjp(jnp.asarray(g)))
+    tla, tg, th, tdx = _t(la, g, np.asarray(h), jdx)
+    slow = decay == "slow"
+    scale = dlog_a_scale(tdx, th)
+    for dla, dx in (rglru_chunked(tla, tg, reverse=True, h=th)[::-1],
+                    rglru_scan_bwd(tla, tg, th)):
+        _assert_scan_close(dx, jdx, TOL_GRAD, slow, reverse=True)
+        _assert_scan_close(dla, jdla, TOL_GRAD, slow, scale=scale)
 
 
 def test_function_saves_log_a_and_its_output():
