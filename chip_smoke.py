@@ -14,7 +14,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
   3. kernels: each kernel against its plain PyTorch version on the card
      (the flash-attention cases of tests/test_kernels.py in f32, on the
      FMA kernel, and in bf16, on the tensor-core kernel, plus the serve
-     prefill shapes and the recurrentgemma-9b MQA shapes at head_dim 256;
+     prefill shapes, phase 8's shape non-causal and causal, and the
+     recurrentgemma-9b MQA shapes at head_dim 256;
      the SSD-scan cases of tests/test_kernels.py plus the mamba2-2.7b
      training shape with bf16 B/C; the RG-LRU cases of
      tests/test_kernels.py plus ragged lengths and the recurrentgemma-9b
@@ -59,7 +60,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and the RG-LRU kernel launched once per rglru block per step in
      forward and once in backward, the flash kernel once per attention
      block per step;
-  8. a `kernels` JSON line, the nvidia-smi line, and the result line.
+  8. train: the paper's GPT and BERT (gpt-h8192-l4 and bert(8192, 4):
+     64 heads of 128, learned positions and bidirectional attention for
+     BERT; random weights from seed 0) through `TrainSession`, sgd (lr
+     3e-4, no momentum), B=4, S=1024, 3 steps on the flash kernel (causal
+     for GPT, non-causal for BERT), kept and spooled (fs, raw). The checks
+     of phase 5 with the stage count from the engine (6 stages), and the
+     flash kernel launched once per layer per step (the backward is the
+     plain VJP); the tracked activation peaks of both runs;
+  9. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -146,6 +155,14 @@ FLASH_D256_CASES = [
     (1, 512, 16, 1, 256, True, 128, torch.float32, TOL_F32),
 ]
 RG_ARCH, RG_SEQ, RG_LR, RG_CLIP = "recurrentgemma-9b", 2048, 3e-4, 1.0
+# the paper's GPT and BERT at its first scenario (§4.2): hidden 8192, 4
+# layers, S=1024, sgd without momentum; B=4 keeps the phase short (the
+# paper's micro-batch of 16 runs in benchmarks/torch_fig10.py --paper)
+PAPER_HIDDEN, PAPER_LAYERS, PAPER_SEQ, PAPER_BATCH = 8192, 4, 1024, 4
+PAPER_LR = 3e-4
+# the attention of phase 8's GPT and BERT: (B, S, H, D); BERT's is
+# bidirectional, GPT's causal
+BERT_ATTN = (PAPER_BATCH, PAPER_SEQ, PAPER_HIDDEN // 128, 128)
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, and
 # operations/s for bf16 on the tensor cores and f32 on the CUDA cores.
@@ -272,6 +289,8 @@ def mirror_check():
     from repro_torch.kernels import ssd_scan as ssd
     shapes = ATTN_CASES + [(1, S, S, 64, 64, 128, True, 0, 0.0)
                            for S in (1024, 1000)]
+    B, S, H, D = BERT_ATTN
+    shapes += [(B, S, S, H, H, D, causal, 0, 0.0) for causal in (False, True)]
     shapes += [(B, S, S, Hq, Hkv, D, causal, window, 0.0) for
                B, S, Hq, Hkv, D, causal, window, _, _ in FLASH_D256_CASES]
     n = 0
@@ -604,6 +623,51 @@ def flash_d256_phase(gen, peaks, smi):
     return worst, kernel_ms, plain_ms, library_ms, (b_ms, b_by), b2b_ms
 
 
+def flash_bert_phase(gen, peaks, smi):
+    """The flash kernel at the attention shape phase 8 gives it (q/k/v
+    (4, 1024, 64, 128) bf16), bidirectional as BERT's (every kv tile of
+    every query block is live) and causal as GPT's, against the plain
+    attention; the bidirectional time beside the bound and
+    scaled_dot_product_attention's (is_causal=False). Returns a dict of
+    the bidirectional case's error and times."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_reference
+    B, S, H, D = BERT_ATTN
+    q, k, v = (torch.randn((B, S, H, D), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    for causal in (True, False):
+        o = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = attention_reference(q.float(), k.float(), v.float(),
+                                   causal=causal)
+        err, rel, ok = attn_error(o, want, TOL_BF16_ROW)
+        del o, want
+        print(f"  flash_attention phase-8 shape B={B} S={S} H={H} D={D} "
+              f"causal={causal} bf16: max_abs_err {err:.3e} row_rel_err "
+              f"{rel:.3e} tol {TOL_BF16_ROW:g} of the row max "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention disagrees with its plain version at "
+              f"phase 8's shape (causal={causal})")
+    out = {"max_abs_err": err, "max_row_rel_err": rel}
+    out["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=False))
+    out["ms_back_to_back"] = time_back_to_back_ms(
+        lambda: flash_attention(q, k, v, causal=False))
+    out["plain_ms"] = time_ms(lambda: attention_reference(q, k, v,
+                                                          causal=False))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out["library_ms"] = time_ms(lambda: torch.nn.functional.
+                                scaled_dot_product_attention(
+                                    qt, kt, vt, is_causal=False))
+    out["bound"] = bound_ms(q, k, v, False, 0, peaks)
+    print(f"  phase-8 shape B={B} S={S} H={H} D={D} non-causal bf16: "
+          f"kernel_ms {out['ms']:.4f} (back-to-back {out['ms_back_to_back']:.4f}) "
+          f"plain_ms {out['plain_ms']:.4f} library_ms "
+          f"{out['library_ms']:.4f} (scaled_dot_product_attention, "
+          f"is_causal=False, yardstick only) bound_us "
+          f"{1e3 * out['bound'][0]:.1f} ({out['bound'][1]}) on {smi}")
+    return out
+
+
 def rg_layer_check(gen):
     """One full-width rglru mixer forward through the kernel against the
     plain recurrence, bf16 weights from a seed."""
@@ -674,10 +738,10 @@ def drained_spool_policy():
 
 
 def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
-              keep_params=None):
-    """TrainSession steps at B=1, S=seq on the card. Every kernel's launch
-    count is set to 0 just before the steps and read just after. Returns
-    (losses, params, reports, {kernel: launches}, run peak, stage
+              batch=1, keep_params=None):
+    """TrainSession steps at B=batch, S=seq on the card. Every kernel's
+    launch count is set to 0 just before the steps and read just after.
+    Returns (losses, params, reports, {kernel: launches}, run peak, stage
     count): params are the final parameters on the host, or, given the
     host parameters of an earlier run as `keep_params`, whether they are
     bitwise equal to those (one host copy of a large model, not two)."""
@@ -688,7 +752,7 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     from repro_torch.session import TrainSession
     kernels = (flash_attention, ssd_scan, rglru_scan)
     sess = TrainSession(cfg, policy=policy, io=io, optimizer=optimizer,
-                        lr=3e-4, batch_size=1, seq_len=seq, seed=0,
+                        lr=3e-4, batch_size=batch, seq_len=seq, seed=0,
                         device="cuda", attn_impl="cuda")
     if hasattr(policy, "spool"):
         policy.spool = sess.spool
@@ -749,7 +813,7 @@ def same_params(a, b) -> bool:
                                     for x, y in zip(a, b))
 
 
-def keep_vs_spool(cfg, seq, optimizer, want, smi):
+def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1):
     """Full-width training of `cfg` kept on the card, then spooled (fs,
     raw) to a fresh directory: bitwise losses and parameters, a lower
     peak, bytes offloaded, every stored stage fetched (the stage count
@@ -759,26 +823,31 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi):
     from repro_torch.configs import SpoolIoConfig
     from repro_torch.core.policies import KeepPolicy, SpoolPolicy
     deterministic()
-    lk, pk, _, nk, peak_k, _ = train_run(cfg, KeepPolicy(), None,
-                                         f"{cfg.name} keep",
-                                         optimizer=optimizer, seq=seq)
+    lk, pk, rk, nk, peak_k, _ = train_run(cfg, KeepPolicy(), None,
+                                          f"{cfg.name} keep",
+                                          optimizer=optimizer, seq=seq,
+                                          batch=batch)
     spool_dir = tempfile.mkdtemp(prefix="chip_smoke_spool_")
     mnt, fstype = mount_of(spool_dir)
     ls, same, rs, ns, peak_s, n_stages = train_run(
         cfg, SpoolPolicy(), SpoolIoConfig(backend="fs", directory=spool_dir,
                                           codec="raw"), f"{cfg.name} spool",
-        optimizer=optimizer, seq=seq, keep_params=pk)
+        optimizer=optimizer, seq=seq, batch=batch, keep_params=pk)
     n_leaves = len(pk)
     del pk
     left = os.listdir(spool_dir)
     if not left:
         os.rmdir(spool_dir)
+    act_k, act_s = (max(r.peak_activation_bytes for r in reps)
+                    for reps in (rk, rs))
     print(f"train: {cfg.name} {cfg.num_layers} layers in {n_stages} "
-          f"stages, d_model {cfg.d_model}, {TRAIN_STEPS} steps at B=1 "
+          f"stages, d_model {cfg.d_model}, {TRAIN_STEPS} steps at B={batch} "
           f"S={seq}; keep losses {lk}, spool losses {ls}; peak device "
           f"memory keep {peak_k / 1e9:.2f} GB, spool {peak_s / 1e9:.2f} GB;"
-          f" launches keep {nk}, spool {ns}; spool dir on {mnt} ({fstype}) "
-          f"on {smi}")
+          f" tracked activation peak keep {act_k / 1e9:.3f} GB, spool "
+          f"{act_s / 1e9:.3f} GB ({100 * (1 - act_s / max(act_k, 1)):.1f}% "
+          f"lower); launches keep {nk}, spool {ns}; spool dir on {mnt} "
+          f"({fstype}) on {smi}")
     check(lk == ls, f"keep and spool losses differ: {lk} vs {ls}")
     check(same, "keep and spool parameters differ")
     check(peak_s < peak_k, f"spool peak {peak_s} not below keep {peak_k}")
@@ -819,6 +888,23 @@ def rg_train_phase(smi):
         {"rglru_scan": 2 * kinds.count("rglru") * TRAIN_STEPS,
          "flash_attention": kinds.count("attn") * TRAIN_STEPS,
          "ssd_scan": 0}, smi)
+
+
+def paper_train_phase(smi):
+    """The paper's GPT and BERT at hidden 8192, 4 layers, B=4, S=1024 with
+    sgd (no momentum): the flash kernel once per layer per step, causal
+    for GPT and bidirectional for BERT (its backward is the plain VJP).
+    Returns {family: the spool run's launches}."""
+    from repro_torch.configs import bert, gpt
+    from repro_torch.optim.optimizers import sgd
+    out = {}
+    for fam, make in (("gpt", gpt), ("bert", bert)):
+        cfg = make(PAPER_HIDDEN, PAPER_LAYERS)
+        out[fam] = keep_vs_spool(
+            cfg, PAPER_SEQ, sgd(PAPER_LR),
+            {"flash_attention": cfg.num_layers * TRAIN_STEPS, "ssd_scan": 0,
+             "rglru_scan": 0}, smi, batch=PAPER_BATCH)
+    return out
 
 
 def adaptive_check(label, policy, reps):
@@ -1011,6 +1097,7 @@ def main():
     layer_check(gen)
     rg = rglru_phase(gen, peaks, smi)
     d256 = flash_d256_phase(gen, peaks, smi)
+    bert_attn = flash_bert_phase(gen, peaks, smi)
     rg_layer_check(gen)
 
     # ---- 4. serve at full width
@@ -1103,10 +1190,14 @@ def main():
     matrix_phase()
     t1 = time.perf_counter()
     rg_launches = rg_train_phase(smi)
-    print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
-          f"{time.perf_counter() - t1:.1f}s")
+    t2 = time.perf_counter()
 
-    # ---- 8. result
+    # ---- 8. train the paper's GPT and BERT at hidden 8192, keep vs spool
+    paper_launches = paper_train_phase(smi)
+    print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
+          f"{t2 - t1:.1f}s, GPT and BERT {time.perf_counter() - t2:.1f}s")
+
+    # ---- 9. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1142,6 +1233,20 @@ def main():
         "d256_bound_by": d256[4][1],
         "d256_ms_over_library_ms": d256[1] / d256[3],
         "d256_bound_over_ms": d256[4][0] / d256[1],
+        # the paper's GPT and BERT training (phase 8), and BERT's
+        # bidirectional attention shape
+        "launches_per_gpt_train_run": paper_launches["gpt"][
+            "flash_attention"],
+        "launches_per_bert_train_run": paper_launches["bert"][
+            "flash_attention"],
+        "noncausal_max_abs_err": bert_attn["max_abs_err"],
+        "noncausal_max_row_rel_err": bert_attn["max_row_rel_err"],
+        "noncausal_ms": bert_attn["ms"],
+        "noncausal_ms_back_to_back": bert_attn["ms_back_to_back"],
+        "noncausal_plain_ms": bert_attn["plain_ms"],
+        "noncausal_library_ms": bert_attn["library_ms"],
+        "noncausal_bound_ms": bert_attn["bound"][0],
+        "noncausal_bound_by": bert_attn["bound"][1],
     }, {
         "name": "ssd_scan",
         "route": "cuda",

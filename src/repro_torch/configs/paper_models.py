@@ -1,9 +1,29 @@
-"""The paper's GPT (§4.1) at its published geometry (hidden 8192..16384,
-head_dim 128) plus the small CPU-runnable variant, copied from the JAX
-package's `repro/configs/paper_models.py`."""
+"""The paper's BERT (encoder-only) and GPT (decoder-only) (§4.1) at their
+published geometry (hidden 8192..16384, head_dim 128) plus the small
+CPU-runnable variants, copied from the JAX package's
+`repro/configs/paper_models.py`. T5 comes with the encoder-decoder
+slice."""
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
+
+
+def bert(hidden: int, layers: int, vocab: int = 30592) -> ModelConfig:
+    return ModelConfig(
+        name=f"bert-h{hidden}-l{layers}",
+        family="dense",
+        num_layers=layers,
+        d_model=hidden,
+        num_heads=hidden // 128,
+        num_kv_heads=hidden // 128,
+        head_dim=128,
+        d_ff=4 * hidden,
+        vocab_size=vocab,
+        causal=False,
+        use_rope=False,
+        act="gelu",
+        mlp_glu=False,
+    ).validate()
 
 
 def gpt(hidden: int, layers: int, vocab: int = 50304) -> ModelConfig:
@@ -25,8 +45,18 @@ def gpt(hidden: int, layers: int, vocab: int = 50304) -> ModelConfig:
 # The paper's three (hidden, layers) scenarios per model (§4.2, Fig. 10).
 PAPER_SCENARIOS = [(8192, 4), (12288, 3), (16384, 2)]
 
+# CPU-runnable variants of the same families for the benchmarks' defaults.
+SMALL_SCENARIOS = [(256, 4), (384, 3), (512, 2)]
+
+
+def _shrink_heads(c: ModelConfig, hidden: int) -> ModelConfig:
+    h = max(2, hidden // 64)
+    return dataclasses.replace(c, num_heads=h, num_kv_heads=h, head_dim=64)
+
+
+def small_bert(hidden: int = 256, layers: int = 4) -> ModelConfig:
+    return _shrink_heads(bert(hidden, layers, vocab=2048), hidden)
+
 
 def small_gpt(hidden: int = 256, layers: int = 4) -> ModelConfig:
-    h = max(2, hidden // 64)
-    return dataclasses.replace(gpt(hidden, layers, vocab=2048),
-                               num_heads=h, num_kv_heads=h, head_dim=64)
+    return _shrink_heads(gpt(hidden, layers, vocab=2048), hidden)

@@ -167,7 +167,8 @@ class StagedEngine:
         grads: Dict[str, Any] = {}
         counts = {"stages_offloaded": 0, "stages_kept": 0,
                   "stages_recomputed": 0, "stages_fetched": 0,
-                  "forward_s": 0.0, "backward_s": 0.0}
+                  "layer_saved_bytes": 0, "forward_s": 0.0,
+                  "backward_s": 0.0}
         loss_total, bwd_begin, dev_bwd_begin = 0.0, 0, 0
         for mb, batch in enumerate(batches):
             with self.spool.step(f"mb{mb}") as tx:
@@ -251,6 +252,9 @@ class StagedEngine:
                     tx.keep(si, saved)
                     counts["stages_kept"] += 1
                 profiles[si] = profile
+                if stage.role == "layer":
+                    # what the analytic count of Table 4 models
+                    counts["layer_saved_bytes"] += profile.bytes
                 # the graph holds the pack hook, and so this list: empty
                 # it, or every spooled tensor stays on the device
                 saved.clear()
@@ -296,9 +300,15 @@ class StagedEngine:
                                           ins, si, inputs, carry)
                 else:
                     cells[si][:] = fetched
-                    got = torch.autograd.grad(outs[si], inputs, carry,
-                                              allow_unused=True)
-                    cells[si].clear()
+                    try:
+                        got = torch.autograd.grad(outs[si], inputs, carry,
+                                                  allow_unused=True)
+                    finally:
+                        # a backward that raises leaves its graph's saved
+                        # tensors unpacked, and their unpack hook holds
+                        # this cell: emptied, or the cell, graph and
+                        # tensors keep each other alive past the step
+                        cells[si].clear()
                     del fetched
                 tx.drop(si)
             outs.pop(si)

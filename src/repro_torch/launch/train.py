@@ -8,6 +8,8 @@ package's `repro/launch/train.py`.
       --optimizer sgd --steps 3 --batch 1 --seq 2048 --strategy spool
   python -m repro_torch.launch.train --arch small-gpt --device cpu \\
       --attn-impl torch --steps 2 --batch 2 --seq 64 --min-offload 4096
+  python -m repro_torch.launch.train --arch small-bert --device cpu \\
+      --steps 2 --batch 2 --seq 64 --strategy spool --min-offload 4096
 
 Runs on the card unless `--device cpu` is given; without CUDA it stops
 rather than fall back to the CPU. `--attn-impl cuda` (the default on the

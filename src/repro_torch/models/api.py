@@ -77,14 +77,20 @@ def _to_decode_cache(bdef: BlockDef, cache, cache_len: int):
     return {"k": k, "v": v}
 
 
-def embed_in(params, batch, cfg: ModelConfig):
+def _token_embed(params, tokens, cfg: ModelConfig):
     """Token embeddings, scaled by sqrt(d_model) in the parameter dtype
-    when `cfg.scale_embed` (gemma-style), plus learned positions for
-    non-RoPE models."""
-    x = params["embed"][batch["tokens"]]
+    when `cfg.scale_embed` (gemma-style)."""
+    x = params["embed"][tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    return x
+
+
+def embed_in(params, batch, cfg: ModelConfig):
+    """Token embeddings (`_token_embed`) plus learned positions for
+    non-RoPE models."""
+    x = _token_embed(params, batch["tokens"], cfg)
     if not cfg.use_rope:
         S = x.shape[1]
         x = x + params["pos_embed"][:S][None].to(x.dtype)
@@ -186,13 +192,25 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                                  cache_len=cache_len)
         return logits[:, -1:], caches
 
+    def _decode_embed(params, batch, pos):
+        """One decode token per row, embedded as `embed_in` embeds a
+        prefill token (the JAX package's `api.py::_decode_embed`): scaled
+        by sqrt(d_model) in the parameter dtype when `cfg.scale_embed`,
+        plus the learned position `pos_embed[pos]` for non-RoPE models,
+        per row for a (B,) `pos` and shared for a scalar one."""
+        x = _token_embed(params, batch["tokens"], cfg)
+        if not cfg.use_rope:
+            pe = params["pos_embed"][pos].to(x.dtype)
+            x = x + (pe[:, None] if pos.dim() == 1 else pe)
+        return x
+
     def decode_step(params, cache, batch, pos, settings: RunSettings):
         """One token for the whole batch against dense caches (updated in
         place). batch: {"tokens": (B, 1)}. pos: int / 0-d tensor, or a
         (B,) tensor of per-row positions. Returns (B, 1, V) f32 logits."""
         _decode_ported()
-        x = params["embed"][batch["tokens"]]
-        pos = torch.as_tensor(pos, device=x.device)
+        pos = torch.as_tensor(pos, device=params["embed"].device)
+        x = _decode_embed(params, batch, pos)
         for seg, p_stack, c_stack in zip(segs, params["segments"], cache):
             for rep in range(seg.n_repeat):
                 p_layer, c_layer = layer(p_stack, rep), layer(c_stack, rep)
@@ -217,8 +235,8 @@ def build_model(cfg: ModelConfig) -> ModelApi:
 
         Returns (B, 1, V) f32 logits."""
         _decode_ported()
-        x = params["embed"][batch["tokens"]]
-        pos = torch.as_tensor(pos, device=x.device)
+        pos = torch.as_tensor(pos, device=params["embed"].device)
+        x = _decode_embed(params, batch, pos)
         for seg, p_stack, pool_stack, res_stack in zip(
                 segs, params["segments"], pools, resident):
             for rep in range(seg.n_repeat):

@@ -5,7 +5,7 @@ with stacked parameters) -> decode caches.
 Where JAX scans a segment's stacked parameters, the port loops in Python
 over the layer index (`layer(tree, i)` takes the i-th slice of every
 leaf, as views). The port carries the attention block (full or sliding
-window) and the RG-LRU (`rglru`) block, each followed by the dense MLP
+window; causal, or bidirectional for encoder-only BERT) and the RG-LRU (`rglru`) block, each followed by the dense MLP
 (classic or gated), and the attention-free Mamba-2 (`ssm`) block with no
 MLP; the hybrid pattern of recurrentgemma repeats (rglru, rglru, attn)
 and puts the remainder in a second segment. The rglru and ssm blocks
@@ -57,7 +57,6 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
         ("cross attention", bool(cfg.cross_attn_period)
          or cfg.family == "encdec"),
         ("MoE", bool(cfg.moe_num_experts)),
-        ("encoder-only models", not cfg.causal),
         ("embedding inputs", cfg.input_kind != "tokens"),
         ("qkv bias", cfg.qkv_bias and not ssm),
         ("post-block norms", cfg.post_block_norm),
@@ -169,7 +168,7 @@ def _proj(x, w):
 
 def _qkv(p, x, cfg: ModelConfig, positions):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if positions is not None:
+    if cfg.use_rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -1,11 +1,12 @@
 """Card-only tests of the port: the hand-written CUDA kernels (flash
-attention in f32 and on the bf16 tensor cores, at head_dim 256 too; SSD
-scan, its four passes; RG-LRU scan, its three passes, both modes and the
-fused backward, and the same bits on a repeat call) against
-their plain PyTorch versions, the Python mirrors of their launch
-arithmetic against the libraries, the serve path through the flash
-kernel, and training through the kernels. A CUDA
-kernel has no CPU mode, so without a card these skip; on the card run
+attention in f32 and on the bf16 tensor cores, at head_dim 256 too and
+non-causal at BERT's shapes; SSD scan, its four passes; RG-LRU scan, its
+three passes, both modes and the fused backward, and the same bits on a
+repeat call) against their plain PyTorch versions, the Python mirrors of
+their launch arithmetic against the libraries, the serve path through
+the flash kernel, and training through the kernels (GPT, BERT, mamba2,
+the hybrid). A CUDA kernel has no CPU mode, so without a card these
+skip; on the card run
 `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`. This
 file imports no jax (the card's machine has none)."""
 import dataclasses
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.configs import (MAMBA2_2_7B, RECURRENTGEMMA_9B,
                                  SpoolIoConfig)
-from repro_torch.configs.paper_models import small_gpt
+from repro_torch.configs.paper_models import small_bert, small_gpt
 from repro_torch.core.policies import KeepPolicy, SpoolPolicy
 from repro_torch.core.tree import tree_flatten
 from repro_torch.kernels import flash_attention as fa
@@ -133,6 +134,26 @@ def test_kernel_matches_plain(card, case, dtype, tol):
     assert out.dtype == dtype and out.shape == q.shape
     want = attention_reference(q.float(), k.float(), v.float(), **kw)
     assert_attention_close(out, want, tol)
+
+
+# BERT's bidirectional attention at the paper's widths (64, 96 and 128
+# heads of 128, S=1024): every kv tile of every query block is live, and
+# only padded keys are masked
+BERT_CASES = [(1, 1024, 1024, H, H, 128, False, 0, 0.0) for H in (64, 96,
+                                                                   128)]
+
+
+@pytest.mark.parametrize("case,dtype,tol",
+                         [(c, torch.bfloat16, TOL_BF16_ROW)
+                          for c in BERT_CASES]
+                         + [((1, 1024, 1024, 8, 8, 128, False, 0, 0.0),
+                             torch.float32, 2e-5),
+                            ((2, 1000, 1000, 4, 4, 128, False, 0, 0.0),
+                             torch.bfloat16, TOL_BF16_ROW)])
+def test_flash_noncausal_matches_plain(card, case, dtype, tol):
+    """The non-causal path over many kv tiles: the tensor-core kernel at
+    BERT's shapes, the FMA kernel in f32, and a ragged length."""
+    test_kernel_matches_plain(card, case, dtype, tol)
 
 
 @pytest.mark.parametrize("case", D256_CASES)
@@ -419,8 +440,8 @@ def test_flash_attention_carries_gradient(card):
 
 
 @pytest.mark.parametrize("cfg", [small_gpt(128, 2), SMALL_MAMBA2,
-                                 SMALL_HYBRID],
-                         ids=["small-gpt", "mamba2", "hybrid"])
+                                 SMALL_HYBRID, small_bert(128, 2)],
+                         ids=["small-gpt", "mamba2", "hybrid", "small-bert"])
 def test_loss_and_grads_through_kernels_match_plain(card, cfg):
     """bf16 models: loss and every gradient leaf through the kernels
     (attn_impl="cuda") against the plain paths. They differ by bf16

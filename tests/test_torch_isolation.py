@@ -1,7 +1,9 @@
 """The port stands alone: every `repro_torch` module (the hybrid's
-config, RG-LRU scan and mixer among them), and the root `chip_smoke.py`,
-import with jax and ml_dtypes blocked and load nothing of the JAX
-package (`repro` / `repro.*`)."""
+config, RG-LRU scan and mixer, the ROK curve and the Table 4 count among
+them), the root `chip_smoke.py` and the port's paper benchmarks
+(`benchmarks/torch_*.py`) import with jax and ml_dtypes blocked and load
+nothing of the JAX package (`repro` / `repro.*`) nor the JAX benchmarks'
+`benchmarks.common`."""
 import os
 import subprocess
 import sys
@@ -21,7 +23,11 @@ for name in names:
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", sys.argv[1] + "/chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+sys.path.insert(0, sys.argv[1])
+for bench in ("torch_common", "torch_fig10", "torch_fig11", "torch_table4"):
+    importlib.import_module("benchmarks." + bench)
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
+             or m == "benchmarks.common")
 print(len(names), "modules;", "leaked:", bad)
 print(" ".join(names))
 sys.exit(1 if bad else 0)
@@ -40,5 +46,6 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "leaked: []" in proc.stdout
     names = proc.stdout.splitlines()[1].split()
     for module in ("configs.recurrentgemma_9b", "kernels.rglru_scan",
-                   "models.rglru", "models.layers", "models.transformer"):
+                   "models.rglru", "models.layers", "models.transformer",
+                   "core.rok", "core.endurance"):
         assert f"repro_torch.{module}" in names, module

@@ -3,8 +3,10 @@ one set of weights: JAX `init` -> numpy -> `params_from_jax`. Layers,
 full-sequence forward with its emitted decode caches, dense and paged
 decode over several steps, in float32 at 1e-4, and one bf16 prefill;
 the rms_norm / GELU / SiLU autograd Functions (their grads, and that they
-save only their inputs); training loss and every gradient of small-gpt
-and of a 2-layer mamba2 against `build_model(cfg).loss`."""
+save only their inputs); training loss and every gradient of small-gpt,
+small-bert and a 2-layer mamba2 against `build_model(cfg).loss`; the
+decode steps also with learned positions (no RoPE) and with the
+sqrt(d_model) embedding scale."""
 import dataclasses
 
 import numpy as np
@@ -15,12 +17,14 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.mamba2_2_7b import CONFIG as JAX_MAMBA2  # noqa: E402
+from repro.configs.paper_models import small_bert as jax_small_bert  # noqa
 from repro.configs.paper_models import small_gpt as jax_small_gpt  # noqa
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models.api import build_model as jax_build  # noqa: E402
 from repro.models.transformer import RunSettings as JaxSettings  # noqa
 from repro_torch.configs import MAMBA2_2_7B, resolve_config  # noqa: E402
-from repro_torch.configs.paper_models import small_gpt  # noqa: E402
+from repro_torch.configs.paper_models import (small_bert,  # noqa: E402
+                                              small_gpt)
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.core.tree import tree_flatten  # noqa: E402
@@ -31,11 +35,11 @@ TOL = 1e-4
 B, S, CACHE = 2, 12, 24
 
 
-def _setup(dtype):
-    jcfg = dataclasses.replace(jax_small_gpt(), dtype=dtype)
+def _setup(dtype, **over):
+    jcfg = dataclasses.replace(jax_small_gpt(), dtype=dtype, **over)
     japi = jax_build(jcfg)
     jparams = japi.init(jax.random.key(0))
-    api = build_model(dataclasses.replace(small_gpt(), dtype=dtype))
+    api = build_model(dataclasses.replace(small_gpt(), dtype=dtype, **over))
     params = params_from_jax(jax.tree.map(np.asarray, jparams),
                              device="cpu")
     return (japi, jparams, JaxSettings(attn_impl="xla", attn_chunk=8,
@@ -47,6 +51,17 @@ def _setup(dtype):
 @pytest.fixture(scope="module")
 def f32():
     return _setup("float32")
+
+
+# the decode embedding as shipped (RoPE, no scale), with learned
+# positions instead of RoPE, and with the sqrt(d_model) embedding scale
+DECODE_VARIANTS = {"as-shipped": {}, "use_rope=False": {"use_rope": False},
+                   "scale_embed=True": {"scale_embed": True}}
+
+
+@pytest.fixture(scope="module", params=list(DECODE_VARIANTS))
+def f32_decode(request):
+    return _setup("float32", **DECODE_VARIANTS[request.param])
 
 
 def _tokens(seed=0, shape=(B, S)):
@@ -122,10 +137,10 @@ def test_forward_and_caches_match_jax(f32):
                                    rtol=TOL, atol=TOL)
 
 
-def test_decode_steps_match_jax(f32):
+def test_decode_steps_match_jax(f32_decode):
     """Prefill, then 4 dense decode steps, alternating per-row (B,)
     positions and one shared scalar position."""
-    japi, jparams, jset, api, params, tset = f32
+    japi, jparams, jset, api, params, tset = f32_decode
     toks = _tokens(2)
     _, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(toks)}, jset,
                              cache_len=CACHE)
@@ -149,10 +164,10 @@ def test_decode_steps_match_jax(f32):
                                    rtol=TOL, atol=TOL)
 
 
-def test_paged_decode_matches_jax(f32):
+def test_paged_decode_matches_jax(f32_decode):
     """Decode against page pools and tables (different physical pages
     per row, null page 0 in the unused table entries)."""
-    japi, jparams, jset, api, params, tset = f32
+    japi, jparams, jset, api, params, tset = f32_decode
     P, n_pages, n_phys = 4, 6, 16
     toks = _tokens(4, (B, 8))
     _, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(toks)}, jset,
@@ -258,7 +273,7 @@ def test_layer_functions_save_only_inputs_and_match_jax(name):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["small-gpt", "mamba2"])
+@pytest.mark.parametrize("arch", ["small-gpt", "mamba2", "small-bert"])
 def test_loss_and_grads_match_jax(arch):
     """float32 training loss and the gradient of every parameter against
     the JAX package's `loss` on the same weights and batch: loss at 1e-5,
@@ -269,6 +284,9 @@ def test_loss_and_grads_match_jax(arch):
                   max_position=64, dtype="float32")
         jcfg = dataclasses.replace(JAX_MAMBA2, **kw)
         tcfg = dataclasses.replace(MAMBA2_2_7B, **kw)
+    elif arch == "small-bert":
+        jcfg = dataclasses.replace(jax_small_bert(), dtype="float32")
+        tcfg = dataclasses.replace(small_bert(), dtype="float32")
     else:
         jcfg = dataclasses.replace(jax_small_gpt(), dtype="float32")
         tcfg = dataclasses.replace(small_gpt(), dtype="float32")

@@ -11,13 +11,15 @@ session, CLI) against the JAX package and against itself.
   * Inside the port, bitwise: losses and params across Keep / Spool /
     Recompute / Adaptive and across fs|mem x raw|zlib|byteplane; a failed
     load that falls back to recompute changes nothing, and any other
-    error in a fetch propagates.
+    error in a fetch propagates; a step whose backward raises frees its
+    tensors.
   * What the spool stores: no parameter storage, no stage input, the
     deduplicated non-parameter saved tensors of each stage, and a lower
     tracked peak than keep.
   * The CLI runs 2 steps on the CPU and refuses flags not ported yet.
 """
 import dataclasses
+import gc
 import json
 
 import numpy as np
@@ -35,6 +37,7 @@ from repro.models.transformer import RunSettings as JaxSettings  # noqa
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch.configs import MAMBA2_2_7B, SpoolIoConfig  # noqa: E402
 from repro_torch.configs.paper_models import small_gpt  # noqa: E402
+from repro_torch.core import engine as engine_mod  # noqa: E402
 from repro_torch.core.engine import StagedEngine  # noqa: E402
 from repro_torch.core.ids import storage_ptr  # noqa: E402
 from repro_torch.core.policies import (AdaptivePolicy, KeepPolicy,  # noqa
@@ -254,6 +257,54 @@ def test_other_fetch_errors_propagate(keep_run, monkeypatch):
     monkeypatch.setattr(SpoolStepTransaction, "fetch", broken)
     with pytest.raises(RuntimeError, match="device fault"):
         _port_run(tcfg, jparams, SpoolPolicy(), steps=1)
+
+
+class _BackwardFault(RuntimeError):
+    pass
+
+
+class _RaiseInBackward(torch.autograd.Function):
+    """Identity whose backward raises, as an out-of-memory error in a
+    kernel's backward does on the card."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise _BackwardFault("injected: out of memory in backward")
+
+
+def _live_tensor_elements():
+    gc.collect()
+    return sum(o.numel() for o in gc.get_objects() if torch.is_tensor(o))
+
+
+@pytest.mark.parametrize("policy", [KeepPolicy, SpoolPolicy])
+def test_a_step_whose_backward_raises_frees_its_tensors(keep_run, policy,
+                                                        monkeypatch):
+    """The error reaches the caller, and nothing of the failed step stays
+    alive: the saved tensors fetched for the failing stage sit in the
+    cell its unpack hook reads, and the graph that hook belongs to was
+    never run, so an unemptied cell, the graph and the tensors would
+    keep each other alive (invisible to the garbage collector) and the
+    card's memory with them."""
+    _, tcfg, jparams, _, _, _ = keep_run
+    real = engine_mod.apply_block
+    calls = []
+
+    def faulty(bdef, p, x, *a, **kw):
+        x, c = real(bdef, p, x, *a, **kw)
+        calls.append(1)
+        return (_RaiseInBackward.apply(x) if len(calls) == 2 else x), c
+
+    _port_run(tcfg, jparams, policy(), steps=1)       # warm caches
+    before = _live_tensor_elements()
+    monkeypatch.setattr(engine_mod, "apply_block", faulty)
+    with pytest.raises(_BackwardFault):
+        _port_run(tcfg, jparams, policy(), steps=1)
+    assert _live_tensor_elements() == before
 
 
 def test_spool_stores_no_parameters_and_every_saved_tensor(keep_run,
