@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs import ModelConfig, SpoolIoConfig
 from repro_torch.core.rok import RokPoint, model_flops_per_step
+from repro_torch.data.pipeline import encoder_decoder_batches
 from repro_torch.session import TrainSession
 
 # the small scenarios' offload filter (benchmarks/common.py::MIN_OFFLOAD)
@@ -77,12 +78,16 @@ def run_staged(cfg: ModelConfig, *, policy: str, batch: int, seq: int,
     §4.1 runs) through `TrainSession`; the median step time of the steps
     after the first, the largest peaks of those steps, and the spool's
     bytes per step (stores drained before they are read). `min_offload`
-    None is the paper's filter."""
+    None is the paper's filter. An encoder-decoder's encoder reads the
+    decoder's tokens."""
     if device == "cpu":
         cfg = dataclasses.replace(cfg, dtype="float32")
+    loader = (encoder_decoder_batches(cfg.vocab_size, batch=batch,
+                                      seq_len=seq, seed=seed)
+              if cfg.family == "encdec" else None)
     with TrainSession(cfg, policy=policy, io=io or SpoolIoConfig(),
                       optimizer="sgd", lr=SGD_LR, batch_size=batch,
-                      seq_len=seq, seed=seed, device=device,
+                      seq_len=seq, seed=seed, device=device, loader=loader,
                       min_offload_elements=min_offload) as sess:
         n_params = sess.n_params
         reports = sess.run(steps).reports

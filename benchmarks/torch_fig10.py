@@ -1,9 +1,10 @@
 """Paper Fig. 10 on the port: step time and activation memory, every
 layer's residuals kept on the device vs spooled (SSDTrain's offload), on
-GPT and BERT at three (hidden, layers) scenarios, after
+GPT, BERT and T5 at three (hidden, layers) scenarios, after
 `benchmarks/fig10_overhead.py` (whose rows' keys each row carries, plus
 the batch, both runs' device peaks, the spool directory's filesystem and
-the device). T5 rows come with the encoder-decoder slice.
+the device). T5's encoder reads the decoder's tokens, as the JAX script's
+does.
 
     PYTHONPATH=src python -m benchmarks.torch_fig10 --paper \\
         --out chiprun_out/fig10.json                          # on the card
@@ -25,10 +26,11 @@ from benchmarks.torch_common import (MIN_OFFLOAD_SMALL, PAPER_BATCHES,
                                      first_fit, parse_cli, run_if_it_fits,
                                      write_rows)
 from repro_torch.configs import (PAPER_SCENARIOS, SMALL_SCENARIOS, bert,
-                                 gpt, small_bert, small_gpt)
+                                 gpt, small_bert, small_gpt, small_t5, t5)
 
-# GPT rows first, then BERT
-FAMILIES = {"gpt": (small_gpt, gpt), "bert": (small_bert, bert)}
+# GPT rows first, then BERT, then T5
+FAMILIES = {"gpt": (small_gpt, gpt), "bert": (small_bert, bert),
+            "t5": (small_t5, t5)}
 
 
 def row(fam, hidden, layers, keep, off, fs, device) -> dict:

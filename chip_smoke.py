@@ -14,7 +14,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
   3. kernels: each kernel against its plain PyTorch version on the card
      (the flash-attention cases of tests/test_kernels.py in f32, on the
      FMA kernel, and in bf16, on the tensor-core kernel, plus the serve
-     prefill shapes, phase 8's shape non-causal and causal, and the
+     prefill shapes, phase 8's shapes non-causal and causal, and the
      recurrentgemma-9b MQA shapes at head_dim 256;
      the SSD-scan cases of tests/test_kernels.py plus the mamba2-2.7b
      training shape with bf16 B/C; the RG-LRU cases of
@@ -60,14 +60,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and the RG-LRU kernel launched once per rglru block per step in
      forward and once in backward, the flash kernel once per attention
      block per step;
-  8. train: the paper's GPT and BERT (gpt-h8192-l4 and bert(8192, 4):
-     64 heads of 128, learned positions and bidirectional attention for
-     BERT; random weights from seed 0) through `TrainSession`, sgd (lr
-     3e-4, no momentum), B=4, S=1024, 3 steps on the flash kernel (causal
-     for GPT, non-causal for BERT), kept and spooled (fs, raw). The checks
-     of phase 5 with the stage count from the engine (6 stages), and the
-     flash kernel launched once per layer per step (the backward is the
-     plain VJP); the tracked activation peaks of both runs;
+  8. train: the paper's GPT, BERT and T5 (gpt-h8192-l4, bert(8192, 4)
+     and t5(8192, 4): 64 heads of 128; learned positions and
+     bidirectional attention for BERT; T5 with 2 bidirectional encoder
+     layers and 2 decoder layers of causal self-attention and
+     cross-attention over the encoder states, its encoder reading the
+     decoder's tokens; random weights from seed 0) through
+     `TrainSession`, sgd (lr 3e-4, no momentum), B=4 (T5 B=8), S=1024, 3
+     steps on the flash kernel, kept and spooled (fs, raw). The checks of
+     phase 5 with the stage count from the engine, which must be 6 (GPT,
+     BERT) and 8 (T5: enc_embed, 2 encoder layers, enc_final, embed, 2
+     decoder layers, head), and the flash kernel launched once per
+     attention per step (the backward is the plain VJP): 4 for GPT and
+     BERT, 6 for T5; the tracked activation peaks of both runs;
   9. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -155,14 +160,22 @@ FLASH_D256_CASES = [
     (1, 512, 16, 1, 256, True, 128, torch.float32, TOL_F32),
 ]
 RG_ARCH, RG_SEQ, RG_LR, RG_CLIP = "recurrentgemma-9b", 2048, 3e-4, 1.0
-# the paper's GPT and BERT at its first scenario (§4.2): hidden 8192, 4
-# layers, S=1024, sgd without momentum; B=4 keeps the phase short (the
-# paper's micro-batch of 16 runs in benchmarks/torch_fig10.py --paper)
+# the paper's GPT, BERT and T5 at its first scenario (§4.2): hidden 8192,
+# 4 layers, S=1024, sgd without momentum; B=4 keeps the phase short (the
+# paper's micro-batch of 16 runs in benchmarks/torch_fig10.py --paper).
+# T5 runs at B=8: at B=4 its device peak, kept or spooled alike, is set at
+# the end of backward by its parameters, its full gradients and the last
+# encoder layer's backward (33.29 GB both ways on an H100 80GB HBM3 at
+# 700 W), where no activation is left to spool; at B=8 its activations
+# set the peak
 PAPER_HIDDEN, PAPER_LAYERS, PAPER_SEQ, PAPER_BATCH = 8192, 4, 1024, 4
+T5_BATCH = 8
 PAPER_LR = 3e-4
 # the attention of phase 8's GPT and BERT: (B, S, H, D); BERT's is
-# bidirectional, GPT's causal
+# bidirectional, GPT's causal; T5's both, at its batch (its encoder
+# input has the decoder's length, so cross-attention has this shape too)
 BERT_ATTN = (PAPER_BATCH, PAPER_SEQ, PAPER_HIDDEN // 128, 128)
+T5_ATTN = (T5_BATCH,) + BERT_ATTN[1:]
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, and
 # operations/s for bf16 on the tensor cores and f32 on the CUDA cores.
@@ -289,8 +302,8 @@ def mirror_check():
     from repro_torch.kernels import ssd_scan as ssd
     shapes = ATTN_CASES + [(1, S, S, 64, 64, 128, True, 0, 0.0)
                            for S in (1024, 1000)]
-    B, S, H, D = BERT_ATTN
-    shapes += [(B, S, S, H, H, D, causal, 0, 0.0) for causal in (False, True)]
+    shapes += [(B, S, S, H, H, D, causal, 0, 0.0) for causal in (False, True)
+               for B, S, H, D in (BERT_ATTN, T5_ATTN)]
     shapes += [(B, S, S, Hq, Hkv, D, causal, window, 0.0) for
                B, S, Hq, Hkv, D, causal, window, _, _ in FLASH_D256_CASES]
     n = 0
@@ -624,48 +637,52 @@ def flash_d256_phase(gen, peaks, smi):
 
 
 def flash_bert_phase(gen, peaks, smi):
-    """The flash kernel at the attention shape phase 8 gives it (q/k/v
-    (4, 1024, 64, 128) bf16), bidirectional as BERT's (every kv tile of
-    every query block is live) and causal as GPT's, against the plain
-    attention; the bidirectional time beside the bound and
-    scaled_dot_product_attention's (is_causal=False). Returns a dict of
-    the bidirectional case's error and times."""
+    """The flash kernel at the attention shapes phase 8 gives it (q/k/v
+    (4, 1024, 64, 128) bf16 for GPT and BERT, (8, 1024, 64, 128) for T5),
+    bidirectional as BERT's (every kv tile of every query block is live)
+    and causal as GPT's, against the plain attention; at each shape the
+    bidirectional time beside the bound and scaled_dot_product_attention's
+    (is_causal=False). Returns {"bert": ..., "t5": ...}, each a dict of
+    that shape's bidirectional error and times."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_reference
-    B, S, H, D = BERT_ATTN
-    q, k, v = (torch.randn((B, S, H, D), generator=gen,
-                           device="cuda").bfloat16() for _ in range(3))
-    for causal in (True, False):
-        o = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        want = attention_reference(q.float(), k.float(), v.float(),
-                                   causal=causal)
-        err, rel, ok = attn_error(o, want, TOL_BF16_ROW)
-        del o, want
-        print(f"  flash_attention phase-8 shape B={B} S={S} H={H} D={D} "
-              f"causal={causal} bf16: max_abs_err {err:.3e} row_rel_err "
-              f"{rel:.3e} tol {TOL_BF16_ROW:g} of the row max "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"flash_attention disagrees with its plain version at "
-              f"phase 8's shape (causal={causal})")
-    out = {"max_abs_err": err, "max_row_rel_err": rel}
-    out["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=False))
-    out["ms_back_to_back"] = time_back_to_back_ms(
-        lambda: flash_attention(q, k, v, causal=False))
-    out["plain_ms"] = time_ms(lambda: attention_reference(q, k, v,
-                                                          causal=False))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    out["library_ms"] = time_ms(lambda: torch.nn.functional.
-                                scaled_dot_product_attention(
-                                    qt, kt, vt, is_causal=False))
-    out["bound"] = bound_ms(q, k, v, False, 0, peaks)
-    print(f"  phase-8 shape B={B} S={S} H={H} D={D} non-causal bf16: "
-          f"kernel_ms {out['ms']:.4f} (back-to-back {out['ms_back_to_back']:.4f}) "
-          f"plain_ms {out['plain_ms']:.4f} library_ms "
-          f"{out['library_ms']:.4f} (scaled_dot_product_attention, "
-          f"is_causal=False, yardstick only) bound_us "
-          f"{1e3 * out['bound'][0]:.1f} ({out['bound'][1]}) on {smi}")
-    return out
+    res = {}
+    for fam, (B, S, H, D) in (("t5", T5_ATTN), ("bert", BERT_ATTN)):
+        q, k, v = (torch.randn((B, S, H, D), generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        for causal in (True, False):
+            o = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = attention_reference(q.float(), k.float(), v.float(),
+                                       causal=causal)
+            err, rel, ok = attn_error(o, want, TOL_BF16_ROW)
+            del o, want
+            print(f"  flash_attention phase-8 shape B={B} S={S} H={H} "
+                  f"D={D} causal={causal} bf16: max_abs_err {err:.3e} "
+                  f"row_rel_err {rel:.3e} tol {TOL_BF16_ROW:g} of the row "
+                  f"max {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention disagrees with its plain version "
+                  f"at phase 8's shape B={B} (causal={causal})")
+        out = res[fam] = {"max_abs_err": err, "max_row_rel_err": rel}
+        out["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=False))
+        out["ms_back_to_back"] = time_back_to_back_ms(
+            lambda: flash_attention(q, k, v, causal=False))
+        out["plain_ms"] = time_ms(lambda: attention_reference(
+            q, k, v, causal=False))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        out["library_ms"] = time_ms(lambda: torch.nn.functional.
+                                    scaled_dot_product_attention(
+                                        qt, kt, vt, is_causal=False))
+        out["bound"] = bound_ms(q, k, v, False, 0, peaks)
+        print(f"  phase-8 shape B={B} S={S} H={H} D={D} non-causal bf16: "
+              f"kernel_ms {out['ms']:.4f} (back-to-back "
+              f"{out['ms_back_to_back']:.4f}) plain_ms "
+              f"{out['plain_ms']:.4f} library_ms {out['library_ms']:.4f} "
+              f"(scaled_dot_product_attention, is_causal=False, yardstick "
+              f"only) bound_us {1e3 * out['bound'][0]:.1f} "
+              f"({out['bound'][1]}) on {smi}")
+        del q, k, v, qt, kt, vt
+    return res
 
 
 def rg_layer_check(gen):
@@ -746,14 +763,18 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     host parameters of an earlier run as `keep_params`, whether they are
     bitwise equal to those (one host copy of a large model, not two)."""
     from repro_torch.core.tree import tree_flatten
+    from repro_torch.data.pipeline import encoder_decoder_batches
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.session import TrainSession
     kernels = (flash_attention, ssd_scan, rglru_scan)
+    loader = (encoder_decoder_batches(cfg.vocab_size, batch=batch,
+                                      seq_len=seq, seed=0)
+              if cfg.family == "encdec" else None)
     sess = TrainSession(cfg, policy=policy, io=io, optimizer=optimizer,
                         lr=3e-4, batch_size=batch, seq_len=seq, seed=0,
-                        device="cuda", attn_impl="cuda")
+                        device="cuda", attn_impl="cuda", loader=loader)
     if hasattr(policy, "spool"):
         policy.spool = sess.spool
     try:
@@ -813,13 +834,13 @@ def same_params(a, b) -> bool:
                                     for x, y in zip(a, b))
 
 
-def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1):
+def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None):
     """Full-width training of `cfg` kept on the card, then spooled (fs,
     raw) to a fresh directory: bitwise losses and parameters, a lower
     peak, bytes offloaded, every stored stage fetched (the stage count
-    is the engine's), the directory empty after close, and each kernel's
-    launches equal to `want` in each run. Returns the spool run's
-    launches (the main path's)."""
+    is the engine's, and equal to `stages` where given), the directory
+    empty after close, and each kernel's launches equal to `want` in
+    each run. Returns the spool run's launches (the main path's)."""
     from repro_torch.configs import SpoolIoConfig
     from repro_torch.core.policies import KeepPolicy, SpoolPolicy
     deterministic()
@@ -840,7 +861,8 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1):
         os.rmdir(spool_dir)
     act_k, act_s = (max(r.peak_activation_bytes for r in reps)
                     for reps in (rk, rs))
-    print(f"train: {cfg.name} {cfg.num_layers} layers in {n_stages} "
+    print(f"train: {cfg.name} {cfg.num_layers + cfg.num_decoder_layers} "
+          f"layers in {n_stages} "
           f"stages, d_model {cfg.d_model}, {TRAIN_STEPS} steps at B={batch} "
           f"S={seq}; keep losses {lk}, spool losses {ls}; peak device "
           f"memory keep {peak_k / 1e9:.2f} GB, spool {peak_s / 1e9:.2f} GB;"
@@ -855,6 +877,8 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1):
     check(all(r.extra["stages_offloaded"] == r.extra["stages_fetched"]
               == n_stages for r in rs), "a stored stage was not fetched")
     check(not left, f"spool directory not empty after close: {left[:5]}")
+    check(stages is None or n_stages == stages,
+          f"{n_stages} stages, want {stages}")
     for name, n in want.items():
         check(nk[name] == ns[name] == n, f"{name} launches "
               f"{nk[name]}/{ns[name]}, want {n}")
@@ -891,19 +915,28 @@ def rg_train_phase(smi):
 
 
 def paper_train_phase(smi):
-    """The paper's GPT and BERT at hidden 8192, 4 layers, B=4, S=1024 with
-    sgd (no momentum): the flash kernel once per layer per step, causal
-    for GPT and bidirectional for BERT (its backward is the plain VJP).
+    """The paper's GPT, BERT and T5 at hidden 8192, 4 layers, S=1024 with
+    sgd (no momentum), at B=4 (T5 at B=8): the flash kernel once per
+    attention per step, causal for GPT, bidirectional for BERT, and for
+    T5 bidirectional in its 2 encoder layers, causal in the
+    self-attention and bidirectional in the cross-attention of its 2
+    decoder layers (the backward is the plain VJP). Stages: one per
+    layer, the embed and head stages, and T5's enc_embed and enc_final.
     Returns {family: the spool run's launches}."""
-    from repro_torch.configs import bert, gpt
+    from repro_torch.configs import bert, gpt, t5
     from repro_torch.optim.optimizers import sgd
     out = {}
-    for fam, make in (("gpt", gpt), ("bert", bert)):
+    for fam, make in (("gpt", gpt), ("bert", bert), ("t5", t5)):
         cfg = make(PAPER_HIDDEN, PAPER_LAYERS)
+        encdec = cfg.family == "encdec"
+        # each decoder layer of T5 attends twice: to itself, then to enc
+        per_step = cfg.num_layers + 2 * cfg.num_decoder_layers
         out[fam] = keep_vs_spool(
             cfg, PAPER_SEQ, sgd(PAPER_LR),
-            {"flash_attention": cfg.num_layers * TRAIN_STEPS, "ssd_scan": 0,
-             "rglru_scan": 0}, smi, batch=PAPER_BATCH)
+            {"flash_attention": per_step * TRAIN_STEPS, "ssd_scan": 0,
+             "rglru_scan": 0}, smi,
+            batch=T5_BATCH if encdec else PAPER_BATCH,
+            stages=PAPER_LAYERS + 2 + 2 * encdec)
     return out
 
 
@@ -1097,7 +1130,8 @@ def main():
     layer_check(gen)
     rg = rglru_phase(gen, peaks, smi)
     d256 = flash_d256_phase(gen, peaks, smi)
-    bert_attn = flash_bert_phase(gen, peaks, smi)
+    paper_attn = flash_bert_phase(gen, peaks, smi)
+    bert_attn = paper_attn["bert"]
     rg_layer_check(gen)
 
     # ---- 4. serve at full width
@@ -1192,10 +1226,12 @@ def main():
     rg_launches = rg_train_phase(smi)
     t2 = time.perf_counter()
 
-    # ---- 8. train the paper's GPT and BERT at hidden 8192, keep vs spool
+    # ---- 8. train the paper's GPT, BERT and T5 at hidden 8192, keep vs
+    # spool
     paper_launches = paper_train_phase(smi)
     print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
-          f"{t2 - t1:.1f}s, GPT and BERT {time.perf_counter() - t2:.1f}s")
+          f"{t2 - t1:.1f}s, GPT, BERT and T5 "
+          f"{time.perf_counter() - t2:.1f}s")
 
     # ---- 9. result
     kernels = [{
@@ -1233,11 +1269,13 @@ def main():
         "d256_bound_by": d256[4][1],
         "d256_ms_over_library_ms": d256[1] / d256[3],
         "d256_bound_over_ms": d256[4][0] / d256[1],
-        # the paper's GPT and BERT training (phase 8), and BERT's
+        # the paper's GPT, BERT and T5 training (phase 8), and BERT's
         # bidirectional attention shape
         "launches_per_gpt_train_run": paper_launches["gpt"][
             "flash_attention"],
         "launches_per_bert_train_run": paper_launches["bert"][
+            "flash_attention"],
+        "launches_per_t5_train_run": paper_launches["t5"][
             "flash_attention"],
         "noncausal_max_abs_err": bert_attn["max_abs_err"],
         "noncausal_max_row_rel_err": bert_attn["max_row_rel_err"],
@@ -1247,6 +1285,14 @@ def main():
         "noncausal_library_ms": bert_attn["library_ms"],
         "noncausal_bound_ms": bert_attn["bound"][0],
         "noncausal_bound_by": bert_attn["bound"][1],
+        # T5's attention shape in phase 8 (B=8), bidirectional
+        "t5_noncausal_max_row_rel_err": paper_attn["t5"]["max_row_rel_err"],
+        "t5_noncausal_ms": paper_attn["t5"]["ms"],
+        "t5_noncausal_ms_back_to_back": paper_attn["t5"]["ms_back_to_back"],
+        "t5_noncausal_plain_ms": paper_attn["t5"]["plain_ms"],
+        "t5_noncausal_library_ms": paper_attn["t5"]["library_ms"],
+        "t5_noncausal_bound_ms": paper_attn["t5"]["bound"][0],
+        "t5_noncausal_bound_by": paper_attn["t5"]["bound"][1],
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -3,15 +3,21 @@ PyTorch's own saved-tensor hooks, with the semantics of the JAX
 package's `repro/core/staged.py`.
 
 A training step is a chain of stages (`embed`, `seg{si}_l{rep}` for each
-layer, `head`). Each stage's forward runs on inputs detached with
+layer, `head`). An encoder-decoder (T5) runs its encoder stream first
+(`enc_embed`, `enc{si}_l{rep}`, `enc_final`); `enc_final`'s output, the
+encoder states `enc`, is one detached leaf that every decoder stage
+holding a cross block (`takes_enc`) takes as a second input, and its
+cotangents from those stages add up into the carry of `enc_final`'s
+backward. Each stage's forward runs on inputs detached with
 `requires_grad`, under `torch.autograd.graph.saved_tensors_hooks`:
 
   pack hook      -> the saved tensor joins the stage's list, minus
                     parameters (any view of a parameter's storage), the
-                    stage input (the engine holds it as the graph leaf,
-                    so storing it would free nothing) and duplicates
-                    (same storage, offset, shape and stride), and
-                    autograd keeps only a handle;
+                    stage inputs (the stage input and `enc`: the engine
+                    holds each as a graph leaf, `enc` through the whole
+                    decoder, so storing them would free nothing) and
+                    duplicates (same storage, offset, shape and stride),
+                    and autograd keeps only a handle;
   after forward  -> the list goes to the spool (`tx.offload`) or stays
                     on device (`tx.keep`), as the `OffloadPolicy` says;
   backward       -> walks the stages in reverse, prefetching one stage
@@ -51,8 +57,14 @@ from repro_torch.core.report import StepReport
 from repro_torch.core.spool import (MIN_OFFLOAD_ELEMENTS, SpoolLoadError,
                                     build_spool)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
-from repro_torch.models.api import ModelApi, ce_loss, embed_in, head
+from repro_torch.models.api import (ModelApi, ce_loss, embed_in,
+                                    encoder_config, head)
+from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import RunSettings, apply_block, layer
+
+
+#: where a layer stage's parameters (and gradients) live, by role
+_SEGMENTS = {"layer": "segments", "enc_layer": "enc_segments"}
 
 
 def _nbytes(tensors) -> int:
@@ -60,13 +72,14 @@ def _nbytes(tensors) -> int:
 
 
 class _Stage:
-    """One module of the chain. role: embed | layer | head."""
+    """One module of the chain. role: enc_embed | enc_layer | enc_final |
+    embed | layer | head. takes_enc: fn is f(p, x, enc)."""
 
-    __slots__ = ("name", "role", "fn", "seg", "rep")
+    __slots__ = ("name", "role", "fn", "seg", "rep", "takes_enc")
 
-    def __init__(self, name, role, fn, seg=-1, rep=-1):
+    def __init__(self, name, role, fn, seg=-1, rep=-1, takes_enc=False):
         self.name, self.role, self.fn = name, role, fn
-        self.seg, self.rep = seg, rep
+        self.seg, self.rep, self.takes_enc = seg, rep, takes_enc
 
 
 class StagedEngine:
@@ -107,19 +120,39 @@ class StagedEngine:
 
     def _build_stages(self) -> List[_Stage]:
         cfg, settings = self.cfg, self.settings
-        stages = [_Stage("embed", "embed",
-                         lambda p, batch: embed_in(p, batch, cfg))]
-        for si, seg in enumerate(self.api.segments):
-            def layer_fn(p_layer, x, seg=seg):
+
+        def layer_fn(seg, lcfg):
+            def fn(p_layer, x, enc=None):
                 positions = (torch.arange(x.shape[1], device=x.device)
-                             if cfg.use_rope else None)
+                             if lcfg.use_rope else None)
                 for i, bdef in enumerate(seg.blocks):
-                    x, _ = apply_block(bdef, p_layer[f"b{i}"], x, cfg,
-                                       settings, positions=positions)
+                    x, _ = apply_block(bdef, p_layer[f"b{i}"], x, lcfg,
+                                       settings, positions=positions,
+                                       enc_kv=enc)
                 return x
+            return fn
+
+        stages = []
+        if self.api.enc_segments:
+            enc_cfg = encoder_config(cfg)
+            stages.append(_Stage(
+                "enc_embed", "enc_embed", lambda p, batch: embed_in(
+                    p, {"tokens": batch["enc_tokens"]}, enc_cfg)))
+            for si, seg in enumerate(self.api.enc_segments):
+                fn = layer_fn(seg, enc_cfg)
+                for rep in range(seg.n_repeat):
+                    stages.append(_Stage(f"enc{si}_l{rep}", "enc_layer", fn,
+                                         si, rep))
+            stages.append(_Stage("enc_final", "enc_final", lambda p, x: (
+                rms_norm(x, p["enc_norm"]["scale"], cfg.norm_eps))))
+        stages.append(_Stage("embed", "embed",
+                             lambda p, batch: embed_in(p, batch, cfg)))
+        for si, seg in enumerate(self.api.segments):
+            fn = layer_fn(seg, cfg)
+            takes_enc = any(b.mixer == "cross" for b in seg.blocks)
             for rep in range(seg.n_repeat):
-                stages.append(_Stage(f"seg{si}_l{rep}", "layer", layer_fn,
-                                     si, rep))
+                stages.append(_Stage(f"seg{si}_l{rep}", "layer", fn, si, rep,
+                                     takes_enc))
 
         def head_fn(p, x, labels):
             return ce_loss(head(p, x, cfg), labels)[0]
@@ -128,17 +161,21 @@ class StagedEngine:
 
     def _stage_params(self, params) -> List[Any]:
         """Per-stage parameter trees of detached leaves that require grad
-        (layer stages: views of the stacked leaves' rep-th slices)."""
+        (layer stages: views of the stacked leaves' rep-th slices; the
+        encoder's and the decoder's embed stages each their own leaves of
+        the shared tables)."""
         emb = {k: params[k] for k in ("embed", "pos_embed") if k in params}
         out = []
         for st in self._stages:
-            if st.role == "embed":
+            if st.role in ("enc_embed", "embed"):
                 tree = emb
+            elif st.role == "enc_final":
+                tree = {"enc_norm": params["enc_norm"]}
             elif st.role == "head":
                 tree = {"final_norm": params["final_norm"],
                         "unembed": params["unembed"]}
             else:
-                tree = layer(params["segments"][st.seg], st.rep)
+                tree = layer(params[_SEGMENTS[st.role]][st.seg], st.rep)
             leaves, tdef = tree_flatten(tree)
             out.append(tree_unflatten(
                 tdef, [t.detach().requires_grad_(True) for t in leaves]))
@@ -217,14 +254,14 @@ class StagedEngine:
         at the start of backward)."""
         sync = profiling and self.device.type == "cuda"
         t_fwd = time.perf_counter()
-        x = None
+        x = enc = None                         # the stream; encoder states
         ins: Dict[int, torch.Tensor] = {}      # stage input (graph leaf)
         outs: Dict[int, torch.Tensor] = {}     # stage output (graph root)
         cells: Dict[int, list] = {}            # fetched saved tensors
         recompute = set()
         loss = None
         for si, stage in enumerate(self._stages):
-            args = self._args_for(stage, batch, x)
+            args = self._args_for(stage, batch, x, enc)
             tin = time.perf_counter()
             if self.policy.recomputes(stage.role):
                 with torch.no_grad():
@@ -237,7 +274,7 @@ class StagedEngine:
             else:
                 saved, cell = [], []
                 with torch.autograd.graph.saved_tensors_hooks(
-                        *self._hooks(saved, cell, ins.get(si))):
+                        *self._hooks(saved, cell, ins.get(si), enc)):
                     out = stage.fn(stage_params[si], *args)
                 cells[si] = cell
             if sync:
@@ -252,7 +289,7 @@ class StagedEngine:
                     tx.keep(si, saved)
                     counts["stages_kept"] += 1
                 profiles[si] = profile
-                if stage.role == "layer":
+                if stage.role in _SEGMENTS:
                     # what the analytic count of Table 4 models
                     counts["layer_saved_bytes"] += profile.bytes
                 # the graph holds the pack hook, and so this list: empty
@@ -261,6 +298,9 @@ class StagedEngine:
             outs[si] = out
             if stage.role == "head":
                 loss = out
+            elif stage.role == "enc_final":
+                # the decoder's embed stage takes the batch, not this
+                enc = out.detach().requires_grad_(True)
             else:
                 x = out.detach().requires_grad_(True)
                 ins[si + 1] = x
@@ -273,15 +313,17 @@ class StagedEngine:
         counts["forward_s"] += t_bwd - t_fwd
 
         carry = torch.ones((), dtype=torch.float32, device=self.device)
+        enc_grad = None          # d loss / d enc, summed over cross stages
         for si in range(len(self._stages) - 1, -1, -1):
             stage = self._stages[si]
             for s in reuse_horizon(range(si - 1, -1, -1)):
                 tx.prefetch(s)
             leaves = tree_flatten(stage_params[si])[0]
-            inputs = leaves + ([ins[si]] if si in ins else [])
+            inputs = leaves + ([ins[si]] if si in ins else []) + (
+                [enc] if stage.takes_enc else [])
             if si in recompute:
                 got = self._recompute(stage, stage_params[si], batch, ins,
-                                      si, inputs, carry)
+                                      enc, si, inputs, carry)
                 self.tracker.free((tx.key(si), "k"),
                                   tag=f"ckpt_done:{tx.key(si)}")
             else:
@@ -297,7 +339,7 @@ class StagedEngine:
                     fetched = None
                 if fetched is None:
                     got = self._recompute(stage, stage_params[si], batch,
-                                          ins, si, inputs, carry)
+                                          ins, enc, si, inputs, carry)
                 else:
                     cells[si][:] = fetched
                     try:
@@ -313,9 +355,16 @@ class StagedEngine:
                 tx.drop(si)
             outs.pop(si)
             cells.pop(si, None)
+            if stage.takes_enc:
+                enc_grad = (got[-1] if enc_grad is None
+                            else enc_grad + got[-1])
+                got = got[:-1]
             if si in ins:
                 carry = got[-1]
                 ins.pop(si)
+            elif stage.role == "embed" and enc is not None:
+                # the decoder stream is done: enc_final's backward next
+                carry, enc_grad, enc = enc_grad, None, None
             self._add_grads(grads, params, stage, stage_params[si],
                             got[:len(leaves)])
         if self.device.type == "cuda":
@@ -323,17 +372,17 @@ class StagedEngine:
         counts["backward_s"] += time.perf_counter() - t_bwd
         return loss_value, bwd_begin, dev_bwd_begin
 
-    def _hooks(self, saved: list, cell: list, x_in=None):
+    def _hooks(self, saved: list, cell: list, x_in=None, enc=None):
         """(pack, unpack) for one stage: saved tensors, minus parameters,
-        views of the stage input `x_in` and duplicates, collect in
-        `saved`; unpack serves them from `cell`, which backward fills
-        with the fetched list."""
+        views of the stage input `x_in` or of the encoder states `enc`
+        and duplicates, collect in `saved`; unpack serves them from
+        `cell`, which backward fills with the fetched list."""
         is_param = self.spool.registry.is_parameter
-        x_ptr = None if x_in is None else storage_ptr(x_in)
+        leaf_ptrs = {storage_ptr(t) for t in (x_in, enc) if t is not None}
         index: Dict[Tuple, int] = {}
 
         def pack(t):
-            if is_param(t) or storage_ptr(t) == x_ptr:
+            if is_param(t) or storage_ptr(t) in leaf_ptrs:
                 return (False, t)
             k = tensor_key(t)
             pos = index.get(k)
@@ -349,29 +398,33 @@ class StagedEngine:
         return pack, unpack
 
     @staticmethod
-    def _args_for(stage: _Stage, batch, x):
-        if stage.role == "embed":
+    def _args_for(stage: _Stage, batch, x, enc):
+        if stage.role in ("enc_embed", "embed"):
             return (batch,)
         if stage.role == "head":
             return (x, batch["labels"])
+        if stage.takes_enc:
+            return (x, enc)
         return (x,)
 
-    def _recompute(self, stage, p, batch, ins, si, inputs, carry):
+    def _recompute(self, stage, p, batch, ins, enc, si, inputs, carry):
         """The stage's forward again, under autograd, then its backward
         (RecomputePolicy stages, and the fetch-failure fallback)."""
         with torch.enable_grad():
-            out = stage.fn(p, *self._args_for(stage, batch, ins.get(si)))
+            out = stage.fn(p, *self._args_for(stage, batch, ins.get(si),
+                                              enc))
             return torch.autograd.grad(out, inputs, carry,
                                        allow_unused=True)
 
     def _add_grads(self, grads, params, stage, p_stage, got) -> None:
-        """Write (or add, for later microbatches) a stage's gradients into
-        the stacked gradient tree shaped like `params`."""
+        """Write (or add, for later microbatches, and for the shared
+        tables the encoder's embed stage also reads) a stage's gradients
+        into the stacked gradient tree shaped like `params`."""
         leaves, tdef = tree_flatten(p_stage)
         got = [torch.zeros_like(t) if g is None else g
                for t, g in zip(leaves, got)]
         tree = tree_unflatten(tdef, got)
-        if stage.role != "layer":
+        if stage.role not in _SEGMENTS:
             for k, v in tree.items():
                 if k in grads:
                     for a, b in zip(tree_flatten(grads[k])[0],
@@ -380,9 +433,10 @@ class StagedEngine:
                 else:
                     grads[k] = v
             return
-        segs = grads.setdefault("segments", [None] * len(params["segments"]))
+        key = _SEGMENTS[stage.role]
+        segs = grads.setdefault(key, [None] * len(params[key]))
         if segs[stage.seg] is None:
-            p_leaves, p_def = tree_flatten(params["segments"][stage.seg])
+            p_leaves, p_def = tree_flatten(params[key][stage.seg])
             segs[stage.seg] = tree_unflatten(
                 p_def, [torch.zeros_like(t) for t in p_leaves])
         for dst, g in zip(tree_flatten(segs[stage.seg])[0],

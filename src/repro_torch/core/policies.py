@@ -27,7 +27,7 @@ from repro_torch.core.adaptive import (BWD_FACTOR, BandwidthLike,
                                        plan_offload)
 
 #: stage roles whose backward can be recomputed from the module input
-RECOMPUTABLE_ROLES = ("layer",)
+RECOMPUTABLE_ROLES = ("layer", "enc_layer")
 
 
 class OffloadPolicy:

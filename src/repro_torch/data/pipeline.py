@@ -174,3 +174,15 @@ class ShardedLoader:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+
+
+def encoder_decoder_batches(vocab_size: int, *, batch: int, seq_len: int,
+                            seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """The session's synthetic batches (`SyntheticMarkovLM` through
+    `ShardedLoader`, without a prefetch thread) for an encoder-decoder:
+    the encoder reads the decoder's own tokens (`enc_tokens = tokens`),
+    as the JAX package's `benchmarks/common.py` feeds T5."""
+    loader = ShardedLoader(SyntheticMarkovLM(vocab_size, seed=seed),
+                           global_batch=batch, seq_len=seq_len, prefetch=0)
+    for b in loader:
+        yield dict(b, enc_tokens=b["tokens"])

@@ -20,11 +20,18 @@ and the vocab padded to a multiple of 256 with padded logits at -1e30.
 Models without RoPE add a learned `pos_embed` table (max_position x D).
 `embed_in` and `head` are the first and last pieces of the forward, which
 the staged training engine runs as stages of their own. Decode (and
-emitted caches) exist for attention blocks only so far: rglru and ssm
-blocks train and run full sequences.
+emitted caches) exist for attention blocks only so far: cross, rglru and
+ssm blocks train and run full sequences.
+
+An encoder-decoder (T5, `family == "encdec"`) adds `enc_segments` (the
+bidirectional encoder stack) and `enc_norm`; the encoder embeds
+`batch["enc_tokens"]` through the shared `embed` / `pos_embed` tables,
+and every decoder layer is (causal self-attention, cross-attention with
+the dense MLP) over the normed encoder states.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
@@ -54,6 +61,8 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
     decode_step_paged: Callable
+    # the encoder's segments (an encoder-decoder's only; else empty)
+    enc_segments: Tuple[SegmentDef, ...] = ()
 
 
 def _to_decode_cache(bdef: BlockDef, cache, cache_len: int):
@@ -124,9 +133,24 @@ def head(params, x, cfg: ModelConfig):
     return logits
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config an encoder-decoder's encoder runs under: bidirectional."""
+    return dataclasses.replace(cfg, causal=False)
+
+
 def build_model(cfg: ModelConfig) -> ModelApi:
     cfg = cfg.validate()
     segs = tuple(build_segments(cfg))
+    enc_segs: Tuple[SegmentDef, ...] = ()
+    if cfg.family == "encdec":
+        if cfg.num_decoder_layers < 1:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs "
+                             f"num_decoder_layers >= 1")
+        enc_cfg = encoder_config(cfg)
+        enc_segs = tuple(build_segments(enc_cfg))
+        segs = (SegmentDef((BlockDef("attn", mlp=None),
+                            BlockDef("cross", mlp="dense")),
+                           cfg.num_decoder_layers),)
 
     def init(gen: torch.Generator) -> Params:
         """Random weights on the generator's device, in cfg.dtype."""
@@ -144,7 +168,27 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         params["segments"] = [
             {f"b{i}": init_block(gen, bdef, cfg, dtype, seg.n_repeat)
              for i, bdef in enumerate(seg.blocks)} for seg in segs]
+        if enc_segs:
+            params["enc_segments"] = [
+                {f"b{i}": init_block(gen, bdef, enc_cfg, dtype,
+                                     seg.n_repeat)
+                 for i, bdef in enumerate(seg.blocks)} for seg in enc_segs]
+            params["enc_norm"] = init_norm(cfg.d_model, dtype, dev)
         return params
+
+    def encode(params, batch, settings: RunSettings):
+        """The encoder states of `batch["enc_tokens"]`: the shared tables'
+        embedding, the bidirectional encoder stack, then `enc_norm`."""
+        x = embed_in(params, {"tokens": batch["enc_tokens"]}, enc_cfg)
+        positions = (torch.arange(x.shape[1], device=x.device)
+                     if cfg.use_rope else None)
+        for seg, p_stack in zip(enc_segs, params["enc_segments"]):
+            for rep in range(seg.n_repeat):
+                p_layer = layer(p_stack, rep)
+                for i, bdef in enumerate(seg.blocks):
+                    x, _ = apply_block(bdef, p_layer[f"b{i}"], x, enc_cfg,
+                                       settings, positions=positions)
+        return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
     unserved = sorted({b.mixer for seg in segs for b in seg.blocks} - {
         "attn"})
@@ -153,13 +197,14 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         if unserved:
             raise NotImplementedError(
                 f"{cfg.name}: decode caches of {' and '.join(unserved)} "
-                "blocks are not ported yet (serving mamba2 and the hybrid "
-                "wait for a later slice)")
+                "blocks are not ported yet (serving mamba2, the hybrid and "
+                "T5 wait for a later slice)")
 
     def forward(params, batch, settings: RunSettings, *, emit_cache=False,
                 cache_len=0):
         if emit_cache:
             _decode_ported()
+        enc = encode(params, batch, settings) if enc_segs else None
         x = embed_in(params, batch, cfg)
         S = x.shape[1]
         positions = (torch.arange(S, device=x.device) if cfg.use_rope
@@ -172,7 +217,8 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                 p_layer = layer(p_stack, rep)
                 for i, bdef in enumerate(seg.blocks):
                     x, kv = apply_block(bdef, p_layer[f"b{i}"], x, cfg,
-                                        settings, positions=positions)
+                                        settings, positions=positions,
+                                        enc_kv=enc)
                     if emit_cache:
                         entries[f"b{i}"].append(
                             _to_decode_cache(bdef, kv, cache_len))
@@ -257,5 +303,5 @@ def build_model(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg, segments=segs, init=init, forward=forward, loss=loss,
         prefill=prefill, decode_step=decode_step,
-        decode_step_paged=decode_step_paged,
+        decode_step_paged=decode_step_paged, enc_segments=enc_segs,
     )

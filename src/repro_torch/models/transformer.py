@@ -5,12 +5,15 @@ with stacked parameters) -> decode caches.
 Where JAX scans a segment's stacked parameters, the port loops in Python
 over the layer index (`layer(tree, i)` takes the i-th slice of every
 leaf, as views). The port carries the attention block (full or sliding
-window; causal, or bidirectional for encoder-only BERT) and the RG-LRU (`rglru`) block, each followed by the dense MLP
-(classic or gated), and the attention-free Mamba-2 (`ssm`) block with no
-MLP; the hybrid pattern of recurrentgemma repeats (rglru, rglru, attn)
-and puts the remainder in a second segment. The rglru and ssm blocks
-have no decode step yet (training and full-sequence forward only);
-configurations needing anything else raise `NotImplementedError`.
+window; causal, or bidirectional for encoder-only BERT and T5's
+encoder), T5's cross-attention (`cross`) block over the encoder states,
+and the RG-LRU (`rglru`) block, each followed by the dense MLP (classic
+or gated) where the block has one, and the attention-free Mamba-2
+(`ssm`) block with no MLP; the hybrid pattern of recurrentgemma repeats
+(rglru, rglru, attn) and puts the remainder in a second segment. The
+cross, rglru and ssm blocks have no decode step yet (training and
+full-sequence forward only); configurations needing anything else raise
+`NotImplementedError`.
 
 Decode steps update their caches IN PLACE (`index_put_` on views of the
 stacked cache tensors) where JAX returns new, donated arrays.
@@ -40,7 +43,7 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class BlockDef:
-    mixer: str                    # "attn" | "rglru" | "ssm" (ported so far)
+    mixer: str                    # "attn" | "cross" | "rglru" | "ssm"
     window: int = 0               # sliding window for attn (0 = full)
     mlp: Optional[str] = "dense"  # "dense" | None
 
@@ -52,10 +55,13 @@ class SegmentDef:
 
 
 def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
+    """The segments of a config's layer stack: the decoder-only or
+    encoder-only stack, or for an encoder-decoder its encoder's layers
+    (`models/api.py` builds the decoder's own segment)."""
     ssm = cfg.family == "ssm"
     missing = [what for what, needed in (
-        ("cross attention", bool(cfg.cross_attn_period)
-         or cfg.family == "encdec"),
+        ("cross-attention layers (cross_attn_period)",
+         bool(cfg.cross_attn_period)),
         ("MoE", bool(cfg.moe_num_experts)),
         ("embedding inputs", cfg.input_kind != "tokens"),
         ("qkv bias", cfg.qkv_bias and not ssm),
@@ -141,7 +147,7 @@ def init_block(gen, bdef: BlockDef, cfg: ModelConfig, dtype,
     lead = (n_repeat,)
     dev = gen.device
     p: Params = {"norm": init_norm(cfg.d_model, dtype, dev, lead)}
-    if bdef.mixer == "attn":
+    if bdef.mixer in ("attn", "cross"):
         p["attn"] = _init_attn(gen, cfg, dtype, lead)
     elif bdef.mixer == "rglru":
         p["rglru"] = rg.init_rglru(gen, cfg, dtype, lead)
@@ -189,12 +195,22 @@ def _mlp_sublayer(bdef: BlockDef, p, x, cfg: ModelConfig):
 
 
 def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
-                settings: RunSettings, *, positions=None):
+                settings: RunSettings, *, positions=None, enc_kv=None):
     """Full-sequence block. Returns (x, cache entry): (k, v) for an
-    attention block, {"conv", "state"} for an ssm block, {"conv", "h"}
-    for an rglru block."""
+    attention block, the encoder's (k, v) for a cross block,
+    {"conv", "state"} for an ssm block, {"conv", "h"} for an rglru block.
+    enc_kv: the encoder states (B, Se, D) a cross block attends to."""
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
-    if bdef.mixer == "ssm":
+    if bdef.mixer == "cross":
+        # each cross block projects its own K/V from the encoder states;
+        # no RoPE, no mask, no window, no softcap
+        q = _proj(h, p["attn"]["wq"])
+        ek, ev = _proj(enc_kv, p["attn"]["wk"]), _proj(enc_kv,
+                                                       p["attn"]["wv"])
+        o = attend(q, ek, ev, causal=False, chunk=settings.attn_chunk,
+                   impl=settings.attn_impl)
+        mix, cache = _out_proj(o, p["attn"]["wo"]), (ek, ev)
+    elif bdef.mixer == "ssm":
         mix, cache = m2.apply_mamba2(p["ssm"], h, cfg,
                                      impl=settings.attn_impl)
     elif bdef.mixer == "rglru":

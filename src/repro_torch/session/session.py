@@ -2,7 +2,9 @@
 package's `repro/session/session.py`, staged engine only.
 
 It owns config resolution, the placement policy, the spool (built from
-one `SpoolIoConfig`), the synthetic data loader, the optimizer and the
+one `SpoolIoConfig`), the data loader (the synthetic one unless the
+caller passes `loader=`, any iterable of batches; a T5 batch carries
+`enc_tokens` beside `tokens` and `labels`), the optimizer and the
 metrics JSONL (the `StepReport` schema, with per-step spool deltas):
 
     with TrainSession("small-gpt", device="cpu", policy="spool") as s:
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Callable, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
@@ -78,6 +80,7 @@ class TrainSession:
                  lr: float = 3e-4, batch_size: int = 8, seq_len: int = 256,
                  seed: int = 0, microbatches: int = 1,
                  device: str = "cuda", attn_impl: Optional[str] = None,
+                 loader: Optional[Iterable[Dict]] = None,
                  metrics_path: Optional[str] = None,
                  min_offload_elements: Optional[int] = None,
                  on_fetch_fail: str = "recompute"):
@@ -106,9 +109,14 @@ class TrainSession:
             on_fetch_fail=on_fetch_fail)
         self.policy = self.engine.policy
         self.spool = self.engine.spool
-        self.loader = ShardedLoader(
-            SyntheticMarkovLM(self.cfg.vocab_size, seed=seed),
-            global_batch=batch_size, seq_len=seq_len)
+        # the synthetic loader is the session's to close; a caller's is not
+        self._own_loader = None
+        if loader is None:
+            loader = self._own_loader = ShardedLoader(
+                SyntheticMarkovLM(self.cfg.vocab_size, seed=seed),
+                global_batch=batch_size, seq_len=seq_len)
+        self.loader = loader
+        self._loader_iter = None
         self.reports: List[StepReport] = []
         self.params = None
         self.opt_state = None
@@ -137,8 +145,11 @@ class TrainSession:
             raise RuntimeError("session is closed")
         self.init()
         start = len(self.reports)
+        if self._loader_iter is None:
+            self._loader_iter = iter(self.loader)
         for _ in range(num_steps):
-            batches = [next(self.loader) for _ in range(self.microbatches)]
+            batches = [next(self._loader_iter)
+                       for _ in range(self.microbatches)]
             self.params, self.opt_state, rep = self.engine.train_step(
                 self.params, self.opt_state, batches)
             rep.step = len(self.reports) + 1
@@ -164,12 +175,13 @@ class TrainSession:
 
     def close(self) -> None:
         """Idempotent teardown: engine and spool (workers joined, owned
-        temp dir removed), loader, metrics file."""
+        temp dir removed), the synthetic loader, metrics file."""
         if self._closed:
             return
         self._closed = True
         self.engine.close()
-        self.loader.close()
+        if self._own_loader is not None:
+            self._own_loader.close()
         if self._metrics_f is not None:
             self._metrics_f.close()
 

@@ -4,8 +4,8 @@ non-causal at BERT's shapes; SSD scan, its four passes; RG-LRU scan, its
 three passes, both modes and the fused backward, and the same bits on a
 repeat call) against their plain PyTorch versions, the Python mirrors of
 their launch arithmetic against the libraries, the serve path through
-the flash kernel, and training through the kernels (GPT, BERT, mamba2,
-the hybrid). A CUDA kernel has no CPU mode, so without a card these
+the flash kernel, and training through the kernels (GPT, BERT, T5,
+mamba2, the hybrid). A CUDA kernel has no CPU mode, so without a card these
 skip; on the card run
 `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`. This
 file imports no jax (the card's machine has none)."""
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs import (MAMBA2_2_7B, RECURRENTGEMMA_9B,
                                  SpoolIoConfig)
-from repro_torch.configs.paper_models import small_bert, small_gpt
+from repro_torch.configs.paper_models import small_bert, small_gpt, small_t5
 from repro_torch.core.policies import KeepPolicy, SpoolPolicy
 from repro_torch.core.tree import tree_flatten
 from repro_torch.kernels import flash_attention as fa
@@ -141,6 +141,9 @@ def test_kernel_matches_plain(card, case, dtype, tol):
 # only padded keys are masked
 BERT_CASES = [(1, 1024, 1024, H, H, 128, False, 0, 0.0) for H in (64, 96,
                                                                    128)]
+# cross-attention: Sq decoder queries against Skv encoder keys
+CROSS_CASES = [(2, 128, 96, 4, 4, 64, False, 0, 0.0),
+               (1, 100, 300, 4, 4, 128, False, 0, 0.0)]
 
 
 @pytest.mark.parametrize("case,dtype,tol",
@@ -149,10 +152,15 @@ BERT_CASES = [(1, 1024, 1024, H, H, 128, False, 0, 0.0) for H in (64, 96,
                          + [((1, 1024, 1024, 8, 8, 128, False, 0, 0.0),
                              torch.float32, 2e-5),
                             ((2, 1000, 1000, 4, 4, 128, False, 0, 0.0),
-                             torch.bfloat16, TOL_BF16_ROW)])
+                             torch.bfloat16, TOL_BF16_ROW)]
+                         + [(c, dt, tol) for c in CROSS_CASES
+                            for dt, tol in ((torch.bfloat16, TOL_BF16_ROW),
+                                            (torch.float32, 2e-5))])
 def test_flash_noncausal_matches_plain(card, case, dtype, tol):
     """The non-causal path over many kv tiles: the tensor-core kernel at
-    BERT's shapes, the FMA kernel in f32, and a ragged length."""
+    BERT's shapes, the FMA kernel in f32, a ragged length, and T5's
+    cross-attention with encoder states longer or shorter than the
+    decoder's queries."""
     test_kernel_matches_plain(card, case, dtype, tol)
 
 
@@ -440,13 +448,16 @@ def test_flash_attention_carries_gradient(card):
 
 
 @pytest.mark.parametrize("cfg", [small_gpt(128, 2), SMALL_MAMBA2,
-                                 SMALL_HYBRID, small_bert(128, 2)],
-                         ids=["small-gpt", "mamba2", "hybrid", "small-bert"])
+                                 SMALL_HYBRID, small_bert(128, 2),
+                                 small_t5(128, 4)],
+                         ids=["small-gpt", "mamba2", "hybrid", "small-bert",
+                              "small-t5"])
 def test_loss_and_grads_through_kernels_match_plain(card, cfg):
     """bf16 models: loss and every gradient leaf through the kernels
     (attn_impl="cuda") against the plain paths. They differ by bf16
     roundings at other places, so the bar is relative to each leaf's
-    scale: 5e-2 of max |grad|."""
+    scale: 5e-2 of max |grad|. T5's encoder input is shorter than the
+    decoder's, so its cross-attention has Skv != Sq."""
     api = build_model(cfg)
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
     leaves = tree_flatten(params)[0]
@@ -456,6 +467,8 @@ def test_loss_and_grads_through_kernels_match_plain(card, cfg):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129))).to(
         card)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["enc_tokens"] = toks[:, :96]
     out = {}
     for impl in ("cuda", "torch"):
         st = RunSettings(attn_impl=impl, attn_chunk=64,

@@ -31,6 +31,8 @@ from benchmarks import fig10_overhead, fig11_rok, table4_offload  # noqa
 from benchmarks import torch_fig10, torch_fig11, torch_table4  # noqa: E402
 
 TINY = [(128, 1)]       # (hidden, layers): one small layer per family
+# T5 splits its layers into encoder and decoder: one of each
+TINY_T5 = [(128, 2)]
 
 
 def _points(mod, seed):
@@ -95,13 +97,12 @@ def test_table4_estimate_matches_paper(hl, paper_gb):
 
 
 def test_fig10_rows_carry_the_jax_keys(monkeypatch, tmp_path):
-    monkeypatch.setattr(fig10_overhead, "SMALL_SCENARIOS", TINY)
-    monkeypatch.setattr(fig10_overhead, "FAMILIES",
-                        {"bert": jpm.small_bert})
+    monkeypatch.setattr(fig10_overhead, "SMALL_SCENARIOS", TINY_T5)
+    monkeypatch.setattr(fig10_overhead, "FAMILIES", {"t5": jpm.small_t5})
     want = set(fig10_overhead.run(batch=2, seq=16, steps=1)[0])
-    rows = torch_fig10.run(batch=2, seq=16, steps=1, scenarios=TINY,
+    rows = torch_fig10.run(batch=2, seq=16, steps=1, scenarios=TINY_T5,
                            device="cpu", spool_parent=str(tmp_path))
-    assert [r["family"] for r in rows] == ["gpt", "bert"]
+    assert [r["family"] for r in rows] == ["gpt", "bert", "t5"]
     for r in rows:
         assert want <= set(r), want - set(r)
         # through the spool: written, or forwarded from the host copy
