@@ -73,7 +73,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
      decoder layers, head), and the flash kernel launched once per
      attention per step (the backward is the plain VJP): 4 for GPT and
      BERT, 6 for T5; the tracked activation peaks of both runs;
-  9. a `kernels` JSON line, the nvidia-smi line, and the result line.
+  9. checkpoints and tracing on the paper's GPT (gpt-h8192-l4, phase 8's
+     spool settings: B=4, S=1024, sgd, fs, raw, seed 0): a traced run of
+     2 steps checkpointing every 2 steps prints each step's `obs_*`
+     overlap fields; its losses must be bitwise equal to phase 8's first
+     two spool losses, its trace valid, with 2 `engine.step` spans, an
+     `io.write` span per store and every fetch wait keyed to a read, 6
+     stages fetched a step and 4 flash launches a step. Its second step
+     runs under torch.profiler: the device's idle time is printed beside
+     the step's exposed wait. A fresh session then restores step 2 and
+     runs step 3: loss and final parameters bitwise equal to phase 8's
+     third spool loss and final parameters, and its device peak equal to
+     that step's (the restore writes into the session's tensors, so
+     the card holds one copy of the model). The checkpoint's bytes, the
+     snapshot, write and restore seconds and its filesystem are
+     printed; too little free space fails the phase;
+ 10. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -84,6 +99,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -834,13 +850,16 @@ def same_params(a, b) -> bool:
                                     for x, y in zip(a, b))
 
 
-def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None):
+def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
+                  hold=False):
     """Full-width training of `cfg` kept on the card, then spooled (fs,
     raw) to a fresh directory: bitwise losses and parameters, a lower
     peak, bytes offloaded, every stored stage fetched (the stage count
     is the engine's, and equal to `stages` where given), the directory
     empty after close, and each kernel's launches equal to `want` in
-    each run. Returns the spool run's launches (the main path's)."""
+    each run. Returns the spool run's launches (the main path's); with
+    `hold`, also its losses, the final parameters' host copy and each
+    step's device peak."""
     from repro_torch.configs import SpoolIoConfig
     from repro_torch.core.policies import KeepPolicy, SpoolPolicy
     deterministic()
@@ -855,7 +874,8 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None):
                                           codec="raw"), f"{cfg.name} spool",
         optimizer=optimizer, seq=seq, batch=batch, keep_params=pk)
     n_leaves = len(pk)
-    del pk
+    if not hold:
+        del pk
     left = os.listdir(spool_dir)
     if not left:
         os.rmdir(spool_dir)
@@ -884,7 +904,8 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None):
               f"{nk[name]}/{ns[name]}, want {n}")
     print(f"  keep vs spool: losses and {n_leaves} parameter leaves bitwise "
           f"equal")
-    return ns
+    return (ns, ls, pk, [r.extra["device_peak_bytes"] for r in rs]) \
+        if hold else ns
 
 
 def train_phase(smi):
@@ -922,7 +943,8 @@ def paper_train_phase(smi):
     self-attention and bidirectional in the cross-attention of its 2
     decoder layers (the backward is the plain VJP). Stages: one per
     layer, the embed and head stages, and T5's enc_embed and enc_final.
-    Returns {family: the spool run's launches}."""
+    Returns {family: the spool run's launches} and, for phase 9, GPT's
+    spool losses, final parameters (host copy) and device peaks."""
     from repro_torch.configs import bert, gpt, t5
     from repro_torch.optim.optimizers import sgd
     out = {}
@@ -936,8 +958,204 @@ def paper_train_phase(smi):
             {"flash_attention": per_step * TRAIN_STEPS, "ssd_scan": 0,
              "rglru_scan": 0}, smi,
             batch=T5_BATCH if encdec else PAPER_BATCH,
-            stages=PAPER_LAYERS + 2 + 2 * encdec)
-    return out
+            stages=PAPER_LAYERS + 2 + 2 * encdec, hold=fam == "gpt")
+    out["gpt"], *gpt_run = out["gpt"]
+    return out, gpt_run
+
+
+def device_busy_s(prof_trace):
+    """(kernel busy, copy busy) seconds: the union of the card's kernel
+    intervals and of its memory copies in an exported torch.profiler
+    trace (None, None if it holds no device event)."""
+    with open(prof_trace) as f:
+        events = json.load(f).get("traceEvents", [])
+
+    def busy(cats):
+        ivs = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") in cats and e.get("ph") == "X")
+        total, end = 0.0, -math.inf
+        for lo, hi in ivs:
+            if hi > end:
+                total += hi - max(lo, end)
+                end = hi
+        return total / 1e6, len(ivs)
+
+    kernels, n = busy(("kernel",))
+    copies, _ = busy(("gpu_memcpy", "gpu_memset"))
+    return (kernels, copies) if n else (None, None)
+
+
+def ckpt_trace_phase(smi, spool_losses, final_params, spool_peaks):
+    """Phase 9: checkpoints and tracing on the paper's GPT at phase 8's
+    spool settings. A traced run of 2 steps (checkpoints every 2 steps,
+    its second step under torch.profiler), then a fresh session that
+    restores step 2 and runs step 3; held bitwise against phase 8's spool
+    run (`spool_losses`, `final_params`: its final parameters on the
+    host), and its device peak against that run's third step's
+    (`spool_peaks`): the restore leaves one copy of the model on the
+    card. Returns the flash launches of the two runs."""
+    from repro_torch.configs import SpoolIoConfig, gpt
+    from repro_torch.core.policies import SpoolPolicy
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.obs.export import validate_trace
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.session import TrainSession
+    from torch.profiler import ProfilerActivity, profile
+    cfg = gpt(PAPER_HIDDEN, PAPER_LAYERS)
+    deterministic()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt, trace = os.path.join(work, "ckpt"), os.path.join(work, "t.json")
+    prof_trace = os.path.join(work, "profile.json")
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in final_params)
+    mnt, fstype = mount_of(work)
+    free = shutil.disk_usage(work).free
+    # a step rewritten in place holds two copies until the commit, beside
+    # a few GB of spooled activations
+    need = 2 * ckpt_bytes + 10e9
+    print(f"ckpt: directory on {mnt} ({fstype}), {free / 1e9:.1f} GB free, "
+          f"a checkpoint is {ckpt_bytes / 1e9:.2f} GB")
+    check(free >= need, f"ckpt: {free / 1e9:.1f} GB free under {work}, "
+          f"need {need / 1e9:.1f} GB for phase 9")
+
+    def session(name, **kw):
+        return TrainSession(
+            cfg, policy=SpoolPolicy(), io=SpoolIoConfig(
+                backend="fs", directory=os.path.join(work, name),
+                codec="raw"), optimizer=sgd(PAPER_LR), lr=PAPER_LR,
+            batch_size=PAPER_BATCH, seq_len=PAPER_SEQ, seed=0,
+            device="cuda", attn_impl="cuda", ckpt_dir=ckpt, keep_last=1,
+            **kw)
+
+    obs_keys = ("io_busy_s", "exposed_wait_s", "io_hidden_frac",
+                "stall_read_s", "stall_decode_s", "stall_queue_s",
+                "store_s", "load_s", "encode_s", "decode_s",
+                "prefetch_hit_rate")
+    try:
+        sess = session("spool_traced", ckpt_every=2, trace=trace)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        window = {}
+
+        def on_report(rep):
+            # the profiler covers step 2 alone: on from step 1's report
+            # to step 2's, before step 2's checkpoint
+            if rep.step == 1:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+            else:
+                torch.cuda.synchronize()
+                window["s"] = time.perf_counter() - window["t0"]
+                prof.stop()
+
+        try:
+            sess.init()
+            flash_attention.launches = 0
+            reports = sess.run(2, on_report=on_report).reports
+            traced_launches = flash_attention.launches
+            ck = sess.ckpt
+            snap_s, write_s = ck.last_snapshot_s, ck.last_write_s
+        finally:
+            sess.close()
+        num_stores = sess.spool.stats.num_stores
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses = [r.loss for r in reports]
+        for r in reports:
+            print(f"  traced step {r.step}: loss {r.loss:.6f} "
+                  f"{r.step_time:.3f}s fetched {r.extra['stages_fetched']} "
+                  f"stages; obs " + " ".join(f"{k} {r.obs[k]:.4f}"
+                                             for k in obs_keys))
+        prof.export_chrome_trace(prof_trace)
+        kernel_s, copy_s = device_busy_s(prof_trace)
+        r2 = reports[1]
+        if kernel_s is None:
+            print("  step 2 under torch.profiler: no device event seen; "
+                  "device idle not measured")
+        else:
+            idle = window["s"] - kernel_s
+            print(f"  step 2 under torch.profiler: step {r2.step_time:.3f}s, "
+                  f"profiled window {window['s']:.3f}s, kernels busy "
+                  f"{kernel_s:.3f}s, copies busy {copy_s:.3f}s, device idle "
+                  f"(no kernel) {idle:.3f}s; exposed wait "
+                  f"{r2.obs['exposed_wait_s']:.3f}s; idle minus exposed "
+                  f"wait {idle - r2.obs['exposed_wait_s']:.3f}s on {smi}")
+        errors = validate_trace(trace, ("engine", "spool", "io", "codec"))
+        check(not errors, f"ckpt: trace invalid: {errors[:3]}")
+        with open(trace) as f:
+            host = [e for e in json.load(f)["traceEvents"]
+                    if e["pid"] == 0]
+        names = [e["name"] for e in host]
+        reads = {e["args"]["key"] for e in host if e["name"] == "io.read"}
+        waits = [e["args"]["key"] for e in host
+                 if e["name"] == "spool.fetch_wait"]
+        print(f"  trace: {len(host)} host events, {names.count('io.write')} "
+              f"io.write for {num_stores} stores, {len(waits)} fetch waits, "
+              f"{names.count('io.read')} reads; flash launches "
+              f"{traced_launches}")
+        check(losses == spool_losses[:2], f"ckpt: traced losses {losses} "
+              f"differ from phase 8's spool losses {spool_losses[:2]}")
+        check(names.count("engine.step") == 2, "ckpt: engine.step spans "
+              f"{names.count('engine.step')}, want 2")
+        check(names.count("io.write") == num_stores > 0,
+              f"ckpt: {names.count('io.write')} io.write spans for "
+              f"{num_stores} stores")
+        check(all(r.extra["stages_fetched"] == PAPER_LAYERS + 2
+                  for r in reports), "ckpt: a stage was not fetched")
+        check(all(k in reads for k in waits),
+              "ckpt: a fetch wait has no read of its key")
+        check(traced_launches == 4 * 2, f"ckpt: {traced_launches} flash "
+              f"launches in 2 traced steps, want 8")
+        npz = os.path.join(ckpt, "step_00000002", "arrays.npz")
+        check(os.path.exists(npz), "ckpt: no committed step 2")
+        npz_bytes = os.path.getsize(npz)
+
+        # resume: a fresh session restores step 2 and runs step 3
+        sess = session("spool_resumed")
+        try:
+            sess.init()
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            rep3 = sess.run(1, resume=True).reports[0]
+            run_s = time.perf_counter() - t0
+            resumed_launches = flash_attention.launches
+            restore_s = sess.ckpt.last_restore_s
+            leaves = tree_flatten(sess.params)[0]
+            same = same_params(leaves, final_params)
+            del leaves
+        finally:
+            sess.close()
+            del sess
+            gc.collect()
+            torch.cuda.empty_cache()
+        peak3 = rep3.extra["device_peak_bytes"]
+        print(f"  resumed at step 2: step {rep3.step} loss {rep3.loss:.6f} "
+              f"({rep3.step_time:.3f}s; restore {restore_s:.3f}s, the "
+              f"run with its final checkpoint {run_s:.3f}s); flash "
+              f"launches {resumed_launches}; device peak {peak3} bytes, "
+              f"phase 8's spool steps {spool_peaks} bytes")
+        print(f"ckpt: gpt-h8192-l4 arrays.npz {npz_bytes} bytes "
+              f"({npz_bytes / 1e9:.3f} GB); host snapshot {snap_s:.3f}s, "
+              f"async write {write_s:.3f}s (the final save at step 2), "
+              f"restore {restore_s:.3f}s; on {mnt} ({fstype}), "
+              f"{shutil.disk_usage(work).free / 1e9:.1f} GB free; {smi}")
+        check(rep3.step == 3 and rep3.loss == spool_losses[2],
+              f"ckpt: resumed step {rep3.step} loss {rep3.loss}, phase 8 "
+              f"gave {spool_losses[2]}")
+        check(same, "ckpt: resumed final parameters differ from phase 8's")
+        check(resumed_launches == 4, f"ckpt: {resumed_launches} flash "
+              f"launches in the resumed step, want 4")
+        check(peak3 == spool_peaks[2], f"ckpt: the resumed step's device "
+              f"peak {peak3} differs from phase 8's third step's "
+              f"{spool_peaks[2]}")
+        check(os.listdir(ckpt) == ["step_00000003"],
+              f"ckpt: keep_last=1 left {os.listdir(ckpt)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("  checkpoints and tracing: traced losses, the resumed step and "
+          "the final parameters bitwise equal to phase 8")
+    return traced_launches, resumed_launches
 
 
 def adaptive_check(label, policy, reps):
@@ -1228,12 +1446,18 @@ def main():
 
     # ---- 8. train the paper's GPT, BERT and T5 at hidden 8192, keep vs
     # spool
-    paper_launches = paper_train_phase(smi)
-    print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
-          f"{t2 - t1:.1f}s, GPT, BERT and T5 "
-          f"{time.perf_counter() - t2:.1f}s")
+    paper_launches, (gpt_losses, gpt_params, gpt_peaks) = \
+        paper_train_phase(smi)
+    t3 = time.perf_counter()
 
-    # ---- 9. result
+    # ---- 9. checkpoints and tracing on the paper's GPT
+    ckpt_launches = ckpt_trace_phase(smi, gpt_losses, gpt_params, gpt_peaks)
+    del gpt_params
+    print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
+          f"{t2 - t1:.1f}s, GPT, BERT and T5 {t3 - t2:.1f}s, checkpoints "
+          f"and tracing {time.perf_counter() - t3:.1f}s")
+
+    # ---- 10. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1277,6 +1501,9 @@ def main():
             "flash_attention"],
         "launches_per_t5_train_run": paper_launches["t5"][
             "flash_attention"],
+        # phase 9: the traced 2-step GPT run and the resumed step
+        "launches_per_traced_gpt_run": ckpt_launches[0],
+        "launches_per_resumed_gpt_step": ckpt_launches[1],
         "noncausal_max_abs_err": bert_attn["max_abs_err"],
         "noncausal_max_row_rel_err": bert_attn["max_row_rel_err"],
         "noncausal_ms": bert_attn["ms"],

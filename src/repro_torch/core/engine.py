@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.cache.horizon import reuse_horizon
 from repro_torch.configs.base import SpoolIoConfig
 from repro_torch.core.accounting import MemoryTracker
@@ -207,25 +208,29 @@ class StagedEngine:
                   "layer_saved_bytes": 0, "forward_s": 0.0,
                   "backward_s": 0.0}
         loss_total, bwd_begin, dev_bwd_begin = 0.0, 0, 0
-        for mb, batch in enumerate(batches):
-            with self.spool.step(f"mb{mb}") as tx:
-                loss, bb, dbb = self._run_microbatch(
-                    tx, mb, self._to_device(batch), stage_params, params,
-                    grads, profiles, profiling, counts)
-            loss_total += loss
-            bwd_begin, dev_bwd_begin = max(bwd_begin, bb), max(
-                dev_bwd_begin, dbb)
-        del stage_params
-        if len(batches) > 1:
-            scale = 1.0 / len(batches)
-            for g in tree_flatten(grads)[0]:
-                g.mul_(scale)
-        t_opt = time.perf_counter()
-        params, opt_state = self.optimizer.update(grads, opt_state, params)
-        del grads
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        counts["optimizer_s"] = time.perf_counter() - t_opt
+        with obs.span("engine.step", cat="engine", step=self._step,
+                      engine="staged"):
+            for mb, batch in enumerate(batches):
+                with self.spool.step(f"mb{mb}") as tx:
+                    loss, bb, dbb = self._run_microbatch(
+                        tx, mb, self._to_device(batch), stage_params,
+                        params, grads, profiles, profiling, counts)
+                loss_total += loss
+                bwd_begin, dev_bwd_begin = max(bwd_begin, bb), max(
+                    dev_bwd_begin, dbb)
+            del stage_params
+            t_opt = time.perf_counter()
+            with obs.span("engine.update", cat="engine", step=self._step):
+                if len(batches) > 1:
+                    scale = 1.0 / len(batches)
+                    for g in tree_flatten(grads)[0]:
+                        g.mul_(scale)
+                params, opt_state = self.optimizer.update(grads, opt_state,
+                                                          params)
+                del grads
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+            counts["optimizer_s"] = time.perf_counter() - t_opt
         # the store tail is not synchronised: writes overlap the next
         # step's forward; only the profiling step drains (to measure)
         if profiling:
@@ -254,6 +259,8 @@ class StagedEngine:
         at the start of backward)."""
         sync = profiling and self.device.type == "cuda"
         t_fwd = time.perf_counter()
+        fwd_sp = obs.span("engine.fwd", cat="engine", step=self._step, mb=mb)
+        fwd_sp.__enter__()
         x = enc = None                         # the stream; encoder states
         ins: Dict[int, torch.Tensor] = {}      # stage input (graph leaf)
         outs: Dict[int, torch.Tensor] = {}     # stage output (graph root)
@@ -309,8 +316,11 @@ class StagedEngine:
         dev_bwd_begin = (torch.cuda.memory_allocated(self.device)
                          if self.device.type == "cuda" else 0)
         loss_value = float(loss.detach())       # waits for the forward
+        fwd_sp.__exit__(None, None, None)
         t_bwd = time.perf_counter()
         counts["forward_s"] += t_bwd - t_fwd
+        bwd_sp = obs.span("engine.bwd", cat="engine", step=self._step, mb=mb)
+        bwd_sp.__enter__()
 
         carry = torch.ones((), dtype=torch.float32, device=self.device)
         enc_grad = None          # d loss / d enc, summed over cross stages
@@ -330,12 +340,17 @@ class StagedEngine:
                 try:
                     fetched = tx.fetch(si)
                     counts["stages_fetched"] += 1
-                except SpoolLoadError:
+                except SpoolLoadError as e:
                     # the blob is gone: recompute the stage from its
                     # input, the bottom rung of the degradation ladder
                     if self.on_fetch_fail != "recompute":
                         raise
                     self.spool.stats.fetch_fallbacks += 1
+                    if obs.is_enabled():
+                        obs.count("resilience.fetch_fallback")
+                        obs.instant("resilience.fetch_fallback",
+                                    cat="resilience", stage=stage.name,
+                                    key=tx.key(si), error=repr(e))
                     fetched = None
                 if fetched is None:
                     got = self._recompute(stage, stage_params[si], batch,
@@ -369,6 +384,7 @@ class StagedEngine:
                             got[:len(leaves)])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        bwd_sp.__exit__(None, None, None)
         counts["backward_s"] += time.perf_counter() - t_bwd
         return loss_value, bwd_begin, dev_bwd_begin
 

@@ -2,15 +2,15 @@
 `repro/core/report.py`: the same fields and the same metrics-JSONL
 schema, so rows from either package compare key for key. The port's
 staged engine fills the activation-footprint and spool fields and puts
-device numbers (peak device bytes on the card) in `extra`. The JAX
-schema's obs / shard / cache / resilience blocks come with the layers
-that fill them (not ported yet); rows without them have the same keys
-as the JAX package's rows without them.
+device numbers (peak device bytes on the card) in `extra`. The `obs`
+block (the overlap analysis of the step's trace window, emitted as
+`obs_*` fields) is the JAX package's, key for key. The shard / cache /
+resilience blocks come with the layers that fill them (not ported yet).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 @dataclass
@@ -27,6 +27,9 @@ class StepReport:
     # engine-specific scalar metrics (the port: device_peak_bytes on the
     # card, offloaded / fetched stage counts); merged into the JSONL
     extra: Dict[str, float] = field(default_factory=dict)
+    # repro_torch.obs overlap analysis for THIS step's trace window (see
+    # repro_torch.obs.overlap.analyze); emitted with an obs_ prefix
+    obs: Optional[Dict[str, Any]] = None
 
     def to_metrics(self) -> Dict[str, Any]:
         """Flat JSON-able dict — the unified metrics-JSONL schema.
@@ -51,6 +54,9 @@ class StepReport:
             rec["fetch_wait_s"] = float(self.stats.fetch_wait_time)
         if self.plan is not None:
             rec["plan_last_offloaded"] = int(self.plan.last_offloaded)
+        if self.obs:
+            for k, v in self.obs.items():
+                rec[f"obs_{k}"] = v
         for k, v in self.extra.items():
             rec.setdefault(k, v)
         return rec

@@ -29,6 +29,16 @@ Blobs are RSA2 serde (`repro_torch.io.serde`) inside the codec container,
 so the JAX package can read them and the port can read the JAX
 package's. The pooled-buffer load path, retry/health and the
 managed/striped/tiered/aio backends are not ported yet.
+
+Tracing (`repro_torch.obs`) uses the JAX package's names: the
+`spool.offload` instant and `spool.store_backlog` gauge, the
+`prefetch.issued` / `.hit` / `.late` / `.ghost` counters, and the
+`spool.fetch_wait`, `spool.store` (with `codec.encode` inside) and
+`spool.load` (with `codec.decode` inside) spans, each keyed by the
+backend key `str(key)`. The pinned copy of a load runs inside
+`spool.load` but outside `io.read` and `codec.decode`; the copy back to
+the card runs on the caller's thread, after the wait, outside every I/O
+span.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.accounting import MemoryTracker
 from repro_torch.core.ids import TensorIdRegistry, tensor_key
 from repro_torch.core.tree import tree_flatten, tree_unflatten
@@ -51,6 +62,8 @@ from repro_torch.io.backend import StorageBackend
 from repro_torch.io.backends import FilesystemBackend, HostMemoryBackend
 from repro_torch.io.codecs import Codec, encode_parts, get_codec, unpack
 from repro_torch.io.serde import deserialize_leaves, serialize_parts
+from repro_torch.obs.overlap import (DECODE_SPAN, ENCODE_SPAN,
+                                     FETCH_WAIT_SPAN, LOAD_SPAN, STORE_SPAN)
 
 # job states
 QUEUED, RUNNING, DONE, CANCELED = range(4)
@@ -152,7 +165,7 @@ class SpoolStats:
 
 class _Job:
     __slots__ = ("key", "arrays", "state", "cond", "kind", "orphaned",
-                 "error", "event", "reg_keys")
+                 "error", "event", "reg_keys", "prefetched")
 
     def __init__(self, key, arrays, kind, event=None):
         self.key = key
@@ -166,6 +179,8 @@ class _Job:
         # (key, tid) registry entries of the spooled leaves, released by
         # the store worker when the write lands, or by drop()
         self.reg_keys: tuple = ()
+        # a load issued by prefetch(), ahead of its fetch (not on demand)
+        self.prefetched = False
 
 
 class SpoolLoadError(RuntimeError):
@@ -283,6 +298,10 @@ class ActivationSpool:
         self._owned_dirs = list(owned_dirs)
         self._lock = threading.Lock()
         self._records: Dict[Any, Dict] = {}
+        # the store job writing each key: keys recur every step, and a
+        # dropped record's store may still be writing when the next
+        # step's store of its key starts
+        self._writing: Dict[Any, _Job] = {}
         self._leases: set = set()
         self._streams: Dict[Tuple[str, str], Any] = {}   # side streams
         self._store_q: "queue.Queue[Optional[_Job]]" = queue.Queue()
@@ -400,9 +419,13 @@ class ActivationSpool:
                 "job": job, "nbytes": nbytes, "loaded": None,
                 "load_job": None, "fwd_counted": False, "device": device,
                 "strides": strides, "on_device": None,
-                "acquired": acquired}
+                "acquired": acquired, "load_used": False}
         if job is not None:
             self._store_q.put(job)
+            if obs.is_enabled():
+                obs.instant("spool.offload", cat="spool", key=str(key),
+                            bytes=nbytes)
+                obs.gauge("spool.store_backlog", self._store_q.qsize())
 
     def keep(self, key, tree) -> None:
         """Record a tree kept where it is (never written)."""
@@ -420,7 +443,8 @@ class ActivationSpool:
                 "spool_idx": [], "n_leaves": len(leaves), "job": None,
                 "nbytes": nbytes, "loaded": None, "load_job": None,
                 "fwd_counted": False, "device": None, "strides": [],
-                "on_device": None, "acquired": acquired}
+                "on_device": None, "acquired": acquired,
+                "load_used": False}
 
     def _host_data(self, rec):
         """The record's host copy if it is in memory (store pending,
@@ -450,7 +474,10 @@ class ActivationSpool:
         done.record(stream)
         rec["on_device"] = (out, done)
 
-    def prefetch(self, key) -> None:
+    def prefetch(self, key, *, _demand: bool = False) -> None:
+        """Hint an async load of `key` (a CUDA record already in host
+        memory starts its copy back to the card instead). `_demand`:
+        issued by fetch() itself, so not counted as a prefetch."""
         with self._lock:
             rec = self._records.get(key)
             if rec is None or rec["job"] is None:
@@ -466,6 +493,10 @@ class ActivationSpool:
             if rec["load_job"] is not None:
                 return
             lj = rec["load_job"] = _Job(key, None, "load")
+            lj.prefetched = not _demand
+        if not _demand:
+            obs.count("prefetch.issued")
+            obs.instant("spool.prefetch", cat="spool", key=str(key))
         self._load_q.put(lj)
 
     def fetch(self, key):
@@ -493,20 +524,33 @@ class ActivationSpool:
                         job.state = CANCELED
                         self.stats.stores_canceled += 1
             if spooled is None:
-                self.prefetch(key)
                 with self._lock:
                     lj = rec["load_job"]
+                if lj is None:
+                    self.prefetch(key, _demand=True)
+                    with self._lock:
+                        lj = rec["load_job"]
                 if lj is not None:
+                    if lj.prefetched:
+                        # hit: the prefetched load landed before the
+                        # consumer came; late: it is still under way
+                        with lj.cond:
+                            ready = lj.state in (DONE, CANCELED)
+                        obs.count("prefetch.hit" if ready
+                                  else "prefetch.late")
                     t0 = time.perf_counter()
-                    with lj.cond:
-                        while lj.state not in (DONE, CANCELED):
-                            lj.cond.wait()
+                    with obs.span(FETCH_WAIT_SPAN, cat="spool",
+                                  key=str(key)):
+                        with lj.cond:
+                            while lj.state not in (DONE, CANCELED):
+                                lj.cond.wait()
                     self.stats.fetch_wait_time += time.perf_counter() - t0
                     if lj.error is not None:
                         raise SpoolLoadError(
                             f"spool load failed for {key!r}") from lj.error
                 with self._lock:
                     spooled = rec["loaded"]
+                    rec["load_used"] = True
                 self.tracker.alloc((key, "s"), rec["nbytes"],
                                    tag=f"reloaded:{key}")
         leaves = [None] * rec["n_leaves"]
@@ -541,6 +585,10 @@ class ActivationSpool:
             rec = self._records.pop(key, None)
         if rec is None:
             return
+        lj = rec["load_job"]
+        if lj is not None and lj.prefetched and not rec["load_used"]:
+            # ghost: prefetched from the backend but dropped unread
+            obs.count("prefetch.ghost")
         for bkey, tid in rec["acquired"]:
             self.registry.release_key(bkey, tid)
         self.tracker.free((key, "s"), tag=f"consumed:{key}")
@@ -654,18 +702,43 @@ class ActivationSpool:
                 q.task_done()
 
     def _store(self, job: _Job) -> None:
-        with job.cond:
-            if job.state == CANCELED:
-                job.cond.notify_all()
-                return
-            job.state = RUNNING
-            arrays = job.arrays
+        # a store starts and registers in one step: a record dropped
+        # after this point has its store registered before any newer
+        # store of its key can register
+        with self._lock:
+            with job.cond:
+                if job.state == CANCELED:
+                    job.cond.notify_all()
+                    return
+                job.state = RUNNING
+                arrays = job.arrays
+            prev = self._writing.get(job.key)
+            self._writing[job.key] = job
+        try:
+            if prev is not None:
+                # an earlier store of this key (its record dropped while
+                # it was writing) lands first, so the blob left under
+                # the key is this newer one
+                with prev.cond:
+                    while prev.state == RUNNING:
+                        prev.cond.wait()
+            self._write_blob(job, arrays)
+        finally:
+            with self._lock:
+                if self._writing.get(job.key) is job:
+                    del self._writing[job.key]
+
+    def _write_blob(self, job: _Job, arrays) -> None:
         t0 = time.perf_counter()
-        if job.event is not None:
-            job.event.synchronize()     # the device-to-host copy landed
-        parts = encode_parts(serialize_parts(arrays), self.codec)
-        self.backend.write_parts(str(job.key), parts)
-        nbytes = sum(memoryview(p).nbytes for p in parts)
+        key = str(job.key)
+        with obs.span(STORE_SPAN, cat="spool", key=key) as store_sp:
+            if job.event is not None:
+                job.event.synchronize()     # the device-to-host copy landed
+            with obs.span(ENCODE_SPAN, cat="codec", key=key):
+                parts = encode_parts(serialize_parts(arrays), self.codec)
+            self.backend.write_parts(key, parts)
+            nbytes = sum(memoryview(p).nbytes for p in parts)
+            store_sp.set(bytes=nbytes)
         self.stats.bytes_offloaded += nbytes
         self.stats.bytes_offloaded_logical += _nbytes(arrays)
         self.stats.store_time += time.perf_counter() - t0
@@ -691,14 +764,18 @@ class ActivationSpool:
         with job.cond:
             job.state = RUNNING
         t0 = time.perf_counter()
-        blob = self.backend.read(str(job.key))
-        arrays = deserialize_leaves(unpack(blob))
-        with self._lock:
-            rec = self._records.get(job.key)
-        if rec is not None and rec["device"] is not None \
-                and rec["device"].type == "cuda":
-            # pinned, so the copy back to the card runs asynchronously
-            arrays = [a.pin_memory() for a in arrays]
+        key = str(job.key)
+        with obs.span(LOAD_SPAN, cat="spool", key=key):
+            blob = self.backend.read(key)
+            with obs.span(DECODE_SPAN, cat="codec", key=key):
+                arrays = deserialize_leaves(unpack(blob))
+            with self._lock:
+                rec = self._records.get(job.key)
+            if rec is not None and rec["device"] is not None \
+                    and rec["device"].type == "cuda":
+                # pinned, so the copy back to the card runs
+                # asynchronously
+                arrays = [a.pin_memory() for a in arrays]
         self.stats.bytes_loaded += len(blob)
         self.stats.load_time += time.perf_counter() - t0
         self.stats.num_loads += 1

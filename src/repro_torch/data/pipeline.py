@@ -115,25 +115,44 @@ class ShardedLoader:
         self.host_id = host_id
         self.num_hosts = num_hosts
         self._step = start_step
+        self._prefetch = prefetch
         self._q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         if prefetch > 0:
-            self._thread = threading.Thread(target=self._worker,
-                                            daemon=True)
-            self._thread.start()
+            self._start_worker()
+
+    def _start_worker(self) -> None:
+        """A prefetch thread producing batches from the cursor on."""
+        self._q = queue.Queue(maxsize=max(self._prefetch, 1))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._worker, args=(self._step, self._stop, self._q),
+            daemon=True)
+        self._thread.start()
+
+    def _stop_worker(self) -> None:
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
 
     def _make(self, step: int) -> Dict[str, np.ndarray]:
         return self.source.batch(self.host_id, step, self.local_batch,
                                  self.seq_len)
 
-    def _worker(self):
-        step = self._step
-        while not self._stop.is_set():
+    def _worker(self, step: int, stop: threading.Event,
+                q: "queue.Queue") -> None:
+        while not stop.is_set():
             batch = self._make(step)
-            while not self._stop.is_set():
+            while not stop.is_set():
                 try:
-                    self._q.put((step, batch), timeout=0.1)
+                    q.put((step, batch), timeout=0.1)
                     break
                 except queue.Full:
                     continue
@@ -163,17 +182,15 @@ class ShardedLoader:
         # stream is a pure function of (shard, step), so elastically
         # resized restarts stay deterministic per shard.
         self._step = int(state["step"])
+        if self._thread is not None:
+            # the prefetch thread runs ahead of the cursor: a cursor moved
+            # back would be served the thread's next batch, not its own,
+            # so the thread restarts at the cursor
+            self._stop_worker()
+            self._start_worker()
 
     def close(self):
-        self._stop.set()
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
-        if self._thread is not None:
-            self._thread.join(timeout=5)
-            self._thread = None
+        self._stop_worker()
 
 
 def encoder_decoder_batches(vocab_size: int, *, batch: int, seq_len: int,

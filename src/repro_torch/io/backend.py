@@ -1,7 +1,9 @@
 """Storage-backend interface of the port's activation spool, trimmed
-from the JAX package's `repro/io/backend.py` (no tracing, no planner
-tiers): a key/value blob store with measured per-backend I/O volume and
-busy time.
+from the JAX package's `repro/io/backend.py` (no planner tiers): a
+key/value blob store with measured per-backend I/O volume and busy time.
+Each write and read is an `io.write` / `io.read` span carrying the key,
+the backend kind and the bytes, as in the JAX package, so the overlap
+analyzer matches a fetch's wait to its read by key.
 
 `write_parts` takes the blob as a list of bytes-like parts (the serde
 part list), so the filesystem backend writes it with `os.pwritev` and no
@@ -16,6 +18,10 @@ import time
 from dataclasses import dataclass
 from typing import List
 
+from repro_torch import obs
+from repro_torch.obs.overlap import IO_SPANS
+
+_WRITE_SPAN, _READ_SPAN = IO_SPANS
 
 @dataclass
 class IoStats:
@@ -94,7 +100,9 @@ class StorageBackend:
         nbytes = sum(len(p) for p in parts)
         self._enter("w")
         try:
-            self._write_parts(key, parts)
+            with obs.span(_WRITE_SPAN, cat="io", key=key, kind=self.kind,
+                          bytes=nbytes):
+                self._write_parts(key, parts)
         finally:
             dt = self._exit("w")
         with self._stats_lock:
@@ -105,7 +113,10 @@ class StorageBackend:
     def read(self, key: str) -> bytes:
         self._enter("r")
         try:
-            data = self._read(key)
+            with obs.span(_READ_SPAN, cat="io", key=key,
+                          kind=self.kind) as sp:
+                data = self._read(key)
+                sp.set(bytes=len(data))
         finally:
             dt = self._exit("r")
         with self._stats_lock:

@@ -13,6 +13,7 @@ logits are bitwise equal on one request trace.
 Where JAX donates buffers to jitted steps, the port updates the pools,
 resident entries and dense caches IN PLACE (`index_copy_`, `index_put_`
 and slice assignment). Model work runs under `torch.inference_mode()`.
+The `kv.*` spans, instants and gauges are the JAX package's.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.tree import tree_nbytes
 from repro_torch.kvcache import adapters
 from repro_torch.kvcache.pages import KVCacheConfig, PageAllocator
@@ -170,6 +172,9 @@ class PagedKVCache(_ManagerBase):
         seq.pages.extend(ids)
         self.stats.pages_allocated += grow
         self.stats.page_faults += grow
+        obs.instant("kv.alloc", cat="kv", seq=seq.rid, pages=grow,
+                    fault=True)
+        obs.gauge("kv.pages_in_use", self.alloc.in_use)
 
     # ------------------------------------------------------- lifecycle
 
@@ -183,23 +188,27 @@ class PagedKVCache(_ManagerBase):
         n_pages = max(1, -(-bucket // self.P))
         ids = self.alloc.alloc(n_pages)
         seq.tx = self.spool.lease(f"kv{seq.rid}")
-        logits, caches = self._prefill(seq.prompt, bucket)
-        idx = self._host_tensor(np.asarray(ids, np.int64))
-        pad = n_pages * self.P - bucket
-        for seg_i, entry in enumerate(self.pools):
-            for bid, kv in entry.items():
-                for name, pool in kv.items():
-                    a = caches[seg_i][bid][name][:, 0, :bucket]
-                    if pad:
-                        a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
-                    pool.index_copy_(1, idx, a.reshape(
-                        a.shape[0], n_pages, self.P, *a.shape[2:]).to(
-                            pool.dtype))
-        for seg_i, entry in enumerate(self.resident):
-            for bid, tree in entry.items():
-                for name, t in tree.items():
-                    t[:, slot] = caches[seg_i][bid][name][:, 0].to(t.dtype)
-        row = logits[0, plen - 1].cpu().numpy()
+        with obs.span("kv.prefill", cat="kv", seq=seq.rid, tokens=plen,
+                      pages=n_pages):
+            logits, caches = self._prefill(seq.prompt, bucket)
+            idx = self._host_tensor(np.asarray(ids, np.int64))
+            pad = n_pages * self.P - bucket
+            for seg_i, entry in enumerate(self.pools):
+                for bid, kv in entry.items():
+                    for name, pool in kv.items():
+                        a = caches[seg_i][bid][name][:, 0, :bucket]
+                        if pad:
+                            a = torch.nn.functional.pad(
+                                a, (0, 0, 0, 0, 0, pad))
+                        pool.index_copy_(1, idx, a.reshape(
+                            a.shape[0], n_pages, self.P, *a.shape[2:]).to(
+                                pool.dtype))
+            for seg_i, entry in enumerate(self.resident):
+                for bid, tree in entry.items():
+                    for name, t in tree.items():
+                        t[:, slot] = caches[seg_i][bid][name][:, 0].to(
+                            t.dtype)
+            row = logits[0, plen - 1].cpu().numpy()
         seq.pages = list(ids)
         seq.slot = slot
         seq.pos = plen
@@ -209,6 +218,8 @@ class PagedKVCache(_ManagerBase):
         self.stats.pages_allocated += n_pages
         self.stats.prefills += 1
         self.stats.prefill_s += time.perf_counter() - t0
+        obs.instant("kv.alloc", cat="kv", seq=seq.rid, pages=n_pages)
+        obs.gauge("kv.pages_in_use", self.alloc.in_use)
         return row
 
     @torch.inference_mode()
@@ -221,27 +232,29 @@ class PagedKVCache(_ManagerBase):
             raise ValueError(f"sequence {seq.rid} is not slot-resident")
         t0 = time.perf_counter()
         n = len(seq.pages)
-        idx = self._host_tensor(np.asarray(seq.pages, np.int64))
-        host = [(f"{seg_i}.{bid}",
-                 {name: pool.index_select(1, idx).cpu()
-                  for name, pool in kv.items()})
-                for seg_i, entry in enumerate(self.pools)
-                for bid, kv in entry.items()]
-        nbytes = 0
-        for j in range(n):
-            blob = {name: {k: t[:, j] for k, t in kv.items()}
-                    for name, kv in host}
-            nbytes += tree_nbytes(blob)
-            seq.tx.offload(j, blob)
-        # an explicit copy: on a CPU device .cpu() would return a view of
-        # the slot's rows, which the slot's next occupant overwrites
-        st = {f"{seg_i}.{bid}": {name: t[:, seq.slot].to("cpu", copy=True)
-                                 for name, t in tree.items()}
-              for seg_i, entry in enumerate(self.resident)
-              for bid, tree in entry.items()}
-        if st:
-            nbytes += tree_nbytes(st)
-            seq.tx.offload("st", st)
+        with obs.span("kv.evict", cat="kv", seq=seq.rid, pages=n):
+            idx = self._host_tensor(np.asarray(seq.pages, np.int64))
+            host = [(f"{seg_i}.{bid}",
+                     {name: pool.index_select(1, idx).cpu()
+                      for name, pool in kv.items()})
+                    for seg_i, entry in enumerate(self.pools)
+                    for bid, kv in entry.items()]
+            nbytes = 0
+            for j in range(n):
+                blob = {name: {k: t[:, j] for k, t in kv.items()}
+                        for name, kv in host}
+                nbytes += tree_nbytes(blob)
+                seq.tx.offload(j, blob)
+            # an explicit copy: on a CPU device .cpu() would return a view
+            # of the slot's rows, which the slot's next occupant overwrites
+            st = {f"{seg_i}.{bid}": {name: t[:, seq.slot].to("cpu",
+                                                             copy=True)
+                                     for name, t in tree.items()}
+                  for seg_i, entry in enumerate(self.resident)
+                  for bid, tree in entry.items()}
+            if st:
+                nbytes += tree_nbytes(st)
+                seq.tx.offload("st", st)
         self.alloc.free(seq.pages)
         self._unbind(seq)
         seq.n_pages = n
@@ -250,6 +263,9 @@ class PagedKVCache(_ManagerBase):
         self.stats.bytes_evicted += nbytes
         self.stats.evictions += 1
         self.stats.evict_s += time.perf_counter() - t0
+        obs.instant("kv.evicted", cat="kv", seq=seq.rid, pages=n,
+                    bytes=nbytes)
+        obs.gauge("kv.pages_in_use", self.alloc.in_use)
 
     def prefetch(self, seq) -> None:
         """Start async loads of a parked sequence's pages (issued when it
@@ -261,6 +277,8 @@ class PagedKVCache(_ManagerBase):
             seq.tx.prefetch(j)
         if seq.tx.has_stage("st"):
             seq.tx.prefetch("st")
+        obs.instant("kv.prefetch", cat="kv", seq=seq.rid,
+                    pages=seq.n_pages)
 
     @torch.inference_mode()
     def restore(self, seq, slot: int) -> None:
@@ -271,24 +289,25 @@ class PagedKVCache(_ManagerBase):
             raise ValueError(f"sequence {seq.rid} is not parked")
         t0 = time.perf_counter()
         n = seq.n_pages
-        ids = self.alloc.alloc(n)
-        blobs = [seq.tx.consume(j) for j in range(n)]
-        nbytes = sum(tree_nbytes(b) for b in blobs)
-        idx = self._host_tensor(np.asarray(ids, np.int64))
-        for seg_i, entry in enumerate(self.pools):
-            for bid, kv in entry.items():
-                for name, pool in kv.items():
-                    pages = torch.stack(
-                        [b[f"{seg_i}.{bid}"][name] for b in blobs], dim=1)
-                    pool.index_copy_(1, idx, pages.to(self.device))
-        if seq.tx.has_stage("st"):
-            st = seq.tx.consume("st")
-            nbytes += tree_nbytes(st)
-            for seg_i, entry in enumerate(self.resident):
-                for bid, tree in entry.items():
-                    for name, t in tree.items():
-                        t[:, slot] = st[f"{seg_i}.{bid}"][name].to(
-                            self.device)
+        with obs.span("kv.restore", cat="kv", seq=seq.rid, pages=n):
+            ids = self.alloc.alloc(n)
+            blobs = [seq.tx.consume(j) for j in range(n)]
+            nbytes = sum(tree_nbytes(b) for b in blobs)
+            idx = self._host_tensor(np.asarray(ids, np.int64))
+            for seg_i, entry in enumerate(self.pools):
+                for bid, kv in entry.items():
+                    for name, pool in kv.items():
+                        pages = torch.stack(
+                            [b[f"{seg_i}.{bid}"][name] for b in blobs], dim=1)
+                        pool.index_copy_(1, idx, pages.to(self.device))
+            if seq.tx.has_stage("st"):
+                st = seq.tx.consume("st")
+                nbytes += tree_nbytes(st)
+                for seg_i, entry in enumerate(self.resident):
+                    for bid, tree in entry.items():
+                        for name, t in tree.items():
+                            t[:, slot] = st[f"{seg_i}.{bid}"][name].to(
+                                self.device)
         seq.pages = ids
         seq.slot = slot
         self.tables[slot] = 0
@@ -300,6 +319,9 @@ class PagedKVCache(_ManagerBase):
         self.stats.bytes_restored += nbytes
         self.stats.restores += 1
         self.stats.restore_s += time.perf_counter() - t0
+        obs.instant("kv.restored", cat="kv", seq=seq.rid, pages=n,
+                    bytes=nbytes)
+        obs.gauge("kv.pages_in_use", self.alloc.in_use)
 
     def release(self, seq) -> None:
         """Retire a sequence: free its device pages if resident and drop
@@ -312,6 +334,7 @@ class PagedKVCache(_ManagerBase):
         if seq.tx is not None:
             seq.tx.close()
             seq.tx = None
+        obs.gauge("kv.pages_in_use", self.alloc.in_use)
 
     def _unbind(self, seq) -> None:
         self.tables[seq.slot] = 0
@@ -359,12 +382,14 @@ class DenseKVCache(_ManagerBase):
     def start(self, seq, slot: int) -> np.ndarray:
         t0 = time.perf_counter()
         plen = len(seq.prompt)
-        logits, caches = self._prefill(seq.prompt, self.bucket_for(plen))
-        for seg_i, entry in enumerate(self.caches):
-            for bid, tree in entry.items():
-                for name, t in tree.items():
-                    t[:, slot] = caches[seg_i][bid][name][:, 0].to(t.dtype)
-        row = logits[0, plen - 1].cpu().numpy()
+        with obs.span("kv.prefill", cat="kv", seq=seq.rid, tokens=plen):
+            logits, caches = self._prefill(seq.prompt, self.bucket_for(plen))
+            for seg_i, entry in enumerate(self.caches):
+                for bid, tree in entry.items():
+                    for name, t in tree.items():
+                        t[:, slot] = caches[seg_i][bid][name][:, 0].to(
+                            t.dtype)
+            row = logits[0, plen - 1].cpu().numpy()
         seq.slot = slot
         seq.pos = plen
         self.pos[slot] = plen

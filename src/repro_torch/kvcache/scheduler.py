@@ -1,6 +1,6 @@
 """Continuous-batching serve scheduler over a KV-cache manager, copied
-from the JAX package's `repro/kvcache/scheduler.py` (tracing calls left
-out; tracing is a later slice).
+from the JAX package's `repro/kvcache/scheduler.py`, with its `serve.*`
+spans, instants and gauge.
 
 The server owns B decode slots and a queue of requests. Slots turn over
 individually: when a sequence retires its slot refills from the new
@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.cache.horizon import reuse_horizon
 
 __all__ = ["Request", "Sequence", "Server", "ServeReport"]
@@ -152,6 +153,8 @@ class Server:
 
     def _log(self, event: str, seq: Sequence, slot) -> None:
         self.schedule_log.append((self.decode_steps, event, seq.rid, slot))
+        obs.instant(f"serve.{event}", cat="serve", rid=seq.rid,
+                    slot=slot, step=self.decode_steps)
 
     def _emit_token(self, seq: Sequence, row: np.ndarray) -> int:
         tok = int(np.argmax(row))
@@ -221,8 +224,12 @@ class Server:
         live = self.live
         self._live_sum += live
         self._peak_live = max(self._peak_live, live)
+        obs.gauge("serve.live", live)
         t0 = self.time()
-        logits = self.cache.decode()
+        with obs.span("serve.decode", cat="serve",
+                      step=self.decode_steps, active=len(active),
+                      live=live):
+            logits = self.cache.decode()
         self._decode_time += self.time() - t0
         self.decode_steps += 1
         self.decode_slot_tokens += len(active)
@@ -245,9 +252,11 @@ class Server:
         """Drain every queue and slot: the loop ends exactly when no
         sequence is waiting, parked or bound."""
         t0 = self.time()
-        while self.new_q or self.resume_q or any(
-                s is not None for s in self.slots):
-            self.step()
+        with obs.span("serve.run", cat="serve",
+                      requests=len(self.new_q)):
+            while self.new_q or self.resume_q or any(
+                    s is not None for s in self.slots):
+                self.step()
         return self._report(self.time() - t0)
 
     # ------------------------------------------------------- report

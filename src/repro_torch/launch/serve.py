@@ -16,6 +16,10 @@ the default on the card); `--attn-impl torch` runs the plain path.
   python -m repro_torch.launch.serve --arch small-gpt --device cpu \\
       --attn-impl torch --quantum 3
 
+`--trace OUT.json` writes a Chrome/Perfetto trace of the run: `kv.*`
+page events, `serve.*` scheduling and the spool's `spool.*` / `io.*`
+lanes, with the JAX package's names.
+
 Runs on the card unless `--device cpu` is given; without CUDA it stops
 rather than fall back to the CPU.
 """
@@ -28,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import SpoolIoConfig, resolve_config
 from repro_torch.core.spool import build_spool
 from repro_torch.kernels.flash_attention import flash_attention
@@ -116,6 +121,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--attn-impl", default=None, choices=("cuda", "torch"),
                     help="prefill attention (default: cuda on the card, "
                          "torch on the CPU)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write a Perfetto trace (kv.* page events, "
+                         "serve.* scheduling, io.* spool lanes)")
     ap.add_argument("--json", dest="json_out", default=None,
                     help="write the serve report as JSON")
     return ap.parse_args(argv)
@@ -176,8 +184,18 @@ def report_lines(r) -> List[str]:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
+    owns_tracer = args.trace is not None and not obs.is_enabled()
+    if args.trace:
+        obs.enable()
     launches0 = flash_attention.launches
-    _, report = run(args)
+    try:
+        _, report = run(args)
+        if args.trace:
+            # the spool is closed: every span has ended
+            path = obs.write_chrome_trace(args.trace, obs.get_tracer())
+    finally:
+        if owns_tracer:
+            obs.disable()
     device = (torch.cuda.get_device_name(torch.device(args.device))
               if args.device != "cpu" else "cpu")
     print(f"device:  {device}")
@@ -189,6 +207,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         with open(args.json_out, "w") as f:
             json.dump(report.as_dict(), f, indent=2, sort_keys=True)
         print(f"report -> {args.json_out}")
+    if args.trace:
+        print(f"trace -> {path}")
 
 
 if __name__ == "__main__":

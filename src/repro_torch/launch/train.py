@@ -10,6 +10,18 @@ package's `repro/launch/train.py`.
       --attn-impl torch --steps 2 --batch 2 --seq 64 --min-offload 4096
   python -m repro_torch.launch.train --arch small-bert --device cpu \\
       --steps 2 --batch 2 --seq 64 --strategy spool --min-offload 4096
+  python -m repro_torch.launch.train --arch small-gpt --device cpu \\
+      --steps 2 --batch 2 --seq 64 --strategy spool --min-offload 4096 \\
+      --ckpt ckpt --ckpt-every 1 --trace trace.json
+  python -m repro_torch.launch.train ... --ckpt ckpt --resume
+
+`--ckpt DIR` writes checkpoints (every `--ckpt-every` steps and at the
+end) in the JAX package's layout, and `--resume` continues from the
+latest one; without `--ckpt` no checkpoint is written (the JAX CLI
+defaults to /tmp/repro_ckpt). SIGTERM and SIGINT stop the run at the
+next step boundary with a final checkpoint. `--trace OUT.json` writes a
+Chrome/Perfetto trace (`python -m repro_torch.obs.validate OUT.json`
+checks it) and prints the last step's overlap analysis.
 
 Runs on the card unless `--device cpu` is given; without CUDA it stops
 rather than fall back to the CPU. `--attn-impl cuda` (the default on the
@@ -36,9 +48,7 @@ from repro_torch.session.session import resolve_optimizer
 
 # flags of the JAX package's CLI that wait for later slices
 _WAITING = {
-    "--ckpt": "checkpoints", "--ckpt-every": "checkpoints",
-    "--resume": "checkpoints", "--trace": "tracing",
-    "--trace-ring": "tracing", "--mesh": "multi-GPU meshes",
+    "--mesh": "multi-GPU meshes",
     "--host-offload": "the jit engine's host offload",
     "--opt-overlap": "the optimizer overlap",
     "--retry-attempts": "resilience", "--retry-backoff-ms": "resilience",
@@ -49,8 +59,7 @@ _WAITING = {
     "--spool-pool-mb": "the aligned data plane",
     "--spool-no-dedupe": "multi-GPU meshes",
 }
-_FLAGS_WITH_VALUE = {"--resume": False, "--opt-overlap": False,
-                     "--spool-no-dedupe": False}
+_FLAGS_WITH_VALUE = {"--opt-overlap": False, "--spool-no-dedupe": False}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -89,6 +98,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "stage from its input, or raise")
     ap.add_argument("--metrics", default=None,
                     help="append one StepReport JSON line per step here")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (default: no checkpoint)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint of --ckpt")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="enable repro_torch.obs tracing and write a "
+                         "Chrome/Perfetto trace-event JSON here on exit")
+    ap.add_argument("--trace-ring", type=int, default=0,
+                    help="per-thread trace ring capacity in events "
+                         "(default 65536; older events are dropped and "
+                         "counted when a ring fills)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the plain paths")
     ap.add_argument("--attn-impl", default=None, choices=("cuda", "torch"),
@@ -107,6 +128,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.engine != "staged":
         ap.error("--engine jit is not ported to repro_torch yet (the "
                  "port trains with the staged engine)")
+    if args.resume and args.ckpt is None:
+        ap.error("--resume needs --ckpt")
     return args
 
 
@@ -123,7 +146,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             microbatches=args.microbatches, device=args.device,
             attn_impl=args.attn_impl, metrics_path=args.metrics,
             min_offload_elements=args.min_offload,
-            on_fetch_fail=args.on_fetch_fail) as session:
+            on_fetch_fail=args.on_fetch_fail, ckpt_dir=args.ckpt,
+            ckpt_every=args.ckpt_every, trace=args.trace,
+            trace_ring=args.trace_ring,
+            install_signal_handlers=True) as session:
         device = (torch.cuda.get_device_name(torch.device(args.device))
                   if args.device != "cpu" else "cpu")
         print(f"arch={session.cfg.name} params={session.n_params / 1e6:.1f}M"
@@ -143,7 +169,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"{st.bytes_forwarded / 1e6:.1f} MB", flush=True)
 
         t0 = time.perf_counter()
-        session.run(args.steps, on_report=on_report)
+        result = session.run(args.steps, resume=args.resume,
+                             on_report=on_report)
         dt = time.perf_counter() - t0
         session.spool.wait_io()
         io_st = session.spool.backend.stats
@@ -156,9 +183,32 @@ def main(argv: Optional[List[str]] = None) -> None:
         if plan is not None:
             print(f"plan: offload stages 0..{plan.last_offloaded} of "
                   f"{len(session.engine.stage_names)}")
+        ckpt = session.ckpt
+        if ckpt is not None:
+            print(f"checkpoint: step {ckpt.latest_step()} in {ckpt.dir} "
+                  f"(last snapshot {ckpt.last_snapshot_s:.3f}s, write "
+                  f"{ckpt.last_write_s:.3f}s)"
+                  + (" after preemption" if session.preempted else ""),
+                  flush=True)
+        last_obs = next((r.obs for r in reversed(result.reports)
+                         if r.obs), None)
+        if last_obs and last_obs["io_busy_s"] > 0:
+            print(f"overlap (last step): {last_obs['io_hidden_frac']:.0%} "
+                  f"of {last_obs['io_busy_s'] * 1e3:.1f} ms I/O hidden "
+                  f"under compute; exposed wait "
+                  f"{last_obs['exposed_wait_s'] * 1e3:.1f} ms: read "
+                  f"{last_obs['stall_read_s'] * 1e3:.1f} ms, decode "
+                  f"{last_obs['stall_decode_s'] * 1e3:.1f} ms, queue "
+                  f"{last_obs['stall_queue_s'] * 1e3:.1f} ms; store busy "
+                  f"{last_obs['store_s'] * 1e3:.1f} ms, load busy "
+                  f"{last_obs['load_s'] * 1e3:.1f} ms; prefetch hit rate "
+                  f"{last_obs['prefetch_hit_rate']:.0%}", flush=True)
     print("kernels: " + ", ".join(
         f"{k.__name__} launches {k.launches - n}"
         for k, n in zip(kernels, launches0)))
+    # the session just closed: the trace file exists now
+    if args.trace:
+        print(f"trace written to {args.trace}")
 
 
 if __name__ == "__main__":

@@ -43,12 +43,16 @@ _HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))    # Phi(2)
 
 
 def truncated_normal(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2] by inverse-CDF sampling, in
-    f32 on the generator's device, cast to `dtype`."""
+    """Standard normal truncated to [-2, 2] by inverse-CDF sampling
+    (`ndtri` of a uniform on [Phi(-2), Phi(2)]), in f32 on the
+    generator's device, cast to `dtype`. Not through `erfinv`: on the
+    CPU torch computes it with MKL's vector math, whose first call in a
+    process, split over OpenMP threads, can return one thread's share at
+    a lower accuracy (hundreds of ulps), so two runs from one seed would
+    not start from the same weights."""
     u = torch.rand(shape, generator=gen, device=gen.device,
                    dtype=torch.float32)
-    u = u.mul_(_HI - _LO).add_(_LO).mul_(2.0).sub_(1.0)
-    x = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    x = torch.special.ndtri(u.mul_(_HI - _LO).add_(_LO)).clamp_(-2.0, 2.0)
     return x.to(dtype)
 
 

@@ -2,15 +2,19 @@
 interop with the JAX package's serde and codecs in both directions, the
 fs and mem backends, and the lease semantics serving relies on
 (offload -> consume bitwise, forwarding of a pending store, prefetch,
-close leaves the backend empty, unknown stages raise)."""
+close leaves the backend empty, unknown stages raise), and a dropped
+record's late store never overwrites the next step's blob of its key."""
 import os
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import SpoolIoConfig
+from repro_torch.core import spool as spool_mod
 from repro_torch.core.spool import (ActivationSpool, SpoolLoadError,
                                     build_spool)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
@@ -182,6 +186,147 @@ def test_forwarding_while_store_pending():
         assert be.keys() == [] and spool.stats.num_loads == 0
     finally:
         be.gate.set()
+        spool.close()
+
+
+class _SlowFirstWrite(FilesystemBackend):
+    """The first blob written takes `delay` seconds to land."""
+
+    def __init__(self, directory, delay):
+        super().__init__(directory)
+        self.delay, self.writes = delay, 0
+        self.started = threading.Event()
+
+    def _write_parts(self, key, parts):
+        self.writes += 1
+        if self.writes == 1:
+            self.started.set()
+            time.sleep(self.delay)
+        super()._write_parts(key, parts)
+
+
+def test_a_dropped_store_never_overwrites_a_newer_blob_of_its_key(tmp_path):
+    """Lease keys recur every step: a record dropped while its store is
+    writing (forwarded in the step's backward) must not land its stale
+    blob over the next step's blob of the same key."""
+    be = _SlowFirstWrite(str(tmp_path), delay=0.5)
+    spool = ActivationSpool(be, store_threads=2, load_threads=1,
+                            min_offload_elements=0)
+    try:
+        old, new = torch.zeros(1000), torch.ones(1000)
+        tx = spool.step("mb0")
+        tx.offload(0, [old])
+        be.started.wait(10)
+        _same(tx.fetch(0)[0], old)          # forwarded from the host copy
+        tx.close()                          # dropped while writing
+        tx = spool.step("mb0")
+        tx.offload(0, [new])                # the next step, the same key
+        spool.wait_io()                     # both stores have landed
+        assert spool.stats.num_stores == 2
+        got = tx.fetch(0)[0]
+        assert spool.stats.num_loads == 1
+        _same(got, new)
+        tx.close()
+        spool.wait_io()
+        assert be.keys() == []
+    finally:
+        spool.close()
+
+
+class _LateRegisterCond(threading.Condition):
+    """A store job's condition that holds its store worker up once, just
+    after the release that follows the job's start: the moment between a
+    store starting and it registering its key."""
+
+    def __init__(self, job, delay):
+        super().__init__()
+        self.job, self.delay = job, delay
+        self.started = threading.Event()
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        if (not self.started.is_set() and self.job.state == spool_mod.RUNNING
+                and threading.current_thread().name.startswith(
+                    "spool-store")):
+            self.started.set()
+            time.sleep(self.delay)
+        return out
+
+
+def test_a_store_held_up_as_it_starts_lands_before_the_next(monkeypatch):
+    """A store worker held up right after its store starts, while its
+    record is dropped and the next step's store of the key runs, still
+    lands first: the blob left under the key is the newer one."""
+    first = []
+
+    class _Job(spool_mod._Job):
+        def __init__(self, key, arrays, kind, event=None):
+            super().__init__(key, arrays, kind, event)
+            if kind == "store" and not first:
+                self.cond = _LateRegisterCond(self, 0.3)
+                first.append(self)
+
+    monkeypatch.setattr(spool_mod, "_Job", _Job)
+    spool = ActivationSpool(HostMemoryBackend(), store_threads=2,
+                            load_threads=1, min_offload_elements=0)
+    try:
+        old, new = torch.zeros(1000), torch.ones(1000)
+        tx = spool.step("mb0")
+        tx.offload(0, [old])
+        assert first[0].cond.started.wait(10)
+        tx.close()                          # dropped as its store starts
+        tx = spool.step("mb0")
+        tx.offload(0, [new])                # the next step, the same key
+        spool.wait_io()
+        assert spool.stats.num_stores == 2
+        _same(tx.fetch(0)[0], new)
+        assert spool.stats.num_loads == 1
+        tx.close()
+        spool.wait_io()
+        assert spool.backend.keys() == []
+    finally:
+        spool.close()
+
+
+class _JitteryBackend(HostMemoryBackend):
+    """Writes land after a random 0-3 ms, so stores of one key race."""
+
+    def __init__(self, seed=0):
+        super().__init__()
+        self._rng = np.random.default_rng(seed)
+        self._rng_lock = threading.Lock()
+
+    def _write_parts(self, key, parts):
+        with self._rng_lock:
+            delay = self._rng.uniform(0, 3e-3)
+        time.sleep(delay)
+        super()._write_parts(key, parts)
+
+
+def test_stores_of_one_key_land_in_order_under_stress():
+    """More store workers than cores, a short switch interval, and every
+    step reusing one key: each fetch returns its own step's tensor,
+    forwarded or read back."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    spool = ActivationSpool(_JitteryBackend(), store_threads=32,
+                            load_threads=4, min_offload_elements=0)
+    try:
+        rng = np.random.default_rng(1)
+        deadline = time.monotonic() + 20
+        for i in range(300):
+            tx = spool.step("mb0")
+            tx.offload(0, [torch.full((64,), float(i))])
+            if rng.random() < 0.5:
+                time.sleep(rng.uniform(0, 2e-3))
+            assert torch.equal(tx.fetch(0)[0], torch.full((64,), float(i)))
+            tx.close()
+            assert time.monotonic() < deadline
+        spool.wait_io()
+        assert spool.stats.num_loads > 0 and spool.stats.bytes_forwarded > 0
+        assert spool.backend.keys() == []
+    finally:
+        sys.setswitchinterval(old)
         spool.close()
 
 

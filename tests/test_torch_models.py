@@ -120,6 +120,26 @@ def test_init_distribution():
     assert params["embed"].shape == (2048, 256)
 
 
+def test_truncated_normal_is_the_inverse_cdf_without_erfinv(monkeypatch):
+    """The init's inverse CDF stays off `erfinv`, which torch computes on
+    the CPU with MKL's vector math (its first call in a process can give
+    one OpenMP thread's share at a lower accuracy); each sample x of a
+    uniform p on [Phi(-2), Phi(2)] has Phi(x) == p."""
+    def refuse(*a, **k):
+        raise AssertionError("erfinv called")
+
+    monkeypatch.setattr(torch.Tensor, "erfinv_", refuse)
+    monkeypatch.setattr(torch.Tensor, "erfinv", refuse)
+    monkeypatch.setattr(torch, "erfinv", refuse)
+    x = layers.truncated_normal(torch.Generator().manual_seed(3),
+                                (4096,), torch.float32)
+    u = torch.rand((4096,), generator=torch.Generator().manual_seed(3))
+    p = u.double() * (layers._HI - layers._LO) + layers._LO
+    assert float(x.abs().max()) <= 2.0
+    torch.testing.assert_close(torch.special.ndtr(x.double()), p,
+                               rtol=0, atol=1e-6)
+
+
 def test_forward_and_caches_match_jax(f32):
     japi, jparams, jset, api, params, tset = f32
     toks = _tokens()

@@ -453,6 +453,7 @@ def test_cli_trains_two_steps_on_cpu(tmp_path, capsys):
     assert rows[0]["bytes_offloaded"] >= 0 and "peak_activation_bytes" in \
         rows[0]
     assert list((tmp_path / "spool").iterdir()) == []
-    for bad in (["--ckpt", "x"], ["--engine", "jit"], ["--resume"]):
+    for bad in (["--mesh", "x"], ["--engine", "jit"], ["--opt-overlap"],
+                ["--resume"]):
         with pytest.raises(SystemExit):
             train_cli.parse_args(bad)
