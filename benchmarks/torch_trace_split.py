@@ -23,6 +23,11 @@ Per step, every interval clipped to the step's span:
                    optimizer work on the main thread (launches, hooks,
                    copies back to the card, the interpreter), from the
                    `engine.fwd` / `engine.bwd` / `engine.update` spans;
+  forward host     `engine.fwd` minus any wait inside it: the forward's
+                   main-thread time (with the device-to-host copies'
+                   set-up: pool leases, or pinned allocations before);
+  pool misses      `pool.miss` instants in the step (each a fresh
+                   mapping, registered with CUDA on the card);
 
 beside `io_hidden_frac` of `overlap.analyze` over the same window. Reads
 only the trace: it runs anywhere, the card's numbers come from the
@@ -82,6 +87,10 @@ def split_step(events, step_ev) -> Dict[str, float]:
     store_we = _intersect(store, _union(write + encode))
     main = {n: sum(b - a for a, b in _clipped(events, (n,), lo, hi))
             for n in ("engine.fwd", "engine.bwd", "engine.update")}
+    fwd = iv("engine.fwd")
+    fwd_wait = _intersect(fwd, iv(overlap.FETCH_WAIT_SPAN))
+    misses = sum(1 for e in events if e[0] == "pool.miss" and e[3] < 0
+                 and lo <= e[2] < hi)
     ns = 1e9
     step_s = (hi - lo) / ns
     return {
@@ -101,6 +110,8 @@ def split_step(events, step_ev) -> Dict[str, float]:
         "load_pinned_copy_s": (load_s - load_rd) / ns,
         "main_rest_s": step_s - an["exposed_wait_s"],
         "forward_s": main["engine.fwd"] / ns,
+        "forward_host_s": (_total(fwd) - fwd_wait) / ns,
+        "pool_misses": misses,
         "backward_s": main["engine.bwd"] / ns,
         "update_s": main["engine.update"] / ns,
         "io_busy_s": an["io_busy_s"],
@@ -125,7 +136,9 @@ def line(r: Dict[str, float]) -> str:
             f"{r['load_read_s']:.3f}, decode {r['load_decode_s']:.3f}, "
             f"pinned copy {r['load_pinned_copy_s']:.3f}); main rest "
             f"{r['main_rest_s']:.3f}s (fwd {r['forward_s']:.3f}, bwd "
-            f"{r['backward_s']:.3f}, update {r['update_s']:.3f}); "
+            f"{r['backward_s']:.3f}, update {r['update_s']:.3f}); forward "
+            f"host {r['forward_host_s']:.3f}s; pool misses "
+            f"{r['pool_misses']}; "
             f"io_hidden_frac {r['io_hidden_frac']:.3f} of "
             f"{r['io_busy_s']:.3f}s I/O")
 

@@ -1,6 +1,6 @@
 """Config schema of the PyTorch port: `ModelConfig`, copied field for
 field from the JAX package's `repro/configs/base.py`, and the spool's
-storage selection trimmed to the fields the serve path reads.
+storage selection `SpoolIoConfig`.
 
 The port keeps its own copy (it imports nothing under `repro.`), so the
 two schemas must be kept in step by hand; the port's tests build both
@@ -9,6 +9,7 @@ from the same arguments and compare.
 from __future__ import annotations
 
 import math
+import mmap
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -107,20 +108,92 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class SpoolIoConfig:
-    """Storage selection of the activation spool, trimmed to what the
-    serve path uses. backend: "fs" (one blob file per key in
-    `directory`, a fresh temp dir when None) or "mem" (host RAM)."""
+    """Declarative selection of the activation spool's storage stack
+    (`repro_torch.io`), the JAX package's fields and checks.
+    `repro_torch.io.build_backend` turns it into a `StorageBackend`.
+
+    backend: "fs" (one directory / one SSD), "striped" (chunks across
+    `stripe_dirs`, a multi-SSD array), "mem" (host RAM), "tiered" (RAM
+    under `host_mem_budget_bytes`, spilling to a lower fs/striped
+    backend), "managed" (the `repro_torch.cache.CacheManager`: class- and
+    reuse-distance-aware placement over a host-RAM bound
+    `host_mem_budget_bytes` and an SSD tier picked by `cache_ssd`, with
+    background promotion of up to `cache_promote_depth` blobs per hint
+    and failing-SSD fallback), "aio" (O_DIRECT from pooled aligned
+    buffers with `queue_depth` segments; buffered + fdatasync where the
+    filesystem refuses O_DIRECT), or a full spec string of
+    `repro_torch.io.factory` ("fault@2:striped:/a,/b").
+
+    The data-plane knobs apply to every backend: `alignment` and
+    `pool_bytes` (the idle cap; on the card raised to the most bytes
+    leased at once) size the shared aligned buffer pool that loads,
+    stores and aio writes stage through. `retry_*` bound the
+    spool workers' retries of transient I/O errors; `on_fetch_fail` says
+    what the engine does when a fetch fails for good. `bandwidth_limit`
+    (encoded bytes/s) throttles every store and load, to simulate a
+    slower tier.
+
+    `host_offload`, `opt_overlap` and `dedupe_replicas` belong to the
+    jit engine, the optimizer overlap and meshes (ROADMAP §1 items 9 and
+    12) and refuse anything but their defaults."""
     backend: str = "fs"
-    directory: Optional[str] = None
+    directory: Optional[str] = None        # None -> fresh temp dir
+    stripe_dirs: Tuple[str, ...] = ()
+    stripe_chunk_bytes: int = 4 << 20
     codec: str = "raw"                     # raw | zlib | byteplane
+    host_mem_budget_bytes: int = 256 << 20
     store_threads: int = 4
     load_threads: int = 4
+    bandwidth_limit: Optional[float] = None
+    host_offload: str = "none"
+    opt_overlap: bool = False
+    dedupe_replicas: bool = True
+    # --- data-plane knobs (buffer pool / direct I/O) ---
+    alignment: int = 4096           # pool + O_DIRECT alignment
+    queue_depth: int = 4            # aio: concurrent segments per blob
+    pool_bytes: int = 256 << 20     # idle cap of the aligned pool
+    # --- cache-manager knobs (backend == "managed") ---
+    cache_ssd: Optional[str] = None  # SSD-tier spec; None -> fs/striped
+    cache_promote_depth: int = 2     # promotions per reuse-horizon hint
+    # --- resilience knobs (repro_torch.resilience) ---
+    retry_attempts: int = 3          # total tries per spool I/O op
+    retry_backoff_s: float = 0.01    # first retry delay (doubles per try)
+    retry_backoff_max_s: float = 0.25
+    on_fetch_fail: str = "recompute"  # recompute | raise
 
     def validate(self) -> "SpoolIoConfig":
-        if self.backend not in ("fs", "mem"):
-            raise ValueError(f"backend {self.backend!r} is not ported "
-                             "yet (fs | mem)")
-        if self.store_threads < 1 or self.load_threads < 1:
-            raise ValueError("spool needs at least one store and one "
-                             "load thread")
+        kind = self.backend.split(":", 1)[0].split("@", 1)[0]
+        checks = [
+            (kind in ("fs", "striped", "mem", "tiered", "managed", "aio",
+                      "fault"), f"unknown spool backend {self.backend!r}"),
+            (self.cache_promote_depth >= 0, "cache_promote_depth < 0"),
+            (self.stripe_chunk_bytes > 0, "stripe_chunk_bytes <= 0"),
+            (self.host_mem_budget_bytes >= 0, "host_mem_budget_bytes < 0"),
+            (self.store_threads >= 1 and self.load_threads >= 1,
+             "spool needs at least one store and one load thread"),
+            (self.alignment > 0
+             and (self.alignment & (self.alignment - 1)) == 0,
+             f"alignment must be a power of two, got {self.alignment}"),
+            (self.alignment <= mmap.PAGESIZE,
+             f"alignment {self.alignment} exceeds the page size "
+             f"{mmap.PAGESIZE} that mmap-backed pool buffers guarantee"),
+            (self.queue_depth >= 1, "queue_depth < 1"),
+            (self.pool_bytes >= 0, "pool_bytes < 0"),
+            (self.retry_attempts >= 1, "retry_attempts < 1"),
+            (self.retry_backoff_s >= 0 and self.retry_backoff_max_s >= 0,
+             "negative retry backoff"),
+            (self.on_fetch_fail in ("recompute", "raise"),
+             f"on_fetch_fail {self.on_fetch_fail!r}: recompute | raise"),
+            (self.backend != "striped" or len(self.stripe_dirs) != 1,
+             "striping across one directory is just 'fs'"),
+            (self.host_offload == "none", "host_offload is the jit "
+             "engine's, not ported yet (ROADMAP §1 item 9)"),
+            (not self.opt_overlap, "opt_overlap is not ported yet "
+             "(ROADMAP §1 item 9)"),
+            (self.dedupe_replicas, "dedupe_replicas=False is a mesh "
+             "option, not ported yet (ROADMAP §1 item 12)"),
+        ]
+        for ok, msg in checks:
+            if not ok:
+                raise ValueError(msg)
         return self

@@ -29,7 +29,12 @@ backward. Each stage's forward runs on inputs detached with
                     inside backward;
   fetch failure  -> the stage is recomputed from its input (the port
                     keeps each stage's input on device as the previous
-                    stage's graph root, so no host copy is needed);
+                    stage's graph root, so no host copy is needed), once
+                    the spool's retries gave up (the SpoolIoConfig's
+                    `on_fetch_fail`);
+  health events  -> an AdaptivePolicy re-plans on the spool's backend
+                    health (`attach_health`); a cache-manager backend is
+                    handed to it after profiling;
   adaptive (§3.3.3) -> step 0 profiles every stage (bytes, synchronised
                     forward time), drains the spool and calibrates the
                     store path before `policy.on_profile`.
@@ -86,25 +91,25 @@ class _Stage:
 class StagedEngine:
     def __init__(self, api: ModelApi, settings: RunSettings, optimizer, *,
                  policy=None, io_config: Optional[SpoolIoConfig] = None,
-                 min_offload_elements: Optional[int] = None,
-                 on_fetch_fail: str = "recompute"):
-        if on_fetch_fail not in ("recompute", "raise"):
-            raise ValueError(f"on_fetch_fail must be recompute|raise, not "
-                             f"{on_fetch_fail!r}")
+                 min_offload_elements: Optional[int] = None):
+        io_config = io_config or SpoolIoConfig()
         self.api = api
         self.cfg = api.cfg
         self.settings = settings
         self.device = torch.device(settings.device)
         self.optimizer = optimizer
         self.policy: OffloadPolicy = resolve_policy(policy)
-        self.on_fetch_fail = on_fetch_fail
+        self.on_fetch_fail = io_config.on_fetch_fail
         self.tracker = MemoryTracker()
         self.spool = build_spool(
-            io_config or SpoolIoConfig(),
+            io_config,
             min_offload_elements=(MIN_OFFLOAD_ELEMENTS
                                   if min_offload_elements is None
                                   else min_offload_elements),
-            tracker=self.tracker)
+            tracker=self.tracker, cuda=self.device.type == "cuda")
+        # mid-run re-plan: the policy watches the spool's health monitor
+        if hasattr(self.policy, "attach_health"):
+            self.policy.attach_health(self.spool.health)
         self._stages = self._build_stages()
         self._step = 0
         self._closed = False
@@ -239,6 +244,10 @@ class StagedEngine:
         if profiling:
             max_bytes = max((p.bytes for p in profiles), default=0)
             self.spool.calibrate_backend(min(max_bytes, 8 << 20))
+            cm = self.spool.cache_manager
+            if cm is not None and hasattr(self.policy,
+                                          "attach_cache_manager"):
+                self.policy.attach_cache_manager(cm)
             self.policy.on_profile(profiles, self.spool.planner_bandwidth())
         self._step += 1
         extra = dict(counts)

@@ -4,8 +4,9 @@ schema, so rows from either package compare key for key. The port's
 staged engine fills the activation-footprint and spool fields and puts
 device numbers (peak device bytes on the card) in `extra`. The `obs`
 block (the overlap analysis of the step's trace window, emitted as
-`obs_*` fields) is the JAX package's, key for key. The shard / cache /
-resilience blocks come with the layers that fill them (not ported yet).
+`obs_*` fields) is the JAX package's, key for key, and so are the
+cache-manager block (`cache_*`) and the resilience block
+(`resilience_*`). The per-shard block waits for meshes.
 """
 from __future__ import annotations
 
@@ -30,6 +31,14 @@ class StepReport:
     # repro_torch.obs overlap analysis for THIS step's trace window (see
     # repro_torch.obs.overlap.analyze); emitted with an obs_ prefix
     obs: Optional[Dict[str, Any]] = None
+    # cache-manager block for this step (managed backend only): counter
+    # deltas + residency gauges from CacheManager.metrics_delta; emitted
+    # with a cache_ prefix
+    cache: Optional[Dict[str, Any]] = None
+    # resilience block for this step (any spool): retry / fallback /
+    # re-plan / rebalance counter deltas plus backend-health gauges;
+    # emitted with a resilience_ prefix
+    resilience: Optional[Dict[str, Any]] = None
 
     def to_metrics(self) -> Dict[str, Any]:
         """Flat JSON-able dict — the unified metrics-JSONL schema.
@@ -57,6 +66,12 @@ class StepReport:
         if self.obs:
             for k, v in self.obs.items():
                 rec[f"obs_{k}"] = v
+        if self.cache:
+            for k, v in self.cache.items():
+                rec[f"cache_{k}"] = v
+        if self.resilience is not None:
+            for k, v in self.resilience.items():
+                rec[f"resilience_{k}"] = v
         for k, v in self.extra.items():
             rec.setdefault(k, v)
         return rec

@@ -6,36 +6,60 @@ Two FIFO thread pools, store and load:
   * offload(key, tree): enqueue an async store. Parameters (by storage,
     `core/ids.py`), tensors under `min_offload_elements` and duplicates
     of live tracked tensors stay in memory (recorded, not written). CUDA
-    leaves are copied into pinned host buffers on a side stream; the
-    store worker waits on that copy's event before it reads them, and
-    the device memory returns to the allocator once the copy is done
-    (`record_stream`), never before;
+    leaves are copied on a side stream into one lease of the spool's
+    aligned buffer pool, laid out as the blob itself (with the raw codec
+    the store writes that lease as one part, so aio writes straight from
+    it); the store worker waits on that copy's event before it reads
+    them, and the device memory returns to the allocator once the copy
+    is done (`record_stream`), never before;
   * keep(key, tree): record a tree that stays where it is, with the same
     drop and accounting lifecycle (adaptive offloading keeps the last
     modules on device, §3.3.3);
-  * prefetch(key): enqueue an async load; data already on the host is
-    copied back to the device ahead of its fetch;
-  * fetch(key): blocking. If the store is still queued or in flight, the
-    in-memory copy is forwarded (§3.3.2) and a still-queued store is
-    cancelled (§3.3.3 feature 1). Records that came from the card come
-    back to it through a host-to-device copy on a side stream that the
-    caller's stream waits on, in the layout they were saved with (a
-    permuted layout is restored; a view with gaps comes back contiguous);
+  * prefetch(key): enqueue an async load (a record still in memory
+    waits for its fetch, which forwards it);
+  * fetch(key): blocking. If the store is still queued or in flight (or
+    failed), the in-memory copy is forwarded (§3.3.2) and a still-queued
+    store is cancelled (§3.3.3 feature 1). Records that came from the
+    card come back to it through a host-to-device copy on a side stream
+    that the caller's stream waits on, in the layout they were saved
+    with (a permuted layout is restored; a view with gaps comes back
+    contiguous);
   * step(id) / lease(id): a transactional lease over records
     (`SpoolStepTransaction`); closing it drops every record it still
     holds, on success and on error.
 
+The pooled load path: a load sizes the blob, reads it with `readinto`
+into a leased page-aligned pool buffer and deserializes zero-copy views
+over it. On a CUDA session the pool registers its buffers with CUDA as
+page-locked memory, so with the raw codec the views are the source of
+the copy back to the card and the load makes no host copy; a decoding
+codec (zlib, byteplane) produces fresh memory, so its lease goes back at
+once and only those payloads are pinned before the copy. A lease goes
+back to the pool only when its record is dropped and, on the card, once
+the copy back to the device has run (its event): the next load's
+`readinto` must never overwrite bytes the card has not read yet. On the
+CPU the views would become the graph's saved tensors, so `fetch` copies
+them once (as the JAX package's fetch copies its read-only views).
+
+Resilience (`repro_torch.resilience`): every backend call of the workers
+goes through `_with_retry`, which classifies failures
+(`repro_torch.io.backend.classify_io_error`), rides out transient ones
+with bounded backoff (`store_retries` / `load_retries`, the
+`resilience.retry` counter and instant) and feeds the spool's
+`BackendHealth`, which `AdaptivePolicy` re-plans from. A cache-manager
+backend gets the spool's tensor classes declared and its reuse-distance
+hints fed from `prefetch`.
+
 Blobs are RSA2 serde (`repro_torch.io.serde`) inside the codec container,
 so the JAX package can read them and the port can read the JAX
-package's. The pooled-buffer load path, retry/health and the
-managed/striped/tiered/aio backends are not ported yet.
+package's.
 
 Tracing (`repro_torch.obs`) uses the JAX package's names: the
 `spool.offload` instant and `spool.store_backlog` gauge, the
 `prefetch.issued` / `.hit` / `.late` / `.ghost` counters, and the
 `spool.fetch_wait`, `spool.store` (with `codec.encode` inside) and
 `spool.load` (with `codec.decode` inside) spans, each keyed by the
-backend key `str(key)`. The pinned copy of a load runs inside
+backend key `str(key)`. The pinned copy of a decoded payload runs inside
 `spool.load` but outside `io.read` and `codec.decode`; the copy back to
 the card runs on the caller's thread, after the wait, outside every I/O
 span.
@@ -46,7 +70,6 @@ import dataclasses
 import os
 import queue
 import shutil
-import tempfile
 import threading
 import time
 from dataclasses import dataclass
@@ -56,14 +79,20 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.accounting import MemoryTracker
+from repro_torch.core.adaptive import TierBandwidth
 from repro_torch.core.ids import TensorIdRegistry, tensor_key
 from repro_torch.core.tree import tree_flatten, tree_unflatten
-from repro_torch.io.backend import StorageBackend
-from repro_torch.io.backends import FilesystemBackend, HostMemoryBackend
-from repro_torch.io.codecs import Codec, encode_parts, get_codec, unpack
-from repro_torch.io.serde import deserialize_leaves, serialize_parts
+from repro_torch.io.backend import StorageBackend, classify_io_error
+from repro_torch.io.bufpool import DEFAULT_ALIGNMENT, AlignedBufferPool
+from repro_torch.io.codecs import (Codec, RawCodec, encode_parts,
+                                   get_codec, pack_parts, unpack_aliased)
+from repro_torch.io.factory import build_backend
+from repro_torch.io.serde import (deserialize_leaves, header_parts,
+                                  serialize_parts)
 from repro_torch.obs.overlap import (DECODE_SPAN, ENCODE_SPAN,
                                      FETCH_WAIT_SPAN, LOAD_SPAN, STORE_SPAN)
+from repro_torch.resilience.health import BackendHealth
+from repro_torch.resilience.retry import RetryPolicy
 
 # job states
 QUEUED, RUNNING, DONE, CANCELED = range(4)
@@ -99,31 +128,32 @@ def _with_stride(h, stride, device=None):
 
 # ------------------------------------------------------------- config
 
-def build_backend(io_cfg) -> Tuple[StorageBackend, List[str]]:
-    """(backend, owned temp dirs) for a SpoolIoConfig."""
-    io_cfg.validate()
-    if io_cfg.backend == "mem":
-        return HostMemoryBackend(), []
-    directory = io_cfg.directory
-    owned = []
-    if directory is None:
-        directory = tempfile.mkdtemp(prefix="tba_spool_")
-        owned.append(directory)
-    return FilesystemBackend(directory), owned
-
-
 def build_spool(io_cfg, *, min_offload_elements: int = MIN_OFFLOAD_ELEMENTS,
-                tracker: Optional[MemoryTracker] = None
-                ) -> "ActivationSpool":
-    """A spool over the storage a SpoolIoConfig selects; a temp dir it
-    creates is removed by `spool.close()`. Serving passes
-    min_offload_elements=0: KV pages are small and must reach storage."""
-    backend, owned = build_backend(io_cfg)
-    return ActivationSpool(backend, codec=io_cfg.codec,
-                           store_threads=io_cfg.store_threads,
-                           load_threads=io_cfg.load_threads,
-                           min_offload_elements=min_offload_elements,
-                           tracker=tracker, owned_dirs=owned)
+                tracker: Optional[MemoryTracker] = None,
+                cuda: bool = False) -> "ActivationSpool":
+    """A spool over the storage stack a SpoolIoConfig selects (backend,
+    codec, threads, pool, retry, bandwidth limit; `pool_bytes` caps the
+    shared pool, an aio backend's own included); temp dirs the factory
+    creates are removed by `spool.close()`. `cuda`: the session runs on
+    the card, so the pool registers its buffers with CUDA. Serving
+    passes min_offload_elements=0: KV pages are small and must reach
+    storage."""
+    io_cfg.validate()
+    backend = build_backend(io_cfg)
+    if getattr(backend, "pool", None) is not None:
+        # a backend with a pool of its own (aio) shares it with the
+        # spool; a spec string cannot carry the cap, so set it here
+        backend.pool.max_bytes = io_cfg.pool_bytes
+    return ActivationSpool(
+        backend, codec=io_cfg.codec, store_threads=io_cfg.store_threads,
+        load_threads=io_cfg.load_threads,
+        bandwidth_limit=io_cfg.bandwidth_limit,
+        min_offload_elements=min_offload_elements, tracker=tracker,
+        pool_bytes=io_cfg.pool_bytes, alignment=io_cfg.alignment,
+        retry=RetryPolicy(max_attempts=io_cfg.retry_attempts,
+                          backoff_s=io_cfg.retry_backoff_s,
+                          backoff_max_s=io_cfg.retry_backoff_max_s),
+        owned_dirs=getattr(backend, "owned_tmpdirs", ()), cuda=cuda)
 
 
 @dataclass
@@ -143,7 +173,10 @@ class SpoolStats:
     # time the consumer spent blocked waiting for a load: the I/O
     # latency exposed on the critical path
     fetch_wait_time: float = 0.0
-    # fetches the engine degraded to recompute after a lost blob
+    # resilience: transient failures the workers rode out, and fetches
+    # the engine degraded to recompute after a lost blob
+    store_retries: int = 0
+    load_retries: int = 0
     fetch_fallbacks: int = 0
 
     @property
@@ -165,11 +198,12 @@ class SpoolStats:
 
 class _Job:
     __slots__ = ("key", "arrays", "state", "cond", "kind", "orphaned",
-                 "error", "event", "reg_keys", "prefetched")
+                 "error", "event", "reg_keys", "prefetched", "lease",
+                 "blob", "forwarded", "h2d_done")
 
     def __init__(self, key, arrays, kind, event=None):
         self.key = key
-        self.arrays = arrays      # host tensors (pinned for CUDA records)
+        self.arrays = arrays      # host tensors (pool views for CUDA)
         self.state = QUEUED
         self.cond = threading.Condition()
         self.kind = kind          # "store" | "load"
@@ -181,6 +215,13 @@ class _Job:
         self.reg_keys: tuple = ()
         # a load issued by prefetch(), ahead of its fetch (not on demand)
         self.prefetched = False
+        # a CUDA record's host copy: the pool lease it lives in, the
+        # whole raw blob as one view of it, whether a copy back to the
+        # card read it (forwarding) and that copy's event
+        self.lease = None
+        self.blob = None
+        self.forwarded = False
+        self.h2d_done = None
 
 
 class SpoolLoadError(RuntimeError):
@@ -285,16 +326,47 @@ class ActivationSpool:
     def __init__(self, backend: StorageBackend, *,
                  store_threads: int = 4, load_threads: int = 4,
                  codec: Union[str, Codec, None] = None,
+                 bandwidth_limit: Optional[float] = None,
                  min_offload_elements: int = MIN_OFFLOAD_ELEMENTS,
                  tracker: Optional[MemoryTracker] = None,
                  registry: Optional[TensorIdRegistry] = None,
-                 owned_dirs: Tuple[str, ...] = ()):
+                 pool: Optional[AlignedBufferPool] = None,
+                 pool_bytes: int = 256 << 20,
+                 alignment: int = DEFAULT_ALIGNMENT,
+                 retry: Optional[RetryPolicy] = None,
+                 health: Optional[BackendHealth] = None,
+                 owned_dirs: Tuple[str, ...] = (),
+                 cuda: bool = False):
         self.backend = backend
+        # a cache-manager backend (duck-typed on hint_next) gets the
+        # spool's tensor classes declared up front and its reuse hints
+        # fed from prefetch
+        self.cache_manager = backend if hasattr(backend, "hint_next") \
+            else None
+        if self.cache_manager is not None:
+            self.cache_manager.register_class("activation")
+            self.cache_manager.register_class("opt_state", prefix="opt")
         self.codec = get_codec(codec)
+        # one aligned pool serves the whole data plane: stores copy into
+        # leases, loads readinto them, and an aio backend stages from it
+        backend_pool = getattr(backend, "pool", None)
+        self.pool = pool or backend_pool or AlignedBufferPool(
+            alignment=alignment, max_bytes=pool_bytes)
+        self._owns_pool = pool is None and backend_pool is None
+        if cuda:
+            self.pool.register_cuda()
         self.min_offload_elements = min_offload_elements
         self.tracker = tracker or MemoryTracker()
         self.registry = registry or TensorIdRegistry()
         self.stats = SpoolStats()
+        self.retry = retry or RetryPolicy()
+        self.retry.validate()
+        self.health = health or BackendHealth(self.backend.kind)
+        if self.cache_manager is not None:
+            # SSD-tier write failures inside the manager surface as
+            # health events next to the spool's retries
+            self.cache_manager.attach_health(self.health)
+        self._bw = bandwidth_limit
         self._owned_dirs = list(owned_dirs)
         self._lock = threading.Lock()
         self._records: Dict[Any, Dict] = {}
@@ -302,6 +374,9 @@ class ActivationSpool:
         # dropped record's store may still be writing when the next
         # step's store of its key starts
         self._writing: Dict[Any, _Job] = {}
+        # leases whose records are gone but whose copy back to the card
+        # may still be reading them: (event, lease)
+        self._draining: List[Tuple[Any, Any]] = []
         self._leases: set = set()
         self._streams: Dict[Tuple[str, str], Any] = {}   # side streams
         self._store_q: "queue.Queue[Optional[_Job]]" = queue.Queue()
@@ -309,8 +384,7 @@ class ActivationSpool:
         self._closed = False
         self._n_threads = {"store": store_threads, "load": load_threads}
         self._threads: List[threading.Thread] = []
-        self._codec_bw: Optional[float] = None
-        self._device_bw: Optional[float] = None
+        self._codec_bw = float("inf")
         self._codec_ratio = 1.0
         for name, q, n in (("store", self._store_q, store_threads),
                            ("load", self._load_q, load_threads)):
@@ -349,25 +423,72 @@ class ActivationSpool:
             self._streams[k] = torch.cuda.Stream(device=device)
         return self._streams[k]
 
+    # ------------------------------------------------------ pool leases
+
+    def _release_after(self, lease, event) -> None:
+        """Give `lease` back to the pool once `event` (a copy back to the
+        card that reads it) has completed: now if it has."""
+        if lease is None:
+            return
+        if event is None or event.query():
+            lease.release()
+            return
+        with self._lock:
+            self._draining.append((event, lease))
+
+    def _reap(self, wait: bool = False) -> None:
+        """Release the draining leases whose copies have run (all of
+        them, after waiting, with `wait`)."""
+        with self._lock:
+            if not self._draining:
+                return
+            pending, self._draining = self._draining, []
+        keep = []
+        for event, lease in pending:
+            if wait:
+                event.synchronize()
+            if wait or event.query():
+                lease.release()
+            else:
+                keep.append((event, lease))
+        if keep:
+            with self._lock:
+                self._draining.extend(keep)
+
     def _to_host(self, leaves):
-        """Host copies of the leaves to spool: CUDA leaves are copied into
-        pinned buffers on a side stream (returned with the copy's event);
-        CPU leaves are held by reference."""
+        """Host copies of the leaves to spool: (tensors, the device-to-host
+        copy's event, their pool lease, the whole raw blob). CPU leaves
+        are held by reference. CUDA leaves are copied on a side stream
+        into one pool lease laid out as the blob: with the raw codec the
+        container and serde headers come first and each leaf's bytes
+        follow, so the blob is one contiguous view of the lease."""
         dev = next((t.device for t in leaves if t.is_cuda), None)
         if dev is None:
-            return list(leaves), None
+            return list(leaves), None, None, None
+        raw = isinstance(self.codec, RawCodec)
+        head = (b"".join(bytes(p) for p in encode_parts(
+            header_parts(leaves), self.codec)) if raw else b"")
+        sizes = [t.numel() * t.element_size() for t in leaves]
+        total = len(head) + sum(sizes)
+        self._reap()
+        lease = self.pool.acquire(total)
+        mv = lease.mv
+        mv[:len(head)] = head
         stream = self._stream(dev, "d2h")
         stream.wait_stream(torch.cuda.current_stream(dev))
-        host = []
+        host, off = [], len(head)
         with torch.cuda.stream(stream):
-            for t in leaves:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t, n in zip(leaves, sizes):
+                h = (torch.frombuffer(mv[off:off + n], dtype=t.dtype)
+                     .view(t.shape) if n else
+                     torch.empty(t.shape, dtype=t.dtype))
                 h.copy_(t, non_blocking=True)
                 t.record_stream(stream)     # freed only after the copy
                 host.append(h)
+                off += n
         event = torch.cuda.Event()
         event.record(stream)
-        return host, event
+        return host, event, lease, (mv[:total] if raw else None)
 
     def offload(self, key, tree) -> None:
         """Async-store a tree of tensors under `key`. Parameters, leaves
@@ -407,8 +528,9 @@ class ActivationSpool:
         job = None
         if spooled:
             self.tracker.alloc((key, "s"), nbytes, tag=f"residual:{key}")
-            host, event = self._to_host(spooled)
+            host, event, lease, blob = self._to_host(spooled)
             job = _Job(key, host, "store", event)
+            job.lease, job.blob = lease, blob
             job.reg_keys = tuple(spooled_keys)
         with self._lock:
             if key in self._records:
@@ -417,7 +539,8 @@ class ActivationSpool:
                 "treedef": treedef, "keep": {i: leaves[i] for i in keep_idx},
                 "spool_idx": spool_idx, "n_leaves": len(leaves),
                 "job": job, "nbytes": nbytes, "loaded": None,
-                "load_job": None, "fwd_counted": False, "device": device,
+                "load_job": None, "load_lease": None,
+                "fwd_counted": False, "device": device,
                 "strides": strides, "on_device": None,
                 "acquired": acquired, "load_used": False}
         if job is not None:
@@ -442,20 +565,13 @@ class ActivationSpool:
                 "treedef": treedef, "keep": dict(enumerate(leaves)),
                 "spool_idx": [], "n_leaves": len(leaves), "job": None,
                 "nbytes": nbytes, "loaded": None, "load_job": None,
-                "fwd_counted": False, "device": None, "strides": [],
-                "on_device": None, "acquired": acquired,
+                "load_lease": None, "fwd_counted": False, "device": None,
+                "strides": [], "on_device": None, "acquired": acquired,
                 "load_used": False}
 
-    def _host_data(self, rec):
-        """The record's host copy if it is in memory (store pending,
-        cancelled or failed: forwarding) or loaded, else None."""
-        job = rec["job"]
-        with job.cond:
-            if job.arrays is not None:
-                return job.arrays, job.event
-        with self._lock:
-            loaded = rec["loaded"]
-        return (loaded, None) if loaded is not None else None
+    @staticmethod
+    def _on_cuda(rec) -> bool:
+        return rec["device"] is not None and rec["device"].type == "cuda"
 
     def _start_h2d(self, rec, host, event):
         """Copy a CUDA record's host data back to its device, with its
@@ -473,24 +589,29 @@ class ActivationSpool:
         done = torch.cuda.Event()
         done.record(stream)
         rec["on_device"] = (out, done)
+        with rec["job"].cond:
+            rec["job"].h2d_done = done
 
     def prefetch(self, key, *, _demand: bool = False) -> None:
-        """Hint an async load of `key` (a CUDA record already in host
-        memory starts its copy back to the card instead). `_demand`:
-        issued by fetch() itself, so not counted as a prefetch."""
+        """Hint an async load of `key`; a record still in memory is left
+        to fetch, which forwards it (so a record's device copy is made
+        at its fetch, never earlier: the device footprint does not
+        depend on when stores land). `_demand`: issued by fetch()
+        itself, so not counted as a prefetch."""
+        if self.cache_manager is not None:
+            # the reuse horizon doubles as the placement hint: protect
+            # the blob from eviction and promote it off SSD ahead of the
+            # load worker's read
+            self.cache_manager.hint_next([str(key)])
         with self._lock:
             rec = self._records.get(key)
             if rec is None or rec["job"] is None:
                 return
-        on_cuda = rec["device"] is not None and rec["device"].type == "cuda"
-        data = self._host_data(rec)
-        if data is not None:
-            # in memory already: a CUDA record starts its copy back now
-            if on_cuda and rec["on_device"] is None:
-                self._start_h2d(rec, *data)
-            return
+        with rec["job"].cond:
+            if rec["job"].arrays is not None:
+                return      # still in memory: fetch forwards it
         with self._lock:
-            if rec["load_job"] is not None:
+            if rec["load_job"] is not None or rec["loaded"] is not None:
                 return
             lj = rec["load_job"] = _Job(key, None, "load")
             lj.prefetched = not _demand
@@ -512,7 +633,7 @@ class ActivationSpool:
         if job is not None:
             with job.cond:
                 if job.arrays is not None:
-                    forwarded = True
+                    forwarded = job.forwarded = True
                     # tensor forwarding (§3.3.2): the store is queued, in
                     # flight, cancelled or failed — its host copy is
                     # still here, so hand it over instead of reading
@@ -563,18 +684,22 @@ class ActivationSpool:
         return tree_unflatten(rec["treedef"], leaves)
 
     def _materialize(self, rec, host, event, forwarded):
-        dev = rec["device"]
-        if dev is not None and dev.type == "cuda":
+        if self._on_cuda(rec):
             if rec["on_device"] is None:
                 self._start_h2d(rec, host, event)
             out, done = rec["on_device"]
-            cur = torch.cuda.current_stream(dev)
+            cur = torch.cuda.current_stream(rec["device"])
             cur.wait_event(done)
             for t in out:
                 t.record_stream(cur)
             return out
         if forwarded:
             return host
+        if rec["load_lease"] is not None:
+            # views over a pool lease that the next load reuses: they
+            # would become the graph's saved tensors, so copy them once
+            return [_with_stride(h, stride).copy_(h)
+                    for h, stride in zip(host, rec["strides"])]
         # reloaded leaves come back contiguous: restore permuted layouts
         return [h if stride is None else _with_stride(h, stride).copy_(h)
                 for h, stride in zip(host, rec["strides"])]
@@ -593,21 +718,33 @@ class ActivationSpool:
             self.registry.release_key(bkey, tid)
         self.tracker.free((key, "s"), tag=f"consumed:{key}")
         self.tracker.free((key, "k"), tag=f"consumed:{key}")
+        done = rec["on_device"][1] if rec["on_device"] else None
+        rec["loaded"] = rec["on_device"] = None
+        self._release_after(rec.pop("load_lease"), done)
+        self._reap()
         job = rec["job"]
         if job is None:
             return
+        lease = None
         with job.cond:
             keys, job.reg_keys = job.reg_keys, ()
             state = job.state
+            # a store never written may still have its device-to-host
+            # copy running into the lease; a copy back to the card
+            # (`done`) was queued after that copy, so it covers both
+            done = done or job.event
             if state == QUEUED:
                 # never written: the worker skips the cancelled write
                 job.state = CANCELED
                 self.stats.stores_canceled += 1
             elif state == RUNNING:
                 # the write lands after this drop: the worker deletes it
+                # and gives its lease back
                 job.orphaned = True
             if state != RUNNING:
-                job.arrays = None      # free a cancelled / failed copy
+                job.arrays = job.blob = None   # free a cancelled copy
+                lease, job.lease = job.lease, None
+        self._release_after(lease, done)
         for bkey, tid in keys:
             self.registry.release_key(bkey, tid)
         if state not in (QUEUED, RUNNING):
@@ -625,46 +762,57 @@ class ActivationSpool:
     # ---------------------------------------------------- planner input
 
     def calibrate_backend(self, nbytes: int, repeats: int = 2) -> None:
-        """Measure the store path with an uncontended burst of `nbytes`
-        (call after wait_io): the codec's encode rate and size ratio, and
-        the backend's write rate for the encoded blob."""
+        """Re-measure the store path with an uncontended burst of
+        `nbytes` (call after wait_io): the codec's encode rate and size
+        ratio (from the real spooled residuals when there are any), and
+        every tier's write rate through `backend.calibrate`."""
         if nbytes <= 0:
             return
         payload = os.urandom(nbytes)
         t0 = time.perf_counter()
         for _ in range(repeats):
-            parts = encode_parts([payload], self.codec)
+            data = pack_parts([payload], self.codec)
         t_codec = (time.perf_counter() - t0) / repeats
         self._codec_bw = nbytes / t_codec if t_codec > 0 else float("inf")
         st = self.stats
         self._codec_ratio = (st.bytes_offloaded / st.bytes_offloaded_logical
-                             if st.bytes_offloaded_logical else
-                             sum(memoryview(p).nbytes for p in parts)
-                             / nbytes)
-        size = sum(memoryview(p).nbytes for p in parts)
-        t0 = time.perf_counter()
-        for r in range(repeats):
-            self.backend.write_parts(f"_calibrate{r}", parts)
-        t_dev = (time.perf_counter() - t0) / repeats
-        for r in range(repeats):
-            self.backend.delete(f"_calibrate{r}")
-        self._device_bw = size / t_dev if t_dev > 0 else float("inf")
+                             if st.bytes_offloaded_logical
+                             else len(data) / nbytes)
+        self.backend.calibrate(data, repeats)
 
-    def planner_bandwidth(self) -> float:
-        """The store path's rate in logical residual bytes per second,
-        for the adaptive planner: the measured device rate composed
-        (harmonically: the worker encodes, then writes) with the codec's
-        rate. Before `calibrate_backend`, the spool's own busy-clock
-        rate."""
-        if self._device_bw is None:
+    def planner_bandwidth(self) -> Union[float, List[TierBandwidth]]:
+        """What the adaptive planner plans against: each tier's store-path
+        rate in logical residual bytes per second (the measured device
+        rate composed harmonically with the codec's rate: the worker
+        encodes, then writes), with capacities in logical bytes; the
+        spool's own busy-clock scalar while a tier is unmeasured."""
+        tiers = self.backend.tier_bandwidths()
+        if not tiers or any(t.write_bw <= 0 or t.write_bw == float("inf")
+                            for t in tiers):
             return self.stats.write_bandwidth
-        per_byte = self._codec_ratio / self._device_bw + (
-            1.0 / self._codec_bw if self._codec_bw else 0.0)
-        return 1.0 / per_byte if per_byte > 0 else float("inf")
+        ratio = self._codec_ratio
+        out = []
+        for t in tiers:
+            per_byte = ratio / t.write_bw + (1.0 / self._codec_bw
+                                             if self._codec_bw > 0 else 0.0)
+            bw = 1.0 / per_byte
+            if self._bw:
+                bw = min(bw, self._bw / max(ratio, 1e-9))
+            cap = (None if t.capacity_bytes is None
+                   else int(t.capacity_bytes / max(ratio, 1e-9)))
+            out.append(TierBandwidth(t.name, bw, cap))
+        return out
+
+    def data_plane_stats(self) -> Dict[str, Any]:
+        """The whole byte path in one dict: the backend's I/O (with host
+        copies per byte) and the aligned pool's reuse."""
+        return {"backend": self.backend.stats.as_dict(),
+                "pool": self.pool.stats()}
 
     def close(self) -> None:
-        """Drain queued I/O, stop and join the workers, close the
-        backend and remove the temp dirs the spool owns. Idempotent."""
+        """Drain queued I/O, stop and join the workers, give back every
+        pool lease, close the backend (and the pool, if the spool made
+        it) and remove the temp dirs the spool owns. Idempotent."""
         if self._closed:
             return
         self._closed = True
@@ -676,11 +824,50 @@ class ActivationSpool:
         for t in self._threads:
             t.join()
         self._threads = []
+        self._reap(wait=True)
         self.backend.close()
+        if self._owns_pool:
+            self.pool.close()
         for d in self._owned_dirs:
             shutil.rmtree(d, ignore_errors=True)
 
     # --------------------------------------------------------- workers
+
+    def _with_retry(self, op: str, key, fn):
+        """One backend call with bounded retry and backoff on transient
+        failures; every outcome feeds the health monitor."""
+        attempt = 1
+        while True:
+            t0 = time.perf_counter()
+            try:
+                out = fn()
+            except BaseException as e:
+                self.health.record_failure(op, e, time.perf_counter() - t0)
+                if (classify_io_error(e) != "transient"
+                        or attempt >= self.retry.max_attempts):
+                    raise
+                if op == "write":
+                    self.stats.store_retries += 1
+                else:
+                    self.stats.load_retries += 1
+                if obs.is_enabled():
+                    obs.count("resilience.retry")
+                    obs.instant("resilience.retry", cat="resilience",
+                                op=op, key=str(key), attempt=attempt,
+                                error=repr(e))
+                time.sleep(self.retry.delay(attempt))
+                attempt += 1
+            else:
+                self.health.record_success(op, time.perf_counter() - t0)
+                return out
+
+    def _throttle(self, nbytes: int, t0: float) -> float:
+        """Seconds since t0, stretched to nbytes / bandwidth_limit."""
+        dt = time.perf_counter() - t0
+        if self._bw and dt < nbytes / self._bw:
+            time.sleep(nbytes / self._bw - dt)
+            dt = nbytes / self._bw
+        return dt
 
     def _worker(self, q: "queue.Queue[Optional[_Job]]") -> None:
         while True:
@@ -711,7 +898,6 @@ class ActivationSpool:
                     job.cond.notify_all()
                     return
                 job.state = RUNNING
-                arrays = job.arrays
             prev = self._writing.get(job.key)
             self._writing[job.key] = job
         try:
@@ -722,71 +908,126 @@ class ActivationSpool:
                 with prev.cond:
                     while prev.state == RUNNING:
                         prev.cond.wait()
-            self._write_blob(job, arrays)
+            self._write_blob(job)
         finally:
             with self._lock:
                 if self._writing.get(job.key) is job:
                     del self._writing[job.key]
 
-    def _write_blob(self, job: _Job, arrays) -> None:
+    def _write_blob(self, job: _Job) -> None:
         t0 = time.perf_counter()
         key = str(job.key)
+        arrays = job.arrays
         with obs.span(STORE_SPAN, cat="spool", key=key) as store_sp:
             if job.event is not None:
                 job.event.synchronize()     # the device-to-host copy landed
             with obs.span(ENCODE_SPAN, cat="codec", key=key):
-                parts = encode_parts(serialize_parts(arrays), self.codec)
-            self.backend.write_parts(key, parts)
+                # a raw blob laid out in its lease is written as is
+                parts = ([job.blob] if job.blob is not None else
+                         encode_parts(serialize_parts(arrays), self.codec))
+            # memoryview parts are re-readable, so a retry re-issues the
+            # same vectored write without re-encoding
+            self._with_retry("write", key,
+                             lambda: self.backend.write_parts(key, parts))
             nbytes = sum(memoryview(p).nbytes for p in parts)
+            dt = self._throttle(nbytes, t0)
             store_sp.set(bytes=nbytes)
         self.stats.bytes_offloaded += nbytes
         self.stats.bytes_offloaded_logical += _nbytes(arrays)
-        self.stats.store_time += time.perf_counter() - t0
+        self.stats.store_time += dt
         self.stats.num_stores += 1
         with job.cond:
             keys, job.reg_keys = job.reg_keys, ()
         for bkey, tid in keys:
             self.registry.release_key(bkey, tid)
+        lease = None
         with job.cond:
-            job.arrays = None          # the blob is stored: free the copy
+            job.arrays = job.blob = None   # the blob is stored: free it
             job.state = DONE
             orphaned = job.orphaned
+            if orphaned or not job.forwarded:
+                # nothing else reads the host copy (a forwarded one's
+                # record gives it back when it is dropped)
+                lease, job.lease = job.lease, None
+            h2d_done = job.h2d_done
             job.cond.notify_all()
+        self._release_after(lease, h2d_done)
         self.tracker.free((job.key, "s"), tag=f"offloaded:{job.key}")
         if orphaned:
             # dropped while writing; a new record under the same key can
             # only appear under _lock, so check and delete under it
             with self._lock:
                 if job.key not in self._records:
-                    self.backend.delete(str(job.key))
+                    self.backend.delete(key)
 
     def _load(self, job: _Job) -> None:
         with job.cond:
             job.state = RUNNING
         t0 = time.perf_counter()
         key = str(job.key)
-        with obs.span(LOAD_SPAN, cat="spool", key=key):
-            blob = self.backend.read(key)
-            with obs.span(DECODE_SPAN, cat="codec", key=key):
-                arrays = deserialize_leaves(unpack(blob))
-            with self._lock:
-                rec = self._records.get(job.key)
-            if rec is not None and rec["device"] is not None \
-                    and rec["device"].type == "cuda":
-                # pinned, so the copy back to the card runs
-                # asynchronously
+        with self._lock:
+            rec = self._records.get(job.key)
+        lease = None
+        with obs.span(LOAD_SPAN, cat="spool", key=key) as load_sp:
+            # pooled load: size the blob, readinto a leased aligned
+            # buffer, deserialize views over it. RAM-backed stores hand
+            # their blob back by reference: staging it would only add a
+            # copy
+            nbytes = None if self.backend.zero_copy_read else \
+                self._with_retry("read", key, lambda: self.backend.size(key))
+            if nbytes:
+                self._reap()
+                lease = self.pool.acquire(nbytes)
+                try:
+                    # the lease is reused across attempts: a retried
+                    # readinto just overwrites it
+                    blob = self._with_retry(
+                        "read", key,
+                        lambda: self.backend.readinto(key, lease.mv))
+                except BaseException:
+                    lease.release()
+                    raise
+            else:
+                blob = self._with_retry("read", key,
+                                        lambda: self.backend.read(key))
+            nread = len(blob)
+            try:
+                with obs.span(DECODE_SPAN, cat="codec", key=key):
+                    payload, aliases = unpack_aliased(blob)
+                    arrays = deserialize_leaves(payload, copy=False)
+            except BaseException:
+                if lease is not None:
+                    lease.release()
+                raise
+            del blob, payload
+            if lease is not None and not aliases:
+                # a decoding codec handed back fresh memory: nothing
+                # borrows the lease, so it goes back now
+                lease.release()
+                lease = None
+            if rec is not None and self._on_cuda(rec) and lease is None:
+                # not in the (registered) pool: a decoded payload or a
+                # RAM backend's blob is pinned, so the copy back to the
+                # card runs asynchronously
                 arrays = [a.pin_memory() for a in arrays]
-        self.stats.bytes_loaded += len(blob)
-        self.stats.load_time += time.perf_counter() - t0
+            dt = self._throttle(nread, t0)
+            load_sp.set(bytes=nread)
+        self.stats.bytes_loaded += nread
+        self.stats.load_time += dt
         self.stats.num_loads += 1
         with self._lock:
-            if rec is not None and job.key in self._records:
-                rec["loaded"] = arrays
+            # the record this load was issued for, not a newer one of
+            # its key
+            if rec is not None and self._records.get(job.key) is rec:
+                rec["loaded"], rec["load_lease"] = arrays, lease
+                lease = None
+        if lease is not None:
+            # the record was dropped while loading: nothing reads it
+            lease.release()
         with job.cond:
             job.state = DONE
             job.cond.notify_all()
 
 
 __all__ = ["ActivationSpool", "SpoolLoadError", "SpoolStepTransaction",
-           "SpoolStats",
-           "build_spool", "build_backend", "MIN_OFFLOAD_ELEMENTS"]
+           "SpoolStats", "build_spool", "MIN_OFFLOAD_ELEMENTS"]

@@ -192,11 +192,29 @@ def pack(payload, codec: Union[str, Codec, None] = None) -> bytes:
                     for p in encode_parts([payload], codec))
 
 
-def unpack(blob):
-    """Inverse of `pack`; blobs without the magic tag pass through."""
+def pack_parts(parts, codec: Union[str, Codec, None] = None) -> bytes:
+    """`pack` over a list of bytes-like payload parts, joined once."""
+    return b"".join(bytes(p) if isinstance(p, memoryview) else p
+                    for p in encode_parts(parts, codec))
+
+
+def unpack_aliased(blob):
+    """Inverse of `pack` as ``(payload, aliases_blob)``: whether the
+    payload borrows `blob`'s buffer (the raw codec, and container-less
+    blobs) or owns fresh memory (every decoding codec). The spool uses
+    it to give a pooled read buffer back as soon as nothing borrows it."""
     if bytes(blob[:len(_MAGIC)]) != _MAGIC:
-        return blob
+        return blob, True
     (nlen,) = struct.unpack_from("B", blob, len(_MAGIC))
     off = len(_MAGIC) + 1
     codec = get_codec(bytes(blob[off:off + nlen]).decode("ascii"))
-    return codec.decode(memoryview(blob)[off + nlen:])
+    payload = memoryview(blob)[off + nlen:]
+    if isinstance(codec, RawCodec):
+        return payload, True
+    return codec.decode(payload), False
+
+
+def unpack(blob):
+    """Inverse of `pack`; blobs without the magic tag pass through.
+    Raw-codec payloads come back as a zero-copy memoryview of `blob`."""
+    return unpack_aliased(blob)[0]

@@ -3,8 +3,11 @@ dense) KV cache, from the JAX package's `repro/launch/serve.py`.
 
 With `--cache paged` the KV lives in fixed-size device pages; sequences
 preempted by `--quantum` evict their pages through the activation spool
-to `--kv-backend` (`fs`: a directory standing in for an SSD, `mem`: host
-RAM) and prefetch them back while the other slots decode. `--cache
+to `--kv-backend` (a backend kind or spec string of
+`repro_torch.io.factory`: `fs`, a directory standing in for an SSD;
+`mem`, host RAM; `striped@2`, `aio`, `managed:64mb,fs` with the
+`--cache-*` family, ...) and prefetch them back while the other slots
+decode. `--cache
 dense` is the per-slot dense layout at the same attention extent: same
 logits bitwise, concurrency capped at the slot count. Prefill attention
 runs the hand-written CUDA flash-attention kernel (`--attn-impl cuda`,
@@ -37,6 +40,7 @@ from repro_torch.configs import SpoolIoConfig, resolve_config
 from repro_torch.core.spool import build_spool
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kvcache import KVCacheConfig, Server, build_manager
+from repro_torch.launch.cacheargs import add_cache_args, cache_overrides
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import RunSettings
 
@@ -63,11 +67,15 @@ def build_runtime(arch: str, seed: int = 0, *, device: str = "cuda",
 
 
 def build_kv_spool(backend: str = "fs", directory=None,
-                   codec: str = "byteplane"):
+                   codec: str = "byteplane", *, cuda: bool = False,
+                   **io_kwargs):
     """A spool for KV pages: the training activations' data plane with
-    the small-tensor bypass off (pages must actually reach storage)."""
+    the small-tensor bypass off (pages must actually reach storage).
+    Extra kwargs are `SpoolIoConfig` fields (the --cache-* family lands
+    here); `cuda`: the pages live on the card."""
     return build_spool(SpoolIoConfig(backend=backend, directory=directory,
-                                     codec=codec), min_offload_elements=0)
+                                     codec=codec, **io_kwargs),
+                       min_offload_elements=0, cuda=cuda)
 
 
 def synth_requests(server: Server, n: int, prompt_len: int, max_new: int,
@@ -110,8 +118,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="admission cap on live sequences (0: none)")
     ap.add_argument("--prefetch-depth", type=int, default=2,
                     help="parked sequences prefetched ahead of refill")
-    ap.add_argument("--kv-backend", default="fs", choices=("fs", "mem"),
-                    help="spool storage for evicted pages")
+    ap.add_argument("--kv-backend", default="fs",
+                    help="spool storage for evicted pages: a backend "
+                         "kind (fs | striped | mem | tiered | managed | "
+                         "aio) or a spec string ('managed' is the cache "
+                         "manager: see the --cache-* family)")
     ap.add_argument("--kv-dir", default=None,
                     help="spool directory (default: fresh temp dir)")
     ap.add_argument("--kv-codec", default="byteplane",
@@ -126,6 +137,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "serve.* scheduling, io.* spool lanes)")
     ap.add_argument("--json", dest="json_out", default=None,
                     help="write the serve report as JSON")
+    add_cache_args(ap)
     return ap.parse_args(argv)
 
 
@@ -139,8 +151,12 @@ def run(args: argparse.Namespace, runtime=None, *,
         page_tokens=args.page_tokens, pool_pages=args.pool_pages,
         max_seq_len=args.cache_len, prefetch_depth=args.prefetch_depth,
         quantum=args.quantum, max_live=args.max_live, dtype=cfg.dtype)
-    spool = (build_kv_spool(args.kv_backend, args.kv_dir, args.kv_codec)
-             if args.cache == "paged" else None)
+    spool = None
+    if args.cache == "paged":
+        cache = cache_overrides(args)
+        spool = build_kv_spool(cache.pop("backend", args.kv_backend),
+                               args.kv_dir, args.kv_codec,
+                               cuda=args.device != "cpu", **cache)
     try:
         server = make_server(api, params, settings, kvcfg, kind=args.cache,
                              n_slots=args.batch, spool=spool,

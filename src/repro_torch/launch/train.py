@@ -15,6 +15,18 @@ package's `repro/launch/train.py`.
       --ckpt ckpt --ckpt-every 1 --trace trace.json
   python -m repro_torch.launch.train ... --ckpt ckpt --resume
 
+The storage stack is the JAX CLI's: `--spool-backend` takes a kind
+(fs | striped | mem | tiered | managed | aio) or a spec string of
+`repro_torch.io.factory` (`striped:/a,/b`, `striped@4`,
+`tiered:64mb,fs`, `managed:2gb,fs`, `aio@8`, `fault@2:striped@3`);
+`--stripe-dirs`, `--host-mem-budget-mb`, `--spool-align`,
+`--spool-queue-depth`, `--spool-pool-mb` (the aligned pool's idle cap),
+`--retry-attempts`, `--retry-backoff-ms` and the `--cache-*` family set
+the rest. The end-of-run lines give the backend's bytes and rate, host
+copies per byte and the pool's hit rate, the aio mode (O_DIRECT or the
+buffered fallback), the stripe write balance and, when any fired, the
+retries and recompute fallbacks.
+
 `--ckpt DIR` writes checkpoints (every `--ckpt-every` steps and at the
 end) in the JAX package's layout, and `--resume` continues from the
 latest one; without `--ckpt` no checkpoint is written (the JAX CLI
@@ -43,6 +55,8 @@ from repro_torch.core.policies import STRATEGIES
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.launch.cacheargs import add_cache_args, cache_overrides
+from repro_torch.resilience import unwrap_chain
 from repro_torch.session import TrainSession
 from repro_torch.session.session import resolve_optimizer
 
@@ -51,12 +65,6 @@ _WAITING = {
     "--mesh": "multi-GPU meshes",
     "--host-offload": "the jit engine's host offload",
     "--opt-overlap": "the optimizer overlap",
-    "--retry-attempts": "resilience", "--retry-backoff-ms": "resilience",
-    "--stripe-dirs": "striped / tiered backends",
-    "--host-mem-budget-mb": "tiered backends",
-    "--spool-align": "the aligned data plane",
-    "--spool-queue-depth": "the aio backend",
-    "--spool-pool-mb": "the aligned data plane",
     "--spool-no-dedupe": "multi-GPU meshes",
 }
 _FLAGS_WITH_VALUE = {"--opt-overlap": False, "--spool-no-dedupe": False}
@@ -81,14 +89,41 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--min-offload", type=int, default=None,
                     help="min elements to offload through the spool "
                          "(default: the paper's 2**20)")
-    ap.add_argument("--spool-backend", default="fs", choices=["fs", "mem"],
-                    help="storage of the activation spool: fs (a "
-                         "directory) or mem (host RAM)")
+    ap.add_argument("--spool-backend", default="fs",
+                    help="storage of the activation spool: a kind (fs | "
+                         "striped | mem | tiered | managed | aio) or a "
+                         "spec string such as 'striped:/a,/b', "
+                         "'tiered:64mb,fs', 'managed:2gb,fs', 'aio@8' or "
+                         "'fault@2:striped@3'")
     ap.add_argument("--spool-dir", default=None,
                     help="spool directory (default: a fresh temp dir, "
                          "removed on close)")
+    ap.add_argument("--stripe-dirs", default=None,
+                    help="comma-separated stripe directories for "
+                         "--spool-backend striped / tiered / managed "
+                         "(default: 2 subdirs of the spool dir)")
     ap.add_argument("--codec", default="raw",
                     choices=["raw", "zlib", "byteplane"])
+    ap.add_argument("--host-mem-budget-mb", type=int, default=256,
+                    help="tiered backend: host-RAM tier budget in MiB")
+    ap.add_argument("--spool-align", type=int, default=4096,
+                    help="buffer-pool / O_DIRECT alignment (a power of "
+                         "two)")
+    ap.add_argument("--spool-queue-depth", type=int, default=4,
+                    help="aio backend: concurrent aligned segments per "
+                         "blob")
+    ap.add_argument("--spool-pool-mb", type=int, default=256,
+                    help="idle cap of the shared aligned buffer pool in "
+                         "MiB (on the CPU a blob larger than the cap is "
+                         "freed after each use, so every load of it "
+                         "misses; on the card the cap rises to the most "
+                         "bytes leased at once)")
+    ap.add_argument("--retry-attempts", type=int, default=3,
+                    help="total tries per spool I/O op before the "
+                         "failure surfaces (1 disables retry)")
+    ap.add_argument("--retry-backoff-ms", type=float, default=10.0,
+                    help="first retry delay in ms; doubles per attempt, "
+                         "capped at 250 ms")
     ap.add_argument("--clip-norm", type=float, default=None,
                     help="global grad-norm clip (adamw defaults to 1.0); "
                          "0 disables clipping")
@@ -115,6 +150,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--attn-impl", default=None, choices=("cuda", "torch"),
                     help="kernels: cuda (default on the card) or the "
                          "plain torch paths (default on the CPU)")
+    add_cache_args(ap)
     for flag in _WAITING:
         if _FLAGS_WITH_VALUE.get(flag, True):
             ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -133,10 +169,62 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
+def io_config(args: argparse.Namespace) -> SpoolIoConfig:
+    """The SpoolIoConfig the storage flags describe (as the JAX CLI
+    builds it)."""
+    cache = cache_overrides(args)
+    return SpoolIoConfig(
+        backend=cache.pop("backend", args.spool_backend),
+        directory=args.spool_dir,
+        stripe_dirs=tuple(d for d in (args.stripe_dirs or "").split(",")
+                          if d),
+        codec=args.codec,
+        host_mem_budget_bytes=cache.pop("host_mem_budget_bytes",
+                                        args.host_mem_budget_mb << 20),
+        alignment=args.spool_align, queue_depth=args.spool_queue_depth,
+        pool_bytes=args.spool_pool_mb << 20,
+        retry_attempts=args.retry_attempts,
+        retry_backoff_s=args.retry_backoff_ms / 1e3,
+        on_fetch_fail=args.on_fetch_fail, **cache).validate()
+
+
+def storage_lines(spool) -> List[str]:
+    """End-of-run lines of the storage stack (after `wait_io`)."""
+    bk = spool.backend
+    io_st, dp = bk.stats, spool.data_plane_stats()
+    pool = dp["pool"]
+    lines = [f"backend[{bk.kind}] wrote {io_st.bytes_written / 1e6:.1f} MB"
+             + (f" @ {io_st.write_bandwidth / 1e9:.2f} GB/s"
+                if io_st.write_time else "")
+             + f", read {io_st.bytes_read / 1e6:.1f} MB; data plane: "
+             f"{dp['backend']['copies_per_byte']:.2f} host copies/byte, "
+             f"pool hits {pool['hits']} misses {pool['misses']} (hit rate "
+             f"{pool['hit_rate']:.0%}), trimmed {pool['trimmed']}, "
+             f"idle cap {pool['idle_cap'] / 1e6:.1f} MB (peak leased "
+             f"{pool['peak_leased_bytes'] / 1e6:.1f} MB), "
+             f"{pool['bytes_allocated'] / 1e6:.1f} MB ever allocated, "
+             f"{pool['registrations']} CUDA registrations "
+             f"({pool['register_s']:.3f} s)"]
+    for b in unwrap_chain(bk):
+        if hasattr(b, "direct"):
+            lines.append(f"aio: {'O_DIRECT' if b.direct else 'buffered + '
+                         'fdatasync (the filesystem refused O_DIRECT)'} in "
+                         f"{b.directory}, queue depth {b.queue_depth}")
+        if hasattr(b, "per_device_write_bytes"):
+            lines.append("stripe write balance: " + str(
+                [f"{n / 1e6:.1f}MB" for n in b.per_device_write_bytes()]))
+    rs = spool.stats
+    if rs.store_retries or rs.load_retries or rs.fetch_fallbacks:
+        lines.append(f"resilience: {rs.store_retries} store retries, "
+                     f"{rs.load_retries} load retries, "
+                     f"{rs.fetch_fallbacks} recompute fallbacks; backend "
+                     f"health={spool.health.status}")
+    return lines
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    io = SpoolIoConfig(backend=args.spool_backend, directory=args.spool_dir,
-                       codec=args.codec)
+    io = io_config(args)
     optimizer = resolve_optimizer(args.optimizer, args.lr, args.clip_norm)
     kernels = (flash_attention, ssd_scan, rglru_scan)
     launches0 = [k.launches for k in kernels]
@@ -145,8 +233,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             batch_size=args.batch, seq_len=args.seq, seed=args.seed,
             microbatches=args.microbatches, device=args.device,
             attn_impl=args.attn_impl, metrics_path=args.metrics,
-            min_offload_elements=args.min_offload,
-            on_fetch_fail=args.on_fetch_fail, ckpt_dir=args.ckpt,
+            min_offload_elements=args.min_offload, ckpt_dir=args.ckpt,
             ckpt_every=args.ckpt_every, trace=args.trace,
             trace_ring=args.trace_ring,
             install_signal_handlers=True) as session:
@@ -173,12 +260,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                              on_report=on_report)
         dt = time.perf_counter() - t0
         session.spool.wait_io()
-        io_st = session.spool.backend.stats
-        print(f"done: {args.steps} steps in {dt:.2f}s; backend["
-              f"{session.spool.backend.kind}] wrote "
-              f"{io_st.bytes_written / 1e6:.1f} MB, read "
-              f"{io_st.bytes_read / 1e6:.1f} MB; fetch fallbacks "
+        print(f"done: {args.steps} steps in {dt:.2f}s; fetch fallbacks "
               f"{session.spool.stats.fetch_fallbacks}", flush=True)
+        for line in storage_lines(session.spool):
+            print(line, flush=True)
         plan = session.policy.plan
         if plan is not None:
             print(f"plan: offload stages 0..{plan.last_offloaded} of "

@@ -6,7 +6,9 @@ one `SpoolIoConfig`), the data loader (the synthetic one unless the
 caller passes `loader=`, any iterable of batches; a T5 batch carries
 `enc_tokens` beside `tokens` and `labels`), the optimizer, checkpoints,
 tracing and the metrics JSONL (the `StepReport` schema, with per-step
-spool deltas and, when traced, the step's `obs_*` overlap analysis):
+spool deltas, the `resilience_*` block (and the `cache_*` block over a
+managed backend) and, when traced, the step's `obs_*` overlap
+analysis):
 
     with TrainSession("small-gpt", device="cpu", policy="spool",
                       ckpt_dir="ckpt", trace="trace.json") as s:
@@ -44,6 +46,7 @@ from repro_torch.data.pipeline import ShardedLoader, SyntheticMarkovLM
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import RunSettings
 from repro_torch.optim.optimizers import Optimizer, adamw, sgd
+from repro_torch.resilience import unwrap_chain
 from repro_torch.runtime.trainer import TrainLoop, TrainState, batch_tokens
 
 _NOT_PORTED = "is not ported yet (ROADMAP §1)"
@@ -111,7 +114,6 @@ class TrainSession:
                  loader: Optional[Iterable[Dict]] = None,
                  metrics_path: Optional[str] = None,
                  min_offload_elements: Optional[int] = None,
-                 on_fetch_fail: str = "recompute",
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  keep_last: int = 3,
                  trace: Optional[str] = None, trace_ring: int = 0,
@@ -141,8 +143,7 @@ class TrainSession:
             attn_chunk=256, param_dtype=self.cfg.dtype, device=device)
         self.engine = StagedEngine(
             self.api, self.settings, self.optimizer, policy=policy,
-            io_config=io, min_offload_elements=min_offload_elements,
-            on_fetch_fail=on_fetch_fail)
+            io_config=io, min_offload_elements=min_offload_elements)
         self.policy = self.engine.policy
         self.spool = self.engine.spool
         # the synthetic loader is the session's to close; a caller's is not
@@ -173,6 +174,8 @@ class TrainSession:
             self._tracer = obs.enable(trace_ring or obs.DEFAULT_RING_SIZE)
         self._obs_cursor = None
         self._counters_snapshot: Dict[str, float] = {}
+        self._cache_snapshot = None
+        self._resil_snapshot: Dict[str, Any] = {}
 
     def init(self):
         """Random weights from a generator seeded with `seed` on the
@@ -239,6 +242,7 @@ class TrainSession:
             rep, self._rep = self._rep, None
             rep.step = step
             rep.stats, rep.obs = self._step_deltas()
+            rep.cache, rep.resilience = self._storage_deltas()
             tokens = sum(batch_tokens(b) for b in batches)
             rep.tokens_per_s = tokens / rep.step_time if rep.step_time \
                 else 0.0
@@ -275,6 +279,36 @@ class TrainSession:
         self._counters_snapshot = counters
         return stats, overlap.analyze(
             events, {k: v - prev_c.get(k, 0) for k, v in counters.items()})
+
+    def _storage_deltas(self):
+        """The step's cache-manager block (managed backends only) and
+        resilience block, as the JAX session computes them: the deltas
+        of the retry, fallback, re-plan and rebalance counters, plus the
+        backend's health and devices-down gauges."""
+        cm = self.spool.cache_manager
+        cache = None
+        if cm is not None:
+            cache, self._cache_snapshot = cm.metrics_delta(
+                self._cache_snapshot)
+        st = self.spool.stats
+        cur = {"store_retries": st.store_retries,
+               "load_retries": st.load_retries,
+               "fetch_fallbacks": st.fetch_fallbacks}
+        if hasattr(self.policy, "replans"):
+            cur["replans"] = self.policy.replans
+        chain = list(unwrap_chain(self.spool.backend))
+        striped = next((b for b in chain
+                        if hasattr(b, "rebalanced_chunks")), None)
+        if striped is not None:
+            cur["rebalanced_chunks"] = striped.rebalanced_chunks
+            cur["chunk_write_failures"] = striped.chunk_write_failures
+        prev = self._resil_snapshot
+        resilience = {k: v - prev.get(k, 0) for k, v in cur.items()}
+        self._resil_snapshot = cur
+        resilience["health"] = self.spool.health.snapshot()["health"]
+        if striped is not None:
+            resilience["devices_down"] = sum(striped.devices_down())
+        return cache, resilience
 
     def _emit(self, rep: StepReport, on_report) -> None:
         self.reports.append(rep)

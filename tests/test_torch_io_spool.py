@@ -362,7 +362,7 @@ def test_owned_temp_dir_removed_and_small_leaves_kept():
     got = tx.consume(0)
     assert got["small"] is small and torch.equal(got["big"], big)
     with pytest.raises(ValueError, match="not ported"):
-        SpoolIoConfig(backend="striped").validate()
+        SpoolIoConfig(host_offload="opt_state").validate()
     spool.close()
     assert not os.path.exists(d)
 

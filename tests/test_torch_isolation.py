@@ -1,6 +1,7 @@
 """The port stands alone: every `repro_torch` module (the hybrid's
-config, RG-LRU scan and mixer, the ROK curve and the Table 4 count among
-them), the root `chip_smoke.py` and the port's paper benchmarks
+config, RG-LRU scan and mixer, the ROK curve, the Table 4 count, the
+resilience layer, the pool, aio, fault and factory modules and the cache
+manager among them), the root `chip_smoke.py` and the port's paper benchmarks
 (`benchmarks/torch_*.py`) import with jax and ml_dtypes blocked and load
 nothing of the JAX package (`repro` / `repro.*`) nor the JAX benchmarks'
 `benchmarks.common`."""
@@ -47,5 +48,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     names = proc.stdout.splitlines()[1].split()
     for module in ("configs.recurrentgemma_9b", "kernels.rglru_scan",
                    "models.rglru", "models.layers", "models.transformer",
-                   "core.rok", "core.endurance"):
+                   "core.rok", "core.endurance", "resilience.retry",
+                   "resilience.health", "resilience.chaos", "io.bufpool",
+                   "io.aio", "io.faults", "io.factory", "cache.placement",
+                   "cache.manager", "launch.cacheargs"):
         assert f"repro_torch.{module}" in names, module

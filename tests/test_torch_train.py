@@ -21,6 +21,7 @@ session, CLI) against the JAX package and against itself.
 import dataclasses
 import gc
 import json
+import os
 
 import numpy as np
 import pytest
@@ -213,19 +214,25 @@ def test_policies_bitwise_equal_to_keep(keep_run, policy):
         assert eng.plan is not None and not eng.plan.offload[-1]
 
 
-@pytest.mark.parametrize("backend", ["fs", "mem"])
+@pytest.mark.parametrize("backend", ["fs", "mem", "striped",
+                                     "tiered:1mb,fs", "managed:1mb,fs",
+                                     "aio", "fault:mem"])
 @pytest.mark.parametrize("codec", ["raw", "zlib", "byteplane"])
 def test_backends_and_codecs_bitwise(keep_run, backend, codec, tmp_path):
     _, tcfg, jparams, losses, params, _ = keep_run
+    on_disk = "mem" not in backend
     io = SpoolIoConfig(backend=backend, codec=codec,
-                       directory=str(tmp_path) if backend == "fs" else None)
+                       directory=str(tmp_path) if on_disk else None)
     got, p, reps, eng = _port_run(tcfg, jparams, SpoolPolicy(), steps=2,
                                   io=io)
     assert got == losses[:2]
+    _bitwise(p, _port_run(tcfg, jparams, KeepPolicy(), steps=2)[1])
     assert reps[-1].stats.bytes_offloaded > 0
     assert eng.spool.backend.keys() == []
     if backend == "fs":
         assert list(tmp_path.iterdir()) == []
+    elif on_disk:
+        assert [f for _, _, fs in os.walk(tmp_path) for f in fs] == []
 
 
 def test_failed_fetch_falls_back_to_recompute(keep_run, monkeypatch):
