@@ -109,7 +109,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
      copy rates between the card and a registered pool buffer at
      aligned and unaligned offsets are printed beside torch's pinned
      memory's;
- 11. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 11. the optimizer state and the jit engine on the paper's GPT
+     (gpt-h8192-l4, random weights from seed 0, adamw with lr 3e-4 and
+     no clipping, B=4, S=1024, fs, raw, traced without a file): (a) the
+     staged engine, KeepPolicy, the fused update (the reference); (b)
+     `engine="jit"`, `host_offload="opt_state"` (the whole state staged
+     through the spool between steps); (c) `engine="jit"`,
+     `opt_overlap=True` (each layer updated as its gradients land in
+     backward, its moments on the spool); (d) (c) with
+     `host_offload="activations"` (activations on the spool too); (e)
+     `opt_overlap="sync"`, 2 steps. (b), (c) and (e) keep their
+     activations (`activation_policy="keep"`), as (a) does. Losses
+     bitwise equal to (a)'s, final parameters of (b)-(d) bitwise equal
+     to (a)'s, and the parameters' and moments' (`materialize()`)
+     fingerprints (two 64-bit weighted sums of their bits, on the card:
+     a host copy of a 32 GB state per run does not fit beside the
+     spool's pool) equal to (a)'s after as many steps; 4 flash launches
+     a step; moments fetched in steps 2-3; the spool dirs empty after
+     close; (c)'s device peak at least 12.9 GB (half the layers' 25.77
+     GB of moments) below (a)'s. Each run prints its step times, device
+     peak, `opt_updates`, fetched / staged / skipped bytes,
+     `opt_io_busy_s`, `opt_exposed_wait_s`, `opt_hidden_frac`, its
+     pool's stats, the host's `free -g` and the training thread's
+     `engine.opt_fetch` / `engine.opt_stage` spans. Before the runs it
+     times, on the spool's filesystem, the unlink of a 4 GiB blob and the
+     longest 2 GiB device allocation made while an 8 GiB registered pool
+     buffer is written in 2 GiB and in 64 MiB syscalls, and alone;
+ 12. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -125,6 +151,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # cuBLAS picks a reduction split per call unless its workspace is pinned:
@@ -217,6 +244,12 @@ POOL_BYTES = 6 << 30
 # phase 10: the managed backend's host bound, below one step's offload
 # (~5 GB at B=4), so blobs are demoted to the SSD tier
 STORAGE_HOST_BOUND = "2gb"
+# phase 11: adamw on the paper's GPT; (e), the sync drain, runs 2 steps.
+# (c)'s device peak must fall by half the layers' moments (4 layers of
+# 12 * 8192**2 parameters, m and v in f32: 25.77 GB), so a design that
+# holds two or more layers' moments on the card at once fails
+OPT_STEPS, OPT_SYNC_STEPS = 3, 2
+OPT_DROP_GB = 12.9
 # the attention of phase 8's GPT and BERT: (B, S, H, D); BERT's is
 # bidirectional, GPT's causal; T5's both, at its batch (its encoder
 # input has the decoder's length, so cross-attention has this shape too)
@@ -1565,6 +1598,295 @@ def matrix_phase():
           f"equal to keep")
 
 
+def host_free_line():
+    """`free -g` of the card's host, on one line."""
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True)
+    return " | ".join(" ".join(line.split()) for line in
+                      out.stdout.strip().splitlines()[:2])
+
+
+def bit_fingerprint(tensors):
+    """Two 64-bit sums (mod 2**64) of the tensors' bit patterns (as
+    int16 or int32 words), each element weighted by a fixed pseudo-random
+    odd int64: equal bits give equal sums, and a differing element
+    changes both unless weighted differences cancel (odds about 2**-33 a
+    sum). Computed on the card in slices, so a 32 GB optimizer state
+    needs no host copy to be compared between runs (host memory holds
+    the spool's pool)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    acc = torch.zeros(2, dtype=torch.int64, device="cuda")
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        bits = flat.view({2: torch.int16, 4: torch.int32}[
+            flat.element_size()])
+        for sl in bits.split(1 << 26):
+            x = sl.to("cuda", non_blocking=False).to(torch.int64)
+            w = torch.randint(-(1 << 62), 1 << 62, (2, x.numel()),
+                              generator=gen, device="cuda",
+                              dtype=torch.int64) | 1
+            acc += (w * x).sum(dim=1)
+            del x, w
+    return tuple(acc.tolist())
+
+
+def opt_run(cfg, label, *, engine="jit", host_offload="none",
+            activations="keep", opt_overlap=None, steps=OPT_STEPS,
+            keep_params=None, snap_at=None):
+    """One run of phase 11: gpt-h8192-l4, adamw (lr 3e-4, no clipping),
+    B=4, S=1024, fs, raw, traced (no file). (a) is the staged engine
+    with KeepPolicy and the fused update; the others the jit engine with
+    `activations` placement, `host_offload` and `opt_overlap`. Every
+    kernel's launches are set to 0 just before the steps and read just
+    after. Returns a dict: losses, reports, launches, the device peak,
+    whether the spool dir was left empty, the fingerprints of the final
+    parameters and moments ("fp"), the final parameters on the host or,
+    given `keep_params`, whether they equal those ("params"), and with
+    `snap_at` the fingerprints after that step ("snap")."""
+    from repro_torch.configs import SpoolIoConfig
+    from repro_torch.core.policies import KeepPolicy
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.transformer import RunSettings
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.session import TrainSession
+    kernels = (flash_attention, ssd_scan, rglru_scan)
+    spool_dir = tempfile.mkdtemp(prefix="chip_smoke_opt_")
+    io = SpoolIoConfig(backend="fs", directory=spool_dir, codec="raw",
+                       pool_bytes=POOL_BYTES, host_offload=host_offload)
+    kw = dict(io=io, optimizer=adamw(PAPER_LR, clip_norm=None),
+              batch_size=PAPER_BATCH, seq_len=PAPER_SEQ, seed=0,
+              device="cuda", attn_impl="cuda", trace_ring=1 << 16)
+    if engine == "staged":
+        kw["policy"] = KeepPolicy()
+    else:
+        kw["settings"] = RunSettings(
+            attn_impl="cuda", attn_chunk=256, param_dtype=cfg.dtype,
+            device="cuda", activation_policy=activations)
+        kw["opt_overlap"] = opt_overlap
+    sess = TrainSession(cfg, engine=engine, **kw)
+
+    def fingerprints():
+        """(parameters, moments) fingerprints of the session's state;
+        the overlap's moments through `materialize()`."""
+        bridge = sess.opt_bridge
+        state = bridge.materialize() if bridge is not None \
+            else sess.opt_state
+        return (bit_fingerprint(tree_flatten(sess.params)[0]),
+                bit_fingerprint(tree_flatten(state.mu)[0]
+                                + tree_flatten(state.nu)[0]))
+
+    out = {}
+    try:
+        sess.init()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        if snap_at:
+            reports = sess.run(snap_at).reports
+            out["snap"] = fingerprints()
+            reports += sess.run(steps - snap_at).reports
+        else:
+            reports = sess.run(steps).reports
+        run_s = time.perf_counter() - t0
+        out["launches"] = {k.__name__: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        out["fp"] = fingerprints()
+        fp_s = time.perf_counter() - t0
+        leaves = tree_flatten(sess.params)[0]
+        out["params"] = ([t.detach().cpu() for t in leaves]
+                         if keep_params is None
+                         else same_params(leaves, keep_params))
+        del leaves
+        for r in reports:
+            ex, st, ob = r.extra, r.stats, r.obs or {}
+            line = (f"  {label} step {r.step}: loss {r.loss:.6f} "
+                    f"{r.step_time:.3f}s peak "
+                    f"{ex['device_peak_bytes'] / 1e9:.2f} GB")
+            if "opt_updates" in ex:
+                line += (f" opt_updates {int(ex['opt_updates'])} fetched "
+                         f"{ex['opt_fetched_bytes'] / 1e9:.3f} GB staged "
+                         f"{ex['opt_staged_bytes'] / 1e9:.3f} GB skipped "
+                         f"{ex['opt_skipped_bytes'] / 1e9:.3f} GB")
+            if st is not None:
+                line += (f" spool offloaded {st.bytes_offloaded / 1e9:.3f}"
+                         f" GB loaded {st.bytes_loaded / 1e9:.3f} GB "
+                         f"forwarded {st.bytes_forwarded / 1e9:.3f} GB")
+            line += (f" opt_io_busy_s {ob.get('opt_io_busy_s', 0.0):.3f}"
+                     f" opt_exposed_wait_s "
+                     f"{ob.get('opt_exposed_wait_s', 0.0):.3f} "
+                     f"opt_hidden_frac {ob.get('opt_hidden_frac', 1.0):.3f}"
+                     f" opt_update_s {ob.get('opt_update_s', 0.0):.3f}"
+                     f" io_busy_s {ob.get('io_busy_s', 0.0):.3f}")
+            print(line)
+        if sess.spool is not None:
+            print(f"  {label} pool: {pool_line(sess.spool)}")
+        print(f"  {label} spans: {span_line()}")
+        print(f"  {label}: {steps} steps in {run_s:.1f}s, materialize and "
+              f"fingerprints {fp_s:.1f}s; host: {host_free_line()}")
+        out["reports"] = reports
+        out["peak"] = max(r.extra["device_peak_bytes"] for r in reports)
+        out["losses"] = [r.loss for r in reports]
+    finally:
+        sess.close()
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    left = os.listdir(spool_dir)
+    if not left:
+        os.rmdir(spool_dir)
+    out["empty"] = not left
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"{label}: non-finite loss")
+    return out
+
+
+def span_line():
+    """The training thread's opt fetch / stage spans of the run's trace
+    (seconds, each)."""
+    from repro_torch import obs
+    events = obs.get_tracer().snapshot()
+
+    def durs(name):
+        return [round(ev[3] / 1e9, 3) for ev in events if ev[0] == name]
+    return (f"engine.opt_fetch {durs('engine.opt_fetch')} engine.opt_stage "
+            f"{durs('engine.opt_stage')} s")
+
+
+def write_stall_probe(work):
+    """On the filesystem under `work`: the unlink time of a 4 GiB blob,
+    and the longest of eight 2 GiB device allocations made while an
+    8 GiB registered pool buffer is written there in 2 GiB and in
+    64 MiB syscalls, and with no write."""
+    from repro_torch.io.bufpool import AlignedBufferPool
+    n = 8 << 30
+    pool = AlignedBufferPool(max_bytes=n)
+    pool.register_cuda()
+    lease = pool.acquire(n)
+    torch.frombuffer(lease.mv[:n], dtype=torch.uint8).fill_(3)
+    path = os.path.join(work, "chip_smoke_stall_probe.blob")
+
+    def write(nbytes, chunk):
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        off = 0
+        while off < nbytes:
+            off += os.pwritev(fd, [lease.mv[off:min(off + chunk, nbytes)]],
+                              off)
+        os.close(fd)
+
+    def longest_alloc():
+        worst = 0.0
+        for _ in range(8):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            x = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
+            worst = max(worst, time.perf_counter() - t0)
+            del x
+        return worst
+
+    try:
+        write(4 << 30, 1 << 30)
+        t0 = time.perf_counter()
+        os.unlink(path)
+        unlink_s = time.perf_counter() - t0
+        out = {"alone": longest_alloc()}
+        for chunk in (2 << 30, 64 << 20):
+            w = threading.Thread(target=write, args=(n, chunk))
+            w.start()
+            time.sleep(0.3)
+            out[chunk] = longest_alloc()
+            w.join()
+            os.unlink(path)
+    finally:
+        lease.release()
+        pool.close()
+        torch.cuda.empty_cache()
+    print(f"opt: on {mount_of(work)[1]}: unlink of a 4 GiB blob "
+          f"{unlink_s:.3f} s; longest 2 GiB device allocation "
+          f"{out['alone']:.3f} s alone, {out[2 << 30]:.3f} s during an "
+          f"8 GiB write from a registered buffer in 2 GiB syscalls, "
+          f"{out[64 << 20]:.3f} s in 64 MiB syscalls")
+
+
+def opt_phase(smi):
+    """Phase 11: the optimizer state and the jit engine on the paper's
+    GPT with adamw: (a) staged, keep, the fused update; (b) jit, the
+    state staged through the spool between steps; (c) jit with the
+    optimizer overlap; (d) (c) with the activations on the spool too;
+    (e) the overlap's "sync" drain, 2 steps. Losses equal to (a)'s,
+    final parameters equal to (a)'s (exactly; (e)'s by fingerprint
+    against (a) after step 2) and final moments' fingerprints equal to
+    (a)'s at the same step, 4 flash launches a step, moments fetched in
+    steps 2-3, the spool dirs empty, and (c)'s device peak at least
+    OPT_DROP_GB below (a)'s. Returns (c)'s flash launches."""
+    from repro_torch.configs import gpt
+    cfg = gpt(PAPER_HIDDEN, PAPER_LAYERS)
+    deterministic()
+    work = tempfile.gettempdir()
+    mnt, fstype = mount_of(work)
+    free = shutil.disk_usage(work).free
+    print(f"opt: spool dirs on {mnt} ({fstype}), {free / 1e9:.1f} GB "
+          f"free; host: {host_free_line()}")
+    # (b) can have two 32.4 GB state blobs on disk at once
+    check(free >= 70e9, f"opt: {free / 1e9:.1f} GB free under {work}, "
+          f"need 70 GB for phase 11")
+    write_stall_probe(work)
+    a = opt_run(cfg, "(a) staged keep", engine="staged",
+                snap_at=OPT_SYNC_STEPS)
+    runs = {
+        "(b) jit opt_state": dict(host_offload="opt_state"),
+        "(c) jit overlap": dict(opt_overlap=True),
+        "(d) jit activations+overlap": dict(host_offload="activations",
+                                            activations="spool",
+                                            opt_overlap=True),
+        "(e) jit sync": dict(opt_overlap="sync", steps=OPT_SYNC_STEPS),
+    }
+    out = {label: opt_run(cfg, label, keep_params=a["params"], **kw)
+           for label, kw in runs.items()}
+    n_leaves = len(a.pop("params"))
+    check(a["launches"]["flash_attention"] == 4 * OPT_STEPS,
+          f"(a) flash launches {a['launches']['flash_attention']}")
+    for label, r in out.items():
+        steps = len(r["reports"])
+        want_fp = a["fp"] if steps == OPT_STEPS else a["snap"]
+        check(r["losses"] == a["losses"][:steps], f"{label}: losses "
+              f"{r['losses']} != (a)'s {a['losses'][:steps]}")
+        if steps == OPT_STEPS:
+            check(r["params"], f"{label}: final parameters differ from "
+                  f"(a)'s")
+        check(r["fp"][0] == want_fp[0], f"{label}: parameters' "
+              f"fingerprint differs from (a)'s after {steps} steps")
+        check(r["fp"][1] == want_fp[1], f"{label}: moments' fingerprint "
+              f"{r['fp'][1]} differs from (a)'s {want_fp[1]} after "
+              f"{steps} steps")
+        check(r["launches"]["flash_attention"] == 4 * steps,
+              f"{label}: flash launches "
+              f"{r['launches']['flash_attention']}, want {4 * steps}")
+        check(r["empty"], f"{label}: spool directory not empty after "
+              f"close")
+        for rep in r["reports"][1:]:
+            fetched = (rep.extra["opt_fetched_bytes"]
+                       if "opt_fetched_bytes" in rep.extra
+                       else rep.stats.bytes_loaded
+                       + rep.stats.bytes_forwarded)
+            check(fetched > 0, f"{label}: step {rep.step} fetched no "
+                  f"moments")
+    peak_c = out["(c) jit overlap"]["peak"]
+    drop = (a["peak"] - peak_c) / 1e9
+    print(f"opt: losses {a['losses']}; device peaks (a) "
+          f"{a['peak'] / 1e9:.2f} GB, "
+          + ", ".join(f"{k[:3]} {v['peak'] / 1e9:.2f} GB"
+                      for k, v in out.items())
+          + f"; (c) is {drop:.2f} GB lower (bar {OPT_DROP_GB} GB) on {smi}")
+    check(drop >= OPT_DROP_GB, f"(c)'s device peak only {drop:.2f} GB "
+          f"below (a)'s, want >= {OPT_DROP_GB}")
+    print(f"  (b)-(e): losses bitwise equal to (a)'s, (b)-(d) final "
+          f"{n_leaves} parameter leaves bitwise equal, parameters' and "
+          f"moments' fingerprints equal to (a)'s at the same step")
+    return out["(c) jit overlap"]["launches"]["flash_attention"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1771,12 +2093,17 @@ def main():
     storage_launches = storage_phase(smi, gpt_losses, gpt_params2,
                                      gpt_params)
     del gpt_params, gpt_params2
+    t5 = time.perf_counter()
+
+    # ---- 11. the optimizer state and the jit engine on the paper's GPT
+    opt_launches = opt_phase(smi)
     print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
           f"{t2 - t1:.1f}s, GPT, BERT and T5 {t3 - t2:.1f}s, checkpoints "
           f"and tracing {t4 - t3:.1f}s, storage and resilience "
-          f"{time.perf_counter() - t4:.1f}s")
+          f"{t5 - t4:.1f}s, optimizer state and the jit engine "
+          f"{time.perf_counter() - t5:.1f}s")
 
-    # ---- 11. result
+    # ---- 12. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1825,6 +2152,8 @@ def main():
         "launches_per_resumed_gpt_step": ckpt_launches[1],
         # phase 10: the striped, managed, aio and chaos runs
         "launches_per_storage_run": storage_launches,
+        # phase 11: the overlap run (c), adamw, 3 steps
+        "launches_per_opt_overlap_run": opt_launches,
         "noncausal_max_abs_err": bert_attn["max_abs_err"],
         "noncausal_max_row_rel_err": bert_attn["max_row_rel_err"],
         "noncausal_ms": bert_attn["ms"],

@@ -133,9 +133,12 @@ class SpoolIoConfig:
     (encoded bytes/s) throttles every store and load, to simulate a
     slower tier.
 
-    `host_offload`, `opt_overlap` and `dedupe_replicas` belong to the
-    jit engine, the optimizer overlap and meshes (ROADMAP §1 items 9 and
-    12) and refuse anything but their defaults."""
+    `host_offload` is what the jit engine routes through the spool:
+    "none", "opt_state" (the optimizer state staged between steps) or
+    "activations" (the layers' residuals); `opt_overlap` turns on the
+    optimizer overlap (eager per-layer updates, moments on the spool).
+    `dedupe_replicas` belongs to meshes (ROADMAP §1 item 12) and refuses
+    anything but its default."""
     backend: str = "fs"
     directory: Optional[str] = None        # None -> fresh temp dir
     stripe_dirs: Tuple[str, ...] = ()
@@ -186,10 +189,11 @@ class SpoolIoConfig:
              f"on_fetch_fail {self.on_fetch_fail!r}: recompute | raise"),
             (self.backend != "striped" or len(self.stripe_dirs) != 1,
              "striping across one directory is just 'fs'"),
-            (self.host_offload == "none", "host_offload is the jit "
-             "engine's, not ported yet (ROADMAP §1 item 9)"),
-            (not self.opt_overlap, "opt_overlap is not ported yet "
-             "(ROADMAP §1 item 9)"),
+            (self.host_offload in ("none", "opt_state", "activations"),
+             f"host_offload {self.host_offload!r}: none | opt_state | "
+             f"activations"),
+            (isinstance(self.opt_overlap, bool),
+             f"opt_overlap must be a bool, got {self.opt_overlap!r}"),
             (self.dedupe_replicas, "dedupe_replicas=False is a mesh "
              "option, not ported yet (ROADMAP §1 item 12)"),
         ]

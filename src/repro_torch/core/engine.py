@@ -44,6 +44,18 @@ of the stacked (L, ...) leaves), so a stage's backward never
 materialises a full-size gradient of a stacked leaf; per-stage gradients
 are written into one stacked gradient tree (`_add_grads`). The
 optimizer then updates the parameters in place.
+
+The gradient tap (the optimizer overlap, `repro_torch.optim.overlap`):
+with `settings.opt_sink` set, once a layer stage's last microbatch has
+added its gradients (scaled by 1/len(batches), as the update scales
+them), backward hands that layer's gradient leaves (views of the stacked
+tree) to `opt_sink.on_grads(step, stage, leaves)`, `step` being the
+optimizer's step and `stage` the JAX package's layer numbering (decoder
+layers from 0, encoder layers from `ENC_STAGE_BASE`). The step's update
+(`train_step(update=...)`, the bridge's `finish_step`) then covers the
+rest of the tree. The jit engine of the port is this engine under
+another name (`engine_name`), its placement from
+`RunSettings.activation_policy` (`core/policies.py::policy_for_jit`).
 """
 from __future__ import annotations
 
@@ -72,6 +84,30 @@ from repro_torch.models.transformer import RunSettings, apply_block, layer
 #: where a layer stage's parameters (and gradients) live, by role
 _SEGMENTS = {"layer": "segments", "enc_layer": "enc_segments"}
 
+#: the first encoder layer's stage number in the gradient tap (the JAX
+#: package's `repro/core/hooks.py::ENC_STAGE_BASE`): decoder layers are
+#: numbered from 0, encoder layers from here
+ENC_STAGE_BASE = 1 << 20
+
+
+def layer_stage_names(api: ModelApi) -> List[str]:
+    """The decoder layer stages' names in forward order."""
+    return [f"seg{si}_l{rep}" for si, seg in enumerate(api.segments)
+            for rep in range(seg.n_repeat)]
+
+
+def _graph_leaf(t: torch.Tensor) -> torch.Tensor:
+    """A graph leaf over `t`'s memory with a version counter of its own.
+    A detached view shares its base's counter, and the optimizer overlap
+    writes a finished layer's slice of a stacked parameter in place while
+    backward still holds other slices of it (a recomputed stage's saved
+    weights among them): autograd would take that for a modified saved
+    tensor."""
+    with torch.no_grad():
+        leaf = torch.empty(0, dtype=t.dtype, device=t.device).set_(
+            t.untyped_storage(), t.storage_offset(), t.size(), t.stride())
+    return leaf.requires_grad_(True)
+
 
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
@@ -81,18 +117,24 @@ class _Stage:
     """One module of the chain. role: enc_embed | enc_layer | enc_final |
     embed | layer | head. takes_enc: fn is f(p, x, enc)."""
 
-    __slots__ = ("name", "role", "fn", "seg", "rep", "takes_enc")
+    __slots__ = ("name", "role", "fn", "seg", "rep", "takes_enc",
+                 "tap_stage")
 
-    def __init__(self, name, role, fn, seg=-1, rep=-1, takes_enc=False):
+    def __init__(self, name, role, fn, seg=-1, rep=-1, takes_enc=False,
+                 tap_stage=None):
         self.name, self.role, self.fn = name, role, fn
         self.seg, self.rep, self.takes_enc = seg, rep, takes_enc
+        self.tap_stage = tap_stage      # layer number in the grad tap
 
 
 class StagedEngine:
     def __init__(self, api: ModelApi, settings: RunSettings, optimizer, *,
                  policy=None, io_config: Optional[SpoolIoConfig] = None,
-                 min_offload_elements: Optional[int] = None):
+                 min_offload_elements: Optional[int] = None,
+                 engine_name: str = "staged"):
         io_config = io_config or SpoolIoConfig()
+        #: the name in the `engine.step` span and the StepReport
+        self.engine_name = engine_name
         self.api = api
         self.cfg = api.cfg
         self.settings = settings
@@ -144,21 +186,26 @@ class StagedEngine:
             stages.append(_Stage(
                 "enc_embed", "enc_embed", lambda p, batch: embed_in(
                     p, {"tokens": batch["enc_tokens"]}, enc_cfg)))
+            n = ENC_STAGE_BASE
             for si, seg in enumerate(self.api.enc_segments):
                 fn = layer_fn(seg, enc_cfg)
                 for rep in range(seg.n_repeat):
                     stages.append(_Stage(f"enc{si}_l{rep}", "enc_layer", fn,
-                                         si, rep))
+                                         si, rep, tap_stage=n))
+                    n += 1
             stages.append(_Stage("enc_final", "enc_final", lambda p, x: (
                 rms_norm(x, p["enc_norm"]["scale"], cfg.norm_eps))))
         stages.append(_Stage("embed", "embed",
                              lambda p, batch: embed_in(p, batch, cfg)))
+        names = iter(layer_stage_names(self.api))
+        n = 0
         for si, seg in enumerate(self.api.segments):
             fn = layer_fn(seg, cfg)
             takes_enc = any(b.mixer == "cross" for b in seg.blocks)
             for rep in range(seg.n_repeat):
-                stages.append(_Stage(f"seg{si}_l{rep}", "layer", fn, si, rep,
-                                     takes_enc))
+                stages.append(_Stage(next(names), "layer", fn, si, rep,
+                                     takes_enc, tap_stage=n))
+                n += 1
 
         def head_fn(p, x, labels):
             return ce_loss(head(p, x, cfg), labels)[0]
@@ -169,7 +216,12 @@ class StagedEngine:
         """Per-stage parameter trees of detached leaves that require grad
         (layer stages: views of the stacked leaves' rep-th slices; the
         encoder's and the decoder's embed stages each their own leaves of
-        the shared tables)."""
+        the shared tables). Only an opt sink writes a stage's slices while
+        backward holds others, so only then does each leaf get a version
+        counter of its own (`_graph_leaf`): elsewhere autograd's check
+        of saved tensors stays whole."""
+        leaf_of = (_graph_leaf if self.settings.opt_sink is not None
+                   else lambda t: t.detach().requires_grad_(True))
         emb = {k: params[k] for k in ("embed", "pos_embed") if k in params}
         out = []
         for st in self._stages:
@@ -183,8 +235,7 @@ class StagedEngine:
             else:
                 tree = layer(params[_SEGMENTS[st.role]][st.seg], st.rep)
             leaves, tdef = tree_flatten(tree)
-            out.append(tree_unflatten(
-                tdef, [t.detach().requires_grad_(True) for t in leaves]))
+            out.append(tree_unflatten(tdef, [leaf_of(t) for t in leaves]))
         return out
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
@@ -193,10 +244,14 @@ class StagedEngine:
 
     # ------------------------------------------------------------ step
 
-    def train_step(self, params, opt_state, batches: Sequence[Dict]
-                   ) -> Tuple[Any, Any, StepReport]:
+    def train_step(self, params, opt_state, batches: Sequence[Dict], *,
+                   update=None) -> Tuple[Any, Any, StepReport]:
         """One optimizer step over `batches` micro-batches (numpy or
-        tensor {"tokens", "labels"}); updates params in place."""
+        tensor {"tokens", "labels"}); updates params in place through
+        `update(grads, opt_state, params) -> (params, opt_state)` (the
+        optimizer's fused update by default). With an opt sink the layer
+        gradients were handed over (and scaled) in backward, so `update`
+        is the sink's own."""
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -213,13 +268,17 @@ class StagedEngine:
                   "layer_saved_bytes": 0, "forward_s": 0.0,
                   "backward_s": 0.0}
         loss_total, bwd_begin, dev_bwd_begin = 0.0, 0, 0
+        sink = self.settings.opt_sink
+        # the tap's step: the optimizer's, as the JAX hooks key it
+        tap = (sink, int(opt_state.step), len(batches)) if sink else None
         with obs.span("engine.step", cat="engine", step=self._step,
-                      engine="staged"):
+                      engine=self.engine_name):
             for mb, batch in enumerate(batches):
                 with self.spool.step(f"mb{mb}") as tx:
                     loss, bb, dbb = self._run_microbatch(
                         tx, mb, self._to_device(batch), stage_params,
-                        params, grads, profiles, profiling, counts)
+                        params, grads, profiles, profiling, counts,
+                        tap if mb == len(batches) - 1 else None)
                 loss_total += loss
                 bwd_begin, dev_bwd_begin = max(bwd_begin, bb), max(
                     dev_bwd_begin, dbb)
@@ -228,10 +287,14 @@ class StagedEngine:
             with obs.span("engine.update", cat="engine", step=self._step):
                 if len(batches) > 1:
                     scale = 1.0 / len(batches)
-                    for g in tree_flatten(grads)[0]:
+                    # tapped layer gradients were scaled before the tap
+                    rest = ({k: v for k, v in grads.items()
+                             if k not in _SEGMENTS.values()}
+                            if sink else grads)
+                    for g in tree_flatten(rest)[0]:
                         g.mul_(scale)
-                params, opt_state = self.optimizer.update(grads, opt_state,
-                                                          params)
+                params, opt_state = (update or self.optimizer.update)(
+                    grads, opt_state, params)
                 del grads
                 if cuda:
                     torch.cuda.synchronize(self.device)
@@ -259,13 +322,15 @@ class StagedEngine:
             loss=loss_total / len(batches), step_time=step_time,
             peak_activation_bytes=self.tracker.peak,
             backward_begin_bytes=bwd_begin, stats=self.spool.stats,
-            plan=self.plan, step=self._step, engine="staged", extra=extra)
+            plan=self.plan, step=self._step, engine=self.engine_name,
+            extra=extra)
 
     def _run_microbatch(self, tx, mb, batch, stage_params, params, grads,
-                        profiles, profiling, counts):
+                        profiles, profiling, counts, tap=None):
         """Forward and backward of one microbatch under lease `tx`;
-        accumulates into `grads`. Returns (loss, tracked and device bytes
-        at the start of backward)."""
+        accumulates into `grads`. `tap`: (sink, step, microbatches) on
+        the step's last microbatch with an opt sink. Returns (loss,
+        tracked and device bytes at the start of backward)."""
         sync = profiling and self.device.type == "cuda"
         t_fwd = time.perf_counter()
         fwd_sp = obs.span("engine.fwd", cat="engine", step=self._step, mb=mb)
@@ -391,6 +456,8 @@ class StagedEngine:
                 carry, enc_grad, enc = enc_grad, None, None
             self._add_grads(grads, params, stage, stage_params[si],
                             got[:len(leaves)])
+            if tap is not None and stage.tap_stage is not None:
+                self._tap(grads, stage, *tap)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         bwd_sp.__exit__(None, None, None)
@@ -467,6 +534,18 @@ class StagedEngine:
         for dst, g in zip(tree_flatten(segs[stage.seg])[0],
                           tree_flatten(tree)[0]):
             dst[stage.rep].add_(g)
+
+    @staticmethod
+    def _tap(grads, stage, sink, step, n_batches) -> None:
+        """Hand a layer stage's finished gradients to the opt sink:
+        views of its slice of the stacked gradient tree, scaled first
+        by 1/n_batches as the update would scale them."""
+        seg = grads[_SEGMENTS[stage.role]][stage.seg]
+        leaves = [g[stage.rep] for g in tree_flatten(seg)[0]]
+        if n_batches > 1:
+            for g in leaves:
+                g.mul_(1.0 / n_batches)
+        sink.on_grads(step, stage.tap_stage, leaves)
 
     def close(self) -> None:
         """Idempotent: drain and join the spool (and remove the temp dir

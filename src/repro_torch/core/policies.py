@@ -15,16 +15,26 @@ Policies:
                    prefix the measured store bandwidth can hide
 
 AdaptivePolicy re-plans mid-run on the spool's backend health events
-(`attach_health`) and feeds its profiled step time to a cache manager as
-per-class reuse distances (`attach_cache_manager`). Not ported yet (they
-wait for the optimizer overlap and the jit engine): `price_opt_io` and
-the jit-engine plan; `opt_bytes_per_step` prices optimizer traffic that
-shares the write path when a caller gives it.
+(`attach_health`), feeds its profiled step time to a cache manager as
+per-class reuse distances (`attach_cache_manager`) and translates its
+plan for the jit engine (`plan_for_jit`: a `JitOffloadPlan`, one
+profile driving both engines). `opt_bytes_per_step` prices optimizer
+traffic that shares the write path when a caller gives it (the JAX
+package's `price_opt_io` is not ported: no caller sets it after
+profiling).
+
+The jit engine of the port is the staged engine with its placement set
+by `RunSettings.activation_policy` (`policy_for_jit`): "keep" is
+KeepPolicy, "remat" RecomputePolicy and "spool" `LayerSpoolPolicy`
+(layer stages through the spool, decoder layers as
+`RunSettings.spool_stages` marks them).
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import List, Optional, Sequence, Union
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple, Union
 
 from repro_torch import obs
 from repro_torch.core.adaptive import (BWD_FACTOR, BandwidthLike,
@@ -34,6 +44,9 @@ from repro_torch.core.adaptive import (BWD_FACTOR, BandwidthLike,
 #: stage roles whose backward can be recomputed from the module input
 RECOMPUTABLE_ROLES = ("layer", "enc_layer")
 
+#: the jit engine's activation placements (RunSettings.activation_policy)
+JIT_ACTIVATION_POLICIES = ("keep", "remat", "spool")
+
 
 def _scale_bandwidths(bw: BandwidthLike, scale: float) -> BandwidthLike:
     """Bandwidths as the planner should see them after a health event:
@@ -42,6 +55,42 @@ def _scale_bandwidths(bw: BandwidthLike, scale: float) -> BandwidthLike:
         return float(bw) * scale
     return [TierBandwidth(t.name, t.write_bw * scale, t.capacity_bytes)
             for t in bw]
+
+
+def _is_decoder_layer(name: str) -> bool:
+    """Stage names: decoder layers are 'seg{si}_l{rep}'."""
+    return name.startswith("seg") and "_l" in name
+
+
+def _is_encoder_layer(name: str) -> bool:
+    """Stage names: encoder layers are 'enc{si}_l{rep}'."""
+    return name.startswith("enc") and "_l" in name
+
+
+@dataclass(frozen=True)
+class JitOffloadPlan:
+    """A profiled plan translated for the jit engine: per-decoder-layer
+    keep/offload choices, derived from the same `on_profile` data that
+    drives the staged engine.
+
+    `spool_stages[i]` is True when decoder layer i's residuals should go
+    through the spool; False keeps them on the device (the staged
+    AdaptivePolicy's keep-set). `activation_policy` is what
+    `RunSettings.activation_policy` should be: "spool" while any layer
+    offloads, else "keep"."""
+
+    spool_stages: Tuple[bool, ...]
+    activation_policy: str                     # "spool" | "keep"
+    required_bw: float
+    write_bw: float
+
+    def apply(self, settings):
+        """The same RunSettings with this plan's placement choices."""
+        return dataclasses.replace(
+            settings,
+            activation_policy=self.activation_policy,
+            spool_stages=(self.spool_stages
+                          if self.activation_policy == "spool" else None))
 
 
 class OffloadPolicy:
@@ -106,6 +155,56 @@ class RecomputePolicy(OffloadPolicy):
 
     def should_offload(self, stage, profile=None) -> bool:
         return False
+
+
+class LayerSpoolPolicy(OffloadPolicy):
+    """The jit engine's "spool" placement: layer stages go through the
+    spool (the JAX jit engine hooks only its scanned layers; embed, head
+    and the encoder's ends stay on the device). `spool_stages` masks the
+    decoder layers in order (None: all; a layer past its end spools);
+    encoder layers always spool, as in the JAX package."""
+
+    strategy = "offload"
+
+    def __init__(self, spool_stages: Optional[Sequence[bool]] = None,
+                 decoder_layers: Sequence[str] = ()):
+        self.spool_stages = (None if spool_stages is None
+                             else tuple(bool(b) for b in spool_stages))
+        self._index = {name: i for i, name in enumerate(decoder_layers)}
+
+    def should_offload(self, stage, profile=None) -> bool:
+        name = profile.name if profile is not None else ""
+        if _is_encoder_layer(name):
+            return True
+        if not _is_decoder_layer(name):
+            return False
+        i = self._index.get(name)
+        mask = self.spool_stages
+        return mask is None or i is None or i >= len(mask) or mask[i]
+
+    def __repr__(self):
+        return f"LayerSpoolPolicy(spool_stages={self.spool_stages})"
+
+
+def policy_for_jit(settings, decoder_layers: Sequence[str] = ()
+                   ) -> OffloadPolicy:
+    """The staged engine's policy for a jit-engine RunSettings: "keep" ->
+    KeepPolicy, "remat" -> RecomputePolicy, "spool" -> LayerSpoolPolicy
+    over `decoder_layers` (the decoder layer stage names in order)."""
+    name = settings.activation_policy
+    if name in ("offload", "offload_ssd"):
+        raise ValueError(
+            f"activation_policy {name!r} is an XLA memory-kind tier of the "
+            "JAX jit engine with no counterpart in the port (ROADMAP §1 "
+            "item 16); use 'spool' for activations on the spool")
+    if name == "keep":
+        return KeepPolicy()
+    if name == "remat":
+        return RecomputePolicy()
+    if name == "spool":
+        return LayerSpoolPolicy(settings.spool_stages, decoder_layers)
+    raise ValueError(f"unknown activation_policy {name!r}; expected one "
+                     f"of {JIT_ACTIVATION_POLICIES}")
 
 
 class AdaptivePolicy(OffloadPolicy):
@@ -220,6 +319,26 @@ class AdaptivePolicy(OffloadPolicy):
                 self.cache_manager.hint_class_distance(
                     "kv_page", 3.0 * t_step)
         return self.plan
+
+    def plan_for_jit(self) -> JitOffloadPlan:
+        """The profiled plan as per-decoder-layer placement for the jit
+        engine: one policy object, profiled once (on either engine),
+        drives both. Unsharded: the JAX package's `shard_fraction`, which
+        re-plans for a mesh shard's local bytes, comes with meshes
+        (ROADMAP §1 item 12)."""
+        if self.plan is None or self.profiles is None:
+            raise RuntimeError(
+                "plan_for_jit() needs a profiling step first: run one "
+                "staged step with this policy (on_profile) before "
+                "translating the plan for the jit engine")
+        mask = tuple(bool(off)
+                     for prof, off in zip(self.profiles, self.plan.offload)
+                     if _is_decoder_layer(prof.name))
+        return JitOffloadPlan(
+            spool_stages=mask,
+            activation_policy="spool" if any(mask) else "keep",
+            required_bw=self.plan.required_bw,
+            write_bw=self.plan.write_bw)
 
     def __repr__(self):
         return (f"AdaptivePolicy(bwd_factor={self.bwd_factor}, "

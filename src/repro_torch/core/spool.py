@@ -178,6 +178,9 @@ class SpoolStats:
     store_retries: int = 0
     load_retries: int = 0
     fetch_fallbacks: int = 0
+    # optimizer-moment bytes the overlap bridge did not rewrite because
+    # they were unchanged (its write-back policy)
+    opt_skipped_bytes: int = 0
 
     @property
     def write_bandwidth(self) -> float:
@@ -264,6 +267,13 @@ class SpoolStepTransaction:
         """Async-store a stage's tree under this lease."""
         self._spool.offload(self._record(stage), tree)
 
+    def offload_staged(self, stage, host, lease, blob=None,
+                       device=None) -> None:
+        """Async-store host leaves already laid out in a pool lease
+        (`ActivationSpool.offload_staged`) under this lease."""
+        self._spool.offload_staged(self._record(stage), host, lease, blob,
+                                   device)
+
     def keep(self, stage, tree) -> None:
         """Record a stage's tree as kept in memory under this lease."""
         self._spool.keep(self._record(stage), tree)
@@ -287,9 +297,19 @@ class SpoolStepTransaction:
         if key is not None:
             self._spool.prefetch(key)
 
-    def fetch(self, stage):
-        """Blocking: the stage's tree (forwarded or reloaded)."""
-        return self._spool.fetch(self._key(stage))
+    def fetch(self, stage, *, to_device: bool = True):
+        """Blocking: the stage's tree (forwarded or reloaded).
+        `to_device=False` leaves reloaded leaves on the host, in their
+        pooled lease (valid until the record is dropped)."""
+        return self._spool.fetch(self._key(stage), to_device=to_device)
+
+    def peek(self, stage, *, to_device: bool = True):
+        """Non-consuming fetch: the tree, without cancelling a store
+        still queued, so a later fetch or peek finds the blob (the
+        optimizer overlap's moments, checkpoints of a staged-out
+        optimizer state)."""
+        return self._spool.fetch(self._key(stage), cancel_pending=False,
+                                 to_device=to_device)
 
     def consume(self, stage):
         """Fetch the stage's tree and drop the record (memory + blob)."""
@@ -455,40 +475,48 @@ class ActivationSpool:
             with self._lock:
                 self._draining.extend(keep)
 
-    def _to_host(self, leaves):
-        """Host copies of the leaves to spool: (tensors, the device-to-host
-        copy's event, their pool lease, the whole raw blob). CPU leaves
-        are held by reference. CUDA leaves are copied on a side stream
-        into one pool lease laid out as the blob: with the raw codec the
-        container and serde headers come first and each leaf's bytes
-        follow, so the blob is one contiguous view of the lease."""
-        dev = next((t.device for t in leaves if t.is_cuda), None)
-        if dev is None:
-            return list(leaves), None, None, None
+    def host_layout(self, like) -> Tuple[List[torch.Tensor], Any,
+                                         Optional[memoryview]]:
+        """One pool lease laid out as the blob of tensors shaped like
+        `like` (with the raw codec the container and serde headers come
+        first and each leaf's bytes follow, so the blob is one contiguous
+        view of the lease): (a host tensor over each leaf's slot, the
+        lease, the whole raw blob or None)."""
         raw = isinstance(self.codec, RawCodec)
         head = (b"".join(bytes(p) for p in encode_parts(
-            header_parts(leaves), self.codec)) if raw else b"")
-        sizes = [t.numel() * t.element_size() for t in leaves]
+            header_parts(like), self.codec)) if raw else b"")
+        sizes = [t.numel() * t.element_size() for t in like]
         total = len(head) + sum(sizes)
         self._reap()
         lease = self.pool.acquire(total)
         mv = lease.mv
         mv[:len(head)] = head
+        host, off = [], len(head)
+        for t, n in zip(like, sizes):
+            host.append(torch.frombuffer(mv[off:off + n], dtype=t.dtype)
+                        .view(t.shape) if n else
+                        torch.empty(t.shape, dtype=t.dtype))
+            off += n
+        return host, lease, (mv[:total] if raw else None)
+
+    def _to_host(self, leaves):
+        """Host copies of the leaves to spool: (tensors, the device-to-host
+        copy's event, their pool lease, the whole raw blob). CPU leaves
+        are held by reference. CUDA leaves are copied on a side stream
+        into one pool lease laid out as the blob (`host_layout`)."""
+        dev = next((t.device for t in leaves if t.is_cuda), None)
+        if dev is None:
+            return list(leaves), None, None, None
+        host, lease, blob = self.host_layout(leaves)
         stream = self._stream(dev, "d2h")
         stream.wait_stream(torch.cuda.current_stream(dev))
-        host, off = [], len(head)
         with torch.cuda.stream(stream):
-            for t, n in zip(leaves, sizes):
-                h = (torch.frombuffer(mv[off:off + n], dtype=t.dtype)
-                     .view(t.shape) if n else
-                     torch.empty(t.shape, dtype=t.dtype))
+            for h, t in zip(host, leaves):
                 h.copy_(t, non_blocking=True)
                 t.record_stream(stream)     # freed only after the copy
-                host.append(h)
-                off += n
         event = torch.cuda.Event()
         event.record(stream)
-        return host, event, lease, (mv[:total] if raw else None)
+        return host, event, lease, blob
 
     def offload(self, key, tree) -> None:
         """Async-store a tree of tensors under `key`. Parameters, leaves
@@ -527,17 +555,38 @@ class ActivationSpool:
                                tag=f"kept_small:{key}")
         job = None
         if spooled:
-            self.tracker.alloc((key, "s"), nbytes, tag=f"residual:{key}")
             host, event, lease, blob = self._to_host(spooled)
             job = _Job(key, host, "store", event)
             job.lease, job.blob = lease, blob
             job.reg_keys = tuple(spooled_keys)
+        self._add_store(key, treedef, {i: leaves[i] for i in keep_idx},
+                        spool_idx, len(leaves), job, nbytes, device,
+                        strides, acquired)
+
+    def offload_staged(self, key, host, lease, blob=None,
+                       device=None) -> None:
+        """Async-store host leaves that the caller has already written
+        into a lease laid out by `host_layout` (the optimizer overlap
+        copies each moment there as it is computed). Every leaf is
+        written and the spool owns the lease from here. `device` is
+        where `fetch(to_device=True)` returns the leaves (None: the
+        host)."""
+        job = _Job(key, list(host), "store")
+        job.lease, job.blob = lease, blob
+        self._add_store(key, tree_flatten(list(host))[1], {},
+                        list(range(len(host))), len(host), job,
+                        _nbytes(host), device, [None] * len(host), [])
+
+    def _add_store(self, key, treedef, keep, spool_idx, n_leaves, job,
+                   nbytes, device, strides, acquired) -> None:
+        if job is not None:
+            self.tracker.alloc((key, "s"), nbytes, tag=f"residual:{key}")
         with self._lock:
             if key in self._records:
                 raise KeyError(f"spool key {key!r} is already live")
             self._records[key] = {
-                "treedef": treedef, "keep": {i: leaves[i] for i in keep_idx},
-                "spool_idx": spool_idx, "n_leaves": len(leaves),
+                "treedef": treedef, "keep": keep,
+                "spool_idx": spool_idx, "n_leaves": n_leaves,
                 "job": job, "nbytes": nbytes, "loaded": None,
                 "load_job": None, "load_lease": None,
                 "fwd_counted": False, "device": device,
@@ -620,10 +669,18 @@ class ActivationSpool:
             obs.instant("spool.prefetch", cat="spool", key=str(key))
         self._load_q.put(lj)
 
-    def fetch(self, key):
+    def fetch(self, key, *, cancel_pending: bool = True,
+              to_device: bool = True):
         """Blocking: the full tree of `key`. Leaves of a record that came
         from the card are returned on it. Raises `SpoolLoadError` when
-        the blob cannot be read back."""
+        the blob cannot be read back.
+
+        `cancel_pending=False` is the non-consuming peek: a store still
+        queued is forwarded but not cancelled, so its blob still lands
+        for a later fetch. `to_device=False` returns the host leaves as
+        they are, with no copy: a forwarded record's host copy (its
+        device-to-host copy waited for) or a reloaded one's views over
+        its pooled lease, valid until the record is dropped."""
         with self._lock:
             rec = self._records.get(key)
             if rec is None:
@@ -641,7 +698,7 @@ class ActivationSpool:
                     if not rec["fwd_counted"]:
                         rec["fwd_counted"] = True
                         self.stats.bytes_forwarded += rec["nbytes"]
-                    if job.state == QUEUED:
+                    if job.state == QUEUED and cancel_pending:
                         job.state = CANCELED
                         self.stats.stores_canceled += 1
             if spooled is None:
@@ -678,7 +735,10 @@ class ActivationSpool:
         for i, leaf in rec["keep"].items():
             leaves[i] = leaf
         if rec["spool_idx"]:
-            spooled = self._materialize(rec, spooled, event, forwarded)
+            if to_device:
+                spooled = self._materialize(rec, spooled, event, forwarded)
+            elif event is not None:
+                event.synchronize()     # the device-to-host copy landed
             for i, leaf in zip(rec["spool_idx"], spooled):
                 leaves[i] = leaf
         return tree_unflatten(rec["treedef"], leaves)

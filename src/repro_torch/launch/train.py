@@ -14,6 +14,21 @@ package's `repro/launch/train.py`.
       --steps 2 --batch 2 --seq 64 --strategy spool --min-offload 4096 \\
       --ckpt ckpt --ckpt-every 1 --trace trace.json
   python -m repro_torch.launch.train ... --ckpt ckpt --resume
+  python -m repro_torch.launch.train --arch gpt-h8192-l4 --engine jit \
+      --opt-overlap --clip-norm 0 --steps 3 --batch 4 --seq 1024
+  python -m repro_torch.launch.train --arch small-gpt --device cpu \
+      --engine jit --host-offload activations --steps 2 --batch 2 \
+      --seq 64 --min-offload 4096
+
+`--engine jit` is the JAX CLI's jit engine on the port's one engine
+(layers recomputed in backward by default; `--host-offload opt_state`
+stages the optimizer state through the spool between steps,
+`--host-offload activations` spools the layers' residuals) and
+`--opt-overlap` updates each layer as its gradients land in backward,
+its moments on the spool: it needs a clip-free optimizer (`--clip-norm
+0`, or none given: adamw is then built without clipping) and ends the
+run with an `opt-overlap:` line. The port's default engine stays
+`staged` (the JAX CLI's is `jit`).
 
 The storage stack is the JAX CLI's: `--spool-backend` takes a kind
 (fs | striped | mem | tiered | managed | aio) or a spec string of
@@ -63,11 +78,9 @@ from repro_torch.session.session import resolve_optimizer
 # flags of the JAX package's CLI that wait for later slices
 _WAITING = {
     "--mesh": "multi-GPU meshes",
-    "--host-offload": "the jit engine's host offload",
-    "--opt-overlap": "the optimizer overlap",
     "--spool-no-dedupe": "multi-GPU meshes",
 }
-_FLAGS_WITH_VALUE = {"--opt-overlap": False, "--spool-no-dedupe": False}
+_FLAGS_WITH_VALUE = {"--spool-no-dedupe": False}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -127,6 +140,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--clip-norm", type=float, default=None,
                     help="global grad-norm clip (adamw defaults to 1.0); "
                          "0 disables clipping")
+    ap.add_argument("--host-offload", nargs="?", const="opt_state",
+                    default="none",
+                    choices=["none", "opt_state", "activations"],
+                    help="jit engine: what goes through the spool — "
+                         "'opt_state' stages the optimizer state between "
+                         "steps (a bare --host-offload means this); "
+                         "'activations' spools the layers' residuals")
+    ap.add_argument("--opt-overlap", action="store_true",
+                    help="jit engine: eager per-layer optimizer updates "
+                         "overlapped with backward, the moments on the "
+                         "spool (repro_torch.optim.overlap); bitwise "
+                         "equal to the serial step; needs a clip-free "
+                         "optimizer and supersedes --host-offload "
+                         "opt_state")
     ap.add_argument("--on-fetch-fail", default="recompute",
                     choices=["recompute", "raise"],
                     help="when a residual fetch fails: recompute the "
@@ -161,9 +188,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     for flag, what in _WAITING.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             ap.error(f"{flag}: {what} is not ported to repro_torch yet")
-    if args.engine != "staged":
-        ap.error("--engine jit is not ported to repro_torch yet (the "
-                 "port trains with the staged engine)")
+    if args.opt_overlap:
+        if args.engine != "jit":
+            ap.error("--opt-overlap is a jit-engine flag")
+        if args.clip_norm:
+            ap.error("--opt-overlap needs a clip-free optimizer "
+                     "(global-norm clipping requires every gradient "
+                     "before any update); pass --clip-norm 0 or drop "
+                     "the flag")
+    if args.host_offload != "none" and args.engine != "jit":
+        ap.error("--host-offload is a jit-engine flag")
     if args.resume and args.ckpt is None:
         ap.error("--resume needs --ckpt")
     return args
@@ -185,7 +219,8 @@ def io_config(args: argparse.Namespace) -> SpoolIoConfig:
         pool_bytes=args.spool_pool_mb << 20,
         retry_attempts=args.retry_attempts,
         retry_backoff_s=args.retry_backoff_ms / 1e3,
-        on_fetch_fail=args.on_fetch_fail, **cache).validate()
+        on_fetch_fail=args.on_fetch_fail, host_offload=args.host_offload,
+        **cache).validate()
 
 
 def storage_lines(spool) -> List[str]:
@@ -225,11 +260,20 @@ def storage_lines(spool) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     io = io_config(args)
-    optimizer = resolve_optimizer(args.optimizer, args.lr, args.clip_norm)
+    # the overlap builds its optimizer clip-free (parse_args refused an
+    # explicit clip)
+    optimizer = resolve_optimizer(args.optimizer, args.lr,
+                                  0 if args.opt_overlap else args.clip_norm)
+    if args.opt_overlap and args.optimizer == "adamw":
+        print("opt-overlap: using clip-free adamw (global-norm clipping "
+              "is incompatible with eager per-layer updates)")
     kernels = (flash_attention, ssd_scan, rglru_scan)
     launches0 = [k.launches for k in kernels]
     with TrainSession(
-            args.arch, policy=args.strategy, io=io, optimizer=optimizer,
+            args.arch, engine=args.engine,
+            policy=args.strategy if args.engine == "staged" else None,
+            opt_overlap=args.opt_overlap or None, io=io,
+            optimizer=optimizer,
             batch_size=args.batch, seq_len=args.seq, seed=args.seed,
             microbatches=args.microbatches, device=args.device,
             attn_impl=args.attn_impl, metrics_path=args.metrics,
@@ -239,8 +283,12 @@ def main(argv: Optional[List[str]] = None) -> None:
             install_signal_handlers=True) as session:
         device = (torch.cuda.get_device_name(torch.device(args.device))
                   if args.device != "cpu" else "cpu")
+        placement = (f"policy={session.policy!r}" if args.engine == "staged"
+                     else f"activations={session.settings.activation_policy}"
+                     f" host_offload={args.host_offload} opt_overlap="
+                     f"{args.opt_overlap}")
         print(f"arch={session.cfg.name} params={session.n_params / 1e6:.1f}M"
-              f" device={device} policy={session.policy!r} "
+              f" device={device} engine={args.engine} {placement} "
               f"spool={args.spool_backend}/{args.codec} "
               f"kernels={session.settings.attn_impl}", flush=True)
 
@@ -251,20 +299,32 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"t {rep.step_time:.3f}s act_peak "
                   f"{rep.peak_activation_bytes / 1e6:.1f} MB"
                   + (f" device_peak {dev / 1e9:.2f} GB" if dev else "")
-                  + f" offloaded {st.bytes_offloaded / 1e6:.1f} MB loaded "
-                  f"{st.bytes_loaded / 1e6:.1f} MB forwarded "
-                  f"{st.bytes_forwarded / 1e6:.1f} MB", flush=True)
+                  + (f" offloaded {st.bytes_offloaded / 1e6:.1f} MB loaded "
+                     f"{st.bytes_loaded / 1e6:.1f} MB forwarded "
+                     f"{st.bytes_forwarded / 1e6:.1f} MB" if st else ""),
+                  flush=True)
 
         t0 = time.perf_counter()
         result = session.run(args.steps, resume=args.resume,
                              on_report=on_report)
         dt = time.perf_counter() - t0
-        session.spool.wait_io()
+        spool = session.engine.spool
+        spool.wait_io()
         print(f"done: {args.steps} steps in {dt:.2f}s; fetch fallbacks "
-              f"{session.spool.stats.fetch_fallbacks}", flush=True)
-        for line in storage_lines(session.spool):
-            print(line, flush=True)
-        plan = session.policy.plan
+              f"{spool.stats.fetch_fallbacks}", flush=True)
+        if session.spool is not None:
+            for line in storage_lines(session.spool):
+                print(line, flush=True)
+        bridge = session.opt_bridge
+        if bridge is not None and bridge.seeded:
+            st = bridge.stats()
+            print(f"opt-overlap: {st['opt_updates']} per-layer updates, "
+                  f"fetched {st['opt_fetched_bytes'] / 1e6:.1f} MB, staged "
+                  f"{st['opt_staged_bytes'] / 1e6:.1f} MB, skipped "
+                  f"{st['opt_stage_skips']} unchanged stage-backs "
+                  f"({st['opt_skipped_bytes'] / 1e6:.1f} MB not "
+                  f"rewritten)", flush=True)
+        plan = session.policy.plan if session.policy is not None else None
         if plan is not None:
             print(f"plan: offload stages 0..{plan.last_offloaded} of "
                   f"{len(session.engine.stage_names)}")

@@ -106,6 +106,19 @@ class RunSettings:
     attn_chunk: int = 1024
     param_dtype: str = "bfloat16"
     device: str = "cuda"
+    # the jit engine's activation placement (the staged engine takes an
+    # OffloadPolicy instead): "keep" | "remat" (layers recomputed in
+    # backward) | "spool" (layer residuals through the spool); the JAX
+    # package's XLA memory tiers "offload" / "offload_ssd" are refused
+    activation_policy: str = "keep"
+    # "spool" only: a per-decoder-layer mask (None: every layer spools;
+    # False keeps that layer's residuals on the device), as
+    # AdaptivePolicy.plan_for_jit() emits it
+    spool_stages: Optional[Tuple[bool, ...]] = None
+    # the optimizer overlap's sink: when set, backward hands each layer
+    # stage's gradients to `opt_sink.on_grads(step, stage, leaves)` once
+    # its last microbatch has added them (repro_torch.optim.overlap)
+    opt_sink: Any = None
 
 
 # ====================================================================

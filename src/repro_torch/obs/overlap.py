@@ -22,8 +22,9 @@ hit/late/ghost rates. Everything lands in `StepReport.to_metrics()` as
 planner's prediction (the JAX package's dryrun roofline; the port has no
 dryrun yet).
 
-Optimizer-state I/O (spool keys prefixed "opt", written by the JAX
-package's opt-overlap bridge) is attributed separately: those spans are
+Optimizer-state I/O (spool keys prefixed "opt", written by the
+optimizer overlap's bridge, `repro_torch.optim.overlap`, and by the
+loop's between-step staging) is attributed separately: those spans are
 excluded from the activation metrics above and land in `opt_io_busy_s` /
 `opt_exposed_wait_s` / `opt_hidden_frac` instead, where "exposed" is
 only the time the *training thread* was blocked (`engine.opt_join`
@@ -33,8 +34,8 @@ the hidden case, not a stall. `opt_hidden_frac` charges a thread block
 only for its intersection with opt I/O activity (`opt_exposed_io_s`):
 a join that is really riding out the worker's update kernels is compute
 exposure, reported via `opt_update_s` and the join span, not I/O the
-overlap failed to hide. The port has no such bridge yet, so its `opt_*`
-block reads zeros and a hidden fraction of 1.
+overlap failed to hide. A run without optimizer-state I/O reads zeros
+and a hidden fraction of 1.
 """
 from __future__ import annotations
 

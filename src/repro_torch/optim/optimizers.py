@@ -9,6 +9,15 @@ dimension, so the float32 temporaries of a 2.9 B-parameter model stay a
 few hundred MB instead of several copies of the model. The math of each
 element is unchanged by the slicing. ZeRO-1 sharding waits for the
 multi-GPU slice.
+
+Each optimizer also has the JAX package's `clip_norm` (the global-norm
+threshold its fused `update` applies; None: off) and `leaf_update`, the
+per-leaf kernel `(p, m, v, g, step) -> (new_p, new_m, new_v)` that the
+optimizer overlap (`repro_torch.optim.overlap`) runs per layer. `step`
+is the post-increment step (`state.step + 1`); `m` / `v` are None for an
+optimizer without that moment. It returns new tensors and is the very
+function the fused `update` applies to each slice, so one layer's
+update is bitwise equal to that layer's slice of the fused update.
 """
 from __future__ import annotations
 
@@ -36,6 +45,11 @@ class Optimizer:
     #: update(grads, state, params) -> (params, state), in place
     update: Callable[[Any, OptState, Any], Any]
     name: str = "opt"
+    #: global-norm clip threshold of `update` (None: off); eager
+    #: per-layer updates are valid only without one
+    clip_norm: Optional[float] = None
+    #: per-leaf kernel (p, m, v, g, step) -> (new_p, new_m, new_v)
+    leaf_update: Optional[Callable] = None
 
 
 def _slices(t: torch.Tensor) -> List[torch.Tensor]:
@@ -84,19 +98,30 @@ def sgd(lr: float = 1e-3, momentum: float = 0.0,
     def init(params):
         return OptState(0, _zeros_f32(params) if momentum else None, None)
 
+    def leaf_update(p, m, v, g, step):
+        del v, step
+        if momentum:
+            m = momentum * m + g.float()
+            u = m
+        else:
+            m, u = None, g.float()
+        return (p.float() - lr * u).to(p.dtype), m, None
+
     def update(grads, state, params):
         if clip_norm:
             clip_by_global_norm(grads, clip_norm)
         if momentum:
             for p, m, g in _zipped(params, state.mu, grads):
-                m.copy_(momentum * m + g.float())
-                p.copy_(p.float() - lr * m)
+                new_p, new_m, _ = leaf_update(p, m, None, g, None)
+                m.copy_(new_m)
+                p.copy_(new_p)
         else:
             for p, g in _zipped(params, grads):
-                p.copy_(p.float() - lr * g.float())
+                p.copy_(leaf_update(p, None, None, g, None)[0])
         return params, OptState(state.step + 1, state.mu, None)
 
-    return Optimizer(init, update, "sgd")
+    return Optimizer(init, update, "sgd", clip_norm=clip_norm,
+                     leaf_update=leaf_update)
 
 
 def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
@@ -106,10 +131,7 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
     def init(params):
         return OptState(0, _zeros_f32(params), _zeros_f32(params))
 
-    def update(grads, state, params):
-        if clip_norm:
-            clip_by_global_norm(grads, clip_norm)
-        step = state.step + 1
+    def leaf_update(p, m, v, g, step):
         sched = min(1.0, step / max(warmup_steps, 1)) if warmup_steps \
             else 1.0
         lr_t = lr * sched
@@ -117,14 +139,25 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         f32 = np.float32
         bc1 = float(f32(1) - f32(b1) ** f32(step))
         bc2 = float(f32(1) - f32(b2) ** f32(step))
+        g32 = g.float()
+        m = b1 * m + (1 - b1) * g32
+        v = b2 * v + (1 - b2) * g32.square()
+        del g32
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        p32 = p.float()
+        u = u + weight_decay * p32
+        return (p32 - lr_t * u).to(p.dtype), m, v
+
+    def update(grads, state, params):
+        if clip_norm:
+            clip_by_global_norm(grads, clip_norm)
+        step = state.step + 1
         for p, m, v, g in _zipped(params, state.mu, state.nu, grads):
-            g32 = g.float()
-            m.copy_(b1 * m + (1 - b1) * g32)
-            v.copy_(b2 * v + (1 - b2) * g32.square())
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            p32 = p.float()
-            u = u + weight_decay * p32
-            p.copy_(p32 - lr_t * u)
+            new_p, new_m, new_v = leaf_update(p, m, v, g, step)
+            m.copy_(new_m)
+            v.copy_(new_v)
+            p.copy_(new_p)
         return params, OptState(step, state.mu, state.nu)
 
-    return Optimizer(init, update, "adamw")
+    return Optimizer(init, update, "adamw", clip_norm=clip_norm,
+                     leaf_update=leaf_update)

@@ -13,12 +13,30 @@
     than `threshold x median`;
   * metrics: one JSONL line per step (loss, step time, tokens/s), or the
     caller's own rows through `on_step`;
-  * a finite loader that runs dry ends the loop cleanly.
+  * a finite loader that runs dry ends the loop cleanly;
+  * host offload (the jit engine, with a spool from the caller):
+      - "opt_state": the optimizer state is staged through the spool
+        between steps: offloaded asynchronously after the update
+        (`engine.opt_stage`), fetched back just before the next one
+        (`engine.opt_fetch`). A store still queued is cancelled and one
+        still writing is not re-read: its host copy is forwarded. The
+        copy back allocates the state on the card, and where the
+        store's write syscalls hold the process's address space (a 9p
+        mount in a sandbox, PERF.md §5) those allocations wait for them;
+      - "activations": the step function's engine spools the layers'
+        residuals itself; the loop only carries the spool;
+    and with an `opt_bridge` (`repro_torch.optim.overlap`) the bridge
+    owns the optimizer state's placement, per layer, so "opt_state"
+    staging is off and the loop's state holds the bridge's light
+    `(step, None, None)`.
 
 Each step's time is taken after a synchronize of the card (the JAX loop
-blocks on the new parameters); the `engine.step` span is the step
-function's own (the staged engine records it). Host offload of the optimizer state and the optimizer overlap
-bridge are not ported yet and are refused.
+blocks on the new parameters), the optimizer state's fetch included;
+the `engine.step` span is the step function's own (the engine records
+it). Two departures: with no `ckpt_dir` the loop writes no checkpoint;
+with an opt bridge the state keeps the bridge's light state at the end
+of `run` (the JAX loop materializes the moments into it), and a
+checkpoint materializes them.
 """
 from __future__ import annotations
 
@@ -35,9 +53,9 @@ import torch
 from repro_torch.ckpt.checkpoint import (CheckpointManager,
                                          restore_train_state,
                                          save_train_state)
+from repro_torch import obs
 from repro_torch.core.tree import tree_flatten
-
-_NOT_PORTED = "is not ported yet (ROADMAP §1 item 9)"
+from repro_torch.optim.optimizers import OptState
 
 
 @dataclass
@@ -84,6 +102,17 @@ class StragglerWatchdog:
         return is_straggler
 
 
+def _or_empty(tree):
+    return [] if tree is None else tree
+
+
+def _opt_state(staged) -> OptState:
+    """The OptState of a staged-out record [step, mu or [], nu or []]."""
+    step, mu, nu = staged
+    return OptState(int(step), mu if mu != [] else None,
+                    nu if nu != [] else None)
+
+
 def _block_on(params) -> None:
     """Wait for the card to finish the step (the parameters' device)."""
     leaf = next((t for t in tree_flatten(params)[0]
@@ -98,16 +127,26 @@ class TrainLoop:
                  ckpt_every: int = 100, keep_last: int = 3,
                  metrics_path: Optional[str] = None,
                  watchdog: Optional[StragglerWatchdog] = None,
+                 spool: Any = None,
                  host_offload: Any = "none",
                  opt_bridge: Any = None,
                  on_step: Optional[Callable[[int, float, Any, Any],
                                             None]] = None,
                  install_signal_handlers: bool = False):
-        if host_offload is True or host_offload not in (False, "none"):
-            raise NotImplementedError(
-                f"host_offload={host_offload!r} {_NOT_PORTED}")
-        if opt_bridge is not None:
-            raise NotImplementedError(f"opt_bridge {_NOT_PORTED}")
+        # a bool is the JAX loop's legacy spelling of "opt_state"
+        if isinstance(host_offload, bool):
+            host_offload = "opt_state" if host_offload else "none"
+        if host_offload not in ("none", "opt_state", "activations"):
+            raise ValueError(f"host_offload {host_offload!r}: none | "
+                             "opt_state | activations")
+        # the bridge owns the optimizer state's placement per layer: the
+        # whole-state staging between steps is off under it
+        self.opt_bridge = opt_bridge
+        if opt_bridge is not None and host_offload == "opt_state":
+            host_offload = "none"
+        self.spool = spool
+        self.host_offload = host_offload if spool is not None else "none"
+        self._opt_tx = None          # the staged-out optimizer state
         self.step_fn = step_fn
         self.state = init_state
         self.loader = loader
@@ -138,16 +177,61 @@ class TrainLoop:
     def preempted(self) -> bool:
         return self._preempted
 
+    # ----------------------------------------------- host offload (jit)
+
+    def _acquire_opt_state(self):
+        """The optimizer state, fetched back from the spool if the
+        previous step staged it out (a store still in flight is
+        forwarded, not re-read; closing the lease deletes a landed blob
+        on this thread)."""
+        if self._opt_tx is None:
+            return self.state.opt_state
+        tx, self._opt_tx = self._opt_tx, None
+        with obs.span("engine.opt_fetch", cat="engine",
+                      step=self.state.step):
+            state = _opt_state(tx.fetch(0))
+        tx.close()                  # drops the record and its blob
+        return state
+
+    def _stage_opt_state(self, opt_state, step: int):
+        """Offload the fresh optimizer state through the spool; returns
+        what TrainState holds (None while it is staged out: the spool
+        holds the only reference until the next acquire)."""
+        if self.host_offload != "opt_state":
+            return opt_state
+        with obs.span("engine.opt_stage", cat="engine", step=step):
+            tx = self.spool.step(f"opt{step}")
+            # the step counter rides as a kept leaf; an absent moment
+            # (sgd) is an empty list
+            tx.offload(0, [torch.tensor(opt_state.step),
+                           _or_empty(opt_state.mu), _or_empty(opt_state.nu)])
+        self._opt_tx = tx
+        return None
+
     def _save(self, final: bool = False):
-        if self.ckpt is not None:
-            save_train_state(self.ckpt, self.state.step, self.state.params,
-                             self.state.opt_state, self.loader, final=final)
+        if self.ckpt is None:
+            return
+        opt_state = self.state.opt_state
+        if self.opt_bridge is not None and self.opt_bridge.seeded:
+            # the layers' moments live on the spool (the rest in the
+            # bridge): reassembled without consuming a lease
+            opt_state = self.opt_bridge.materialize()
+        elif opt_state is None and self._opt_tx is not None:
+            # staged out between steps: peek on the host, which must not
+            # cancel the queued store the next step fetches
+            opt_state = _opt_state(self._opt_tx.peek(0, to_device=False))
+        save_train_state(self.ckpt, self.state.step, self.state.params,
+                         opt_state, self.loader, final=final)
 
     def resume(self) -> bool:
         """Restore the latest checkpoint if present, in place into the
         current state's tensors. Returns True if restored."""
         if self.ckpt is None:
             return False
+        if self.opt_bridge is not None and self.opt_bridge.seeded:
+            raise RuntimeError(
+                "resume into an optimizer overlap that holds moments "
+                "already: restore in a fresh session")
         restored = restore_train_state(
             self.ckpt, self.state.params, self.state.opt_state, self.loader)
         if restored is None:
@@ -167,9 +251,11 @@ class TrainLoop:
                 break
             t0 = time.perf_counter()
             params, opt_state, metrics = self.step_fn(
-                self.state.params, self.state.opt_state, batch)
+                self.state.params, self._acquire_opt_state(), batch)
             _block_on(params)
             dt = time.perf_counter() - t0
+            opt_state = self._stage_opt_state(opt_state,
+                                              self.state.step + 1)
             self.state = TrainState(self.state.step + 1, params, opt_state)
             self.watchdog.record(self.state.step, dt)
             self._log(metrics, dt, batch)
@@ -177,6 +263,11 @@ class TrainLoop:
                 self.on_step(self.state.step, dt, metrics, batch)
             if self.ckpt_every and self.state.step % self.ckpt_every == 0:
                 self._save()
+        # a staged-out optimizer state comes back before the final
+        # checkpoint and the hand-back
+        if self._opt_tx is not None:
+            self.state = TrainState(self.state.step, self.state.params,
+                                    self._acquire_opt_state())
         self._save(final=True)
         return self.state
 
@@ -196,8 +287,12 @@ class TrainLoop:
         self._metrics_f.flush()
 
     def close(self):
-        """Metrics file closed, the checkpoint writer joined, and signal
-        handlers the loop installed put back."""
+        """A staged-out optimizer state dropped, metrics file closed, the
+        checkpoint writer joined, and signal handlers the loop installed
+        put back."""
+        if self._opt_tx is not None:
+            self._opt_tx.close()
+            self._opt_tx = None
         if self._metrics_f:
             self._metrics_f.close()
             self._metrics_f = None

@@ -1,5 +1,5 @@
 """TrainSession of the port: one front door for training, after the JAX
-package's `repro/session/session.py`, staged engine only.
+package's `repro/session/session.py`, both engines on one device.
 
 It owns config resolution, the placement policy, the spool (built from
 one `SpoolIoConfig`), the data loader (the synthetic one unless the
@@ -24,12 +24,27 @@ with `install_signal_handlers`, a final checkpoint on SIGTERM/SIGINT.
 `trace=` enables the process tracer (unless one is enabled already)
 and writes the Chrome/Perfetto trace on `close()`.
 
+`engine="jit"` is the JAX package's jit engine on the port's one
+engine: the staged engine with its placement from
+`settings.activation_policy` ("remat" by default, "keep", or "spool"
+with `io.host_offload="activations"`, decoder layers as
+`settings.spool_stages` marks them; `policy_for_jit`), and the steps of
+`repro_torch.launch.steps`. `io.host_offload="opt_state"` stages the
+optimizer state through the spool between steps; `opt_overlap` (the
+kwarg, else `io.opt_overlap`; True: the eager worker, "sync": the same
+per-layer updates drained at the step's end) updates each layer as its
+gradients land in backward, its moments on the spool
+(`repro_torch.optim.overlap.OptBridge`, `opt_bridge`; its per-step
+counters join the metrics rows). A profiled AdaptivePolicy drives the
+jit engine through `settings=policy.plan_for_jit().apply(settings)`.
+
 Runs on the card (`device="cuda"`, the default) unless the caller asks
-for the CPU; without CUDA it raises rather than fall back. The jit
-engine and meshes are not ported yet and are refused.
+for the CPU; without CUDA it raises rather than fall back. Meshes are
+not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Union
@@ -38,18 +53,21 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import ModelConfig, SpoolIoConfig, resolve_config
-from repro_torch.core.engine import StagedEngine
-from repro_torch.core.policies import OffloadPolicy
+from repro_torch.core.engine import StagedEngine, layer_stage_names
+from repro_torch.core.policies import OffloadPolicy, policy_for_jit
 from repro_torch.core.report import StepReport
 from repro_torch.core.tree import tree_flatten
 from repro_torch.data.pipeline import ShardedLoader, SyntheticMarkovLM
+from repro_torch.launch.steps import (make_host_train_step,
+                                      make_overlap_train_step)
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import RunSettings
-from repro_torch.optim.optimizers import Optimizer, adamw, sgd
+from repro_torch.optim.optimizers import Optimizer, OptState, adamw, sgd
+from repro_torch.optim.overlap import OptBridge
 from repro_torch.resilience import unwrap_chain
 from repro_torch.runtime.trainer import TrainLoop, TrainState, batch_tokens
 
-_NOT_PORTED = "is not ported yet (ROADMAP §1)"
+ENGINES = ("staged", "jit")
 
 
 def resolve_optimizer(optimizer: Union[str, Optimizer], lr: float,
@@ -117,17 +135,45 @@ class TrainSession:
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  keep_last: int = 3,
                  trace: Optional[str] = None, trace_ring: int = 0,
+                 settings: Optional[RunSettings] = None,
+                 opt_overlap: Union[bool, str, None] = None,
                  install_signal_handlers: bool = False):
-        if engine != "staged":
-            raise NotImplementedError(f"engine {engine!r} {_NOT_PORTED}: "
-                                      "the port trains with the staged "
-                                      "engine")
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; "
+                             f"expected one of {ENGINES}")
+        if engine == "jit" and policy is not None:
+            raise ValueError(
+                "OffloadPolicy applies to the staged engine; the jit "
+                "engine takes its activation placement from "
+                "RunSettings.activation_policy and uses "
+                "io.host_offload ('opt_state' between-step staging or "
+                "'activations' per-layer spooling). To drive the jit "
+                "engine from a profiled AdaptivePolicy, pass "
+                "settings=policy.plan_for_jit().apply(settings)")
         if device != "cpu" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for but CUDA is "
                                "not available (pass device='cpu' to run "
                                "on the CPU)")
+        if settings is not None and settings.device != device:
+            raise ValueError(f"settings.device {settings.device!r} is not "
+                             f"the session's device {device!r}")
         self.cfg = (resolve_config(arch) if isinstance(arch, str)
                     else arch.validate())
+        self.io = io.validate() if io is not None else None
+        # the optimizer overlap: the kwarg wins, else the io config's
+        # knob. True runs the worker; "sync" the same per-layer updates
+        # at the step's end (the serial schedule of the same kernels)
+        if opt_overlap is None:
+            opt_overlap = self.io.opt_overlap if self.io is not None \
+                else False
+        if opt_overlap not in (False, True, "sync"):
+            raise ValueError(f"opt_overlap {opt_overlap!r}: False | True "
+                             "| 'sync'")
+        if opt_overlap and engine != "jit":
+            raise ValueError("opt_overlap is a jit-engine feature (the "
+                             "staged engine already updates per stage)")
+        self.engine_name = engine
+        self.opt_overlap = opt_overlap
         self.device = device
         self.api = build_model(self.cfg)
         self.optimizer = resolve_optimizer(optimizer, lr)
@@ -138,14 +184,23 @@ class TrainSession:
         self.ckpt_every = ckpt_every
         self.keep_last = keep_last
         self.install_signal_handlers = install_signal_handlers
-        self.settings = RunSettings(
+        base = RunSettings(
             attn_impl=attn_impl or ("torch" if device == "cpu" else "cuda"),
             attn_chunk=256, param_dtype=self.cfg.dtype, device=device)
-        self.engine = StagedEngine(
-            self.api, self.settings, self.optimizer, policy=policy,
-            io_config=io, min_offload_elements=min_offload_elements)
-        self.policy = self.engine.policy
-        self.spool = self.engine.spool
+        self.opt_bridge: Optional[OptBridge] = None
+        self._optb_snapshot: Dict[str, int] = {}
+        if engine == "staged":
+            self.settings = settings or base
+            self.engine = StagedEngine(
+                self.api, self.settings, self.optimizer, policy=policy,
+                io_config=self.io,
+                min_offload_elements=min_offload_elements)
+            self.policy = self.engine.policy
+            self.spool = self.engine.spool
+            self.host_offload = "none"
+            self._step_fn = make_host_train_step(self.engine)
+        else:
+            self._init_jit(base, settings, min_offload_elements)
         # the synthetic loader is the session's to close; a caller's is not
         self._own_loader = None
         if loader is None:
@@ -159,7 +214,6 @@ class TrainSession:
         self.opt_state = None
         self._step = 0
         self._loop: Optional[TrainLoop] = None
-        self._rep: Optional[StepReport] = None
         self._metrics_f = None
         self._stats_snapshot = None
         self._closed = False
@@ -176,6 +230,47 @@ class TrainSession:
         self._counters_snapshot: Dict[str, float] = {}
         self._cache_snapshot = None
         self._resil_snapshot: Dict[str, Any] = {}
+
+    def _init_jit(self, base, settings, min_offload_elements) -> None:
+        """The jit engine: the engine with the placement the settings
+        name, the serial or the overlap step, and the spool reported (as
+        the JAX session builds one) when the optimizer state or the
+        activations go through it."""
+        mode = self.io.host_offload if self.io is not None else "none"
+        if mode == "activations" and settings is not None \
+                and settings.activation_policy != "spool":
+            raise ValueError(
+                "io.host_offload='activations' requires "
+                "settings.activation_policy='spool' (got "
+                f"{settings.activation_policy!r}); either drop the "
+                "'activations' mode or let the session synthesize "
+                "the settings. A JitOffloadPlan that kept every "
+                "layer on device (activation_policy='keep') needs "
+                "no spool — run without host_offload='activations'")
+        self.settings = settings or dataclasses.replace(
+            base, activation_policy=("spool" if mode == "activations"
+                                     else "remat"))
+        self.engine = StagedEngine(
+            self.api, self.settings, self.optimizer,
+            policy=policy_for_jit(self.settings,
+                                  layer_stage_names(self.api)),
+            io_config=self.io, min_offload_elements=min_offload_elements,
+            engine_name="jit")
+        self.policy = None
+        self.host_offload = mode
+        self.spool = (self.engine.spool
+                      if mode != "none" or self.opt_overlap else None)
+        if self.opt_overlap:
+            self.opt_bridge = OptBridge(
+                self.optimizer, self.engine.spool,
+                eager=self.opt_overlap != "sync")
+            self.settings = dataclasses.replace(self.settings,
+                                                opt_sink=self.opt_bridge)
+            self.engine.settings = self.settings
+            self._step_fn = make_overlap_train_step(self.engine,
+                                                    self.opt_bridge)
+        else:
+            self._step_fn = make_host_train_step(self.engine)
 
     def init(self):
         """Random weights from a generator seeded with `seed` on the
@@ -211,12 +306,6 @@ class TrainSession:
         final checkpoint."""
         self._make_loop().request_preemption()
 
-    def _step_fn(self, params, opt_state, batches):
-        params, opt_state, rep = self.engine.train_step(params, opt_state,
-                                                        batches)
-        self._rep = rep
-        return params, opt_state, {"loss": rep.loss}
-
     def _make_loop(self) -> TrainLoop:
         if self._loop is None:
             self._loop = TrainLoop(
@@ -225,8 +314,34 @@ class TrainSession:
                                       self.opt_state),
                 loader=self._batches, ckpt_dir=self.ckpt_dir,
                 ckpt_every=self.ckpt_every, keep_last=self.keep_last,
+                spool=self.engine.spool, host_offload=self.host_offload,
+                opt_bridge=self.opt_bridge,
                 install_signal_handlers=self.install_signal_handlers)
         return self._loop
+
+    def _jit_report(self, step, dt, metrics) -> StepReport:
+        """The JAX jit session's row: the step's metrics (`ce`, `tokens`,
+        `loss`), the bridge's counter deltas, and on the card the
+        engine's device peak."""
+        rep = metrics["report"]
+        extra = {}
+        for k, v in metrics.items():
+            try:
+                extra[k] = float(v)
+            except (TypeError, ValueError):
+                pass
+        if self.opt_bridge is not None:
+            cur = self.opt_bridge.stats()
+            prev = self._optb_snapshot
+            extra.update({k: cur[k] - prev.get(k, 0) for k in cur})
+            self._optb_snapshot = cur
+        if "device_peak_bytes" in rep.extra:
+            extra["device_peak_bytes"] = rep.extra["device_peak_bytes"]
+        return StepReport(
+            loss=extra["loss"], step_time=dt,
+            peak_activation_bytes=rep.peak_activation_bytes,
+            backward_begin_bytes=rep.backward_begin_bytes, step=step,
+            engine="jit", extra=extra)
 
     def run(self, num_steps: int, *, resume: bool = False,
             on_report: Optional[Callable[[StepReport], None]] = None
@@ -239,10 +354,12 @@ class TrainSession:
         start = len(self.reports)
 
         def on_step(step, dt, metrics, batches):
-            rep, self._rep = self._rep, None
+            rep = (self._jit_report(step, dt, metrics)
+                   if self.engine_name == "jit" else metrics["report"])
             rep.step = step
             rep.stats, rep.obs = self._step_deltas()
-            rep.cache, rep.resilience = self._storage_deltas()
+            if self.spool is not None:
+                rep.cache, rep.resilience = self._storage_deltas()
             tokens = sum(batch_tokens(b) for b in batches)
             rep.tokens_per_s = tokens / rep.step_time if rep.step_time \
                 else 0.0
@@ -257,18 +374,34 @@ class TrainSession:
             # restored in place: the session's tensors hold the step
             self._step, self.params, self.opt_state = (
                 loop.state.step, loop.state.params, loop.state.opt_state)
-        state = loop.run(num_steps)
-        self._step, self.params, self.opt_state = (
-            state.step, state.params, state.opt_state)
+        if self.opt_bridge is not None and not self.opt_bridge.seeded:
+            # the bridge takes the moments over now, so the card holds
+            # the full state no longer than it takes to stage it out
+            self.opt_bridge.seed(self.opt_state, self.params)
+            self.opt_state = OptState(self.opt_state.step, None, None)
+            loop.state = TrainState(self._step, self.params,
+                                    self.opt_state)
+        # while the loop runs its state is the one reference: a state
+        # staged out between steps leaves the card, and the next step's
+        # fetch is its only copy there
+        self.opt_state = None
+        try:
+            loop.run(num_steps)
+        finally:
+            self._step, self.params, self.opt_state = (
+                loop.state.step, loop.state.params, loop.state.opt_state)
         return SessionResult(self.params, list(self.reports[start:]))
 
     def _step_deltas(self):
-        """The step's spool stats delta and, when a tracer is enabled,
-        the overlap analysis of the step's trace window."""
-        cur = self.spool.stats.snapshot()
-        prev = self._stats_snapshot
-        stats = cur.sub(prev) if prev is not None else cur
-        self._stats_snapshot = cur
+        """The step's spool stats delta (None without a spool, as the
+        JAX jit session has none) and, when a tracer is enabled, the
+        overlap analysis of the step's trace window."""
+        stats = None
+        if self.spool is not None:
+            cur = self.spool.stats.snapshot()
+            prev = self._stats_snapshot
+            stats = cur.sub(prev) if prev is not None else cur
+            self._stats_snapshot = cur
         tracer = obs.get_tracer()
         if tracer is None:
             return stats, None
@@ -328,9 +461,11 @@ class TrainSession:
         if self._closed:
             return
         self._closed = True
-        self.engine.close()
         if self._loop is not None:
-            self._loop.close()
+            self._loop.close()          # drops a staged-out opt state
+        if self.opt_bridge is not None:
+            self.opt_bridge.close()     # stops the worker, drops leases
+        self.engine.close()
         if self._own_loader is not None:
             self._own_loader.close()
         if self._metrics_f is not None:
@@ -338,7 +473,7 @@ class TrainSession:
         if self._tracer is not None and self.trace_path:
             from repro_torch.obs.export import write_chrome_trace
             write_chrome_trace(self.trace_path, self._tracer,
-                               extra={"engine": "staged",
+                               extra={"engine": self.engine_name,
                                       "arch": self.cfg.name})
         if self._owns_tracer:
             obs.disable()
@@ -350,5 +485,5 @@ class TrainSession:
         self.close()
 
 
-__all__ = ["TrainSession", "SessionResult", "resolve_optimizer",
+__all__ = ["ENGINES", "TrainSession", "SessionResult", "resolve_optimizer",
            "batch_tokens"]

@@ -1,7 +1,8 @@
 """The port stands alone: every `repro_torch` module (the hybrid's
 config, RG-LRU scan and mixer, the ROK curve, the Table 4 count, the
-resilience layer, the pool, aio, fault and factory modules and the cache
-manager among them), the root `chip_smoke.py` and the port's paper benchmarks
+resilience layer, the pool, aio, fault and factory modules, the cache
+manager, the optimizer overlap and the jit engine's step builders among
+them), the root `chip_smoke.py` and the port's paper benchmarks
 (`benchmarks/torch_*.py`) import with jax and ml_dtypes blocked and load
 nothing of the JAX package (`repro` / `repro.*`) nor the JAX benchmarks'
 `benchmarks.common`."""
@@ -51,5 +52,6 @@ def test_port_imports_without_jax_or_the_jax_package():
                    "core.rok", "core.endurance", "resilience.retry",
                    "resilience.health", "resilience.chaos", "io.bufpool",
                    "io.aio", "io.faults", "io.factory", "cache.placement",
-                   "cache.manager", "launch.cacheargs"):
+                   "cache.manager", "launch.cacheargs", "optim.overlap",
+                   "launch.steps"):
         assert f"repro_torch.{module}" in names, module

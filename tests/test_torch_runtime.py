@@ -143,11 +143,23 @@ def test_finite_loader_ends_cleanly_with_a_final_checkpoint(tmp_path):
 
 
 def test_loop_refuses_what_is_not_ported(tmp_path):
-    for kw in ({"host_offload": "opt_state"}, {"host_offload": True},
-               {"opt_bridge": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrainLoop(step_fn=_torch_step(), init_state=TrainState(0, {}, {}),
-                      loader=[], **kw)
+    # host offload and the opt bridge are ported (as the JAX loop maps
+    # them: True is "opt_state", a bridge turns the staging off, no
+    # spool means nothing to stage); an unknown mode is refused
+    state = TrainState(0, {}, {})
+    for kw, mode in (({"host_offload": "opt_state", "spool": object()},
+                      "opt_state"),
+                     ({"host_offload": True, "spool": object()},
+                      "opt_state"),
+                     ({"host_offload": "opt_state"}, "none"),
+                     ({"host_offload": "opt_state", "spool": object(),
+                       "opt_bridge": object()}, "none")):
+        loop = TrainLoop(step_fn=_torch_step(), init_state=state,
+                         loader=[], **kw)
+        assert loop.host_offload == mode
+    with pytest.raises(ValueError, match="host_offload"):
+        TrainLoop(step_fn=_torch_step(), init_state=state, loader=[],
+                  host_offload="optimizer")
 
 
 def _cfg():

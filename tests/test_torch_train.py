@@ -460,7 +460,9 @@ def test_cli_trains_two_steps_on_cpu(tmp_path, capsys):
     assert rows[0]["bytes_offloaded"] >= 0 and "peak_activation_bytes" in \
         rows[0]
     assert list((tmp_path / "spool").iterdir()) == []
-    for bad in (["--mesh", "x"], ["--engine", "jit"], ["--opt-overlap"],
-                ["--resume"]):
+    # the jit engine is ported; the overlap needs it and no clip
+    assert train_cli.parse_args(["--engine", "jit"]).engine == "jit"
+    for bad in (["--mesh", "x"], ["--opt-overlap"], ["--resume"],
+                ["--engine", "jit", "--opt-overlap", "--clip-norm", "1"]):
         with pytest.raises(SystemExit):
             train_cli.parse_args(bad)
