@@ -4,8 +4,11 @@ tp=1, the run's dtype), after `benchmarks/table4_offload.py`. The ratio is
 recorded with no bar: the port's pack hook stores torch's saved tensors
 (the layer stages' share is `layer_saved_mb`; the head's logits and the
 embed stage ride the spool too), not the JAX vjp residuals the analytic
-count models. `pcie_write_mb_s` is the rate that would hide the writes
-under half a step, as in the JAX script.
+count models. `layer_ratio` is the exact counter's bytes for the layers
+(`core.endurance.residual_bytes_per_layer` x layers, every saved tensor,
+the run's attention path; `layer_exact_mb`) over the estimate.
+`pcie_write_mb_s` is the rate that would hide the writes under half a
+step, as in the JAX script.
 
     PYTHONPATH=src python -m benchmarks.torch_table4 --paper \\
         --out chiprun_out/table4.json                         # on the card
@@ -26,7 +29,8 @@ from benchmarks.torch_common import (MIN_OFFLOAD_SMALL, PAPER_BATCHES,
                                      first_fit, parse_cli, write_rows)
 from repro_torch.configs import (PAPER_SCENARIOS, SMALL_SCENARIOS, bert,
                                  small_bert)
-from repro_torch.core.endurance import offloaded_bytes_per_step
+from repro_torch.core.endurance import (offloaded_bytes_per_step,
+                                        residual_bytes_per_layer)
 
 
 def run(batch: int = 8, seq: int = 128, steps: int = 3, *,
@@ -56,6 +60,9 @@ def run(batch: int = 8, seq: int = 128, steps: int = 3, *,
             run_cfg = (cfg if device != "cpu"
                        else dataclasses.replace(cfg, dtype="float32"))
             est = offloaded_bytes_per_step(run_cfg, res.batch, seq)
+            exact = run_cfg.num_layers * residual_bytes_per_layer(
+                run_cfg, res.batch, seq, offloadable_only=False,
+                attn_impl="torch" if device == "cpu" else "cuda")
             row.update({
                 "measured_mb": res.bytes_offloaded / 1e6,
                 "estimate_mb": est / 1e6,
@@ -64,7 +71,8 @@ def run(batch: int = 8, seq: int = 128, steps: int = 3, *,
                 / max(res.step_time_s / 2, 1e-9) / 1e6,
                 "batch": res.batch, "dtype": run_cfg.dtype,
                 "layer_saved_mb": res.layer_saved_bytes / 1e6,
-                "layer_ratio": res.layer_saved_bytes / max(est, 1),
+                "layer_exact_mb": exact / 1e6,
+                "layer_ratio": exact / max(est, 1),
                 "forwarded_mb": res.bytes_forwarded / 1e6,
                 "step_time_s": res.step_time_s,
             })

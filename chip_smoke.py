@@ -72,7 +72,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
      BERT) and 8 (T5: enc_embed, 2 encoder layers, enc_final, embed, 2
      decoder layers, head), and the flash kernel launched once per
      attention per step (the backward is the plain VJP): 4 for GPT and
-     BERT, 6 for T5; the tracked activation peaks of both runs;
+     BERT, 6 for T5; the tracked activation peaks of both runs; the
+     bytes the spool stored per stage in step 1; for GPT and BERT (and
+     mamba2 in phase 5) the layer stages' saved bytes equal to the exact
+     counter (`core.endurance.residual_bytes_per_layer` on the meta
+     device) times the layers. Then GPT again with the chunked
+     cross-entropy (`RunSettings(ce_chunk=512)`), kept and spooled:
+     bitwise to each other, its spool losses within 1e-3 relative of the
+     unchunked spool run's, a head stage that stores less than the
+     (B, S, V) f32 logits; its stored bytes and both device peaks
+     printed beside the unchunked run's;
   9. checkpoints and tracing on the paper's GPT (gpt-h8192-l4, phase 8's
      spool settings: B=4, S=1024, sgd, fs, raw, seed 0): a traced run of
      2 steps checkpointing every 2 steps prints each step's `obs_*`
@@ -135,7 +144,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
      times, on the spool's filesystem, the unlink of a 4 GiB blob and the
      longest 2 GiB device allocation made while an 8 GiB registered pool
      buffer is written in 2 GiB and in 64 MiB syscalls, and alone;
- 12. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 12. serve the rest: mamba2-2.7b and recurrentgemma-9b at full width
+     (random weights from seed 0), each built once: the last prefill
+     logits and the first decode step's logits through the kernels
+     against the plain path, in an f32 copy of the weights (5e-3 abs;
+     the bf16 difference is printed), then one trace (8 requests, 4
+     slots, prompts of 24-48 tokens, 16 new tokens, 16-token pages,
+     quantum 4) served through `make_server` / `Server` paged (fs, raw)
+     and dense from the same parameters. Tokens and every logits row
+     bitwise equal, every parked state (conv windows, f32 recurrent
+     state, K/V pages) restored bitwise leaf by leaf, the spool
+     directory empty after close, and per prefill 64 SSD calls (mamba2),
+     26 RG-LRU and 12 flash calls (recurrentgemma) in each run; TTFT,
+     ITL p50/p99 and decode tok/s printed. The SSD kernel against its
+     plain version at the trace's prompt lengths, at 37 and at 200
+     (chunk 8): y and the final state, and its time at the longest
+     prompt beside its bound;
+ 13. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -162,6 +187,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "gpt-h8192-l4"
 SERVE_ARGS = ["--arch", ARCH, "--seed", "0", "--device", "cuda",
@@ -249,6 +275,26 @@ STORAGE_HOST_BOUND = "2gb"
 # 12 * 8192**2 parameters, m and v in f32: 25.77 GB), so a design that
 # holds two or more layers' moments on the card at once fails
 OPT_STEPS, OPT_SYNC_STEPS = 3, 2
+# phase 8's chunked-CE runs: the JAX package's `make_train_step` default,
+# and the bar on their losses against the unchunked ones (the order of
+# the sum changes; 3 sgd steps)
+CE_CHUNK, TOL_CE_CHUNK = 512, 1e-3
+# phase 12: the first logits through the kernels against the plain path,
+# in an f32 copy of the served weights, where the two differ by the order
+# of f32 sums (64 layers of mamba2-2.7b: 1.3-1.4e-4 at S=40, logit std
+# 0.89, on an H100 80GB HBM3 at 700 W); in the served bf16 weights
+# recurrentgemma-9b is held to TOL_E2E (0.15-0.16 there), mamba2-2.7b
+# only printed: its 64 layers differ by 0.53-0.73, the rounding of each
+# layer's output amplifying that order through the depth
+TOL_E2E_F32 = 5e-3
+# phase 12: the serving trace of mamba2-2.7b and recurrentgemma-9b (its
+# prompt lengths are drawn in [24, 48], so the SSD scan's chunk is the
+# prompt length), and two more lengths for the SSD and flash kernels: an
+# odd one, and one above 128 that is no multiple of it (SSD chunk 8;
+# flash's last query and key tiles partial)
+REST_SERVE = dict(requests=8, slots=4, prompt_len=48, max_new=16,
+                  cache_len=64, page_tokens=16, quantum=4)
+SERVE_EXTRA = (37, 200)
 OPT_DROP_GB = 12.9
 # the attention of phase 8's GPT and BERT: (B, S, H, D); BERT's is
 # bidirectional, GPT's causal; T5's both, at its batch (its encoder
@@ -834,7 +880,8 @@ def drained_spool_policy():
 
 
 def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
-              batch=1, keep_params=None, snap=None):
+              batch=1, keep_params=None, snap=None, settings=None,
+              stage_bytes=None):
     """TrainSession steps at B=batch, S=seq on the card. Every kernel's
     launch count is set to 0 just before the steps and read just after.
     Returns (losses, params, reports, {kernel: launches}, run peak, stage
@@ -843,6 +890,9 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     bitwise equal to those (one host copy of a large model, not two).
     Given a dict `snap`, its "params" get a host copy of the parameters
     after step 2 (the run goes on as one loop: `run(2)`, then `run(1)`).
+    `settings`: the session's RunSettings (the default's, with the
+    kernels, otherwise). Given a list `stage_bytes`, it gets the bytes
+    the spool stored for each stage of the first step, in stage order.
     A spool run prints its pool's stats."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.data.pipeline import encoder_decoder_batches
@@ -856,9 +906,18 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
               if cfg.family == "encdec" else None)
     sess = TrainSession(cfg, policy=policy, io=io, optimizer=optimizer,
                         lr=3e-4, batch_size=batch, seq_len=seq, seed=0,
-                        device="cuda", attn_impl="cuda", loader=loader)
+                        device="cuda", attn_impl="cuda", loader=loader,
+                        settings=settings)
     if hasattr(policy, "spool"):
         policy.spool = sess.spool
+    if stage_bytes is not None:
+        offload, spool = sess.spool.offload, sess.spool
+
+        def counted(key, tree):
+            offload(key, tree)
+            if len(stage_bytes) < len(sess.engine.stage_names):
+                stage_bytes.append(spool._records[key]["nbytes"])
+        spool.offload = counted
     try:
         sess.init()
         for k in kernels:
@@ -936,30 +995,39 @@ def same_params(a, b) -> bool:
 
 
 def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
-                  hold=False):
+                  hold=False, settings=None, label=None):
     """Full-width training of `cfg` kept on the card, then spooled (fs,
     raw) to a fresh directory: bitwise losses and parameters, a lower
     peak, bytes offloaded, every stored stage fetched (the stage count
     is the engine's, and equal to `stages` where given), the directory
     empty after close, and each kernel's launches equal to `want` in
-    each run. Returns the spool run's launches (the main path's); with
-    `hold`, also its losses, the final parameters' host copy, each
-    step's device peak and the keep run's parameters after step 2."""
+    each run. A model of one-block layers (no encoder) also holds the
+    layer stages' saved bytes to the exact counter
+    (`core.endurance.residual_bytes_per_layer` on the meta device).
+    Returns the spool run's launches (the main path's); with `hold`,
+    also its losses, the final parameters' host copy, each step's device
+    peak, the keep run's parameters after step 2 and the bytes the spool
+    stored per stage in step 1, with each run's device peak."""
     from repro_torch.configs import SpoolIoConfig
+    from repro_torch.core.endurance import residual_bytes_per_layer
     from repro_torch.core.policies import KeepPolicy, SpoolPolicy
+    from repro_torch.models.transformer import build_segments
     deterministic()
+    label = label or cfg.name
     snap = {} if hold else None
+    stage_bytes = []
     lk, pk, rk, nk, peak_k, _ = train_run(cfg, KeepPolicy(), None,
-                                          f"{cfg.name} keep",
+                                          f"{label} keep",
                                           optimizer=optimizer, seq=seq,
-                                          batch=batch, snap=snap)
+                                          batch=batch, snap=snap,
+                                          settings=settings)
     spool_dir = tempfile.mkdtemp(prefix="chip_smoke_spool_")
     mnt, fstype = mount_of(spool_dir)
     ls, same, rs, ns, peak_s, n_stages = train_run(
         cfg, SpoolPolicy(), SpoolIoConfig(backend="fs", directory=spool_dir,
                                           codec="raw", pool_bytes=POOL_BYTES),
-        f"{cfg.name} spool", optimizer=optimizer, seq=seq, batch=batch,
-        keep_params=pk)
+        f"{label} spool", optimizer=optimizer, seq=seq, batch=batch,
+        keep_params=pk, settings=settings, stage_bytes=stage_bytes)
     n_leaves = len(pk)
     if not hold:
         del pk
@@ -968,7 +1036,7 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
         os.rmdir(spool_dir)
     act_k, act_s = (max(r.peak_activation_bytes for r in reps)
                     for reps in (rk, rs))
-    print(f"train: {cfg.name} {cfg.num_layers + cfg.num_decoder_layers} "
+    print(f"train: {label} {cfg.num_layers + cfg.num_decoder_layers} "
           f"layers in {n_stages} "
           f"stages, d_model {cfg.d_model}, {TRAIN_STEPS} steps at B={batch} "
           f"S={seq}; keep losses {lk}, spool losses {ls}; peak device "
@@ -990,9 +1058,21 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
         check(nk[name] == ns[name] == n, f"{name} launches "
               f"{nk[name]}/{ns[name]}, want {n}")
     print(f"  keep vs spool: losses and {n_leaves} parameter leaves bitwise "
-          f"equal")
+          f"equal; stored bytes per stage in step 1 {stage_bytes}")
+    if cfg.family != "encdec" and all(len(seg.blocks) == 1
+                                      for seg in build_segments(cfg)):
+        t0 = time.perf_counter()
+        per = residual_bytes_per_layer(
+            cfg, batch, seq, offloadable_only=False,
+            attn_impl=settings.attn_impl if settings else "cuda")
+        got = rs[0].extra["layer_saved_bytes"]
+        print(f"  layer stages' saved bytes {got}, exact counter "
+              f"{cfg.num_layers} x {per} (meta device, "
+              f"{time.perf_counter() - t0:.1f}s)")
+        check(got == cfg.num_layers * per, "the exact residual counter "
+              "disagrees with the engine's layer stages")
     return (ns, ls, pk, [r.extra["device_peak_bytes"] for r in rs],
-            snap["params"]) if hold else ns
+            snap["params"], stage_bytes, (peak_k, peak_s)) if hold else ns
 
 
 def train_phase(smi):
@@ -1048,7 +1128,48 @@ def paper_train_phase(smi):
             batch=T5_BATCH if encdec else PAPER_BATCH,
             stages=PAPER_LAYERS + 2 + 2 * encdec, hold=fam == "gpt")
     out["gpt"], *gpt_run = out["gpt"]
-    return out, gpt_run
+    ce_chunk_runs(smi, gpt_run[0], *gpt_run[4:])
+    return out, gpt_run[:4]
+
+
+def ce_chunk_runs(smi, plain_losses, plain_bytes, plain_peaks):
+    """Phase 8's GPT again with the chunked CE (`RunSettings.ce_chunk`),
+    kept and spooled: bitwise to each other, the spool losses within
+    TOL_CE_CHUNK relative of the unchunked spool run's, and a head stage
+    that stores no more than its labels; its stored bytes and both runs'
+    device peaks printed beside the unchunked run's."""
+    from repro_torch.configs import gpt
+    from repro_torch.models.transformer import RunSettings
+    from repro_torch.optim.optimizers import sgd
+    cfg = gpt(PAPER_HIDDEN, PAPER_LAYERS)
+    settings = RunSettings(attn_impl="cuda", attn_chunk=256,
+                           param_dtype=cfg.dtype, device="cuda",
+                           ce_chunk=CE_CHUNK)
+    t0 = time.perf_counter()
+    _, losses, _, _, _, stage_bytes, (peak_k, peak_s) = keep_vs_spool(
+        cfg, PAPER_SEQ, sgd(PAPER_LR),
+        {"flash_attention": PAPER_LAYERS * TRAIN_STEPS, "ssd_scan": 0,
+         "rglru_scan": 0}, smi, batch=PAPER_BATCH, stages=PAPER_LAYERS + 2,
+        hold=True, settings=settings,
+        label=f"{cfg.name} ce_chunk={CE_CHUNK}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    logits = PAPER_BATCH * PAPER_SEQ * cfg.padded_vocab * 4
+    print(f"  ce_chunk={CE_CHUNK}: spool losses {losses} vs unchunked "
+          f"{plain_losses} (largest relative difference {rel:.3e}, tol "
+          f"{TOL_CE_CHUNK:g}); head stage stored {stage_bytes[-1]} bytes "
+          f"(unchunked {plain_bytes[-1]}; (B, S, V) f32 logits are "
+          f"{logits}); device peak keep {peak_k / 1e9:.3f} GB, spool "
+          f"{peak_s / 1e9:.3f} GB (unchunked {plain_peaks[0] / 1e9:.3f} / "
+          f"{plain_peaks[1] / 1e9:.3f} GB); {time.perf_counter() - t0:.1f}s "
+          f"on {smi}")
+    check(rel <= TOL_CE_CHUNK, f"chunked CE losses {losses} differ from "
+          f"the unchunked {plain_losses} by {rel} relative")
+    # the stage's input (the hidden state) is a graph leaf the engine
+    # holds, so the only tensors it may store are the labels, which fall
+    # under the offload threshold
+    labels = PAPER_BATCH * PAPER_SEQ * 8
+    check(stage_bytes[-1] <= labels, "the chunked head stage stored "
+          f"{stage_bytes[-1]} bytes, more than the labels' {labels}")
 
 
 def device_busy_s(prof_trace):
@@ -1809,6 +1930,266 @@ def write_stall_probe(work):
           f"{out[64 << 20]:.3f} s in 64 MiB syscalls")
 
 
+def ssd_serve_check(gen, peaks, smi, lengths):
+    """The SSD-scan kernel at the ragged prompt lengths of the serving
+    trace (chunk pick_chunk(S, 128): S itself up to 128), an odd length
+    and a length above 128 that halves the chunk to 8: y and the final
+    state against the plain version, at the f32 cases' scales
+    elementwise (TOL_SSD) and in the serve path's layout (bf16 B/C views
+    of the conv output, full-width decays) relative to the output scale
+    (TOL_SSD_PATH). Its time at the longest prompt beside its bound."""
+    from repro_torch.kernels.ssd_scan import (pick_chunk, ssd_chunked,
+                                              ssd_scan_fwd)
+    H, P, N, d_inner = 80, 64, 128, 5120
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def path_inputs(S):
+        conv = rand((1, S, d_inner + 2 * N)).bfloat16()
+        return (rand((1, S, H, P)),
+                -torch.nn.functional.softplus(rand((1, S, H))),
+                conv[..., d_inner:d_inner + N], conv[..., d_inner + N:])
+
+    worst = worst_rel = 0.0
+    for S in sorted(set(lengths) | set(SERVE_EXTRA)):
+        xh, a = rand((1, S, H, P)), -rand((1, S, H), 0.2).abs()
+        Bs, Cs = rand((1, S, N)), rand((1, S, N))
+        y, st = ssd_scan_fwd(xh, a, Bs, Cs, chunk=128)
+        torch.cuda.synchronize()
+        yr, sr = ssd_chunked(xh, a, Bs, Cs, 128)
+        ok = all(bool(torch.all((g - w).abs() <= TOL_SSD + TOL_SSD * w.abs()))
+                 for g, w in ((y, yr), (st, sr)))
+        err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
+        xh, a, Bs, Cs = path_inputs(S)
+        y, st = ssd_scan_fwd(xh, a, Bs, Cs, chunk=128)
+        torch.cuda.synchronize()
+        yr, sr = ssd_chunked(xh, a, Bs, Cs, 128)
+        rel = max((y - yr).abs().max().item() / yr.abs().max().item(),
+                  (st - sr).abs().max().item() / sr.abs().max().item())
+        ok = ok and rel <= TOL_SSD_PATH and bool(torch.isfinite(y).all())
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        print(f"  ssd_scan serve prefill S={S} chunk {pick_chunk(S, 128)}: "
+              f"y and final state max_abs_err {err:.3e} (tol {TOL_SSD:g}), "
+              f"bf16 B/C relative {rel:.3e} (tol {TOL_SSD_PATH:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok and math.isfinite(err), f"ssd_scan disagrees with its "
+              f"plain version at the serve length {S}")
+    S = max(lengths)
+    xh, a, Bs, Cs = path_inputs(S)
+    kernel_ms = time_ms(lambda: ssd_scan_fwd(xh, a, Bs, Cs, chunk=128))
+    plain_ms = time_ms(lambda: ssd_chunked(xh, a, Bs, Cs, 128))
+    b_ms, b_by = ssd_bound_ms(xh, a, Bs, Cs, 128, peaks)
+    print(f"  ssd_scan serve prefill shape B=1 S={S} H={H} P={P} N={N} "
+          f"bf16 B/C: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_us {1e3 * b_ms:.2f} ({b_by}) on {smi}")
+    return {"max_abs_err": worst, "rel_err": worst_rel, "S": S,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound": (b_ms, b_by)}
+
+
+def flash_serve_check(gen, lengths):
+    """The bf16 tensor-core flash instance at the shape recurrentgemma-9b's
+    serving prefill gives it, q (1, S, 16, 256), k/v (1, S, 1, 256),
+    causal, window 2048, at the trace's prompt lengths (ragged, partial
+    query and key tiles) and SERVE_EXTRA's, against the f32 plain
+    attention per row (TOL_BF16_ROW). Returns (max_abs_err, worst row
+    relative error)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_reference
+    worst = worst_rel = 0.0
+    for S in sorted(set(lengths) | set(SERVE_EXTRA)):
+        q = torch.randn((1, S, 16, 256), generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn((1, S, 1, 256), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        out = flash_attention(q, k, v, causal=True, window=2048)
+        torch.cuda.synchronize()
+        want = attention_reference(q.float(), k.float(), v.float(),
+                                   causal=True, window=2048)
+        err, rel, ok = attn_error(out, want, TOL_BF16_ROW)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        print(f"  flash_attention serve prefill S={S} Hq=16 Hkv=1 D=256 "
+              f"causal window 2048 bf16: max_abs_err {err:.3e} "
+              f"row_rel_err {rel:.3e} tol {TOL_BF16_ROW:g} of the row max "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention disagrees with its plain version at "
+              f"the serve length {S}")
+    return worst, worst_rel
+
+
+def serve_rest_arch(arch, gen, smi, want, bf16_tol):
+    """One model of phase 12 at full width (random weights from seed 0):
+    the first decode step's logits through the kernels against the plain
+    path (in f32 at TOL_E2E_F32, in the served bf16 at `bf16_tol` where
+    it is not None), then the trace served paged (fs, raw; every parked
+    state checked on restore) and dense from the same parameters.
+    `want`: kernel -> launches per prefill. Returns (the paged run's
+    launches, the trace's prompt lengths)."""
+    from benchmarks import torch_serve_kv
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import RunSettings
+    kernels = (flash_attention, ssd_scan, rglru_scan)
+    t0 = time.perf_counter()
+    cfg, api, params, settings = serve.build_runtime(arch, seed=0,
+                                                     device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve: {arch} weights ready in {time.perf_counter() - t0:.1f}s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    S0 = REST_SERVE["prompt_len"] - 8
+    toks = torch.randint(0, cfg.vocab_size, (1, S0), generator=gen,
+                         device="cuda")
+    nxt = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                        device="cuda")
+
+    def first_logits(api_, params_, dtype):
+        """(last prefill logits, first decode logits) through the kernels
+        and through the plain path."""
+        out = []
+        with torch.inference_mode():
+            for impl in ("cuda", "torch"):
+                st = RunSettings(attn_impl=impl, attn_chunk=256,
+                                 param_dtype=dtype, device="cuda")
+                lp, cache = api_.prefill(params_, {"tokens": toks}, st,
+                                         cache_len=REST_SERVE["cache_len"])
+                ld = api_.decode_step(params_, cache, {"tokens": nxt},
+                                      torch.tensor([S0], device="cuda"), st)
+                out.append((lp[..., :cfg.vocab_size].float(),
+                            ld[..., :cfg.vocab_size].float()))
+                del cache
+        (pk, dk), (pp, dp) = out
+        check(bool(torch.isfinite(dk).all() and torch.isfinite(pk).all()),
+              f"{arch}: non-finite {dtype} logits")
+        return ((pk - pp).abs().max().item(), (dk - dp).abs().max().item(),
+                dp.std().item(), bool(dk.argmax() == dp.argmax()))
+
+    # the served weights cast to f32: there the two paths differ by the
+    # order of f32 sums only; in bf16 a deep random model (mamba2's 64
+    # layers) turns that order into logit differences of order one
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    leaves, tdef = tree_flatten(params)
+    params32 = tree_unflatten(tdef, [t.float() for t in leaves])
+    del leaves
+    e32 = first_logits(build_model(cfg32), params32, "float32")
+    del params32
+    torch.cuda.empty_cache()
+    e16 = first_logits(api, params, cfg.dtype)
+    for dtype, (err_p, err_d, std, same) in (("float32", e32),
+                                             (cfg.dtype, e16)):
+        bar = (f"tol {TOL_E2E_F32:g}" if dtype == "float32" else
+               f"tol {bf16_tol:g}" if bf16_tol is not None else "no bar")
+        print(f"  {arch} {dtype} prefill (S={S0}) then one decode step, "
+              f"kernels vs plain path: last prefill logits max_abs_err "
+              f"{err_p:.3e}, first decode logits {err_d:.3e} (logit std "
+              f"{std:.3f}, {bar}), decode argmax equal {same}")
+    check(max(e32[:2]) <= TOL_E2E_F32, f"{arch}: f32 logits through the "
+          f"kernels differ from the plain path by {max(e32[:2])}")
+    check(bf16_tol is None or max(e16[:2]) <= bf16_tol, f"{arch}: "
+          f"{cfg.dtype} logits through the kernels differ from the plain "
+          f"path by {max(e16[:2])}")
+
+    args = torch_serve_kv.parse_args(
+        [f"--{k.replace('_', '-')}={v}" for k, v in REST_SERVE.items()]
+        + ["--prefetch-depth=2", "--seed=0"])
+    runs = {}
+    for kind in ("paged", "dense"):
+        kv_dir = tempfile.mkdtemp(prefix="chip_smoke_kv_") \
+            if kind == "paged" else None
+        where = " ".join(mount_of(kv_dir)) if kv_dir else ""
+        spool = (serve.build_kv_spool("fs", kv_dir, "raw", cuda=True)
+                 if kind == "paged" else None)
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t1 = time.perf_counter()
+        try:
+            srv, rep, _, parking = torch_serve_kv.run_side(
+                (cfg, api, params, settings), kind, args, spool)
+        finally:
+            if spool is not None:
+                spool.close()
+        secs = time.perf_counter() - t1
+        launches = {k.__name__: k.launches for k in kernels}
+        left = os.listdir(kv_dir) if kv_dir else []
+        if kv_dir and not left:
+            os.rmdir(kv_dir)
+        restores = parking["restores"]
+        for line in serve.report_lines(rep):
+            print(f"  {arch} {kind}: {line}")
+        print(f"  {arch} {kind}: {secs:.2f}s (server build included), "
+              f"launches {launches}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, ttft p50 "
+              f"{rep.ttft_p50_ms:.1f} ms, itl p50 {rep.itl_p50_ms:.2f} ms "
+              f"p99 {rep.itl_p99_ms:.2f} ms, decode {rep.decode_tok_s:.1f} "
+              f"tok/s"
+              + (f"; {len(restores)} restores checked leaf by leaf "
+                 f"({sum(n for _, n in restores)} leaves); spool dir on "
+                 f"{where}" if spool else ""))
+        for name, per in want.items():
+            check(launches[name] == per * rep.kv["prefills"],
+                  f"{arch} {kind}: {name} launches {launches[name]}, want "
+                  f"{per} x {rep.kv['prefills']} prefills")
+        check(not parking["mismatched"], f"{arch}: restored state differs "
+              f"from the parked one: {parking['mismatched'][:5]}")
+        check(not left, f"{arch}: spool directory not empty after close: "
+              f"{left[:5]}")
+        runs[kind] = (srv, rep, launches, restores)
+    (sp, rp, lp, restores), (sd, _, _, _) = runs["paged"], runs["dense"]
+    check(rp.preemptions > 0 and rp.kv["evictions"] > 0,
+          f"{arch}: no preemption in the paged run")
+    check(rp.kv["restores"] == rp.kv["evictions"] == len(restores),
+          f"{arch}: {rp.kv['evictions']} evictions, {rp.kv['restores']} "
+          f"restores, {len(restores)} checked")
+    check(rp.kv["pages_evicted"] == rp.kv["pages_restored"]
+          and rp.kv["bytes_evicted"] == rp.kv["bytes_restored"] > 0,
+          f"{arch}: evicted pages/bytes differ from the restored")
+    check(len(sp.finished) == REST_SERVE["requests"]
+          and torch_serve_kv.bitwise_parity(sp, sd),
+          f"{arch}: paged tokens or logits differ from the dense ones")
+    rows = sum(len(s.logits) for s in sp.finished)
+    check(all(r.shape == (cfg.padded_vocab,) for s in sp.finished
+              for r in s.logits), f"{arch}: logits rows of the wrong width")
+    print(f"  {arch} paged vs dense: {rows} logits rows bitwise equal, "
+          f"tokens equal for {len(sp.finished)} requests; "
+          f"{rp.kv['evictions']} states parked ({rp.kv['bytes_evicted']} "
+          f"bytes, {rp.kv['pages_evicted']} pages) and restored bitwise; "
+          f"{time.perf_counter() - t0:.1f}s on {smi}")
+    lengths = [len(s.prompt) for s in sp.finished]
+    del sp, sd, runs, params, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lp, lengths
+
+
+def serve_rest_phase(gen, peaks, smi):
+    """Phase 12: mamba2-2.7b and recurrentgemma-9b served at full width;
+    the SSD and flash kernels at the trace's ragged prefill lengths.
+    Returns ({arch: the paged run's launches}, the SSD serve-shape
+    numbers, the flash serve-shape errors)."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.api import build_model
+    rg = resolve_config(RG_ARCH)
+    kinds = [b.mixer for seg in build_model(rg).segments
+             for _ in range(seg.n_repeat) for b in seg.blocks]
+    t0 = time.perf_counter()
+    m2, lengths = serve_rest_arch(
+        TRAIN_ARCH, gen, smi,
+        {"ssd_scan": resolve_config(TRAIN_ARCH).num_layers,
+         "flash_attention": 0, "rglru_scan": 0}, None)
+    ssd = ssd_serve_check(gen, peaks, smi, lengths)
+    rgl, lengths = serve_rest_arch(
+        RG_ARCH, gen, smi,
+        {"rglru_scan": kinds.count("rglru"),
+         "flash_attention": kinds.count("attn"), "ssd_scan": 0}, TOL_E2E)
+    flash = flash_serve_check(gen, lengths)
+    print(f"serve the rest: {time.perf_counter() - t0:.1f}s")
+    return {TRAIN_ARCH: m2, RG_ARCH: rgl}, ssd, flash
+
+
 def opt_phase(smi):
     """Phase 11: the optimizer state and the jit engine on the paper's
     GPT with adamw: (a) staged, keep, the fused update; (b) jit, the
@@ -2097,13 +2478,20 @@ def main():
 
     # ---- 11. the optimizer state and the jit engine on the paper's GPT
     opt_launches = opt_phase(smi)
+    t6 = time.perf_counter()
+
+    # ---- 12. serve mamba2 and recurrentgemma at full width
+    rest_launches, ssd_serve, flash_serve = serve_rest_phase(
+        gen, peaks, smi)
     print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
           f"{t2 - t1:.1f}s, GPT, BERT and T5 {t3 - t2:.1f}s, checkpoints "
           f"and tracing {t4 - t3:.1f}s, storage and resilience "
           f"{t5 - t4:.1f}s, optimizer state and the jit engine "
-          f"{time.perf_counter() - t5:.1f}s")
+          f"{t6 - t5:.1f}s; serve the rest "
+          f"{time.perf_counter() - t6:.1f}s; the script "
+          f"{time.perf_counter() - T_START:.1f}s")
 
-    # ---- 12. result
+    # ---- 13. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2154,6 +2542,12 @@ def main():
         "launches_per_storage_run": storage_launches,
         # phase 11: the overlap run (c), adamw, 3 steps
         "launches_per_opt_overlap_run": opt_launches,
+        # phase 12: recurrentgemma-9b served paged (8 prefills)
+        "launches_per_rg_serve_run": rest_launches[RG_ARCH][
+            "flash_attention"],
+        # phase 12: the bf16 D=256 instance at the serve prefill lengths
+        "serve_max_abs_err": flash_serve[0],
+        "serve_max_row_rel_err": flash_serve[1],
         "noncausal_max_abs_err": bert_attn["max_abs_err"],
         "noncausal_max_row_rel_err": bert_attn["max_row_rel_err"],
         "noncausal_ms": bert_attn["ms"],
@@ -2196,6 +2590,15 @@ def main():
         "ms_over_library_ms": None,
         "bound_over_ms": ssd_b_ms / ssd_ms,
         "kernels_per_call": KERNELS_PER_CALL,
+        # phase 12: mamba2-2.7b served paged, prefill at ragged lengths
+        "launches_per_serve_run": rest_launches[TRAIN_ARCH]["ssd_scan"],
+        "serve_max_abs_err": ssd_serve["max_abs_err"],
+        "serve_rel_err": ssd_serve["rel_err"],
+        "serve_seq": ssd_serve["S"],
+        "serve_ms": ssd_serve["ms"],
+        "serve_plain_ms": ssd_serve["plain_ms"],
+        "serve_bound_ms": ssd_serve["bound"][0],
+        "serve_bound_by": ssd_serve["bound"][1],
     }, {
         "name": "rglru_scan",
         "route": "cuda",
@@ -2227,6 +2630,8 @@ def main():
         "backward_ms": rg["backward_ms"],
         "backward_ms_back_to_back": rg["backward_ms_back_to_back"],
         "backward_bound_ms": rg["backward_bound"][0],
+        # phase 12: recurrentgemma-9b served paged (forward only)
+        "launches_per_serve_run": rest_launches[RG_ARCH]["rglru_scan"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -43,7 +43,10 @@ Each stage works on its own detached per-layer parameter leaves (views
 of the stacked (L, ...) leaves), so a stage's backward never
 materialises a full-size gradient of a stacked leaf; per-stage gradients
 are written into one stacked gradient tree (`_add_grads`). The
-optimizer then updates the parameters in place.
+optimizer then updates the parameters in place. When
+`settings.ce_chunk` applies, the head stage is the chunked CE
+(`models/api.py::chunked_ce`): it saves no (B, S, V) logits, under
+either engine name (the JAX staged engine ignores the setting).
 
 The gradient tap (the optimizer overlap, `repro_torch.optim.overlap`):
 with `settings.opt_sink` set, once a layer stage's last microbatch has
@@ -75,8 +78,9 @@ from repro_torch.core.report import StepReport
 from repro_torch.core.spool import (MIN_OFFLOAD_ELEMENTS, SpoolLoadError,
                                     build_spool)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
-from repro_torch.models.api import (ModelApi, ce_loss, embed_in,
-                                    encoder_config, head)
+from repro_torch.models.api import (ModelApi, ce_chunk_applies, ce_loss,
+                                    chunked_ce, embed_in, encoder_config,
+                                    head)
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import RunSettings, apply_block, layer
 
@@ -208,6 +212,10 @@ class StagedEngine:
                 n += 1
 
         def head_fn(p, x, labels):
+            # chunked CE saves the stage input (held as a graph leaf
+            # anyway), the parameters and the labels: no (B, S, V) logits
+            if ce_chunk_applies(settings.ce_chunk, labels.shape[1]):
+                return chunked_ce(p, x, labels, cfg, settings.ce_chunk)[0]
             return ce_loss(head(p, x, cfg), labels)[0]
         stages.append(_Stage("head", "head", head_fn))
         return stages

@@ -113,9 +113,9 @@ class StripedBackend(StorageBackend):
     (§3.4 uses 4x D7-P5810). A blob is split into `chunk_bytes` chunks;
     chunk i *prefers* device ((crc32(key) + i) % N), so sequential
     writes load all devices evenly and reads fan out across the array.
-    Per-device byte counters are what a per-drive wear model reads (the
-    JAX package's `core.endurance.project_device_lifespans`; the port's
-    waits for the Fig. 9 slice).
+    Per-device byte counters (`per_device_write_bytes`) are what the
+    per-drive wear model reads
+    (`core.endurance.project_device_lifespans`).
 
     Resilience: a chunk write that fails is retried on the next-best
     healthy device (ordered by free bytes), and the *actual* placement

@@ -135,9 +135,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"not {q.device.type}")
+    # meta tensors (shape-only counting, core/endurance.py) take the
+    # kernel path's autograd Function and launch nothing
     return _FlashAttention.apply(q, k, v, causal, window, logit_cap)
 
 
@@ -192,6 +194,8 @@ def _launch(q, k, v, *, causal, window, logit_cap):
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        return o
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().repro_flash_attention_fwd(

@@ -267,6 +267,8 @@ def rglru_scan_fwd(log_a, x, *, reverse: bool = False):
     _check(log_a, x)
     if x.device.type == "cpu":
         return rglru_sequential(log_a, x, reverse=reverse)
+    if x.device.type == "meta":      # shape-only (core/endurance.py)
+        return torch.empty(x.shape, dtype=torch.float32, device="meta")
     _on_card(x)
     plan = check_kernel_inputs(log_a, x)
     h = torch.empty(x.shape, dtype=torch.float32, device=x.device)

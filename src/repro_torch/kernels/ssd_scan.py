@@ -212,7 +212,7 @@ def ssd_scan_fwd(xh, dA_log, B_s, C_s, *, chunk: int = 128):
     _check(xh, dA_log, B_s, C_s)
     if xh.device.type == "cpu":
         return ssd_chunked(xh, dA_log, B_s, C_s, chunk)
-    if xh.device.type != "cuda":
+    if xh.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
                          f"{xh.device.type}")
     B, S, H, P = xh.shape
@@ -221,6 +221,8 @@ def ssd_scan_fwd(xh, dA_log, B_s, C_s, *, chunk: int = 128):
     f32 = dict(dtype=torch.float32, device=xh.device)
     y = torch.empty((B, S, H, P), **f32)
     st = torch.empty((B, H, P, N), **f32)
+    if xh.device.type == "meta":     # shape-only (core/endurance.py)
+        return y, st
     G, La, sc = (torch.empty(shape, **f32)
                  for shape in plan["scratch"].values())
     with torch.cuda.device(xh.device):

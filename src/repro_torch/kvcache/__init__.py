@@ -25,7 +25,15 @@ __all__ = [
 
 def build_manager(kind: str, api, params, settings, kvcfg: KVCacheConfig,
                   n_slots: int, spool=None):
-    """A KV-cache manager: kind in {"paged", "dense"}."""
+    """A KV-cache manager: kind in {"paged", "dense"}. An
+    encoder-decoder is refused: serving takes no encoder input, as in
+    the JAX package (its decode runs through `decode_step` after
+    `prefill`; ROADMAP §3)."""
+    if api.enc_segments:
+        raise ValueError(
+            f"{api.cfg.name}: an encoder-decoder is not served through a "
+            "KV-cache manager (no encoder input; prefill then decode_step "
+            "it, ROADMAP §3)")
     if kind == "paged":
         return PagedKVCache(api, params, settings, kvcfg, n_slots, spool)
     if kind == "dense":

@@ -2,16 +2,26 @@
 paged KV pool, from the JAX package's `repro/kvcache/adapters.py`, on
 torch tensors with an explicit device.
 
+A model's decode cache is heterogeneous: full-attention K/V grows with
+the sequence and is pageable; a sliding-window layer's ring cache is a
+bounded buffer laid out by absolute position; rglru and ssm blocks
+carry O(1) recurrent state; a cross block's K/V is the encoder's fixed
+projection. Per block:
+
   paged    — full-attention K/V (window 0, or a window at least as long
              as the padded cache), carved into fixed-size pages in a
              shared device pool;
-  resident — everything else (ring caches of windowed layers), kept as
-             per-slot dense stacks like the classic decode cache; they
-             ride evictions as one per-sequence state blob.
+  resident — everything else (ring caches, the conv windows and the f32
+             recurrent states of rglru and ssm blocks, cross K/V), kept
+             as per-slot dense stacks like the classic decode cache, each
+             leaf in its own dtype; they ride evictions as one
+             per-sequence state blob, so a parked sequence restores bit
+             for bit.
 
 Right-padding a prompt to a page multiple is exact only when every
 sequence-dependent cache entry is paged (causal masking hides the pad
-K/V); otherwise prefill runs at the exact prompt length.
+K/V). Ring slots and recurrent states would take the pad tokens in, so
+a model with any of them prefills at the exact prompt length.
 """
 from __future__ import annotations
 
@@ -44,8 +54,9 @@ def paged_block_ids(segments: Tuple[SegmentDef, ...],
 def needs_exact_prefill(segments: Tuple[SegmentDef, ...],
                         padded_seq_len: int) -> bool:
     """True when right-padding the prompt would leak pad tokens into
-    sequence state (ring caches)."""
-    return any(not is_pageable(b, padded_seq_len)
+    sequence state (ring caches, recurrent state)."""
+    return any(b.mixer in ("rglru", "ssm")
+               or (b.mixer == "attn" and not is_pageable(b, padded_seq_len))
                for seg in segments for b in seg.blocks)
 
 
@@ -55,11 +66,14 @@ def build_pools(segments, cfg: ModelConfig, n_pages: int, page_tokens: int,
     (n_repeat, n_pages, page_tokens, Hkv, head_dim). Page 0 is the null
     page."""
     dtype = dtype_of(dtype)
-    hd = cfg.resolved_head_dim
     pools: List[Dict] = []
     for seg, ids in zip(segments, paged_block_ids(segments,
                                                   padded_seq_len)):
-        shape = (seg.n_repeat, n_pages, page_tokens, cfg.num_kv_heads, hd)
+        if not ids:      # attention-free: no head dim to resolve
+            pools.append({})
+            continue
+        shape = (seg.n_repeat, n_pages, page_tokens, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
         pools.append({bid: {"k": torch.zeros(shape, dtype=dtype,
                                              device=device),
                             "v": torch.zeros(shape, dtype=dtype,
@@ -73,7 +87,8 @@ def build_resident(segments, cfg: ModelConfig, n_slots: int,
                    paged: List[set] = None) -> List[Dict]:
     """Per-slot dense stacks for the non-paged blocks: per segment
     {bid: cache entry} with leading dim n_repeat — the layout
-    `decode_step` reads, filtered to the resident blocks. The dense
+    `decode_step` reads, filtered to the resident blocks (K/V and conv
+    windows in `dtype`, recurrent states in float32). The dense
     baseline passes empty `paged` sets to keep every block resident."""
     dtype = dtype_of(dtype)
     if paged is None:

@@ -5,10 +5,15 @@ and the dense baseline, from the JAX package's `repro/kvcache/manager.py`.
 each sequence owns a page table, and a parked (preempted) sequence's
 pages are evicted through the activation spool — one lease per sequence
 (`spool.lease(f"kv{rid}")`), one blob per logical page, so retiring the
-sequence drops every blob it ever spooled. `DenseKVCache` is the classic
-one-row-per-slot layout behind the same interface. Both use the same
-attention extent (`KVCacheConfig.padded_seq_len`), so paged and dense
-logits are bitwise equal on one request trace.
+sequence drops every blob it ever spooled. Everything that is not paged
+(ring caches, the conv windows and f32 states of rglru and ssm blocks)
+stays resident in the sequence's slot and is parked beside the pages as
+one more blob, each leaf in its own dtype. A model with no pageable
+block at all (mamba2) allocates no pages and parks its state blob
+alone; the JAX package's manager refuses such a model. `DenseKVCache`
+is the classic one-row-per-slot layout behind the same interface. Both
+use the same attention extent (`KVCacheConfig.padded_seq_len`), so paged
+and dense logits are bitwise equal on one request trace.
 
 Where JAX donates buffers to jitted steps, the port updates the pools,
 resident entries and dense caches IN PLACE (`index_copy_`, `index_put_`
@@ -131,9 +136,8 @@ class PagedKVCache(_ManagerBase):
         self.spool = spool
         self.n_pool_pages = kvcfg.resolve_pool_pages(n_slots)
         self.alloc = PageAllocator(self.n_pool_pages)
-        if not any(adapters.paged_block_ids(api.segments, self.S)):
-            raise ValueError(f"{self.cfg.name}: no pageable "
-                             "(full-attention) cache entries")
+        #: False when no block's cache is pageable: no page is allocated
+        self.has_pages = any(adapters.paged_block_ids(api.segments, self.S))
         self.pools = adapters.build_pools(
             api.segments, self.cfg, self.n_pool_pages, self.P, self.S,
             kvcfg.dtype, self.device)
@@ -146,6 +150,11 @@ class PagedKVCache(_ManagerBase):
     def device_bytes(self) -> int:
         return (tree_nbytes(self.pools)
                 + tree_nbytes(self.resident))
+
+    @property
+    def page_bytes(self) -> int:
+        """Bytes one physical page occupies across every layer's pool."""
+        return tree_nbytes(self.pools) // self.n_pool_pages
 
     # ------------------------------------------------------- decode
 
@@ -163,7 +172,7 @@ class PagedKVCache(_ManagerBase):
     def fault_in(self, seq) -> None:
         """Allocate the page holding position seq.pos before the decode
         step writes into it."""
-        needed = seq.pos // self.P + 1
+        needed = seq.pos // self.P + 1 if self.has_pages else 0
         if needed <= len(seq.pages):
             return
         grow = needed - len(seq.pages)
@@ -185,7 +194,7 @@ class PagedKVCache(_ManagerBase):
         t0 = time.perf_counter()
         plen = len(seq.prompt)
         bucket = self.bucket_for(plen)
-        n_pages = max(1, -(-bucket // self.P))
+        n_pages = max(1, -(-bucket // self.P)) if self.has_pages else 0
         ids = self.alloc.alloc(n_pages)
         seq.tx = self.spool.lease(f"kv{seq.rid}")
         with obs.span("kv.prefill", cat="kv", seq=seq.rid, tokens=plen,
@@ -224,10 +233,11 @@ class PagedKVCache(_ManagerBase):
 
     @torch.inference_mode()
     def evict(self, seq) -> None:
-        """Park a slot-resident sequence: copy its pages (and resident
-        ring state) to host, stream them to the spool — one blob per
-        logical page — free the device pages and unbind the slot. The
-        spool writes are async; decode of the other slots goes on."""
+        """Park a slot-resident sequence: copy its pages (and its
+        resident ring and recurrent state) to host, stream them to the
+        spool — one blob per logical page, one for the state — free the
+        device pages and unbind the slot. The spool writes are async;
+        decode of the other slots goes on."""
         if seq.slot is None or seq.pages is None:
             raise ValueError(f"sequence {seq.rid} is not slot-resident")
         t0 = time.perf_counter()
@@ -284,7 +294,8 @@ class PagedKVCache(_ManagerBase):
     def restore(self, seq, slot: int) -> None:
         """Un-park a sequence into `slot`: consume its pages from the
         spool (a prefetch hit or a forwarded store makes this no read)
-        and copy them into freshly allocated device pages."""
+        and copy them into freshly allocated device pages, and its state
+        leaves into the slot's rows, each in its own dtype."""
         if seq.pages is not None:
             raise ValueError(f"sequence {seq.rid} is not parked")
         t0 = time.perf_counter()

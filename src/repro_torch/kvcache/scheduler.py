@@ -22,7 +22,7 @@ import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -105,16 +105,23 @@ class Server:
     cache:          PagedKVCache or DenseKVCache (manager.py).
     record_logits:  keep every sampled-from logits row per sequence
                     (numpy f32), for the bitwise parity checks.
-
-    Sampling is greedy (argmax); a sequence runs to its max_new tokens.
+    eos_id:         retire a sequence early when it samples this token
+                    (None: run to max_new).
+    sample:         row -> token id (default: greedy argmax).
+    time_fn:        the clock every timestamp reads.
     """
 
-    def __init__(self, cache, *, record_logits: bool = False):
+    def __init__(self, cache, *, eos_id: Optional[int] = None,
+                 record_logits: bool = False,
+                 sample: Optional[Callable[[np.ndarray], int]] = None,
+                 time_fn: Callable[[], float] = time.perf_counter):
         self.cache = cache
         self.kvcfg = cache.kvcfg
         self.n_slots = cache.n_slots
         self.record_logits = record_logits
-        self.time = time.perf_counter
+        self.eos_id = eos_id
+        self.sample = sample or (lambda row: int(np.argmax(row)))
+        self.time = time_fn
         self.new_q: deque = deque()
         self.resume_q: deque = deque()
         self.slots: List[Optional[Sequence]] = [None] * self.n_slots
@@ -157,7 +164,7 @@ class Server:
                     slot=slot, step=self.decode_steps)
 
     def _emit_token(self, seq: Sequence, row: np.ndarray) -> int:
-        tok = int(np.argmax(row))
+        tok = self.sample(row)
         now = self.time()
         if seq.t_first is None:
             seq.t_first = now
@@ -189,7 +196,7 @@ class Server:
                 self._log("start", seq, slot)
                 tok = self._emit_token(seq, row)
                 self.cache.bind_token(seq, tok)
-                self._finish_if_done(seq, slot)
+                self._finish_if_done(seq, slot, tok)
             elif self.resume_q:
                 seq = self.resume_q.popleft()
                 self.cache.restore(seq, slot)
@@ -197,8 +204,8 @@ class Server:
                 self.slots[slot] = seq
                 self._log("resume", seq, slot)
 
-    def _finish_if_done(self, seq: Sequence, slot: int) -> bool:
-        if seq.done:
+    def _finish_if_done(self, seq: Sequence, slot: int, tok: int) -> bool:
+        if seq.done or (self.eos_id is not None and tok == self.eos_id):
             self.cache.release(seq)
             self.slots[slot] = None
             self.finished.append(seq)
@@ -238,7 +245,7 @@ class Server:
             tok = self._emit_token(seq, logits[slot])
             self.cache.advance(seq, tok)
             seq.q_used += 1
-            if self._finish_if_done(seq, slot):
+            if self._finish_if_done(seq, slot, tok):
                 continue
             if (quantum and self.cache.can_evict and seq.q_used >= quantum
                     and (self.new_q or self.resume_q)):

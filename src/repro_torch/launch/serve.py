@@ -9,13 +9,19 @@ to `--kv-backend` (a backend kind or spec string of
 `--cache-*` family, ...) and prefetch them back while the other slots
 decode. `--cache
 dense` is the per-slot dense layout at the same attention extent: same
-logits bitwise, concurrency capped at the slot count. Prefill attention
-runs the hand-written CUDA flash-attention kernel (`--attn-impl cuda`,
-the default on the card); `--attn-impl torch` runs the plain path.
+logits bitwise, concurrency capped at the slot count. Prefill runs the
+hand-written CUDA kernels (`--attn-impl cuda`, the default on the card):
+flash attention, the SSD scan of mamba2 and the RG-LRU scan of the
+hybrid; `--attn-impl torch` runs the plain path. Recurrent and ring
+state stays resident in each slot and is parked with the pages; models
+that carry such state prefill at the exact prompt length.
 
   python -m repro_torch.launch.serve --arch gpt-h8192-l4 --batch 4 \\
       --requests 12 --prompt-len 1024 --max-new 24 --cache-len 1056 \\
       --quantum 8 --kv-codec raw
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --batch 4 \\
+      --requests 8 --prompt-len 48 --max-new 16 --cache-len 64 \\
+      --quantum 4 --kv-codec raw
   python -m repro_torch.launch.serve --arch small-gpt --device cpu \\
       --attn-impl torch --quantum 3
 
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -39,6 +45,8 @@ from repro_torch import obs
 from repro_torch.configs import SpoolIoConfig, resolve_config
 from repro_torch.core.spool import build_spool
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kvcache import KVCacheConfig, Server, build_manager
 from repro_torch.launch.cacheargs import add_cache_args, cache_overrides
 from repro_torch.models.api import build_model
@@ -91,9 +99,14 @@ def synth_requests(server: Server, n: int, prompt_len: int, max_new: int,
 
 def make_server(api, params, settings, kvcfg: KVCacheConfig, *,
                 kind: str = "paged", n_slots: int = 8, spool=None,
-                record_logits: bool = False) -> Server:
+                record_logits: bool = False, eos_id: Optional[int] = None,
+                sample: Optional[Callable[[np.ndarray], int]] = None
+                ) -> Server:
+    """The JAX package's `make_server`; `eos_id` and `sample` go to the
+    `Server` (early retirement, and a sampler in place of argmax)."""
     cache = build_manager(kind, api, params, settings, kvcfg, n_slots, spool)
-    return Server(cache, record_logits=record_logits)
+    return Server(cache, record_logits=record_logits, eos_id=eos_id,
+                  sample=sample)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -114,6 +127,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--quantum", type=int, default=0,
                     help="decode tokens before preemption (0: run to "
                          "retirement)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="retire a request early when it samples this "
+                         "token (default: run to --max-new)")
     ap.add_argument("--max-live", type=int, default=0,
                     help="admission cap on live sequences (0: none)")
     ap.add_argument("--prefetch-depth", type=int, default=2,
@@ -160,7 +176,8 @@ def run(args: argparse.Namespace, runtime=None, *,
     try:
         server = make_server(api, params, settings, kvcfg, kind=args.cache,
                              n_slots=args.batch, spool=spool,
-                             record_logits=record_logits)
+                             record_logits=record_logits,
+                             eos_id=args.eos_id)
         synth_requests(server, args.requests, args.prompt_len,
                        args.max_new, cfg.vocab_size, args.seed)
         report = server.run()
@@ -203,7 +220,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     owns_tracer = args.trace is not None and not obs.is_enabled()
     if args.trace:
         obs.enable()
-    launches0 = flash_attention.launches
+    kernels = (flash_attention, ssd_scan, rglru_scan)
+    launches0 = [k.launches for k in kernels]
     try:
         _, report = run(args)
         if args.trace:
@@ -217,8 +235,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"device:  {device}")
     for line in report_lines(report):
         print(line)
-    print(f"kernels: flash_attention launches "
-          f"{flash_attention.launches - launches0}")
+    print("kernels: " + ", ".join(
+        f"{k.__name__} launches {k.launches - n0}"
+        for k, n0 in zip(kernels, launches0)))
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(report.as_dict(), f, indent=2, sort_keys=True)

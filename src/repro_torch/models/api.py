@@ -19,9 +19,11 @@ outputs are the JAX package's layouts; the embedding tables are untied
 and the vocab padded to a multiple of 256 with padded logits at -1e30.
 Models without RoPE add a learned `pos_embed` table (max_position x D).
 `embed_in` and `head` are the first and last pieces of the forward, which
-the staged training engine runs as stages of their own. Decode (and
-emitted caches) exist for attention blocks only so far: cross, rglru and
-ssm blocks train and run full sequences.
+the staged training engine runs as stages of their own; `chunked_ce` is
+the head and CE of `RunSettings.ce_chunk`, one sequence chunk at a time.
+Every mixer emits a decode cache and decodes: attention K/V, the
+encoder's K/V for cross blocks, the conv window and recurrent state of
+rglru and ssm blocks.
 
 An encoder-decoder (T5, `family == "encdec"`) adds `enc_segments` (the
 bidirectional encoder stack) and `enc_norm`; the encoder embeds
@@ -66,10 +68,17 @@ class ModelApi:
 
 
 def _to_decode_cache(bdef: BlockDef, cache, cache_len: int):
-    """A prefill (k, v) pair in the decode layout: sized
-    min(window, cache_len) (a ring for windowed layers, where position
-    p lives at slot p % W, so a prefill of S tokens contributes its
-    last W via a roll of (S - W) % W), zero-padded when shorter."""
+    """A prefill cache entry in the decode layout. Attention (k, v):
+    sized min(window, cache_len) (a ring for windowed layers, where
+    position p lives at slot p % W, so a prefill of S tokens contributes
+    its last W via a roll of (S - W) % W), zero-padded when shorter.
+    Cross (k, v): the encoder's, at its length. rglru / ssm: already in
+    the decode layout."""
+    if bdef.mixer == "cross":
+        k, v = cache
+        return {"k": k, "v": v}
+    if bdef.mixer != "attn":
+        return cache
     k, v = cache
     S = k.shape[1]
     target = min(bdef.window, cache_len) if bdef.window else cache_len
@@ -106,17 +115,39 @@ def embed_in(params, batch, cfg: ModelConfig):
     return x
 
 
-def ce_loss(logits, labels):
-    """Mean next-token cross-entropy over labels >= 0, with the JAX
-    package's masked-reduction label pick (`api.py::_ce_terms`): no
-    gather, so its backward has no scatter-add. Returns (loss, tokens)."""
+def _label_mask(labels, vocab: int):
+    """(B, S, V) bool: each row's label column (a label < 0 picks column
+    0; its row is masked out of the sum)."""
+    cols = torch.arange(vocab, device=labels.device)
+    return cols[None, None] == labels.clamp_min(0)[..., None]
+
+
+def _ce_terms(logits, labels):
+    """(sum of the masked NLL, token count), with the JAX package's
+    masked-reduction label pick (`api.py::_ce_terms`): no gather, so its
+    backward has no scatter-add."""
     mask = (labels >= 0).float()
     lse = torch.logsumexp(logits, dim=-1)
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
-    vmask = vocab[None, None] == labels.clamp_min(0)[..., None]
+    vmask = _label_mask(labels, logits.shape[-1])
     picked = torch.where(vmask, logits, 0.0).sum(dim=-1)
-    tokens = mask.sum()
-    return ((lse - picked) * mask).sum() / tokens.clamp_min(1.0), tokens
+    return ((lse - picked) * mask).sum(), mask.sum()
+
+
+def ce_loss(logits, labels):
+    """Mean next-token cross-entropy over labels >= 0. Returns (loss,
+    tokens)."""
+    nll, tokens = _ce_terms(logits, labels)
+    return nll / tokens.clamp_min(1.0), tokens
+
+
+def _vocab_bias(logits, cfg: ModelConfig):
+    """logits plus the padded-vocab mask (-1e30 past the vocab)."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    bias = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
+                       device=logits.device)
+    bias[cfg.vocab_size:] = -1e30
+    return logits + bias
 
 
 def head(params, x, cfg: ModelConfig):
@@ -125,12 +156,93 @@ def head(params, x, cfg: ModelConfig):
     logits = (x @ params["unembed"]).float()
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
-    if cfg.padded_vocab != cfg.vocab_size:
-        bias = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
-                           device=logits.device)
-        bias[cfg.vocab_size:] = -1e30
-        logits = logits + bias
-    return logits
+    return _vocab_bias(logits, cfg)
+
+
+def ce_chunk_applies(chunk: int, seq_len: int) -> bool:
+    """The JAX package's rule for `RunSettings.ce_chunk`: chunk when it
+    divides the sequence and the sequence is longer."""
+    return bool(chunk) and seq_len % chunk == 0 and seq_len > chunk
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """The head and the mean CE, `chunk` tokens of the sequence at a
+    time (the JAX package's chunked `api.loss`, whose chunks run under
+    remat). Forward drops each chunk's (B, chunk, V) f32 logits before
+    the next and saves only its inputs, the final hidden state, the
+    final norm's scale, the unembedding and the labels, through
+    `save_for_backward`, where a saved-tensor hook sees them. Backward
+    recomputes one chunk's logits at a time and accumulates the
+    gradients of the hidden state, the scale and the unembedding (the
+    last two in f32)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, unembed, labels, chunk, cfg):
+        p = {"final_norm": {"scale": scale}, "unembed": unembed}
+        nll, toks = [], []
+        for c0 in range(0, x.shape[1], chunk):
+            n, t = _ce_terms(head(p, x[:, c0:c0 + chunk], cfg),
+                             labels[:, c0:c0 + chunk])
+            nll.append(n)
+            toks.append(t)
+        tokens = torch.stack(toks).sum()
+        ctx.save_for_backward(x, scale, unembed, labels)
+        ctx.chunk, ctx.cfg = chunk, cfg
+        ctx.mark_non_differentiable(tokens)
+        return torch.stack(nll).sum() / tokens.clamp_min(1.0), tokens
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, scale, unembed, labels = ctx.saved_tensors
+        cfg, chunk = ctx.cfg, ctx.chunk
+        need_x, need_scale, need_u = ctx.needs_input_grad[:3]
+        coef = g.float() / (labels >= 0).sum().float().clamp_min(1.0)
+        cap = cfg.final_logit_softcap
+        dx = torch.empty_like(x) if need_x else None
+        dscale = torch.zeros(scale.shape, dtype=torch.float32,
+                             device=scale.device)
+        du = torch.zeros(unembed.shape, dtype=torch.float32,
+                         device=unembed.device)
+        for c0 in range(0, x.shape[1], chunk):
+            li = labels[:, c0:c0 + chunk]
+            with torch.enable_grad():
+                xi = x[:, c0:c0 + chunk].detach().requires_grad_(need_x)
+                sc = scale.detach().requires_grad_(need_scale)
+                h = rms_norm(xi, sc, cfg.norm_eps)
+            hd = h.detach()
+            z = (hd @ unembed).float()
+            t = torch.tanh(z / cap) if cap else None
+            # d(lse - picked)/d logits = softmax - onehot, on masked rows
+            dl = torch.softmax(_vocab_bias(t * cap if cap else z, cfg),
+                               dim=-1)
+            del z
+            dl.sub_(_label_mask(li, dl.shape[-1]).float())
+            dl.mul_((coef * (li >= 0).float())[..., None])
+            if cap:
+                dl.mul_(1.0 - t * t)
+            del t
+            dz = dl.to(hd.dtype)
+            del dl
+            if need_u:
+                du += (hd.flatten(0, 1).t() @ dz.flatten(0, 1)).float()
+            dh = dz @ unembed.t()
+            del dz
+            wrt = [v for v, n in ((xi, need_x), (sc, need_scale)) if n]
+            if wrt:
+                got = torch.autograd.grad(h, wrt, dh)
+                if need_x:
+                    dx[:, c0:c0 + chunk] = got[0]
+                if need_scale:
+                    dscale += got[-1].float()
+        return (dx, dscale.to(scale.dtype) if need_scale else None,
+                du.to(unembed.dtype) if need_u else None, None, None, None)
+
+
+def chunked_ce(params, x, labels, cfg: ModelConfig, chunk: int):
+    """The mean CE of the head over the final hidden state x (B, S, D),
+    `chunk` tokens at a time (`_ChunkedCE`). Returns (loss, tokens)."""
+    return _ChunkedCE.apply(x, params["final_norm"]["scale"],
+                            params["unembed"], labels, chunk, cfg)
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -190,20 +302,10 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                                        settings, positions=positions)
         return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
-    unserved = sorted({b.mixer for seg in segs for b in seg.blocks} - {
-        "attn"})
-
-    def _decode_ported():
-        if unserved:
-            raise NotImplementedError(
-                f"{cfg.name}: decode caches of {' and '.join(unserved)} "
-                "blocks are not ported yet (serving mamba2, the hybrid and "
-                "T5 wait for a later slice)")
-
-    def forward(params, batch, settings: RunSettings, *, emit_cache=False,
-                cache_len=0):
-        if emit_cache:
-            _decode_ported()
+    def hidden(params, batch, settings: RunSettings, *, emit_cache=False,
+               cache_len=0):
+        """The final hidden state (before the head), and the decode
+        caches when `emit_cache` (else an empty list)."""
         enc = encode(params, batch, settings) if enc_segs else None
         x = embed_in(params, batch, cfg)
         S = x.shape[1]
@@ -224,13 +326,25 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                             _to_decode_cache(bdef, kv, cache_len))
             if emit_cache:
                 caches.append({bid: stack(e) for bid, e in entries.items()})
+        return x, caches
+
+    def forward(params, batch, settings: RunSettings, *, emit_cache=False,
+                cache_len=0):
+        x, caches = hidden(params, batch, settings, emit_cache=emit_cache,
+                           cache_len=cache_len)
         logits = head(params, x, cfg)
         return (logits, caches) if emit_cache else logits
 
     def loss(params, batch, settings: RunSettings):
-        """Mean CE over labels >= 0 -> (loss, {"ce", "tokens", "loss"})."""
-        ce, tokens = ce_loss(forward(params, batch, settings),
-                             batch["labels"])
+        """Mean CE over labels >= 0 -> (loss, {"ce", "tokens", "loss"}),
+        chunked (`chunked_ce`) when `settings.ce_chunk` applies."""
+        labels = batch["labels"]
+        if ce_chunk_applies(settings.ce_chunk, labels.shape[1]):
+            x, _ = hidden(params, batch, settings)
+            ce, tokens = chunked_ce(params, x, labels, cfg,
+                                    settings.ce_chunk)
+        else:
+            ce, tokens = ce_loss(forward(params, batch, settings), labels)
         return ce, {"ce": ce, "tokens": tokens, "loss": ce}
 
     def prefill(params, batch, settings: RunSettings, *, cache_len=0):
@@ -254,7 +368,6 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         """One token for the whole batch against dense caches (updated in
         place). batch: {"tokens": (B, 1)}. pos: int / 0-d tensor, or a
         (B,) tensor of per-row positions. Returns (B, 1, V) f32 logits."""
-        _decode_ported()
         pos = torch.as_tensor(pos, device=params["embed"].device)
         x = _decode_embed(params, batch, pos)
         for seg, p_stack, c_stack in zip(segs, params["segments"], cache):
@@ -280,7 +393,6 @@ def build_model(cfg: ModelConfig) -> ModelApi:
           pos:      (B,) per-row absolute positions.
 
         Returns (B, 1, V) f32 logits."""
-        _decode_ported()
         pos = torch.as_tensor(pos, device=params["embed"].device)
         x = _decode_embed(params, batch, pos)
         for seg, p_stack, pool_stack, res_stack in zip(

@@ -298,11 +298,22 @@ class _Conv1d(torch.autograd.Function):
         return dx, dw, g.sum(dim=lead)
 
 
-def apply_conv1d(p: Params, x):
-    """Depthwise causal conv over zero-left-padded x: (B, S, C) (training
-    and prefill). Returns (y, state): state is the last W-1 inputs, the
-    cache a streaming decode starts from. Saves x and w only."""
+def apply_conv1d(p: Params, x, state=None):
+    """Depthwise causal conv over x: (B, S, C). Returns (y, new_state):
+    new_state is the last W-1 inputs, the cache a streaming decode starts
+    from. With state=None (training and prefill) x is zero-left-padded
+    and only x and w are saved; a (B, W-1, C) `state` (streaming decode)
+    left-pads x with the cached inputs instead, in the JAX package's tap
+    order."""
     width = p["w"].shape[0]
-    y = _Conv1d.apply(x, p["w"], p["b"])
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    if state is None:
+        y = _Conv1d.apply(x, p["w"], p["b"])
+        xp = F.pad(x, (0, 0, width - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+        S = x.shape[1]
+        y = xp[:, 0:S] * p["w"][0]
+        for i in range(1, width):
+            y = y + xp[:, i:i + S] * p["w"][i]
+        y = y + p["b"]
     return y, (xp[:, xp.shape[1] - (width - 1):] if width > 1 else None)

@@ -1,13 +1,13 @@
 """Mamba-2 (SSD, state-space duality) mixer block of the port, mirroring
-the JAX package's `repro/models/mamba2.py` (training / prefill path).
-[arXiv:2405.21060]
+the JAX package's `repro/models/mamba2.py`. [arXiv:2405.21060]
 
 `apply_mamba2(impl="torch")` runs the plain chunked scan
 (`kernels/ssd_scan.py::ssd_chunked`) under autograd; `impl="cuda"` runs
 `kernels.ssd_scan.ssd_scan`, the hand-written CUDA kernel with the plain
 chunked VJP (on CPU tensors its plain version): the port's counterpart of
-the JAX package's `impl="pallas"`. The one-token decode
-(`decode_mamba2`) belongs to serving mamba2 and is not ported yet.
+the JAX package's `impl="pallas"`. `decode_mamba2` is the one-token
+decode step of serving: the conv window and the f32 (H, P, N) state
+advance by one token, written into the cache IN PLACE.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from repro_torch.models.layers import (apply_conv1d, dense_init,
                                        init_conv1d, silu)
 
 __all__ = ["SSMDims", "ssm_dims", "init_mamba2", "apply_mamba2",
-           "ssd_chunked"]
+           "decode_mamba2", "ssd_chunked"]
 
 
 class SSMDims(NamedTuple):
@@ -107,3 +107,32 @@ def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch"):
     y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x.dtype)
     out = y @ p["w_out"]
     return out, {"conv": conv_state, "state": final_state}
+
+
+def decode_mamba2(p, x1, cache, cfg: ModelConfig):
+    """One-token decode. x1: (B, 1, D); cache {"conv": (B, W-1, C),
+    "state": (B, H, P, N) f32}, both advanced IN PLACE. The state update
+    and y = C.state + D_skip.x run in f32, as the JAX package's do."""
+    dims = ssm_dims(cfg)
+    B = x1.shape[0]
+    z, xs, bc, dt = _split_proj(p, x1, dims)
+    conv_in = torch.cat([xs, bc], dim=-1)
+    conv_out, conv_state = apply_conv1d(p["conv"], conv_in, cache["conv"])
+    conv_out = silu(conv_out.float()).to(x1.dtype)
+    xs = conv_out[..., :dims.d_inner]
+    B_s = conv_out[..., dims.d_inner:dims.d_inner + dims.state]
+    C_s = conv_out[..., dims.d_inner + dims.state:]
+
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[:, 0] * A)                       # (B,H)
+    xh = xs.reshape(B, dims.n_heads, dims.head_dim).float()
+    xh_dt = xh * dt[:, 0, :, None]
+    state = (cache["state"] * dA[:, :, None, None]
+             + torch.einsum("bn,bhp->bhpn", B_s[:, 0].float(), xh_dt))
+    y = torch.einsum("bn,bhpn->bhp", C_s[:, 0].float(), state)
+    y = y + xh * p["D_skip"][:, None]
+    y = y.reshape(B, 1, dims.d_inner)
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x1.dtype)
+    cache["conv"].copy_(conv_state)
+    cache["state"].copy_(state)
+    return y @ p["w_out"]

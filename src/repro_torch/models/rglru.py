@@ -1,6 +1,5 @@
 """RG-LRU recurrent block (Griffin / recurrentgemma) of the port,
-mirroring the JAX package's `repro/models/rglru.py` (training / prefill
-path). [arXiv:2402.19427]
+mirroring the JAX package's `repro/models/rglru.py`. [arXiv:2402.19427]
 
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
     a_t = exp(-c * softplus(Lambda) * r_t),  r_t, i_t input-dependent gates.
@@ -9,9 +8,9 @@ path). [arXiv:2402.19427]
 (`kernels/rglru_scan.py::rglru_sequential`) under autograd; `impl="cuda"`
 runs `kernels.rglru_scan.rglru_scan`, the hand-written CUDA kernel with
 its reverse-recurrence backward (on CPU tensors its plain version): the
-port's counterpart of the JAX package's `impl="pallas"`. The one-token
-decode (`decode_rglru`) belongs to serving the hybrid and is not ported
-yet.
+port's counterpart of the JAX package's `impl="pallas"`. `decode_rglru`
+is the one-token decode step of serving: the conv window and the f32
+(B, W) state advance by one token, written into the cache IN PLACE.
 """
 from __future__ import annotations
 
@@ -71,3 +70,18 @@ def apply_rglru(p, x, cfg: ModelConfig, *, impl: str = "torch"):
     y = (h * gate).to(x.dtype)
     out = y @ p["w_out"]
     return out, {"conv": conv_state, "h": h[:, -1]}
+
+
+def decode_rglru(p, x1, cache, cfg: ModelConfig):
+    """One-token decode. x1: (B, 1, D); cache {"conv": (B, W-1, W),
+    "h": (B, W) f32}, both advanced IN PLACE: h = exp(log_a) h + scaled,
+    in f32."""
+    gate = gelu_tanh((x1 @ p["w_branch_gate"]).float())
+    u = x1 @ p["w_in"]
+    u, conv_state = apply_conv1d(p["conv"], u, cache["conv"])
+    log_a, scaled = _gates(p, u)
+    h = torch.exp(log_a[:, 0]) * cache["h"] + scaled[:, 0]    # (B, W)
+    y = (h[:, None] * gate).to(x1.dtype)
+    cache["conv"].copy_(conv_state)
+    cache["h"].copy_(h)
+    return y @ p["w_out"]

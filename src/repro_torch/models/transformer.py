@@ -10,13 +10,15 @@ encoder), T5's cross-attention (`cross`) block over the encoder states,
 and the RG-LRU (`rglru`) block, each followed by the dense MLP (classic
 or gated) where the block has one, and the attention-free Mamba-2
 (`ssm`) block with no MLP; the hybrid pattern of recurrentgemma repeats
-(rglru, rglru, attn) and puts the remainder in a second segment. The
-cross, rglru and ssm blocks have no decode step yet (training and
-full-sequence forward only); configurations needing anything else raise
-`NotImplementedError`.
+(rglru, rglru, attn) and puts the remainder in a second segment. Every
+block has a one-token decode step against its cache (attention K/V, a
+ring for windowed layers; the encoder's K/V for cross; the conv window
+and recurrent state for rglru and ssm); configurations needing anything
+else raise `NotImplementedError`.
 
-Decode steps update their caches IN PLACE (`index_put_` on views of the
-stacked cache tensors) where JAX returns new, donated arrays.
+Decode steps update their caches IN PLACE (`index_put_` and `copy_` on
+views of the stacked cache tensors) where JAX returns new, donated
+arrays.
 """
 from __future__ import annotations
 
@@ -119,6 +121,11 @@ class RunSettings:
     # stage's gradients to `opt_sink.on_grads(step, stage, leaves)` once
     # its last microbatch has added them (repro_torch.optim.overlap)
     opt_sink: Any = None
+    # chunked cross-entropy: the head's vocab projection and CE run per
+    # sequence chunk of this many tokens (when it divides S and S is
+    # longer), so the (B, S, V) f32 logits never exist; backward
+    # recomputes one chunk's logits at a time. 0 = off
+    ce_chunk: int = 0
 
 
 # ====================================================================
@@ -250,17 +257,37 @@ def _decode_positions(pos):
 
 def apply_block_decode(bdef: BlockDef, p, x1, cache, pos,
                        cfg: ModelConfig, settings: RunSettings):
-    """x1: (B, 1, D). cache: {"k", "v"}: (B, S, Hkv, D) views, written
-    in place. pos: 0-d tensor, or (B,) tensor of per-row positions.
+    """x1: (B, 1, D). cache: the block's entry, views written in place:
+    {"k", "v"}: (B, S, Hkv, D) for attn, the encoder's (B, Se, Hkv, D)
+    for cross (read only), {"conv", "h"} for rglru, {"conv", "state"}
+    for ssm. pos: 0-d tensor, or (B,) tensor of per-row positions.
     Returns x1."""
     h = rms_norm(x1, p["norm"]["scale"], cfg.norm_eps)
+    if bdef.mixer == "cross":
+        q = _proj(h, p["attn"]["wq"])
+        ck = cache["k"]
+        o = attend_decode(q, ck, cache["v"],
+                          torch.tensor(ck.shape[1] - 1, device=x1.device))
+        mix = _out_proj(o, p["attn"]["wo"])
+    elif bdef.mixer == "rglru":
+        mix = rg.decode_rglru(p["rglru"], h, cache, cfg)
+    elif bdef.mixer == "ssm":
+        mix = m2.decode_mamba2(p["ssm"], h, cache, cfg)
+    else:
+        mix = _attn_decode(bdef, p["attn"], h, cache, pos, cfg)
+    return _mlp_sublayer(bdef, p, x1 + mix, cfg)
+
+
+def _attn_decode(bdef: BlockDef, p, h, cache, pos, cfg: ModelConfig):
+    """Self-attention of one decode token: writes its K/V into the
+    (B, S, Hkv, D) cache (a ring when S is the window) and attends."""
     ck, cv = cache["k"], cache["v"]
     S = ck.shape[1]
     ring = bool(bdef.window) and S == bdef.window
-    q, k, v = _qkv(p["attn"], h, cfg, _decode_positions(pos))
+    q, k, v = _qkv(p, h, cfg, _decode_positions(pos))
     slot = torch.remainder(pos, S) if ring else pos
     if pos.dim() == 1:
-        rows = torch.arange(x1.shape[0], device=x1.device)
+        rows = torch.arange(h.shape[0], device=h.device)
         ck.index_put_((rows, slot), k[:, 0].to(ck.dtype))
         cv.index_put_((rows, slot), v[:, 0].to(cv.dtype))
     else:
@@ -269,7 +296,7 @@ def apply_block_decode(bdef: BlockDef, p, x1, cache, pos,
         cv[:, s:s + 1] = v.to(cv.dtype)
     o = attend_decode(q, ck, cv, pos, window=bdef.window,
                       logit_cap=cfg.attn_logit_softcap, ring=ring)
-    return _mlp_sublayer(bdef, p, x1 + _out_proj(o, p["attn"]["wo"]), cfg)
+    return _out_proj(o, p["wo"])
 
 
 def apply_block_decode_paged(bdef: BlockDef, p, x1, pool, tables, pos,
@@ -311,11 +338,31 @@ def apply_block_decode_paged(bdef: BlockDef, p, x1, pool, tables, pos,
 
 def init_block_cache(bdef: BlockDef, cfg: ModelConfig, batch: int,
                      seq_len: int, dtype, device, lead=()) -> Any:
-    """Zeroed cache entry for one block (a ring of `window` slots for a
-    windowed layer)."""
-    hd = cfg.resolved_head_dim
-    S = min(bdef.window, seq_len) if bdef.window else seq_len
-    shape = tuple(lead) + (batch, S, cfg.num_kv_heads, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Zeroed cache entry for one block, with leading dims `lead`: K/V
+    (a ring of `window` slots for a windowed layer; the encoder's length
+    `cfg.encoder_seq_len` for cross), or the conv window in `dtype` and
+    the recurrent state in float32 whatever `dtype` is (rglru, ssm)."""
+    lead = tuple(lead)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(lead + tuple(shape), dtype=dt, device=device)
+
+    if bdef.mixer in ("attn", "cross"):
+        if bdef.mixer == "cross":
+            S = cfg.encoder_seq_len
+        else:
+            S = min(bdef.window, seq_len) if bdef.window else seq_len
+        shape = (batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": zeros(shape), "v": zeros(shape)}
+    if bdef.mixer == "rglru":
+        W = cfg.rglru_width or cfg.d_model
+        return {"conv": zeros((batch, cfg.rglru_conv_width - 1, W)),
+                "h": zeros((batch, W), torch.float32)}
+    if bdef.mixer == "ssm":
+        dims = m2.ssm_dims(cfg)
+        return {"conv": zeros((batch, cfg.ssm_conv_width - 1,
+                               dims.conv_channels)),
+                "state": zeros((batch, dims.n_heads, dims.head_dim,
+                                dims.state), torch.float32)}
+    raise ValueError(bdef.mixer)
 

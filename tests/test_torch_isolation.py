@@ -26,7 +26,8 @@ spec = importlib.util.spec_from_file_location(
     "chip_smoke", sys.argv[1] + "/chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 sys.path.insert(0, sys.argv[1])
-for bench in ("torch_common", "torch_fig10", "torch_fig11", "torch_table4"):
+for bench in ("torch_common", "torch_fig10", "torch_fig11", "torch_table4",
+              "torch_fig9", "torch_serve_kv", "torch_trace_split"):
     importlib.import_module("benchmarks." + bench)
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
              or m == "benchmarks.common")

@@ -249,9 +249,13 @@ def test_mamba2_config_matches_jax():
         params["segments"][0]["b0"]
     assert ssm["A_log"].dtype == torch.float32
     assert params["pos_embed"].shape == (32, 64)
-    with pytest.raises(NotImplementedError, match="decode caches"):
-        api.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                    RunSettings(device="cpu"))
+    # prefill emits the decode cache: the conv window and the f32 state
+    _, caches = api.prefill(params, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.long)}, RunSettings(device="cpu"))
+    cache = caches[0]["b0"]
+    assert cache["conv"].shape == (2, 1, 3, 128 + 2 * 16)
+    assert cache["state"].shape == (2, 1, 8, 16, 16)
+    assert cache["state"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("name", ["rms_norm", "gelu", "silu"])

@@ -131,6 +131,8 @@ def test_table4_rows_carry_the_jax_keys(monkeypatch, tmp_path):
     # what lands is timing-dependent (a store still queued when backward
     # fetches it is forwarded, not written); what the layers hand over is not
     assert r["measured_mb"] >= 0 and r["layer_saved_mb"] > 0
+    # the exact counter, on the meta device, is what the layers hand over
+    assert r["layer_exact_mb"] == r["layer_saved_mb"]
     assert r["ratio"] == r["measured_mb"] / r["estimate_mb"]
     assert r["dtype"] == "float32"
 

@@ -370,15 +370,25 @@ def test_failed_fetch_in_a_cross_stage_falls_back_to_recompute(
 
 
 def test_decode_and_prefill_refuse(weights):
+    """Prefill and the dense decode step run (held against the JAX
+    package in tests/test_torch_serve_rest.py): the cross caches are the
+    encoder's K/V at its length. What refuses is serving T5 through a
+    KV-cache manager, which takes no encoder input (as in the JAX
+    package)."""
+    from repro_torch.kvcache import KVCacheConfig, build_manager
     _, tcfg, jparams = weights
     api, params = build_model(tcfg), _params(jparams)
     b = _torch_batch(_batch(tcfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="cross"):
-        api.prefill(params, b, _tset())
-    with pytest.raises(NotImplementedError, match="cross"):
-        api.decode_step(params, [], {"tokens": b["tokens"][:, :1]}, 0,
-                        _tset())
-    with pytest.raises(NotImplementedError, match="cross"):
-        api.decode_step_paged(params, [], [], None,
-                              {"tokens": b["tokens"][:, :1]}, [0, 0],
-                              _tset())
+    with torch.inference_mode():
+        last, caches = api.prefill(params, b, _tset(), cache_len=S + 1)
+        cross = caches[0]["b1"]
+        assert cross["k"].shape[:3] == (tcfg.num_decoder_layers, B, SE)
+        assert caches[0]["b0"]["k"].shape[:3] == (tcfg.num_decoder_layers,
+                                                  B, S + 1)
+        logits = api.decode_step(params, caches,
+                                 {"tokens": b["tokens"][:, :1]}, S, _tset())
+    assert last.shape == logits.shape == (B, 1, tcfg.padded_vocab)
+    assert bool(torch.isfinite(logits[..., :tcfg.vocab_size]).all())
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        build_manager("dense", api, params, _tset(),
+                      KVCacheConfig(page_tokens=8, max_seq_len=48), 2)
