@@ -9,7 +9,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA source of the port, one nvcc per source at once;
      the tensor-core flash instances and every RG-LRU instance must not
-     spill, and the Python mirrors of the launch arithmetic that the CPU
+     spill (nor may any D=80 flash instance), and the Python mirrors of
+     the launch arithmetic that the CPU
      tests check must agree with the libraries' own numbers;
   3. kernels: each kernel against its plain PyTorch version on the card
      (the flash-attention cases of tests/test_kernels.py in f32, on the
@@ -44,7 +45,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      fetched, the directory empty after close, and the kernel launched
      once per layer per step in each run; one full-width layer through
      the kernel must agree with the plain path;
-  6. policy matrix at a depth-8 cut: Recompute, Adaptive on fs and on
+  6. policy matrix at a depth-4 cut: Recompute, Adaptive on fs and on
      mem, the mem backend and the zlib codec, each bitwise equal to
      Keep; every spool run reads blobs back (the zlib run waits for its
      layer stores before backward, so every layer goes through the codec
@@ -118,9 +119,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      copy rates between the card and a registered pool buffer at
      aligned and unaligned offsets are printed beside torch's pinned
      memory's;
- 11. the optimizer state and the jit engine on the paper's GPT
-     (gpt-h8192-l4, random weights from seed 0, adamw with lr 3e-4 and
-     no clipping, B=4, S=1024, fs, raw, traced without a file): (a) the
+ 11. the optimizer state and the jit engine on the paper's GPT cut to
+     2 layers (gpt-h8192-l2, random weights from seed 0, adamw with lr
+     3e-4 and no clipping, B=4, S=1024, fs, raw, traced without a
+     file): (a) the
      staged engine, KeepPolicy, the fused update (the reference); (b)
      `engine="jit"`, `host_offload="opt_state"` (the whole state staged
      through the spool between steps); (c) `engine="jit"`,
@@ -133,9 +135,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      to (a)'s, and the parameters' and moments' (`materialize()`)
      fingerprints (two 64-bit weighted sums of their bits, on the card:
      a host copy of a 32 GB state per run does not fit beside the
-     spool's pool) equal to (a)'s after as many steps; 4 flash launches
+     spool's pool) equal to (a)'s after as many steps; 2 flash launches
      a step; moments fetched in steps 2-3; the spool dirs empty after
-     close; (c)'s device peak at least 12.9 GB (half the layers' 25.77
+     close; (c)'s device peak at least 6.44 GB (half the layers' 12.88
      GB of moments) below (a)'s. Each run prints its step times, device
      peak, `opt_updates`, fetched / staged / skipped bytes,
      `opt_io_busy_s`, `opt_exposed_wait_s`, `opt_hidden_frac`, its
@@ -160,7 +162,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
      plain version at the trace's prompt lengths, at 37 and at 200
      (chunk 8): y and the final state, and its time at the longest
      prompt beside its bound;
- 13. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 13. the registry's archs (random bf16 weights from seed 0) through
+     `TrainSession`, sgd (lr 3e-4, no momentum), S=1024, 3 steps, kept
+     and spooled (fs, raw) as in phase 5: (a) qwen2.5-3b at full width
+     and depth (36 layers, GQA 16/2, qkv biases, B=1), (b) gemma2-27b at
+     full width cut to 4 layers (2 local/global pairs: window 4096,
+     softcap 50, post-block norms; B=2), (c) hubert-xlarge at full width
+     and depth (48 bidirectional layers of 16 heads of 80, frame
+     embeddings from a seeded generator through `loader`, B=2), (d)
+     llama4-scout-17b-a16e at full width cut to 2 layers (16 experts
+     top-1 plus a shared one, GQA 40/8, B=8); (b) and (d) spool through
+     `drained_spool_policy` (REG_TRAIN says why). Each: losses and final
+     parameters bitwise equal, the engine's stage count, every stored
+     stage fetched, the spool dir empty, the tracked activation peak and
+     the device peak lower when spooled, one flash launch per attention
+     block per step, and each layer stage's saved bytes equal to the
+     exact counter times the layers. (e) qwen2.5-3b at full width served
+     as phase 12 serves (8 requests, 4 slots, prompts 24-48, 16 new
+     tokens, quantum 4, fs, raw): tokens and logits paged vs dense
+     bitwise, 36 flash launches per prefill, the first logits through
+     the kernel within 5e-3 of the plain path in an f32 copy of the
+     weights and within phase 4's 0.25 in the served bf16 weights
+     (0.0625 on an H100 80GB HBM3 at 700 W). Phase 3 holds the instances
+     these runs launch (D=80 in f32 and bf16, hubert's non-causal (2,
+     1024, 16, 80), qwen's and llama4's GQA (1, 1024, 16/2 and 40/8,
+     128), gemma2's window and softcap at S=8192) against the plain
+     attention with their times;
+ 14. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -183,6 +211,11 @@ import time
 # the keep/spool parity of phases 5-6 needs one order (set before any
 # CUDA context exists)
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# growable segments in place of fixed ones: phase 13's llama4-scout keep
+# run at B=8 holds 70.5 GB allocated, and with fixed segments it ran out
+# of the card's 79 GiB with 17 GiB reserved but free between them (on an
+# H100 80GB HBM3 at 700 W)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -234,7 +267,9 @@ TOL_SSD_PATH = 1e-5
 # or two bf16 roundings (2**-7 relative) of the output's scale
 TOL_LAYER = 2 ** -6
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ = "mamba2-2.7b", 3, 1024
-MATRIX_DEPTH = 8
+# phase 6's depth (8 until PR 21; cut to 4 in PR 22 to make room for
+# phase 13 in the 1200 s the script has; its bounds scale with it)
+MATRIX_DEPTH = 4
 
 # (B, S, W): tests/test_kernels.py::RGLRU_CASES (their chunk and block
 # width are the Pallas kernel's tiling, which the CUDA kernel has not)
@@ -270,11 +305,16 @@ POOL_BYTES = 6 << 30
 # phase 10: the managed backend's host bound, below one step's offload
 # (~5 GB at B=4), so blobs are demoted to the SSD tier
 STORAGE_HOST_BOUND = "2gb"
-# phase 11: adamw on the paper's GPT; (e), the sync drain, runs 2 steps.
-# (c)'s device peak must fall by half the layers' moments (4 layers of
-# 12 * 8192**2 parameters, m and v in f32: 25.77 GB), so a design that
-# holds two or more layers' moments on the card at once fails
+# phase 11: adamw on the paper's GPT cut to OPT_LAYERS layers (4 until
+# PR 22; cut to 2 to make room for phase 13); (e), the sync drain, runs 2
+# steps. (c)'s device peak must fall by half the layers' moments
+# (OPT_DROP_GB: 2 layers of 12 * 8192**2 parameters, m and v in f32,
+# halved: 6.44 GB), so a design that holds both layers' moments on the
+# card at once fails. (b) can have two state blobs on disk at once (2.44 B
+# parameters' f32 moments, 19.5 GB each): OPT_FREE_GB of free space
+OPT_LAYERS = 2
 OPT_STEPS, OPT_SYNC_STEPS = 3, 2
+OPT_FREE_GB = 45
 # phase 8's chunked-CE runs: the JAX package's `make_train_step` default,
 # and the bar on their losses against the unchunked ones (the order of
 # the sum changes; 3 sgd steps)
@@ -295,7 +335,43 @@ TOL_E2E_F32 = 5e-3
 REST_SERVE = dict(requests=8, slots=4, prompt_len=48, max_new=16,
                   cache_len=64, page_tokens=16, quantum=4)
 SERVE_EXTRA = (37, 200)
-OPT_DROP_GB = 12.9
+OPT_DROP_GB = 6.44
+# phase 13: the registry's archs, (arch, layers (None: the config's),
+# batch), sgd without momentum at PAPER_LR, S=1024, TRAIN_STEPS steps;
+# then the serving trace of phase 12 on REG_SERVE at full width. The runs
+# cut in depth spool through `drained_spool_policy`: 2-4 layers run
+# forward faster than 9p writes one of their 1.5-5 GB blobs, so without
+# the wait every store of steps 2-3 is still in flight at backward and
+# its tensors are forwarded from the card, as if kept. llama4-scout runs
+# at B=8, the least batch at which its activations set the device peak
+# (on an H100 80GB HBM3 at 700 W): at B=1 the sgd update's f32 copies of
+# its stacked expert weights set it (36.71 GB kept and spooled); at B=4
+# the last layer's backward, which holds the whole stacked gradient tree
+# (8.8 GB) beside that layer's activations in both runs (48.58 GB both
+# ways); from B=7 the first layer's backward, where keep also holds the
+# other layer's activations (1.4 GB a sample), is the higher
+REG_TRAIN = [("qwen2.5-3b", None, 1), ("gemma2-27b", 4, 2),
+             ("hubert-xlarge", None, 2), ("llama4-scout-17b-a16e", 2, 8)]
+REG_SEQ = 1024
+REG_SERVE = "qwen2.5-3b"
+# phase 3: the flash instances phase 13 launches, (label, (B, Sq, Skv,
+# Hq, Hkv, D, causal, window, cap), dtype, tol): D=80 at a ragged length
+# in both dtypes, then the path shapes; gemma2's at S=8192, where its
+# 4096 window masks (at S=1024 it never does)
+REG_FLASH_CASES = [
+    ("d80 ragged", (1, 96, 96, 2, 2, 80, True, 0, 0.0), torch.float32,
+     TOL_F32),
+    ("d80 ragged", (1, 96, 96, 2, 2, 80, True, 0, 0.0), torch.bfloat16,
+     TOL_BF16_ROW),
+    ("hubert-xlarge", (2, 1024, 1024, 16, 16, 80, False, 0, 0.0),
+     torch.bfloat16, TOL_BF16_ROW),
+    ("qwen2.5-3b", (1, 1024, 1024, 16, 2, 128, True, 0, 0.0),
+     torch.bfloat16, TOL_BF16_ROW),
+    ("llama4-scout", (1, 1024, 1024, 40, 8, 128, True, 0, 0.0),
+     torch.bfloat16, TOL_BF16_ROW),
+    ("gemma2-27b S=8192", (1, 8192, 8192, 32, 16, 128, True, 4096, 50.0),
+     torch.bfloat16, TOL_BF16_ROW),
+]
 # the attention of phase 8's GPT and BERT: (B, S, H, D); BERT's is
 # bidirectional, GPT's causal; T5's both, at its batch (its encoder
 # input has the decoder's length, so cross-attention has this shape too)
@@ -431,6 +507,7 @@ def mirror_check():
                for B, S, H, D in (BERT_ATTN, T5_ATTN)]
     shapes += [(B, S, S, Hq, Hkv, D, causal, window, 0.0) for
                B, S, Hq, Hkv, D, causal, window, _, _ in FLASH_D256_CASES]
+    shapes += [c for _, c, _, _ in REG_FLASH_CASES]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for D in fa.HEAD_DIMS:
@@ -810,6 +887,78 @@ def flash_bert_phase(gen, peaks, smi):
     return res
 
 
+def flash_registry_phase(gen, peaks, smi):
+    """The flash instances phase 13 launches (REG_FLASH_CASES) against
+    the plain attention in f32; at each path shape its time (one call
+    and back to back) beside the plain version's, the bound and
+    scaled_dot_product_attention's (with the window as a boolean mask
+    where one applies; it has no softcap, so at gemma2's shape it
+    computes another function and is a yardstick only). Returns
+    {label: {max_abs_err, max_row_rel_err, ms, ms_back_to_back, plain_ms,
+    sdpa_ms, library_ms, bound}} for the path shapes, and the worst
+    errors of the D=80 cases ({"d80 f32", "d80 bf16"})."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_reference
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res, d80 = {}, {"d80 f32": 0.0, "d80 bf16": 0.0}
+    for label, case, dtype, tol in REG_FLASH_CASES:
+        B, Sq, Skv, Hq, Hkv, D, causal, window, cap = case
+        q = torch.randn((B, Sq, Hq, D), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((B, Skv, Hkv, D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        opts = dict(causal=causal, window=window, logit_cap=cap)
+        out = flash_attention(q, k, v, **opts)
+        torch.cuda.synchronize()
+        want = attention_reference(q.float(), k.float(), v.float(), **opts)
+        err, rel, ok = attn_error(out, want, tol)
+        del out, want
+        print(f"  flash_attention {label} B={B} Sq={Sq} Skv={Skv} Hq={Hq} "
+              f"Hkv={Hkv} D={D} causal={causal} window={window} cap={cap} "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e} row_rel_err "
+              f"{rel:.3e} tol {tol:g}"
+              f"{' of the row max' if dtype == torch.bfloat16 else ''} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention disagrees with its plain version at "
+              f"{label} ({str(dtype)[6:]})")
+        if D == 80:
+            key = "d80 f32" if dtype == torch.float32 else "d80 bf16"
+            d80[key] = max(d80[key], err)
+        if Sq < 1024:
+            continue
+        r = res[label] = {"max_abs_err": err, "max_row_rel_err": rel}
+        r["ms"] = time_ms(lambda: flash_attention(q, k, v, **opts))
+        r["ms_back_to_back"] = time_back_to_back_ms(
+            lambda: flash_attention(q, k, v, **opts))
+        r["plain_ms"] = time_ms(lambda: attention_reference(q, k, v,
+                                                            **opts))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            i = torch.arange(Sq, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] >
+                                                 i[:, None] - window)
+            r["sdpa_ms"] = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                                enable_gqa=True))
+            del mask
+        else:
+            r["sdpa_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                                enable_gqa=True))
+        # one PyTorch call computing the same function: none with a cap
+        r["library_ms"] = None if cap else r["sdpa_ms"]
+        r["bound"] = bound_ms(q, k, v, causal, window, peaks)
+        other = (" with the window mask and no softcap: another function"
+                 if cap else "")
+        print(f"  {label} shape: kernel_ms {r['ms']:.4f} (back-to-back "
+              f"{r['ms_back_to_back']:.4f}) plain_ms {r['plain_ms']:.4f} "
+              f"sdpa_ms {r['sdpa_ms']:.4f} (scaled_dot_product_attention"
+              f"{other}, yardstick only) bound_us "
+              f"{1e3 * r['bound'][0]:.1f} "
+              f"({r['bound'][1]}) on {smi}")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return res, d80
+
+
 def rg_layer_check(gen):
     """One full-width rglru mixer forward through the kernel against the
     plain recurrence, bf16 weights from a seed."""
@@ -895,7 +1044,8 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     the spool stored for each stage of the first step, in stage order.
     A spool run prints its pool's stats."""
     from repro_torch.core.tree import tree_flatten
-    from repro_torch.data.pipeline import encoder_decoder_batches
+    from repro_torch.data.pipeline import (embedding_batches,
+                                           encoder_decoder_batches)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -903,7 +1053,10 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     kernels = (flash_attention, ssd_scan, rglru_scan)
     loader = (encoder_decoder_batches(cfg.vocab_size, batch=batch,
                                       seq_len=seq, seed=0)
-              if cfg.family == "encdec" else None)
+              if cfg.family == "encdec" else
+              embedding_batches(cfg.d_model, cfg.vocab_size, batch=batch,
+                                seq_len=seq, seed=0)
+              if cfg.input_kind == "embeddings" else None)
     sess = TrainSession(cfg, policy=policy, io=io, optimizer=optimizer,
                         lr=3e-4, batch_size=batch, seq_len=seq, seed=0,
                         device="cuda", attn_impl="cuda", loader=loader,
@@ -920,6 +1073,8 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
         spool.offload = counted
     try:
         sess.init()
+        print(f"  {label}: {sess.n_params / 1e9:.3f} B parameters "
+              f"({cfg.dtype})")
         for k in kernels:
             k.launches = 0
         if snap is not None:
@@ -995,13 +1150,16 @@ def same_params(a, b) -> bool:
 
 
 def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
-                  hold=False, settings=None, label=None):
+                  hold=False, settings=None, label=None, policy=None,
+                  act_lower=False):
     """Full-width training of `cfg` kept on the card, then spooled (fs,
     raw) to a fresh directory: bitwise losses and parameters, a lower
     peak, bytes offloaded, every stored stage fetched (the stage count
     is the engine's, and equal to `stages` where given), the directory
     empty after close, and each kernel's launches equal to `want` in
-    each run. A model of one-block layers (no encoder) also holds the
+    each run. `policy`: the spool run's (a SpoolPolicy by default); with
+    `act_lower` its tracked activation peak must be lower than keep's
+    too. A model of one segment (no encoder) also holds the
     layer stages' saved bytes to the exact counter
     (`core.endurance.residual_bytes_per_layer` on the meta device).
     Returns the spool run's launches (the main path's); with `hold`,
@@ -1024,8 +1182,9 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
     spool_dir = tempfile.mkdtemp(prefix="chip_smoke_spool_")
     mnt, fstype = mount_of(spool_dir)
     ls, same, rs, ns, peak_s, n_stages = train_run(
-        cfg, SpoolPolicy(), SpoolIoConfig(backend="fs", directory=spool_dir,
-                                          codec="raw", pool_bytes=POOL_BYTES),
+        cfg, policy or SpoolPolicy(), SpoolIoConfig(
+            backend="fs", directory=spool_dir, codec="raw",
+            pool_bytes=POOL_BYTES),
         f"{label} spool", optimizer=optimizer, seq=seq, batch=batch,
         keep_params=pk, settings=settings, stage_bytes=stage_bytes)
     n_leaves = len(pk)
@@ -1048,6 +1207,8 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
     check(lk == ls, f"keep and spool losses differ: {lk} vs {ls}")
     check(same, "keep and spool parameters differ")
     check(peak_s < peak_k, f"spool peak {peak_s} not below keep {peak_k}")
+    check(not act_lower or act_s < act_k, f"tracked activation peak "
+          f"{act_s} spooled not below keep {act_k}")
     check(sum(r.stats.bytes_offloaded for r in rs) > 0, "nothing offloaded")
     check(all(r.extra["stages_offloaded"] == r.extra["stages_fetched"]
               == n_stages for r in rs), "a stored stage was not fetched")
@@ -1059,8 +1220,7 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
               f"{nk[name]}/{ns[name]}, want {n}")
     print(f"  keep vs spool: losses and {n_leaves} parameter leaves bitwise "
           f"equal; stored bytes per stage in step 1 {stage_bytes}")
-    if cfg.family != "encdec" and all(len(seg.blocks) == 1
-                                      for seg in build_segments(cfg)):
+    if cfg.family != "encdec" and len(build_segments(cfg)) == 1:
         t0 = time.perf_counter()
         per = residual_bytes_per_layer(
             cfg, batch, seq, offloadable_only=False,
@@ -1753,7 +1913,7 @@ def bit_fingerprint(tensors):
 def opt_run(cfg, label, *, engine="jit", host_offload="none",
             activations="keep", opt_overlap=None, steps=OPT_STEPS,
             keep_params=None, snap_at=None):
-    """One run of phase 11: gpt-h8192-l4, adamw (lr 3e-4, no clipping),
+    """One run of phase 11: gpt-h8192-l2, adamw (lr 3e-4, no clipping),
     B=4, S=1024, fs, raw, traced (no file). (a) is the staged engine
     with KeepPolicy and the fused update; the others the jit engine with
     `activations` placement, `host_offload` and `opt_overlap`. Every
@@ -2190,6 +2350,41 @@ def serve_rest_phase(gen, peaks, smi):
     return {TRAIN_ARCH: m2, RG_ARCH: rgl}, ssd, flash
 
 
+def registry_phase(gen, smi):
+    """Phase 13: the registry's archs of REG_TRAIN kept vs spooled at
+    S=REG_SEQ with sgd (keep_vs_spool's checks; one flash launch per
+    attention block per step), then REG_SERVE served at full width as
+    phase 12 serves. Returns ({arch: the spool run's launches}, the
+    paged serve run's launches)."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.transformer import build_segments
+    from repro_torch.optim.optimizers import sgd
+    out = {}
+    for arch, layers, batch in REG_TRAIN:
+        t0 = time.perf_counter()
+        cfg = resolve_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        segs = build_segments(cfg)
+        n_attn = sum(seg.n_repeat * sum(b.mixer == "attn"
+                                        for b in seg.blocks)
+                     for seg in segs)
+        out[arch] = keep_vs_spool(
+            cfg, REG_SEQ, sgd(PAPER_LR),
+            {"flash_attention": n_attn * TRAIN_STEPS, "ssd_scan": 0,
+             "rglru_scan": 0}, smi, batch=batch,
+            stages=sum(seg.n_repeat for seg in segs) + 2,
+            label=f"{arch}" + (f" d{layers}" if layers else ""),
+            policy=drained_spool_policy() if layers else None,
+            act_lower=True)
+        print(f"  {arch}: {time.perf_counter() - t0:.1f}s")
+    n_layers = resolve_config(REG_SERVE).num_layers
+    serve_launches, _ = serve_rest_arch(
+        REG_SERVE, gen, smi, {"flash_attention": n_layers, "ssd_scan": 0,
+                              "rglru_scan": 0}, TOL_E2E)
+    return out, serve_launches
+
+
 def opt_phase(smi):
     """Phase 11: the optimizer state and the jit engine on the paper's
     GPT with adamw: (a) staged, keep, the fused update; (b) jit, the
@@ -2198,20 +2393,20 @@ def opt_phase(smi):
     (e) the overlap's "sync" drain, 2 steps. Losses equal to (a)'s,
     final parameters equal to (a)'s (exactly; (e)'s by fingerprint
     against (a) after step 2) and final moments' fingerprints equal to
-    (a)'s at the same step, 4 flash launches a step, moments fetched in
+    (a)'s at the same step, a flash launch per layer a step, moments
+    fetched in
     steps 2-3, the spool dirs empty, and (c)'s device peak at least
     OPT_DROP_GB below (a)'s. Returns (c)'s flash launches."""
     from repro_torch.configs import gpt
-    cfg = gpt(PAPER_HIDDEN, PAPER_LAYERS)
+    cfg = gpt(PAPER_HIDDEN, OPT_LAYERS)
     deterministic()
     work = tempfile.gettempdir()
     mnt, fstype = mount_of(work)
     free = shutil.disk_usage(work).free
     print(f"opt: spool dirs on {mnt} ({fstype}), {free / 1e9:.1f} GB "
           f"free; host: {host_free_line()}")
-    # (b) can have two 32.4 GB state blobs on disk at once
-    check(free >= 70e9, f"opt: {free / 1e9:.1f} GB free under {work}, "
-          f"need 70 GB for phase 11")
+    check(free >= OPT_FREE_GB * 1e9, f"opt: {free / 1e9:.1f} GB free "
+          f"under {work}, need {OPT_FREE_GB} GB for phase 11")
     write_stall_probe(work)
     a = opt_run(cfg, "(a) staged keep", engine="staged",
                 snap_at=OPT_SYNC_STEPS)
@@ -2226,7 +2421,7 @@ def opt_phase(smi):
     out = {label: opt_run(cfg, label, keep_params=a["params"], **kw)
            for label, kw in runs.items()}
     n_leaves = len(a.pop("params"))
-    check(a["launches"]["flash_attention"] == 4 * OPT_STEPS,
+    check(a["launches"]["flash_attention"] == OPT_LAYERS * OPT_STEPS,
           f"(a) flash launches {a['launches']['flash_attention']}")
     for label, r in out.items():
         steps = len(r["reports"])
@@ -2241,9 +2436,10 @@ def opt_phase(smi):
         check(r["fp"][1] == want_fp[1], f"{label}: moments' fingerprint "
               f"{r['fp'][1]} differs from (a)'s {want_fp[1]} after "
               f"{steps} steps")
-        check(r["launches"]["flash_attention"] == 4 * steps,
+        check(r["launches"]["flash_attention"] == OPT_LAYERS * steps,
               f"{label}: flash launches "
-              f"{r['launches']['flash_attention']}, want {4 * steps}")
+              f"{r['launches']['flash_attention']}, want "
+              f"{OPT_LAYERS * steps}")
         check(r["empty"], f"{label}: spool directory not empty after "
               f"close")
         for rep in r["reports"][1:]:
@@ -2302,10 +2498,11 @@ def main():
     for src in libs:
         for line in ptxas_report(build.build_log(src)):
             print(f"  ptxas {src}: {line}")
-            if line.startswith(("attn_fwd_mma_kernel", "rglru_")):
+            if line.startswith(("attn_fwd_mma_kernel", "rglru_",
+                                "attn_fwd_fma_kernel<80>")):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
-                      f"a tensor-core flash or RG-LRU instance spills: "
-                      f"{line}")
+                      f"a tensor-core flash, D=80 flash or RG-LRU "
+                      f"instance spills: {line}")
     mirror_check()
 
     # ---- 3. kernel vs plain version
@@ -2365,7 +2562,10 @@ def main():
     d256 = flash_d256_phase(gen, peaks, smi)
     paper_attn = flash_bert_phase(gen, peaks, smi)
     bert_attn = paper_attn["bert"]
+    reg_attn, d80 = flash_registry_phase(gen, peaks, smi)
+    hub_attn = reg_attn["hubert-xlarge"]
     rg_layer_check(gen)
+    t_kernels = time.perf_counter()
 
     # ---- 4. serve at full width
     t0 = time.perf_counter()
@@ -2454,6 +2654,7 @@ def main():
     # matrix; 7. train recurrentgemma at full width, keep vs spool
     t0 = time.perf_counter()
     ssd_launches = train_phase(smi)["ssd_scan"]
+    t05 = time.perf_counter()
     matrix_phase()
     t1 = time.perf_counter()
     rg_launches = rg_train_phase(smi)
@@ -2483,12 +2684,20 @@ def main():
     # ---- 12. serve mamba2 and recurrentgemma at full width
     rest_launches, ssd_serve, flash_serve = serve_rest_phase(
         gen, peaks, smi)
-    print(f"train phases: mamba2 {t1 - t0:.1f}s, recurrentgemma "
-          f"{t2 - t1:.1f}s, GPT, BERT and T5 {t3 - t2:.1f}s, checkpoints "
-          f"and tracing {t4 - t3:.1f}s, storage and resilience "
-          f"{t5 - t4:.1f}s, optimizer state and the jit engine "
-          f"{t6 - t5:.1f}s; serve the rest "
-          f"{time.perf_counter() - t6:.1f}s; the script "
+    t7 = time.perf_counter()
+    print(f"phase times: 1-3 (device, build, kernels) "
+          f"{t_kernels - T_START:.1f}s, 4 serve {t0 - t_kernels:.1f}s, 5 "
+          f"mamba2 {t05 - t0:.1f}s, 6 policy matrix {t1 - t05:.1f}s, 7 "
+          f"recurrentgemma {t2 - t1:.1f}s, 8 GPT, BERT and T5 "
+          f"{t3 - t2:.1f}s, 9 checkpoints and tracing {t4 - t3:.1f}s, 10 "
+          f"storage and resilience {t5 - t4:.1f}s, 11 optimizer state and "
+          f"the jit engine {t6 - t5:.1f}s, 12 serve the rest "
+          f"{t7 - t6:.1f}s")
+
+    # ---- 13. the registry's archs: train four, serve qwen2.5-3b
+    reg_launches, reg_serve_launches = registry_phase(gen, smi)
+    print(f"phase times: 13 the registry's archs "
+          f"{time.perf_counter() - t7:.1f}s; the script "
           f"{time.perf_counter() - T_START:.1f}s")
 
     # ---- 13. result
@@ -2564,6 +2773,34 @@ def main():
         "t5_noncausal_library_ms": paper_attn["t5"]["library_ms"],
         "t5_noncausal_bound_ms": paper_attn["t5"]["bound"][0],
         "t5_noncausal_bound_by": paper_attn["t5"]["bound"][1],
+        # phase 13: the registry's archs (3 steps each, spool run), and
+        # qwen2.5-3b served paged (8 prefills x 36 layers)
+        **{f"launches_per_{a.split('-')[0].replace('.', '_')}_train_run":
+           reg_launches[a]["flash_attention"] for a, _, _ in REG_TRAIN},
+        "launches_per_qwen_serve_run": reg_serve_launches[
+            "flash_attention"],
+        # the D=80 instance (hubert-xlarge, bidirectional): its worst
+        # f32 and bf16 errors, and its time at hubert's shape
+        "d80_f32_max_abs_err": d80["d80 f32"],
+        "d80_max_abs_err": d80["d80 bf16"],
+        "d80_max_row_rel_err": hub_attn["max_row_rel_err"],
+        "d80_ms": hub_attn["ms"],
+        "d80_ms_back_to_back": hub_attn["ms_back_to_back"],
+        "d80_plain_ms": hub_attn["plain_ms"],
+        "d80_library_ms": hub_attn["library_ms"],
+        "d80_bound_ms": hub_attn["bound"][0],
+        "d80_bound_by": hub_attn["bound"][1],
+        # GQA 8:1 (qwen2.5-3b), 5:1 (llama4-scout) and gemma2's window
+        # plus softcap at S=8192 (library_ms null: SDPA has no softcap)
+        **{f"{pre}_{k}": (reg_attn[label]["bound"][0] if k == "bound_ms"
+                          else reg_attn[label]["bound"][1]
+                          if k == "bound_by" else reg_attn[label][k])
+           for pre, label in (("qwen", "qwen2.5-3b"),
+                              ("llama4", "llama4-scout"),
+                              ("gemma2_s8192", "gemma2-27b S=8192"))
+           for k in ("max_row_rel_err", "ms", "ms_back_to_back",
+                     "plain_ms", "sdpa_ms", "library_ms", "bound_ms",
+                     "bound_by")},
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -1,7 +1,10 @@
-"""Model configurations of the PyTorch port."""
+"""Model configurations of the port: the JAX package's registry ids
+(`registry.py`, over copies of its config files), the paper's models,
+and `resolve_config`, the `--arch` strings of both packages."""
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig, SpoolIoConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      SpoolIoConfig, reduced)
 from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
 from repro_torch.configs.paper_models import (PAPER_SCENARIOS,
                                               SMALL_SCENARIOS, bert, gpt,
@@ -9,25 +12,22 @@ from repro_torch.configs.paper_models import (PAPER_SCENARIOS,
                                               small_t5, t5)
 from repro_torch.configs.recurrentgemma_9b import \
     CONFIG as RECURRENTGEMMA_9B
+from repro_torch.configs.registry import (ARCH_IDS, cell_skip_reason,
+                                          get_config, get_shape, grid)
 
-__all__ = ["ModelConfig", "SpoolIoConfig", "PAPER_SCENARIOS",
-           "SMALL_SCENARIOS", "bert", "gpt", "small_bert", "small_gpt",
-           "small_t5", "t5", "resolve_config", "MAMBA2_2_7B",
-           "RECURRENTGEMMA_9B"]
-
-# registry ids the port carries so far (the JAX package's
-# `configs/registry.py` has more; they wait for their slices)
-_REGISTRY = {"mamba2-2.7b": MAMBA2_2_7B,
-             "recurrentgemma-9b": RECURRENTGEMMA_9B}
+__all__ = ["ModelConfig", "ShapeConfig", "SpoolIoConfig", "SHAPES",
+           "reduced", "ARCH_IDS", "get_config", "get_shape", "grid",
+           "cell_skip_reason", "PAPER_SCENARIOS", "SMALL_SCENARIOS", "bert",
+           "gpt", "small_bert", "small_gpt", "small_t5", "t5",
+           "resolve_config", "MAMBA2_2_7B", "RECURRENTGEMMA_9B"]
 
 
 def resolve_config(name: str) -> ModelConfig:
-    """Arch string -> ModelConfig: small-gpt, small-bert, gpt-124m,
-    gpt-h<H>-l<L> or a registry id the port carries (mamba2-2.7b,
-    recurrentgemma-9b); the subset of the JAX package's
-    `session.resolve_config` that the port supports so far. BERT and T5 at
-    paper width have no string there either: callers build `bert(h, l)`
-    and `t5(h, l)`."""
+    """Arch string -> ModelConfig, as the JAX package's
+    `session.resolve_config`: a registry id, '<id>:reduced', gpt-124m,
+    small-gpt, small-bert or gpt-h<H>-l<L>. BERT and T5 at paper width
+    have no string there either: callers build `bert(h, l)` and
+    `t5(h, l)`."""
     if name == "gpt-124m":
         return dataclasses.replace(
             gpt(768, 12, vocab=32768), num_heads=12, num_kv_heads=12,
@@ -36,11 +36,13 @@ def resolve_config(name: str) -> ModelConfig:
         return small_gpt()
     if name == "small-bert":
         return small_bert()
-    if name in _REGISTRY:
-        return _REGISTRY[name]
+    if name.endswith(":reduced") and name[:-len(":reduced")] in ARCH_IDS:
+        return reduced(get_config(name[:-len(":reduced")]))
+    if name in ARCH_IDS:
+        return get_config(name)
     if name.startswith("gpt-h") and "-l" in name:
         h, l = name[5:].split("-l")
         return gpt(int(h), int(l))
-    raise ValueError(f"unknown arch {name!r} (the port knows small-gpt, "
-                     f"small-bert, gpt-124m, gpt-h<H>-l<L> and "
-                     f"{sorted(_REGISTRY)})")
+    raise ValueError(f"unknown arch {name!r} (known: small-gpt, "
+                     f"small-bert, gpt-124m, gpt-h<H>-l<L>, a registry id "
+                     f"{ARCH_IDS} or '<id>:reduced')")

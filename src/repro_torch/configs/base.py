@@ -1,6 +1,7 @@
 """Config schema of the PyTorch port: `ModelConfig`, copied field for
-field from the JAX package's `repro/configs/base.py`, and the spool's
-storage selection `SpoolIoConfig`.
+field from the JAX package's `repro/configs/base.py`, the spool's
+storage selection `SpoolIoConfig`, and the registry's input shapes
+(`ShapeConfig`, `SHAPES`) and tiny same-family configs (`reduced`).
 
 The port keeps its own copy (it imports nothing under `repro.`), so the
 two schemas must be kept in step by hand; the port's tests build both
@@ -8,6 +9,7 @@ from the same arguments and compare.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import mmap
 from dataclasses import dataclass
@@ -94,6 +96,17 @@ class ModelConfig:
         """Encoder-only models have no autoregressive decode step."""
         return self.causal
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Every block is sub-quadratic (SSM, linear recurrence, or
+        windowed attention in a hybrid): full-attention archs skip
+        long_500k."""
+        if self.family == "ssm":
+            return True
+        if self.hybrid_pattern:
+            return self.sliding_window > 0
+        return False
+
     def validate(self) -> "ModelConfig":
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
@@ -103,6 +116,9 @@ class ModelConfig:
             if self.num_kv_heads and self.num_heads % self.num_kv_heads:
                 raise ValueError("num_heads must be a multiple of "
                                  "num_kv_heads")
+        if self.moe_num_experts and not (
+                0 < self.moe_top_k <= self.moe_num_experts):
+            raise ValueError("moe_top_k must be in [1, moe_num_experts]")
         return self
 
 
@@ -201,3 +217,61 @@ class SpoolIoConfig:
             if not ok:
                 raise ValueError(msg)
         return self
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: training or serving geometry."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+# The four assigned shapes (identical across the 10 LM-family archs).
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
+            heads: int = 4, kv_heads: int = 0, d_ff: int = 128,
+            vocab: int = 512, experts: int = 4) -> ModelConfig:
+    """Tiny same-family config for CPU smoke tests (the JAX package's
+    `reduced`, field for field)."""
+    kv = kv_heads or max(1, min(cfg.num_kv_heads, heads)
+                         if cfg.num_kv_heads else heads)
+    while heads % kv:
+        kv -= 1
+    updates = dict(
+        num_layers=layers, d_model=d_model, num_heads=heads,
+        num_kv_heads=kv, d_ff=d_ff, vocab_size=vocab,
+        head_dim=d_model // heads,
+    )
+    if cfg.moe_num_experts:
+        updates.update(moe_num_experts=experts,
+                       moe_top_k=min(cfg.moe_top_k, experts),
+                       moe_shared_experts=min(cfg.moe_shared_experts, 1),
+                       moe_first_dense_layers=min(
+                           cfg.moe_first_dense_layers, 1),
+                       moe_dense_ff=d_ff)
+    if cfg.family == "ssm":
+        updates.update(ssm_state_dim=16, ssm_head_dim=16, ssm_chunk=32)
+    if cfg.rglru_width:
+        updates.update(rglru_width=d_model)
+    if cfg.sliding_window:
+        updates.update(sliding_window=min(cfg.sliding_window, 16))
+    if cfg.encoder_seq_len:
+        updates.update(encoder_seq_len=16)
+    if cfg.num_decoder_layers:
+        updates.update(num_decoder_layers=max(1, layers // 2))
+    if cfg.cross_attn_period:
+        updates.update(cross_attn_period=2)
+    return dataclasses.replace(cfg, **updates).validate()

@@ -59,6 +59,19 @@ layers from 0, encoder layers from `ENC_STAGE_BASE`). The step's update
 rest of the tree. The jit engine of the port is this engine under
 another name (`engine_name`), its placement from
 `RunSettings.activation_policy` (`core/policies.py::policy_for_jit`).
+
+MoE aux losses follow the JAX engine of the same name. The JAX staged
+engine's layer stages drop them, so under `engine_name="staged"` the
+loss is the CE alone. The JAX jit engine's step is `api.loss`, which
+adds `MOE_LB_COEF * moe_lb + MOE_Z_COEF * moe_z`; under "jit" a layer
+stage with an MoE block returns that sum of its blocks beside its
+output, backward seeds it with 1 beside the carry, the step's loss adds
+every stage's term, and the report's `extra` carries `ce`, `moe_lb`
+and `moe_z` (summed over layers, averaged over microbatches).
+
+An embeddings-input model (hubert) takes `batch["embeddings"]` (float,
+moved to the device as it is) through the embed stage's
+`frontend_proj`.
 """
 from __future__ import annotations
 
@@ -78,9 +91,9 @@ from repro_torch.core.report import StepReport
 from repro_torch.core.spool import (MIN_OFFLOAD_ELEMENTS, SpoolLoadError,
                                     build_spool)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
-from repro_torch.models.api import (ModelApi, ce_chunk_applies, ce_loss,
-                                    chunked_ce, embed_in, encoder_config,
-                                    head)
+from repro_torch.models.api import (MOE_LB_COEF, MOE_Z_COEF, ModelApi,
+                                    ce_chunk_applies, ce_loss, chunked_ce,
+                                    embed_in, encoder_config, head)
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import RunSettings, apply_block, layer
 
@@ -119,16 +132,34 @@ def _nbytes(tensors) -> int:
 
 class _Stage:
     """One module of the chain. role: enc_embed | enc_layer | enc_final |
-    embed | layer | head. takes_enc: fn is f(p, x, enc)."""
+    embed | layer | head. takes_enc: fn is f(p, x, enc). aux: fn returns
+    (x, {"moe_lb", "moe_z"}) (a layer with MoE blocks under the jit
+    name)."""
 
     __slots__ = ("name", "role", "fn", "seg", "rep", "takes_enc",
-                 "tap_stage")
+                 "tap_stage", "aux")
 
     def __init__(self, name, role, fn, seg=-1, rep=-1, takes_enc=False,
-                 tap_stage=None):
+                 tap_stage=None, aux=False):
         self.name, self.role, self.fn = name, role, fn
         self.seg, self.rep, self.takes_enc = seg, rep, takes_enc
         self.tap_stage = tap_stage      # layer number in the grad tap
+        self.aux = aux
+
+
+def _aux_term(aux) -> torch.Tensor:
+    """A stage's share of the JAX jit loss's MoE terms."""
+    return MOE_LB_COEF * aux["moe_lb"] + MOE_Z_COEF * aux["moe_z"]
+
+
+def _stage_grad(out, term, inputs, carry):
+    """Gradients of a stage's output (seeded with `carry`) and of its
+    MoE aux term (seeded with 1), with respect to `inputs`."""
+    if term is None:
+        return torch.autograd.grad(out, inputs, carry, allow_unused=True)
+    return torch.autograd.grad((out, term), inputs,
+                               (carry, torch.ones_like(term)),
+                               allow_unused=True)
 
 
 class StagedEngine:
@@ -173,15 +204,24 @@ class StagedEngine:
     def _build_stages(self) -> List[_Stage]:
         cfg, settings = self.cfg, self.settings
 
+        def with_aux(seg) -> bool:
+            # the JAX jit engine's loss adds the MoE terms; its staged
+            # engine drops them
+            return self.engine_name == "jit" and any(
+                b.mlp == "moe" for b in seg.blocks)
+
         def layer_fn(seg, lcfg):
+            collect = with_aux(seg)
+
             def fn(p_layer, x, enc=None):
                 positions = (torch.arange(x.shape[1], device=x.device)
                              if lcfg.use_rope else None)
+                aux = {} if collect else None
                 for i, bdef in enumerate(seg.blocks):
                     x, _ = apply_block(bdef, p_layer[f"b{i}"], x, lcfg,
                                        settings, positions=positions,
-                                       enc_kv=enc)
-                return x
+                                       enc_kv=enc, aux=aux)
+                return (x, aux) if collect else x
             return fn
 
         stages = []
@@ -208,7 +248,8 @@ class StagedEngine:
             takes_enc = any(b.mixer == "cross" for b in seg.blocks)
             for rep in range(seg.n_repeat):
                 stages.append(_Stage(next(names), "layer", fn, si, rep,
-                                     takes_enc, tap_stage=n))
+                                     takes_enc, tap_stage=n,
+                                     aux=with_aux(seg)))
                 n += 1
 
         def head_fn(p, x, labels):
@@ -230,7 +271,8 @@ class StagedEngine:
         of saved tensors stays whole."""
         leaf_of = (_graph_leaf if self.settings.opt_sink is not None
                    else lambda t: t.detach().requires_grad_(True))
-        emb = {k: params[k] for k in ("embed", "pos_embed") if k in params}
+        emb = {k: params[k] for k in ("embed", "pos_embed", "frontend_proj")
+               if k in params}
         out = []
         for st in self._stages:
             if st.role in ("enc_embed", "embed"):
@@ -247,8 +289,14 @@ class StagedEngine:
         return out
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, torch.long)
-                for k, v in batch.items()}
+        """Token ids and labels as int64 on the device; float inputs
+        (`embeddings`) in their own dtype."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            out[k] = t.to(self.device, None if t.is_floating_point()
+                          else torch.long)
+        return out
 
     # ------------------------------------------------------------ step
 
@@ -275,6 +323,8 @@ class StagedEngine:
                   "stages_recomputed": 0, "stages_fetched": 0,
                   "layer_saved_bytes": 0, "forward_s": 0.0,
                   "backward_s": 0.0}
+        if any(s.aux for s in self._stages):
+            counts.update(ce=0.0, moe_lb=0.0, moe_z=0.0)
         loss_total, bwd_begin, dev_bwd_begin = 0.0, 0, 0
         sink = self.settings.opt_sink
         # the tap's step: the optimizer's, as the JAX hooks key it
@@ -322,6 +372,9 @@ class StagedEngine:
             self.policy.on_profile(profiles, self.spool.planner_bandwidth())
         self._step += 1
         extra = dict(counts)
+        for k in ("ce", "moe_lb", "moe_z"):
+            if k in extra:
+                extra[k] /= len(batches)
         if cuda:
             extra["device_peak_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)
@@ -347,6 +400,8 @@ class StagedEngine:
         ins: Dict[int, torch.Tensor] = {}      # stage input (graph leaf)
         outs: Dict[int, torch.Tensor] = {}     # stage output (graph root)
         cells: Dict[int, list] = {}            # fetched saved tensors
+        terms: Dict[int, torch.Tensor] = {}    # MoE aux terms (graph roots)
+        auxes = []                             # every aux stage's values
         recompute = set()
         loss = None
         for si, stage in enumerate(self._stages):
@@ -355,6 +410,9 @@ class StagedEngine:
             if self.policy.recomputes(stage.role):
                 with torch.no_grad():
                     out = stage.fn(stage_params[si], *args)
+                if stage.aux:
+                    out, aux = out
+                    auxes.append(aux)
                 recompute.add(si)
                 self.tracker.alloc((tx.key(si), "k"), _nbytes([x]),
                                    tag=f"ckpt:{tx.key(si)}")
@@ -365,6 +423,11 @@ class StagedEngine:
                 with torch.autograd.graph.saved_tensors_hooks(
                         *self._hooks(saved, cell, ins.get(si), enc)):
                     out = stage.fn(stage_params[si], *args)
+                    if stage.aux:
+                        out, aux = out
+                        # the values only: the graph goes with terms[si]
+                        auxes.append({k: v.detach() for k, v in aux.items()})
+                        terms[si] = _aux_term(aux)
                 cells[si] = cell
             if sync:
                 torch.cuda.synchronize(self.device)
@@ -398,6 +461,11 @@ class StagedEngine:
         dev_bwd_begin = (torch.cuda.memory_allocated(self.device)
                          if self.device.type == "cuda" else 0)
         loss_value = float(loss.detach())       # waits for the forward
+        if auxes:
+            counts["ce"] += loss_value
+            for k in ("moe_lb", "moe_z"):
+                counts[k] += float(torch.stack([a[k] for a in auxes]).sum())
+            loss_value += float(sum(_aux_term(a) for a in auxes))
         fwd_sp.__exit__(None, None, None)
         t_bwd = time.perf_counter()
         counts["forward_s"] += t_bwd - t_fwd
@@ -440,8 +508,8 @@ class StagedEngine:
                 else:
                     cells[si][:] = fetched
                     try:
-                        got = torch.autograd.grad(outs[si], inputs, carry,
-                                                  allow_unused=True)
+                        got = _stage_grad(outs[si], terms.get(si), inputs,
+                                          carry)
                     finally:
                         # a backward that raises leaves its graph's saved
                         # tensors unpacked, and their unpack hook holds
@@ -451,6 +519,7 @@ class StagedEngine:
                     del fetched
                 tx.drop(si)
             outs.pop(si)
+            terms.pop(si, None)
             cells.pop(si, None)
             if stage.takes_enc:
                 enc_grad = (got[-1] if enc_grad is None
@@ -513,8 +582,11 @@ class StagedEngine:
         with torch.enable_grad():
             out = stage.fn(p, *self._args_for(stage, batch, ins.get(si),
                                               enc))
-            return torch.autograd.grad(out, inputs, carry,
-                                       allow_unused=True)
+            term = None
+            if stage.aux:
+                out, aux = out
+                term = _aux_term(aux)
+            return _stage_grad(out, term, inputs, carry)
 
     def _add_grads(self, grads, params, stage, p_stage, got) -> None:
         """Write (or add, for later microbatches, and for the shared

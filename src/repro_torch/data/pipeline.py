@@ -203,3 +203,18 @@ def encoder_decoder_batches(vocab_size: int, *, batch: int, seq_len: int,
                            global_batch=batch, seq_len=seq_len, prefetch=0)
     for b in loader:
         yield dict(b, enc_tokens=b["tokens"])
+
+
+def embedding_batches(d_model: int, vocab_size: int, *, batch: int,
+                      seq_len: int, seed: int = 0
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+    """Batches for an embeddings-input model (hubert, whose audio
+    frontend is a stub in both packages): frame embeddings (batch,
+    seq_len, d_model) f32 from a standard normal, and labels in
+    [0, vocab_size), both from one numpy generator seeded with `seed`.
+    The JAX package's data pipeline makes tokens only."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {"embeddings": rng.standard_normal(
+                   (batch, seq_len, d_model), dtype=np.float32),
+               "labels": rng.integers(0, vocab_size, (batch, seq_len))}

@@ -75,7 +75,16 @@
 // give; no main path runs attention in f32, so it carries no tensor-core
 // path.
 //
-// Both are templated on D in {32, 64, 128, 256}.
+// Both are templated on D in {32, 64, 80, 128, 256}. D = 80 (hubert-xlarge,
+// 16 heads of 80) is no power of two; neither kernel assumes one. In the
+// tensor-core kernel a row of 80 bf16 is 10 chunks of 16 bytes: 5 k steps
+// of S = Q K^T, 10 n tiles of O (an even count, so ldmatrix.x4 still pairs
+// them), a Q fragment of 5 x 4 registers, and rows padded to 88 elements
+// (176 bytes = 44 words), so the eight rows of an ldmatrix phase start on
+// banks 0, 12, 24, 4, 16, 28, 8 and 20 and stay conflict-free without a
+// swizzle; the output's 16-byte stores take 160 chunks over 32 lanes. It
+// takes BQ = 64, BK = 64 as D = 128 does. In the f32 kernel D = 80 is one
+// thread per row (fma_split<80>() = 1) and its float4 reads divide 80.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -651,6 +660,7 @@ bool find_plan(int dtype, int D, Plan& p) {
   switch (D) {
     case 32: p = plan_of<32>(dtype); return true;
     case 64: p = plan_of<64>(dtype); return true;
+    case 80: p = plan_of<80>(dtype); return true;
     case 128: p = plan_of<128>(dtype); return true;
     case 256: p = plan_of<256>(dtype); return true;
   }
@@ -713,6 +723,7 @@ extern "C" int repro_flash_attention_fwd(
     switch (D) {
       case 32: return (int)launch_f32<32>(a);
       case 64: return (int)launch_f32<64>(a);
+      case 80: return (int)launch_f32<80>(a);
       case 128: return (int)launch_f32<128>(a);
       case 256: return (int)launch_f32<256>(a);
     }
@@ -720,6 +731,7 @@ extern "C" int repro_flash_attention_fwd(
     switch (D) {
       case 32: return (int)launch_bf16<32>(a);
       case 64: return (int)launch_bf16<64>(a);
+      case 80: return (int)launch_bf16<80>(a);
       case 128: return (int)launch_bf16<128>(a);
       case 256: return (int)launch_bf16<256>(a);
     }

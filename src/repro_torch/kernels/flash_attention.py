@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_reference
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FMA_BQ, FMA_BK = 128, 32      # f32 kernel: query rows / keys per tile
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -126,7 +126,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in
     q's dtype. Hq % Hkv == 0; query head h reads kv head h // (Hq/Hkv).
 
-    On the card: D in (32, 64, 128, 256), dtype float32 or bfloat16 (one
+    On the card: D in HEAD_DIMS, dtype float32 or bfloat16 (one
     for all three), last dimension contiguous (other strides are free; for
     bfloat16 each pointer and stride a multiple of 16 bytes). The output
     is allocated here and the kernel runs on the current stream without

@@ -22,8 +22,14 @@ that carry such state prefill at the exact prompt length.
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --batch 4 \\
       --requests 8 --prompt-len 48 --max-new 16 --cache-len 64 \\
       --quantum 4 --kv-codec raw
-  python -m repro_torch.launch.serve --arch small-gpt --device cpu \\
-      --attn-impl torch --quantum 3
+  python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4 \\
+      --requests 8 --prompt-len 48 --max-new 16 --cache-len 64 \\
+      --quantum 4 --kv-codec raw
+  python -m repro_torch.launch.serve --device cpu --quantum 3
+
+`--arch` takes every decoder id of the registry and `<id>:reduced` (the
+default is the JAX CLI's, `qwen2.5-3b:reduced`); an encoder-only arch
+(hubert-xlarge) has no decode step and is refused.
 
 `--trace OUT.json` writes a Chrome/Perfetto trace of the run: `kv.*`
 page events, `serve.*` scheduling and the spool's `spool.*` / `io.*`
@@ -111,7 +117,7 @@ def make_server(api, params, settings, kvcfg: KVCacheConfig, *,
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="small-gpt")
+    ap.add_argument("--arch", default="qwen2.5-3b:reduced")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8, help="decode slots")
     ap.add_argument("--prompt-len", type=int, default=48)

@@ -7,8 +7,9 @@ drives: `(params, opt_state, batches) -> (params, opt_state, metrics)`,
 The port's jit engine is the staged engine (`core/engine.py`) with its
 placement from `RunSettings.activation_policy`, so a step is
 `engine.train_step`. The metrics are the JAX step's (`ce`, `tokens`,
-`loss`) plus the engine's `StepReport` under `report` (not a number, so
-the loop's JSONL and the session's rows skip it).
+`loss`, and `moe_lb` / `moe_z` for an MoE model) plus the engine's
+`StepReport` under `report` (not a number, so the loop's JSONL and the
+session's rows skip it).
 """
 from __future__ import annotations
 
@@ -18,9 +19,13 @@ from repro_torch.runtime.trainer import batch_tokens
 
 
 def _metrics(rep, batches) -> Dict:
-    return {"ce": rep.loss,
-            "tokens": float(sum(batch_tokens(b) for b in batches)),
-            "loss": rep.loss, "report": rep}
+    out = {"ce": rep.extra.get("ce", rep.loss),
+           "tokens": float(sum(batch_tokens(b) for b in batches))}
+    for k in ("moe_lb", "moe_z"):
+        if k in rep.extra:
+            out[k] = rep.extra[k]
+    out.update(loss=rep.loss, report=rep)
+    return out
 
 
 def make_host_train_step(engine) -> Callable:

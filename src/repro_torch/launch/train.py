@@ -19,6 +19,17 @@ package's `repro/launch/train.py`.
   python -m repro_torch.launch.train --arch small-gpt --device cpu \
       --engine jit --host-offload activations --steps 2 --batch 2 \
       --seq 64 --min-offload 4096
+  python -m repro_torch.launch.train --arch qwen2.5-3b --optimizer sgd \
+      --steps 3 --batch 1 --seq 1024 --strategy spool
+  python -m repro_torch.launch.train --arch llama4-scout-17b-a16e:reduced \
+      --device cpu --engine jit --steps 2 --batch 2 --seq 64
+
+`--arch` takes every registry id but llama-3.2-vision-90b (whose
+cross-attention layers are not ported) and `<id>:reduced`, the paper's
+`small-gpt`, `small-bert`, `gpt-124m` and `gpt-h<H>-l<L>`. hubert-xlarge
+reads frame embeddings: the CLI feeds it seeded normal ones
+(`data.pipeline.embedding_batches`), as no data pipeline of either
+package makes them.
 
 `--engine jit` is the JAX CLI's jit engine on the port's one engine
 (layers recomputed in backward by default; `--host-offload opt_state`
@@ -65,8 +76,9 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.configs import SpoolIoConfig
+from repro_torch.configs import SpoolIoConfig, resolve_config
 from repro_torch.core.policies import STRATEGIES
+from repro_torch.data.pipeline import embedding_batches
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -269,8 +281,13 @@ def main(argv: Optional[List[str]] = None) -> None:
               "is incompatible with eager per-layer updates)")
     kernels = (flash_attention, ssd_scan, rglru_scan)
     launches0 = [k.launches for k in kernels]
+    cfg = resolve_config(args.arch)
+    loader = (embedding_batches(cfg.d_model, cfg.vocab_size,
+                                batch=args.batch, seq_len=args.seq,
+                                seed=args.seed)
+              if cfg.input_kind == "embeddings" else None)
     with TrainSession(
-            args.arch, engine=args.engine,
+            cfg, engine=args.engine, loader=loader,
             policy=args.strategy if args.engine == "staged" else None,
             opt_overlap=args.opt_overlap or None, io=io,
             optimizer=optimizer,

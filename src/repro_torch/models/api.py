@@ -2,9 +2,11 @@
 mirroring the JAX package's `repro/models/api.py`.
 
   init(generator)                               -> params
-  forward(params, batch, settings, emit_cache=False, cache_len=0)
+  forward(params, batch, settings, emit_cache=False, cache_len=0,
+          with_aux=False)
       -> logits_f32                       (emit_cache=False)
       -> (logits_f32, caches)             (emit_cache=True)
+      and the aux losses summed over layers last when with_aux
   loss(params, batch, settings)                 -> (loss, metrics)
   prefill(params, batch, settings, cache_len=0) -> (last_logits, caches)
   decode_step(params, cache, batch, pos, settings)  -> logits
@@ -18,6 +20,11 @@ steps update caches, pools and resident entries IN PLACE. Inputs and
 outputs are the JAX package's layouts; the embedding tables are untied
 and the vocab padded to a multiple of 256 with padded logits at -1e30.
 Models without RoPE add a learned `pos_embed` table (max_position x D).
+A model of `input_kind == "embeddings"` (hubert) has no `embed` table:
+its batches carry `embeddings` (B, S, D), which `frontend_proj` (D x D,
+identity plus noise at init, as in JAX) projects. An MoE model's loss
+adds `MOE_LB_COEF * moe_lb + MOE_Z_COEF * moe_z`, each summed over its
+MoE layers, and reports both in its metrics.
 `embed_in` and `head` are the first and last pieces of the forward, which
 the staged training engine runs as stages of their own; `chunked_ce` is
 the head and CE of `RunSettings.ce_chunk`, one sequence chunk at a time.
@@ -51,6 +58,9 @@ from repro_torch.models.transformer import (BlockDef, RunSettings,
                                             layer, stack)
 
 Params = Dict[str, Any]
+
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 0.001
 
 
 @dataclass(frozen=True)
@@ -105,10 +115,25 @@ def _token_embed(params, tokens, cfg: ModelConfig):
     return x
 
 
+def _frontend_embed(params, embeddings, cfg: ModelConfig):
+    """Precomputed frame embeddings (B, S, D) through `frontend_proj`, in
+    the parameter dtype (scaled as `_token_embed` scales)."""
+    w = params["frontend_proj"]
+    x = embeddings.to(w.dtype) @ w
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
 def embed_in(params, batch, cfg: ModelConfig):
-    """Token embeddings (`_token_embed`) plus learned positions for
-    non-RoPE models."""
-    x = _token_embed(params, batch["tokens"], cfg)
+    """Token embeddings (`_token_embed`), or for an embeddings-input model
+    its frame embeddings through `frontend_proj`, plus learned positions
+    for non-RoPE models."""
+    if cfg.input_kind == "embeddings":
+        x = _frontend_embed(params, batch["embeddings"], cfg)
+    else:
+        x = _token_embed(params, batch["tokens"], cfg)
     if not cfg.use_rope:
         S = x.shape[1]
         x = x + params["pos_embed"][:S][None].to(x.dtype)
@@ -268,12 +293,17 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         """Random weights on the generator's device, in cfg.dtype."""
         dtype = dtype_of(cfg.dtype)
         dev = gen.device
-        params: Params = {
-            "final_norm": init_norm(cfg.d_model, dtype, dev),
-            "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
-            "unembed": embed_init(gen, (cfg.d_model, cfg.padded_vocab),
-                                  dtype),
-        }
+        params: Params = {"final_norm": init_norm(cfg.d_model, dtype, dev)}
+        if cfg.input_kind == "embeddings":
+            noise = torch.randn((cfg.d_model, cfg.d_model), generator=gen,
+                                device=dev)
+            params["frontend_proj"] = (
+                torch.eye(cfg.d_model, device=dev) + 0.02 * noise).to(dtype)
+        else:
+            params["embed"] = embed_init(
+                gen, (cfg.padded_vocab, cfg.d_model), dtype)
+        params["unembed"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                       dtype)
         if not cfg.use_rope:
             params["pos_embed"] = embed_init(
                 gen, (cfg.max_position, cfg.d_model), dtype)
@@ -304,15 +334,16 @@ def build_model(cfg: ModelConfig) -> ModelApi:
 
     def hidden(params, batch, settings: RunSettings, *, emit_cache=False,
                cache_len=0):
-        """The final hidden state (before the head), and the decode
-        caches when `emit_cache` (else an empty list)."""
+        """The final hidden state (before the head), the decode caches
+        when `emit_cache` (else an empty list), and the blocks' aux
+        losses summed over layers."""
         enc = encode(params, batch, settings) if enc_segs else None
         x = embed_in(params, batch, cfg)
         S = x.shape[1]
         positions = (torch.arange(S, device=x.device) if cfg.use_rope
                      else None)
         cache_len = cache_len or S
-        caches = []
+        caches, aux = [], {}
         for seg, p_stack in zip(segs, params["segments"]):
             entries = {f"b{i}": [] for i in range(len(seg.blocks))}
             for rep in range(seg.n_repeat):
@@ -320,32 +351,41 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                 for i, bdef in enumerate(seg.blocks):
                     x, kv = apply_block(bdef, p_layer[f"b{i}"], x, cfg,
                                         settings, positions=positions,
-                                        enc_kv=enc)
+                                        enc_kv=enc, aux=aux)
                     if emit_cache:
                         entries[f"b{i}"].append(
                             _to_decode_cache(bdef, kv, cache_len))
             if emit_cache:
                 caches.append({bid: stack(e) for bid, e in entries.items()})
-        return x, caches
+        return x, caches, aux
 
     def forward(params, batch, settings: RunSettings, *, emit_cache=False,
-                cache_len=0):
-        x, caches = hidden(params, batch, settings, emit_cache=emit_cache,
-                           cache_len=cache_len)
-        logits = head(params, x, cfg)
-        return (logits, caches) if emit_cache else logits
+                cache_len=0, with_aux=False):
+        x, caches, aux = hidden(params, batch, settings,
+                                emit_cache=emit_cache, cache_len=cache_len)
+        out = (head(params, x, cfg),) + ((caches,) if emit_cache else ())
+        out += (aux,) if with_aux else ()
+        return out if len(out) > 1 else out[0]
 
     def loss(params, batch, settings: RunSettings):
-        """Mean CE over labels >= 0 -> (loss, {"ce", "tokens", "loss"}),
-        chunked (`chunked_ce`) when `settings.ce_chunk` applies."""
+        """Mean CE over labels >= 0, plus the MoE aux terms ->
+        (loss, {"ce", "tokens", "loss"} and "moe_lb", "moe_z" for an MoE
+        model), chunked (`chunked_ce`) when `settings.ce_chunk` applies."""
         labels = batch["labels"]
+        x, _, aux = hidden(params, batch, settings)
         if ce_chunk_applies(settings.ce_chunk, labels.shape[1]):
-            x, _ = hidden(params, batch, settings)
             ce, tokens = chunked_ce(params, x, labels, cfg,
                                     settings.ce_chunk)
         else:
-            ce, tokens = ce_loss(forward(params, batch, settings), labels)
-        return ce, {"ce": ce, "tokens": tokens, "loss": ce}
+            ce, tokens = ce_loss(head(params, x, cfg), labels)
+        total = ce
+        metrics = {"ce": ce, "tokens": tokens}
+        if "moe_lb" in aux:
+            total = ce + MOE_LB_COEF * aux["moe_lb"] \
+                + MOE_Z_COEF * aux["moe_z"]
+            metrics.update(moe_lb=aux["moe_lb"], moe_z=aux["moe_z"])
+        metrics["loss"] = total
+        return total, metrics
 
     def prefill(params, batch, settings: RunSettings, *, cache_len=0):
         logits, caches = forward(params, batch, settings, emit_cache=True,
@@ -357,8 +397,13 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         prefill token (the JAX package's `api.py::_decode_embed`): scaled
         by sqrt(d_model) in the parameter dtype when `cfg.scale_embed`,
         plus the learned position `pos_embed[pos]` for non-RoPE models,
-        per row for a (B,) `pos` and shared for a scalar one."""
-        x = _token_embed(params, batch["tokens"], cfg)
+        per row for a (B,) `pos` and shared for a scalar one; an
+        embeddings-input model's `batch["embeddings"]` (B, 1, D) through
+        `frontend_proj`."""
+        if cfg.input_kind == "embeddings":
+            x = _frontend_embed(params, batch["embeddings"], cfg)
+        else:
+            x = _token_embed(params, batch["tokens"], cfg)
         if not cfg.use_rope:
             pe = params["pos_embed"][pos].to(x.dtype)
             x = x + (pe[:, None] if pos.dim() == 1 else pe)
@@ -368,7 +413,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         """One token for the whole batch against dense caches (updated in
         place). batch: {"tokens": (B, 1)}. pos: int / 0-d tensor, or a
         (B,) tensor of per-row positions. Returns (B, 1, V) f32 logits."""
-        pos = torch.as_tensor(pos, device=params["embed"].device)
+        pos = torch.as_tensor(pos, device=params["unembed"].device)
         x = _decode_embed(params, batch, pos)
         for seg, p_stack, c_stack in zip(segs, params["segments"], cache):
             for rep in range(seg.n_repeat):
@@ -393,7 +438,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
           pos:      (B,) per-row absolute positions.
 
         Returns (B, 1, V) f32 logits."""
-        pos = torch.as_tensor(pos, device=params["embed"].device)
+        pos = torch.as_tensor(pos, device=params["unembed"].device)
         x = _decode_embed(params, batch, pos)
         for seg, p_stack, pool_stack, res_stack in zip(
                 segs, params["segments"], pools, resident):

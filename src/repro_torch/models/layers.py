@@ -204,7 +204,14 @@ def silu(x):
     return _Silu.apply(x)
 
 
-_ACTIVATIONS = {"gelu": gelu, "silu": silu}
+_ACTIVATIONS = {"gelu": gelu, "silu": silu, "relu": F.relu}
+
+
+def activation(name: str):
+    """The activation of a config's `act` (the JAX package's
+    `layers.activation`): exact GELU and SiLU as the Functions above,
+    which save only their input."""
+    return _ACTIVATIONS[name]
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -247,7 +254,7 @@ def init_mlp(gen, d_model, d_ff, dtype, lead=(), glu: bool = False
 def apply_mlp(p: Params, x, act: str = "gelu", glu: bool = False):
     """act(x @ w_gate) * (x @ w_in) @ w_out when gated, else the classic
     2-layer act(x @ w_in) @ w_out of the paper's GPT."""
-    f = _ACTIVATIONS[act]
+    f = activation(act)
     h = x @ p["w_in"]
     h = f(x @ p["w_gate"]) * h if glu else f(h)
     return h @ p["w_out"]

@@ -5,16 +5,24 @@ with stacked parameters) -> decode caches.
 Where JAX scans a segment's stacked parameters, the port loops in Python
 over the layer index (`layer(tree, i)` takes the i-th slice of every
 leaf, as views). The port carries the attention block (full or sliding
-window; causal, or bidirectional for encoder-only BERT and T5's
-encoder), T5's cross-attention (`cross`) block over the encoder states,
-and the RG-LRU (`rglru`) block, each followed by the dense MLP (classic
-or gated) where the block has one, and the attention-free Mamba-2
-(`ssm`) block with no MLP; the hybrid pattern of recurrentgemma repeats
-(rglru, rglru, attn) and puts the remainder in a second segment. Every
+window, local and global alternating in gemma2; causal, or
+bidirectional for encoder-only models and T5's encoder; with qkv
+biases for qwen2.5), T5's cross-attention (`cross`) block over the
+encoder states, and the RG-LRU (`rglru`) block, each followed by the
+dense MLP (classic or gated) or the MoE FFN (`models/moe.py`, with an
+always-on shared expert; kimi's leading layers dense) where the block
+has one, and the attention-free Mamba-2 (`ssm`) block with no MLP; the
+hybrid pattern of recurrentgemma repeats (rglru, rglru, attn) and puts
+the remainder in a second segment. With `post_block_norm` (gemma2) the
+mixer's and the MLP's outputs are normed before each residual add. Every
 block has a one-token decode step against its cache (attention K/V, a
 ring for windowed layers; the encoder's K/V for cross; the conv window
-and recurrent state for rglru and ssm); configurations needing anything
-else raise `NotImplementedError`.
+and recurrent state for rglru and ssm). Cross-attention layers every
+`cross_attn_period` (llama-3.2-vision) raise `NotImplementedError`.
+
+A block's aux losses (MoE: `moe_lb`, `moe_z`) are added into the `aux`
+dict a caller passes to `apply_block`; decode steps drop them, as JAX's
+do.
 
 Decode steps update their caches IN PLACE (`index_put_` and `copy_` on
 views of the stacked cache tensors) where JAX returns new, donated
@@ -33,6 +41,7 @@ from repro_torch.models import rglru as rg
 from repro_torch.models.attention import attend, attend_decode
 from repro_torch.models.layers import (apply_mlp, apply_rope, dense_init,
                                        init_mlp, init_norm, rms_norm)
+from repro_torch.models.moe import MoESettings, apply_moe, init_moe
 
 _NOT_PORTED = "not ported yet (ROADMAP §1, 'the other architectures')"
 
@@ -47,7 +56,8 @@ Params = Dict[str, Any]
 class BlockDef:
     mixer: str                    # "attn" | "cross" | "rglru" | "ssm"
     window: int = 0               # sliding window for attn (0 = full)
-    mlp: Optional[str] = "dense"  # "dense" | None
+    mlp: Optional[str] = "dense"  # "dense" | "moe" | None
+    dense_ff: int = 0             # override d_ff for this block's dense MLP
 
 
 @dataclass(frozen=True)
@@ -60,21 +70,11 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
     """The segments of a config's layer stack: the decoder-only or
     encoder-only stack, or for an encoder-decoder its encoder's layers
     (`models/api.py` builds the decoder's own segment)."""
-    ssm = cfg.family == "ssm"
-    missing = [what for what, needed in (
-        ("cross-attention layers (cross_attn_period)",
-         bool(cfg.cross_attn_period)),
-        ("MoE", bool(cfg.moe_num_experts)),
-        ("embedding inputs", cfg.input_kind != "tokens"),
-        ("qkv bias", cfg.qkv_bias and not ssm),
-        ("post-block norms", cfg.post_block_norm),
-        # the ssm block has no MLP: its act field is unused
-        (f"activation {cfg.act!r}", cfg.act != "gelu" and not ssm))
-        if needed]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} "
-                                  f"{_NOT_PORTED}")
-    if ssm:
+    if cfg.cross_attn_period:
+        raise NotImplementedError(
+            f"{cfg.name}: cross-attention layers (cross_attn_period) "
+            f"{_NOT_PORTED}")
+    if cfg.family == "ssm":
         return [SegmentDef((BlockDef("ssm", mlp=None),), cfg.num_layers)]
     if cfg.hybrid_pattern:
         pat = tuple(
@@ -85,17 +85,28 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
         if rem:
             segs.append(SegmentDef(pat[:rem], 1))
         return segs
+    mlp_kind = "moe" if cfg.moe_num_experts else "dense"
     if cfg.local_global_period:
         p = cfg.local_global_period
         if cfg.num_layers % p:
             raise ValueError("num_layers must be a multiple of "
                              "local_global_period")
         blocks = tuple(
-            BlockDef("attn", window=cfg.sliding_window if i < p - 1 else 0)
+            BlockDef("attn", window=cfg.sliding_window if i < p - 1 else 0,
+                     mlp=mlp_kind)
             for i in range(p))
         return [SegmentDef(blocks, cfg.num_layers // p)]
-    return [SegmentDef((BlockDef("attn", window=cfg.sliding_window),),
-                       cfg.num_layers)]
+    segs = []
+    # kimi-style leading dense layers before the MoE ones
+    n_dense = cfg.moe_first_dense_layers if mlp_kind == "moe" else 0
+    if n_dense:
+        segs.append(SegmentDef(
+            (BlockDef("attn", window=cfg.sliding_window, mlp="dense",
+                      dense_ff=cfg.moe_dense_ff or cfg.d_ff),), n_dense))
+    segs.append(SegmentDef(
+        (BlockDef("attn", window=cfg.sliding_window, mlp=mlp_kind),),
+        cfg.num_layers - n_dense))
+    return segs
 
 
 # ====================================================================
@@ -126,6 +137,9 @@ class RunSettings:
     # longer), so the (B, S, V) f32 logits never exist; backward
     # recomputes one chunk's logits at a time. 0 = off
     ce_chunk: int = 0
+    # the JAX package's EP capacity factor; the port's local MoE path is
+    # dropless and does not read it (as JAX's local path does not)
+    moe_capacity_factor: float = 1.25
 
 
 # ====================================================================
@@ -154,12 +168,17 @@ def stack(trees: List):
 def _init_attn(gen, cfg: ModelConfig, dtype, lead) -> Params:
     D, Hq, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
-    return {
+    p = {
         "wq": dense_init(gen, lead + (D, Hq, hd), D, dtype),
         "wk": dense_init(gen, lead + (D, KV, hd), D, dtype),
         "wv": dense_init(gen, lead + (D, KV, hd), D, dtype),
         "wo": dense_init(gen, lead + (Hq, hd, D), Hq * hd, dtype),
     }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", Hq), ("bk", KV), ("bv", KV)):
+            p[name] = torch.zeros(lead + (heads, hd), dtype=dtype,
+                                  device=gen.device)
+    return p
 
 
 def init_block(gen, bdef: BlockDef, cfg: ModelConfig, dtype,
@@ -175,10 +194,22 @@ def init_block(gen, bdef: BlockDef, cfg: ModelConfig, dtype,
         p["ssm"] = m2.init_mamba2(gen, cfg, dtype, lead)
     else:
         raise ValueError(bdef.mixer)
+    if cfg.post_block_norm:
+        p["post_norm"] = init_norm(cfg.d_model, dtype, dev, lead)
     if bdef.mlp == "dense":
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead,
-                            glu=cfg.mlp_glu)
+        p["mlp"] = init_mlp(gen, cfg.d_model, bdef.dense_ff or cfg.d_ff,
+                            dtype, lead, glu=cfg.mlp_glu)
+    elif bdef.mlp == "moe":
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe_num_experts,
+                            dtype, lead)
+        if cfg.moe_shared_experts:
+            p["moe_shared"] = init_mlp(
+                gen, cfg.d_model, cfg.d_ff * cfg.moe_shared_experts, dtype,
+                lead, glu=True)
+    if bdef.mlp is not None:
         p["mlp_norm"] = init_norm(cfg.d_model, dtype, dev, lead)
+        if cfg.post_block_norm:
+            p["mlp_post_norm"] = init_norm(cfg.d_model, dtype, dev, lead)
     return p
 
 
@@ -194,6 +225,8 @@ def _proj(x, w):
 
 def _qkv(p, x, cfg: ModelConfig, positions):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.use_rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -206,20 +239,42 @@ def _out_proj(o, wo):
     return o.flatten(-2) @ wo.reshape(H * K, D)
 
 
-def _mlp_sublayer(bdef: BlockDef, p, x, cfg: ModelConfig):
-    """x + MLP(rms_norm(x)) after a mixer whose block has a dense MLP."""
+def _mlp_sublayer(bdef: BlockDef, p, x, cfg: ModelConfig,
+                  aux: Optional[Dict] = None):
+    """x + MLP(rms_norm(x)) after a mixer whose block has an MLP: dense,
+    or MoE (plus the shared expert), whose aux losses add into `aux`
+    when given; the MLP's output normed first with `post_block_norm`."""
     if bdef.mlp is None:
         return x
     h = rms_norm(x, p["mlp_norm"]["scale"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_glu)
+    if bdef.mlp == "dense":
+        m = apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_glu)
+    else:
+        m, moe_aux = apply_moe(p["moe"], h, MoESettings(
+            cfg.moe_num_experts, cfg.moe_top_k, act=cfg.act))
+        if aux is not None:
+            for k, v in moe_aux.items():
+                aux[k] = aux[k] + v if k in aux else v
+        if "moe_shared" in p:
+            m = m + apply_mlp(p["moe_shared"], h, cfg.act, True)
+    return x + _post_norm(m, p, "mlp_post_norm", cfg)
+
+
+def _post_norm(mix, p, name: str, cfg: ModelConfig):
+    """gemma2's norm of a sublayer's output before its residual add."""
+    if not cfg.post_block_norm:
+        return mix
+    return rms_norm(mix, p[name]["scale"], cfg.norm_eps)
 
 
 def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
-                settings: RunSettings, *, positions=None, enc_kv=None):
+                settings: RunSettings, *, positions=None, enc_kv=None,
+                aux: Optional[Dict] = None):
     """Full-sequence block. Returns (x, cache entry): (k, v) for an
     attention block, the encoder's (k, v) for a cross block,
     {"conv", "state"} for an ssm block, {"conv", "h"} for an rglru block.
-    enc_kv: the encoder states (B, Se, D) a cross block attends to."""
+    enc_kv: the encoder states (B, Se, D) a cross block attends to. An
+    MoE block adds its aux losses into `aux` when given."""
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     if bdef.mixer == "cross":
         # each cross block projects its own K/V from the encoder states;
@@ -242,7 +297,8 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
                    logit_cap=cfg.attn_logit_softcap,
                    chunk=settings.attn_chunk, impl=settings.attn_impl)
         mix, cache = _out_proj(o, p["attn"]["wo"]), (k, v)
-    return _mlp_sublayer(bdef, p, x + mix, cfg), cache
+    x = x + _post_norm(mix, p, "post_norm", cfg)
+    return _mlp_sublayer(bdef, p, x, cfg, aux), cache
 
 
 # ====================================================================
@@ -275,7 +331,8 @@ def apply_block_decode(bdef: BlockDef, p, x1, cache, pos,
         mix = m2.decode_mamba2(p["ssm"], h, cache, cfg)
     else:
         mix = _attn_decode(bdef, p["attn"], h, cache, pos, cfg)
-    return _mlp_sublayer(bdef, p, x1 + mix, cfg)
+    return _mlp_sublayer(bdef, p, x1 + _post_norm(mix, p, "post_norm", cfg),
+                         cfg)
 
 
 def _attn_decode(bdef: BlockDef, p, h, cache, pos, cfg: ModelConfig):
@@ -329,7 +386,8 @@ def apply_block_decode_paged(bdef: BlockDef, p, x1, pool, tables, pos,
     gv = cv[tables].reshape(B, n_pages * P, *cv.shape[2:])
     o = attend_decode(q, gk, gv, pos, window=bdef.window,
                       logit_cap=cfg.attn_logit_softcap)
-    return _mlp_sublayer(bdef, p, x1 + _out_proj(o, p["attn"]["wo"]), cfg)
+    mix = _post_norm(_out_proj(o, p["attn"]["wo"]), p, "post_norm", cfg)
+    return _mlp_sublayer(bdef, p, x1 + mix, cfg)
 
 
 # ====================================================================

@@ -4,7 +4,10 @@ package's `repro/session/session.py`, both engines on one device.
 It owns config resolution, the placement policy, the spool (built from
 one `SpoolIoConfig`), the data loader (the synthetic one unless the
 caller passes `loader=`, any iterable of batches; a T5 batch carries
-`enc_tokens` beside `tokens` and `labels`), the optimizer, checkpoints,
+`enc_tokens` beside `tokens` and `labels`, a hubert batch `embeddings`
+and `labels` (`data.pipeline.embedding_batches`; the synthetic loader
+makes tokens only, so such a model needs a loader)), the optimizer,
+checkpoints,
 tracing and the metrics JSONL (the `StepReport` schema, with per-step
 spool deltas, the `resilience_*` block (and the `cache_*` block over a
 managed backend) and, when traced, the step's `obs_*` overlap
@@ -159,6 +162,12 @@ class TrainSession:
                              f"the session's device {device!r}")
         self.cfg = (resolve_config(arch) if isinstance(arch, str)
                     else arch.validate())
+        if loader is None and self.cfg.input_kind != "tokens":
+            raise ValueError(
+                f"{self.cfg.name} takes {self.cfg.input_kind} inputs and "
+                f"the synthetic data makes tokens only: pass loader=, an "
+                f"iterable of batches of {{'{self.cfg.input_kind}', "
+                f"'labels'}} (data.pipeline.embedding_batches)")
         self.io = io.validate() if io is not None else None
         # the optimizer overlap: the kwarg wins, else the io config's
         # knob. True runs the worker; "sync" the same per-layer updates

@@ -78,12 +78,18 @@ def test_configs_match_jax():
     big = resolve_config("gpt-h8192-l4")
     assert (big.num_heads, big.resolved_head_dim, big.d_ff,
             big.padded_vocab) == (64, 128, 32768, 50432)
+    # every registry id resolves as in JAX (tests/test_torch_archs.py
+    # holds them all field for field); unknown strings are refused
+    from repro.configs.registry import get_config as jax_get_config
+    assert dataclasses.asdict(resolve_config("qwen2.5-3b")) == \
+        dataclasses.asdict(jax_get_config("qwen2.5-3b"))
     with pytest.raises(ValueError, match="unknown arch"):
-        resolve_config("qwen2.5-3b")
-    # configurations the slice does not carry are refused, not run wrong
-    with pytest.raises(NotImplementedError, match="activation 'silu'"):
-        build_model(dataclasses.replace(small_gpt(), mlp_glu=True,
-                                        act="silu"))
+        resolve_config("qwen9-1b")
+    # configurations the port does not carry are refused, not run wrong
+    with pytest.raises(NotImplementedError,
+                       match="cross-attention layers"):
+        build_model(dataclasses.replace(small_gpt(), cross_attn_period=2,
+                                        encoder_seq_len=8))
 
 
 def test_layers_match_jax():
