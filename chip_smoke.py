@@ -188,7 +188,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
      1024, 16, 80), qwen's and llama4's GQA (1, 1024, 16/2 and 40/8,
      128), gemma2's window and softcap at S=8192) against the plain
      attention with their times;
- 14. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 14. llama-3.2-vision-90b at full width cut to 15 layers (three
+     periods: three layer stages of four self-attention blocks and a
+     cross block over 1024 patch embeddings; random bf16 weights from
+     seed 0, batches of `data.pipeline.vision_batches`), sgd (lr 3e-4,
+     no momentum), B=1, S=1024, 3 steps: (a) kept and spooled (fs, raw)
+     through `drained_spool_policy`, with phase 13's checks (6 stages:
+     vlm_enc, embed, 3 layers, head; 15 flash launches a step); (b) the
+     jit name under `activation_policy="offload"`, the host tier (layers
+     recomputed, their inputs in pinned host memory between forward and
+     backward): losses and parameters bitwise equal to (a)'s keep run,
+     30 flash launches a step, its tracked footprint at backward begin
+     keep's less the layers' saved bytes, its tracked and device peaks
+     below keep's, nothing stored; (c) a 48-token prefill with its patch
+     embeddings (15 flash launches), then 16 tokens through
+     `decode_step` and `decode_step_paged` (16-token pages, the cross
+     K/V resident): tokens and logits bitwise equal, the cross entries
+     unwritten, the first logits through the kernel within phase 4's
+     0.25 of the plain path in bf16 and within 5e-3 in an f32 copy of
+     the weights. Phase 3 holds its self- and cross-attention instances
+     (B=1, 1024 x 1024, 64 / 8 heads of 128) with their times;
+ 15. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -372,6 +392,29 @@ REG_FLASH_CASES = [
     ("gemma2-27b S=8192", (1, 8192, 8192, 32, 16, 128, True, 4096, 50.0),
      torch.bfloat16, TOL_BF16_ROW),
 ]
+# phase 14: llama-3.2-vision-90b at full width cut to VISION_LAYERS
+# layers, three periods: three layer stages of four self-attention
+# blocks and a cross block each; random bf16 weights from seed 0, sgd at
+# PAPER_LR, S=REG_SEQ, TRAIN_STEPS steps. A layer stage saves 1.69 GB a
+# sample (the exact counter). With two stages the device peak sits in
+# the last backward stage, beside the whole stacked gradient tree, where
+# keep and spool hold the same tensors (72.67 GB both at 10 layers and
+# B=5, on an H100 80GB HBM3 at 700 W); two stages' activations would rise
+# above it only from B=11, which does not fit. With three, the middle
+# stage's backward holds that tree and, kept, two stages' activations:
+# at B=1 the activations set the peak (29.9 GB of parameters). Then
+# decode: a VISION_PROMPT-token prompt with its patch embeddings,
+# VISION_NEW tokens dense and paged (pages of VISION_PAGE tokens)
+VISION_ARCH = "llama-3.2-vision-90b"
+VISION_LAYERS = 15
+VISION_BATCH = 1
+VISION_PROMPT, VISION_NEW, VISION_PAGE = 48, 16, 16
+# phase 3 adds the vision layers' flash instances at that batch: causal
+# self-attention and the cross-attention over the 1024 patch embeddings
+REG_FLASH_CASES += [
+    (f"vision {kind}", (VISION_BATCH, 1024, 1024, 64, 8, 128,
+                        kind == "self", 0, 0.0), torch.bfloat16,
+     TOL_BF16_ROW) for kind in ("self", "cross")]
 # the attention of phase 8's GPT and BERT: (B, S, H, D); BERT's is
 # bidirectional, GPT's causal; T5's both, at its batch (its encoder
 # input has the decoder's length, so cross-attention has this shape too)
@@ -1030,7 +1073,7 @@ def drained_spool_policy():
 
 def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
               batch=1, keep_params=None, snap=None, settings=None,
-              stage_bytes=None):
+              stage_bytes=None, engine="staged"):
     """TrainSession steps at B=batch, S=seq on the card. Every kernel's
     launch count is set to 0 just before the steps and read just after.
     Returns (losses, params, reports, {kernel: launches}, run peak, stage
@@ -1042,10 +1085,13 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     `settings`: the session's RunSettings (the default's, with the
     kernels, otherwise). Given a list `stage_bytes`, it gets the bytes
     the spool stored for each stage of the first step, in stage order.
-    A spool run prints its pool's stats."""
+    A spool run prints its pool's stats. `engine="jit"` runs the jit
+    name (policy None, its placement from `settings`); its reports carry
+    the loss, the tracked footprints and the device peak."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.data.pipeline import (embedding_batches,
-                                           encoder_decoder_batches)
+                                           encoder_decoder_batches,
+                                           vision_batches)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1056,11 +1102,15 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
               if cfg.family == "encdec" else
               embedding_batches(cfg.d_model, cfg.vocab_size, batch=batch,
                                 seq_len=seq, seed=0)
-              if cfg.input_kind == "embeddings" else None)
-    sess = TrainSession(cfg, policy=policy, io=io, optimizer=optimizer,
-                        lr=3e-4, batch_size=batch, seq_len=seq, seed=0,
-                        device="cuda", attn_impl="cuda", loader=loader,
-                        settings=settings)
+              if cfg.input_kind == "embeddings" else
+              vision_batches(cfg.vocab_size, cfg.d_model,
+                             cfg.encoder_seq_len, batch=batch, seq_len=seq,
+                             seed=0)
+              if cfg.family == "vlm" else None)
+    sess = TrainSession(cfg, engine=engine, policy=policy, io=io,
+                        optimizer=optimizer, lr=3e-4, batch_size=batch,
+                        seq_len=seq, seed=0, device="cuda", attn_impl="cuda",
+                        loader=loader, settings=settings)
     if hasattr(policy, "spool"):
         policy.spool = sess.spool
     if stage_bytes is not None:
@@ -1088,6 +1138,12 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
         if io is not None:
             print(f"  {label} pool: {pool_line(sess.spool)}")
         n_stages = len(sess.engine.stage_names)
+        if engine == "jit":
+            # the jit name's placement stores nothing: no record, no byte
+            st = sess.engine.spool.stats
+            check(sess.spool is None and st.bytes_offloaded == 0
+                  and sess.engine.spool.backend.stats.bytes_written == 0,
+                  f"{label}: the jit run stored {st.bytes_offloaded} bytes")
         leaves = tree_flatten(sess.params)[0]
         if keep_params is None:
             params = [t.detach().cpu() for t in leaves]
@@ -1096,6 +1152,13 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
         del leaves
         for r in reports:
             st, ex = r.stats, r.extra
+            if engine == "jit":
+                print(f"  {label} step {r.step}: loss {r.loss:.6f} "
+                      f"{r.step_time:.3f}s peak "
+                      f"{ex['device_peak_bytes'] / 1e9:.2f} GB (tracked act "
+                      f"peak {r.peak_activation_bytes / 1e9:.3f} GB, at "
+                      f"bwd-begin {r.backward_begin_bytes / 1e9:.3f} GB)")
+                continue
             print(f"  {label} step {r.step}: loss {r.loss:.6f} "
                   f"{r.step_time:.3f}s (fwd {ex['forward_s']:.3f} bwd "
                   f"{ex['backward_s']:.3f} opt {ex['optimizer_s']:.3f}) "
@@ -1151,7 +1214,7 @@ def same_params(a, b) -> bool:
 
 def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
                   hold=False, settings=None, label=None, policy=None,
-                  act_lower=False):
+                  act_lower=False, keep_out=None):
     """Full-width training of `cfg` kept on the card, then spooled (fs,
     raw) to a fresh directory: bitwise losses and parameters, a lower
     peak, bytes offloaded, every stored stage fetched (the stage count
@@ -1165,7 +1228,9 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
     Returns the spool run's launches (the main path's); with `hold`,
     also its losses, the final parameters' host copy, each step's device
     peak, the keep run's parameters after step 2 and the bytes the spool
-    stored per stage in step 1, with each run's device peak."""
+    stored per stage in step 1, with each run's device peak. A dict
+    `keep_out` gets the keep run's losses, reports, device peak and final
+    parameters' host copy."""
     from repro_torch.configs import SpoolIoConfig
     from repro_torch.core.endurance import residual_bytes_per_layer
     from repro_torch.core.policies import KeepPolicy, SpoolPolicy
@@ -1188,6 +1253,8 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
         f"{label} spool", optimizer=optimizer, seq=seq, batch=batch,
         keep_params=pk, settings=settings, stage_bytes=stage_bytes)
     n_leaves = len(pk)
+    if keep_out is not None:
+        keep_out.update(losses=lk, reports=rk, peak=peak_k, params=pk)
     if not hold:
         del pk
     left = os.listdir(spool_dir)
@@ -1226,11 +1293,16 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
             cfg, batch, seq, offloadable_only=False,
             attn_impl=settings.attn_impl if settings else "cuda")
         got = rs[0].extra["layer_saved_bytes"]
-        print(f"  layer stages' saved bytes {got}, exact counter "
-              f"{cfg.num_layers} x {per} (meta device, "
-              f"{time.perf_counter() - t0:.1f}s)")
-        check(got == cfg.num_layers * per, "the exact residual counter "
-              "disagrees with the engine's layer stages")
+        # the counter is a layer stage's bytes floor-divided by its
+        # blocks, as the JAX package divides (a vision period's 5 blocks
+        # do not divide its stage's bytes)
+        n_blocks = len(build_segments(cfg)[-1].blocks)
+        per_stage, rest = divmod(got, cfg.num_layers // n_blocks)
+        print(f"  layer stages' saved bytes {got} ({per_stage} a stage of "
+              f"{n_blocks} blocks), exact counter {cfg.num_layers} x {per} "
+              f"(meta device, {time.perf_counter() - t0:.1f}s)")
+        check(rest == 0 and per_stage // n_blocks == per, "the exact "
+              "residual counter disagrees with the engine's layer stages")
     return (ns, ls, pk, [r.extra["device_peak_bytes"] for r in rs],
             snap["params"], stage_bytes, (peak_k, peak_s)) if hold else ns
 
@@ -2177,6 +2249,30 @@ def flash_serve_check(gen, lengths):
     return worst, worst_rel
 
 
+def first_logits(api, params, batch, nxt, pos, cache_len, dtype, label):
+    """The last prefill logits of `batch` and the first decode step's
+    (token `nxt` at `pos`) through the kernels and through the plain
+    path, in `dtype` weights: (prefill max_abs_err, decode max_abs_err,
+    the plain decode logits' std, whether the two decode argmaxes
+    agree)."""
+    from repro_torch.models.transformer import RunSettings
+    out = []
+    V = api.cfg.vocab_size
+    with torch.inference_mode():
+        for impl in ("cuda", "torch"):
+            st = RunSettings(attn_impl=impl, attn_chunk=256,
+                             param_dtype=dtype, device="cuda")
+            lp, cache = api.prefill(params, batch, st, cache_len=cache_len)
+            ld = api.decode_step(params, cache, {"tokens": nxt}, pos, st)
+            out.append((lp[..., :V].float(), ld[..., :V].float()))
+            del cache
+    (pk, dk), (pp, dp) = out
+    check(bool(torch.isfinite(dk).all() and torch.isfinite(pk).all()),
+          f"{label}: non-finite {dtype} logits")
+    return ((pk - pp).abs().max().item(), (dk - dp).abs().max().item(),
+            dp.std().item(), bool(dk.argmax() == dp.argmax()))
+
+
 def serve_rest_arch(arch, gen, smi, want, bf16_tol):
     """One model of phase 12 at full width (random weights from seed 0):
     the first decode step's logits through the kernels against the plain
@@ -2192,7 +2288,6 @@ def serve_rest_arch(arch, gen, smi, want, bf16_tol):
     from repro_torch.core.tree import tree_flatten, tree_unflatten
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
-    from repro_torch.models.transformer import RunSettings
     kernels = (flash_attention, ssd_scan, rglru_scan)
     t0 = time.perf_counter()
     cfg, api, params, settings = serve.build_runtime(arch, seed=0,
@@ -2206,26 +2301,10 @@ def serve_rest_arch(arch, gen, smi, want, bf16_tol):
     nxt = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
                         device="cuda")
 
-    def first_logits(api_, params_, dtype):
-        """(last prefill logits, first decode logits) through the kernels
-        and through the plain path."""
-        out = []
-        with torch.inference_mode():
-            for impl in ("cuda", "torch"):
-                st = RunSettings(attn_impl=impl, attn_chunk=256,
-                                 param_dtype=dtype, device="cuda")
-                lp, cache = api_.prefill(params_, {"tokens": toks}, st,
-                                         cache_len=REST_SERVE["cache_len"])
-                ld = api_.decode_step(params_, cache, {"tokens": nxt},
-                                      torch.tensor([S0], device="cuda"), st)
-                out.append((lp[..., :cfg.vocab_size].float(),
-                            ld[..., :cfg.vocab_size].float()))
-                del cache
-        (pk, dk), (pp, dp) = out
-        check(bool(torch.isfinite(dk).all() and torch.isfinite(pk).all()),
-              f"{arch}: non-finite {dtype} logits")
-        return ((pk - pp).abs().max().item(), (dk - dp).abs().max().item(),
-                dp.std().item(), bool(dk.argmax() == dp.argmax()))
+    def first(api_, params_, dtype):
+        return first_logits(api_, params_, {"tokens": toks}, nxt,
+                            torch.tensor([S0], device="cuda"),
+                            REST_SERVE["cache_len"], dtype, arch)
 
     # the served weights cast to f32: there the two paths differ by the
     # order of f32 sums only; in bf16 a deep random model (mamba2's 64
@@ -2234,10 +2313,10 @@ def serve_rest_arch(arch, gen, smi, want, bf16_tol):
     leaves, tdef = tree_flatten(params)
     params32 = tree_unflatten(tdef, [t.float() for t in leaves])
     del leaves
-    e32 = first_logits(build_model(cfg32), params32, "float32")
+    e32 = first(build_model(cfg32), params32, "float32")
     del params32
     torch.cuda.empty_cache()
-    e16 = first_logits(api, params, cfg.dtype)
+    e16 = first(api, params, cfg.dtype)
     for dtype, (err_p, err_d, std, same) in (("float32", e32),
                                              (cfg.dtype, e16)):
         bar = (f"tol {TOL_E2E_F32:g}" if dtype == "float32" else
@@ -2383,6 +2462,224 @@ def registry_phase(gen, smi):
         REG_SERVE, gen, smi, {"flash_attention": n_layers, "ssd_scan": 0,
                               "rglru_scan": 0}, TOL_E2E)
     return out, serve_launches
+
+
+def vision_pages(caches, paged, tables, n_phys, page):
+    """A prefill's dense caches as `decode_step_paged` reads them: each
+    paged block's K/V laid into a pool of `n_phys` pages of `page`
+    tokens at its rows' `tables` pages, and the other blocks' entries
+    (the cross K/V over the patch embeddings) cloned as resident ones.
+    Returns (pools, resident)."""
+    pools, resident = [], []
+    for seg, ids in zip(caches, paged):
+        pool_seg, res_seg = {}, {}
+        for bid, entry in seg.items():
+            if bid not in ids:
+                res_seg[bid] = {k: v.clone() for k, v in entry.items()}
+                continue
+            kv = {}
+            for name, dense in entry.items():          # (L, B, S, H, D)
+                pool = torch.zeros((dense.shape[0], n_phys, page)
+                                   + dense.shape[3:], dtype=dense.dtype,
+                                   device=dense.device)
+                for b in range(dense.shape[1]):
+                    for j in range(dense.shape[2] // page):
+                        pool[:, int(tables[b, j])] = \
+                            dense[:, b, j * page:(j + 1) * page]
+                kv[name] = pool
+            pool_seg[bid] = kv
+        pools.append(pool_seg)
+        resident.append(res_seg)
+    return pools, resident
+
+
+def vision_phase(smi):
+    """Phase 14: llama-3.2-vision-90b at full width cut to VISION_LAYERS
+    layers (random bf16 weights from seed 0, sgd at PAPER_LR, S=REG_SEQ,
+    B=VISION_BATCH, batches of `data.pipeline.vision_batches`): (a) kept
+    vs spooled through `drained_spool_policy` (keep_vs_spool's checks, 5
+    stages, one flash launch per attention block per step); (b) the jit
+    name under activation_policy "offload" (the host tier), bitwise equal
+    to (a)'s keep run, two flash launches per attention block per step,
+    its tracked footprint at backward begin keep's minus the layer
+    stages' saved bytes and its tracked and device peaks below keep's,
+    nothing stored; (c) a VISION_PROMPT-token prefill with its patch
+    embeddings, then VISION_NEW tokens through `decode_step` and
+    `decode_step_paged` (the cross K/V resident), tokens and logits
+    bitwise equal, and the first logits through the kernel against the
+    plain path (TOL_E2E in bf16, TOL_E2E_F32 in an f32 copy of the
+    weights). Returns {"train", "host_tier", "prefill"}: the flash launches
+    of (a)'s spool run, of (b) and of the prefill."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kvcache.adapters import paged_block_ids
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import RunSettings
+    from repro_torch.optim.optimizers import sgd
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(resolve_config(VISION_ARCH),
+                              num_layers=VISION_LAYERS)
+    B, label = VISION_BATCH, f"{VISION_ARCH} d{VISION_LAYERS}"
+    per_step = {"flash_attention": VISION_LAYERS, "ssd_scan": 0,
+                "rglru_scan": 0}
+    keep = {}
+    train_launches = keep_vs_spool(
+        cfg, REG_SEQ, sgd(PAPER_LR),
+        {k: n * TRAIN_STEPS for k, n in per_step.items()}, smi, batch=B,
+        stages=VISION_LAYERS // cfg.cross_attn_period + 3, label=label,
+        policy=drained_spool_policy(), act_lower=True, keep_out=keep)
+    t_a = time.perf_counter()
+    print(f"  (a) keep vs spool: {t_a - t0:.1f}s")
+
+    # (b) the host tier: the jit name, layers recomputed, their inputs in
+    # pinned host memory between forward and backward
+    tier = RunSettings(attn_impl="cuda", attn_chunk=256,
+                       param_dtype=cfg.dtype, device="cuda",
+                       activation_policy="offload")
+    lh, same, rh, nh, peak_h, _ = train_run(
+        cfg, None, None, f"{label} host tier", optimizer=sgd(PAPER_LR),
+        seq=REG_SEQ, batch=B, keep_params=keep.pop("params"),
+        settings=tier, engine="jit")
+    rk, peak_k = keep["reports"], keep["peak"]
+    act_k = max(r.peak_activation_bytes for r in rk)
+    act_h = max(r.peak_activation_bytes for r in rh)
+    # every layer stage's bf16 input
+    inputs = (VISION_LAYERS // cfg.cross_attn_period) * B * REG_SEQ \
+        * cfg.d_model * 2
+    print(f"train: {label} host tier (jit name, activation_policy "
+          f"'offload'), B={B}: losses {lh}; step times "
+          f"{[round(r.step_time, 3) for r in rh]} s (keep "
+          f"{[round(r.step_time, 3) for r in rk]}); device peak "
+          f"{peak_h / 1e9:.2f} GB (keep {peak_k / 1e9:.2f}); tracked "
+          f"activation peak {act_h / 1e9:.3f} GB (keep {act_k / 1e9:.3f}), "
+          f"at backward begin {rh[-1].backward_begin_bytes / 1e9:.3f} GB "
+          f"(keep {rk[-1].backward_begin_bytes / 1e9:.3f}); the layer "
+          f"stages' inputs, {inputs / 1e6:.1f} MB a step, on the host "
+          f"between forward and backward; launches {nh} on {smi}")
+    check(lh == keep["losses"], f"host tier losses {lh} differ from keep "
+          f"{keep['losses']}")
+    check(same, "host tier parameters differ from keep's")
+    for name, n in per_step.items():
+        check(nh[name] == 2 * n * TRAIN_STEPS, f"host tier {name} launches "
+              f"{nh[name]}, want {2 * n * TRAIN_STEPS}")
+    for r, k in zip(rh, rk):
+        check(r.backward_begin_bytes == k.backward_begin_bytes
+              - k.extra["layer_saved_bytes"], f"host tier step {r.step}: "
+              f"tracked {r.backward_begin_bytes} at backward begin, keep "
+              f"{k.backward_begin_bytes} less its layers' "
+              f"{k.extra['layer_saved_bytes']}")
+    check(act_h < act_k, f"host tier tracked peak {act_h} not below keep "
+          f"{act_k}")
+    check(peak_h < peak_k, f"host tier device peak {peak_h} not below "
+          f"keep {peak_k}")
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    print(f"  (b) host tier: {t_b - t_a:.1f}s")
+
+    # (c) decode: prefill, then dense and paged decode steps
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (1, VISION_PROMPT))).cuda(),
+             "enc_embeddings": torch.from_numpy(rng.standard_normal(
+                 (1, cfg.encoder_seq_len, cfg.d_model),
+                 dtype=np.float32)).cuda()}
+    cache_len = VISION_PROMPT + VISION_NEW
+    V = cfg.vocab_size
+    pos0 = torch.tensor([VISION_PROMPT], device="cuda")
+    nxt = torch.from_numpy(rng.integers(0, V, (1, 1))).cuda()
+
+    def first(api_, params_, dtype):
+        """The larger of the prefill's and the decode step's max_abs_err
+        (kernel vs plain), and the plain decode logits' std."""
+        pre, dec, std, _ = first_logits(api_, params_, batch, nxt, pos0,
+                                        cache_len, dtype, label)
+        return max(pre, dec), std
+
+    e16 = first(api, params, cfg.dtype)
+    st = RunSettings(attn_impl="cuda", attn_chunk=256, param_dtype=cfg.dtype,
+                     device="cuda")
+    n_pages = cache_len // VISION_PAGE
+    tables = torch.arange(n_pages, 0, -1, device="cuda")[None]  # 4, 3, 2, 1
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        last, caches = api.prefill(params, batch, st, cache_len=cache_len)
+        pre_launches = flash_attention.launches
+        paged = paged_block_ids(api.segments, cache_len)
+        pools, resident = vision_pages(caches, paged, tables, n_pages + 1,
+                                       VISION_PAGE)
+        cross = [e["k"].clone() for seg in resident for e in seg.values()]
+        runs = {}
+        t_dec = {}
+        for kind in ("dense", "paged"):
+            tok = last[..., :V].argmax(-1)
+            toks, rows = [], []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for t in range(VISION_NEW):
+                pos = pos0 + t
+                if kind == "dense":
+                    logits = api.decode_step(params, caches, {"tokens": tok},
+                                             pos, st)
+                else:
+                    logits = api.decode_step_paged(
+                        params, pools, resident, tables, {"tokens": tok},
+                        pos, st)
+                rows.append(logits)
+                tok = logits[..., :V].argmax(-1)
+                toks.append(int(tok))
+            torch.cuda.synchronize()
+            t_dec[kind] = time.perf_counter() - t1
+            runs[kind] = (toks, rows)
+    same_rows = all(torch.equal(a, b) for a, b in zip(runs["dense"][1],
+                                                       runs["paged"][1]))
+    cross_kept = all(torch.equal(a, e["k"]) for a, e in zip(
+        cross, [e for seg in resident for e in seg.values()]))
+    print(f"  {label} decode: prefill of {VISION_PROMPT} tokens launched "
+          f"flash {pre_launches} times; {VISION_NEW} tokens dense "
+          f"{runs['dense'][0]} in {t_dec['dense']:.3f}s, paged "
+          f"({VISION_PAGE}-token pages, the cross K/V resident) in "
+          f"{t_dec['paged']:.3f}s; tokens "
+          f"{'equal' if runs['dense'][0] == runs['paged'][0] else 'DIFFER'}"
+          f", logits rows {'bitwise equal' if same_rows else 'DIFFER'}")
+    check(pre_launches == VISION_LAYERS, f"{pre_launches} flash launches in "
+          f"the prefill, want {VISION_LAYERS}")
+    check(runs["dense"][0] == runs["paged"][0], "paged and dense decode "
+          "tokens differ")
+    check(same_rows, "paged and dense decode logits differ")
+    check(cross_kept, "a paged decode step wrote a resident cross entry")
+    del caches, pools, resident, runs, last
+    # the f32 copy takes the bf16 weights' place a leaf at a time: both
+    # would not fit at once
+    leaves, tdef = tree_flatten(params)
+    del params
+    for i, t in enumerate(leaves):
+        leaves[i] = t.float()
+        del t
+    params32 = tree_unflatten(tdef, leaves)
+    del leaves
+    torch.cuda.empty_cache()
+    e32 = first(build_model(dataclasses.replace(cfg, dtype="float32")),
+                params32, "float32")
+    del api, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {label} first logits (prefill of {VISION_PROMPT} tokens with "
+          f"{cfg.encoder_seq_len} patch embeddings, and one decode step), "
+          f"kernel vs plain attention: f32 copy of the weights max_abs_err "
+          f"{e32[0]:.3e} (tol {TOL_E2E_F32:g}; logit std {e32[1]:.3f}), "
+          f"bf16 {e16[0]:.3e} (tol {TOL_E2E:g}; logit std {e16[1]:.3f})")
+    check(e32[0] <= TOL_E2E_F32, f"{label}: f32 first logits through the "
+          f"kernel differ from the plain path by {e32[0]}")
+    check(e16[0] <= TOL_E2E, f"{label}: bf16 first logits through the "
+          f"kernel differ from the plain path by {e16[0]}")
+    print(f"  (c) decode: {time.perf_counter() - t_b:.1f}s")
+    return {"train": train_launches["flash_attention"],
+            "host_tier": nh["flash_attention"], "prefill": pre_launches}
 
 
 def opt_phase(smi):
@@ -2696,11 +2993,16 @@ def main():
 
     # ---- 13. the registry's archs: train four, serve qwen2.5-3b
     reg_launches, reg_serve_launches = registry_phase(gen, smi)
-    print(f"phase times: 13 the registry's archs "
-          f"{time.perf_counter() - t7:.1f}s; the script "
+    t8 = time.perf_counter()
+
+    # ---- 14. llama-3.2-vision: train kept, spooled and on the host
+    # tier, then decode dense and paged
+    vision = vision_phase(smi)
+    print(f"phase times: 13 the registry's archs {t8 - t7:.1f}s, 14 "
+          f"llama-3.2-vision {time.perf_counter() - t8:.1f}s; the script "
           f"{time.perf_counter() - T_START:.1f}s")
 
-    # ---- 13. result
+    # ---- 15. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2779,6 +3081,12 @@ def main():
            reg_launches[a]["flash_attention"] for a, _, _ in REG_TRAIN},
         "launches_per_qwen_serve_run": reg_serve_launches[
             "flash_attention"],
+        # phase 14: llama-3.2-vision-90b at 15 layers (12 self, 3 cross):
+        # the spool run (3 steps), the host tier's run (each attention
+        # block again in its layer's recompute) and one prefill
+        "launches_per_vision_train_run": vision["train"],
+        "launches_per_vision_host_tier_run": vision["host_tier"],
+        "launches_per_vision_prefill": vision["prefill"],
         # the D=80 instance (hubert-xlarge, bidirectional): its worst
         # f32 and bf16 errors, and its time at hubert's shape
         "d80_f32_max_abs_err": d80["d80 f32"],
@@ -2797,7 +3105,9 @@ def main():
                           if k == "bound_by" else reg_attn[label][k])
            for pre, label in (("qwen", "qwen2.5-3b"),
                               ("llama4", "llama4-scout"),
-                              ("gemma2_s8192", "gemma2-27b S=8192"))
+                              ("gemma2_s8192", "gemma2-27b S=8192"),
+                              ("vision_self", "vision self"),
+                              ("vision_cross", "vision cross"))
            for k in ("max_row_rel_err", "ms", "ms_back_to_back",
                      "plain_ms", "sdpa_ms", "library_ms", "bound_ms",
                      "bound_by")},

@@ -56,10 +56,11 @@ def residual_bytes_per_layer(cfg: ModelConfig, batch: int, seq: int, *,
     """Activation bytes one layer saves for backward, as the staged
     engine's pack hook keeps them for a layer stage of the repeated
     (last) segment, divided by its block count as the JAX package
-    divides. `attn_impl` is the run's (`"cuda"`: the kernels' autograd
-    Functions, which save their inputs only; `"torch"`: the plain
-    paths). offloadable_only drops tensors under MIN_OFFLOAD_ELEMENTS,
-    which the spool keeps on the device.
+    divides (a llama-3.2-vision period's stage with its cross block's
+    encoder input on the meta device too). `attn_impl` is the run's
+    (`"cuda"`: the kernels' autograd Functions, which save their inputs
+    only; `"torch"`: the plain paths). offloadable_only drops tensors
+    under MIN_OFFLOAD_ELEMENTS, which the spool keeps on the device.
 
     On `meta` every storage's pointer is 0, so identity is the storage
     object's (held alive with the tensor), never its address."""
@@ -69,8 +70,15 @@ def residual_bytes_per_layer(cfg: ModelConfig, batch: int, seq: int, *,
     params = _meta_block_params(seg, cfg)
     x = torch.empty((batch, seq, cfg.d_model), dtype=dtype_of(cfg.dtype),
                     device="meta", requires_grad=True)
+    # a vision model's cross blocks read the image patch embeddings, an
+    # input of the stage the engine excludes as it excludes x (and, the
+    # chain ending at vlm_enc, without requires_grad)
+    enc = (torch.empty((batch, cfg.encoder_seq_len, cfg.d_model),
+                       dtype=dtype_of(cfg.dtype), device="meta")
+           if any(b.mixer == "cross" for b in seg.blocks) else None)
+    inputs = [x] if enc is None else [x, enc]
     excluded = {id(t.untyped_storage())
-                for t in tree_flatten(params)[0] + [x]}
+                for t in tree_flatten(params)[0] + inputs}
     saved: Dict[tuple, torch.Tensor] = {}
 
     def pack(t):
@@ -87,7 +95,7 @@ def residual_bytes_per_layer(cfg: ModelConfig, batch: int, seq: int, *,
         h = x
         for i, bdef in enumerate(seg.blocks):
             h, _ = apply_block(bdef, p[f"b{i}"], h, cfg, settings,
-                               positions=positions)
+                               positions=positions, enc_kv=enc)
     total = sum(t.numel() * t.element_size() for t in saved.values()
                 if not offloadable_only
                 or t.numel() >= MIN_OFFLOAD_ELEMENTS)

@@ -72,6 +72,24 @@ and `moe_z` (summed over layers, averaged over microbatches).
 An embeddings-input model (hubert) takes `batch["embeddings"]` (float,
 moved to the device as it is) through the embed stage's
 `frontend_proj`.
+
+A vision model (llama-3.2-vision) starts with a `vlm_enc` stage (the JAX
+package's `repro/core/staged.py:204-210`): no parameters, it casts
+`batch["enc_embeddings"]` to `settings.param_dtype`, and its output is
+the `enc` every layer stage with a cross block reads. The chain ends
+there, so `enc` is detached without `requires_grad`: no cotangent of it
+is computed or summed, and the stage's backward is empty.
+
+The host tier (`core/policies.py::HostTierPolicy`, the jit name's
+`activation_policy` "offload" / "offload_ssd"): layer stages are
+recomputed, and after each one's forward its input (the previous
+stage's output, a graph leaf) is copied on a side stream into a buffer
+of the spool's CUDA-registered pool (`io/bufpool.py`), and its device
+storage is freed once the copy has landed (`record_stream`, then the
+storage shrunk to 0 bytes). Backward copies it back one stage ahead, on
+the `reuse_horizon` walk, before the stage's recompute. No spool record,
+backend or file is involved; the `MemoryTracker` counts an input off
+the device while it lies on the host.
 """
 from __future__ import annotations
 
@@ -94,7 +112,7 @@ from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.models.api import (MOE_LB_COEF, MOE_Z_COEF, ModelApi,
                                     ce_chunk_applies, ce_loss, chunked_ce,
                                     embed_in, encoder_config, head)
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import dtype_of, rms_norm
 from repro_torch.models.transformer import RunSettings, apply_block, layer
 
 
@@ -130,11 +148,111 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+class _HostTier:
+    """The host tier's stage inputs, by stage index: each one's device
+    storage copied into a lease of the spool's pool and freed (`offload`),
+    copied back into a storage of its size one stage ahead (`prefetch`),
+    and waited for before its stage's recompute (`restore`). Bytes move
+    through uint8 aliases of the storage, whose version counters are
+    their own: the stage input, a graph leaf, keeps its."""
+
+    def __init__(self, pool, tracker: MemoryTracker, device):
+        self.pool, self.tracker, self.device = pool, tracker, device
+        self.cuda = device.type == "cuda"
+        self._stream = None
+        self._held: Dict[int, Dict[str, Any]] = {}
+        self._done: list = []       # (copy-back event, lease) of restored
+
+    def _side(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        stream = self._stream
+        # the side stream starts after what the card's stream has queued:
+        # the input's producer, or the last use of the memory a restored
+        # storage reuses
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        return stream
+
+    @staticmethod
+    def _bytes(t: torch.Tensor) -> torch.Tensor:
+        st = t.untyped_storage()
+        return torch.empty(0, dtype=torch.uint8, device=t.device).set_(
+            st, 0, (st.nbytes(),), (1,))
+
+    @staticmethod
+    def movable(t: Optional[torch.Tensor]) -> bool:
+        """A tensor that is its whole storage: freeing the storage frees
+        nothing else."""
+        return (t is not None and t.storage_offset() == 0
+                and t.is_contiguous() and t.numel() * t.element_size()
+                == t.untyped_storage().nbytes())
+
+    def _copy(self, dst, src):
+        """dst <- src, on the side stream on the card. Returns the copy's
+        event (None on the CPU)."""
+        if not self.cuda:
+            dst.copy_(src)
+            return None
+        with torch.cuda.stream(self._side()):
+            dst.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return event
+
+    def offload(self, si: int, t: torch.Tensor, key) -> None:
+        src = self._bytes(t)
+        n = src.numel()
+        lease = self.pool.acquire(n)
+        host = torch.frombuffer(lease.mv[:n], dtype=torch.uint8)
+        event = self._copy(host, src)
+        if event is not None:
+            src.record_stream(self._stream)     # freed after the copy
+        del src
+        t.untyped_storage().resize_(0)
+        self.tracker.free(key, tag=f"host:{key[0]}")
+        self._held[si] = {"t": t, "lease": lease, "host": host, "key": key,
+                          "n": n, "event": event, "back": False}
+
+    def prefetch(self, si: int) -> None:
+        rec = self._held.get(si)
+        if rec is None or rec["back"]:
+            return
+        rec["t"].untyped_storage().resize_(rec["n"])
+        # the side stream is in order: the copy out has landed first
+        rec["event"] = self._copy(self._bytes(rec["t"]), rec["host"])
+        rec["back"] = True
+        self.tracker.alloc(rec["key"], rec["n"],
+                           tag=f"host_back:{rec['key'][0]}")
+
+    def restore(self, si: int) -> None:
+        """Stage si's input back on the device: the card's stream waits
+        for the copy. The record lets go of the input, which its stage's
+        backward frees; its lease waits for `clear`."""
+        if si not in self._held:
+            return
+        self.prefetch(si)
+        rec = self._held.pop(si)
+        if rec["event"] is not None:
+            torch.cuda.current_stream(self.device).wait_event(rec["event"])
+        self._done.append((rec["event"], rec["lease"]))
+
+    def clear(self) -> None:
+        """Release every lease once its copies have run: the end of a
+        microbatch's backward, or one that raised (an input still on the
+        host is lost with its step)."""
+        for event, lease in self._done + [
+                (r["event"], r["lease"]) for r in self._held.values()]:
+            if event is not None:
+                event.synchronize()
+            lease.release()
+        self._done, self._held = [], {}
+
+
 class _Stage:
-    """One module of the chain. role: enc_embed | enc_layer | enc_final |
-    embed | layer | head. takes_enc: fn is f(p, x, enc). aux: fn returns
-    (x, {"moe_lb", "moe_z"}) (a layer with MoE blocks under the jit
-    name)."""
+    """One module of the chain. role: vlm_enc | enc_embed | enc_layer |
+    enc_final | embed | layer | head. takes_enc: fn is f(p, x, enc). aux:
+    fn returns (x, {"moe_lb", "moe_z"}) (a layer with MoE blocks under
+    the jit name)."""
 
     __slots__ = ("name", "role", "fn", "seg", "rep", "takes_enc",
                  "tap_stage", "aux")
@@ -154,7 +272,10 @@ def _aux_term(aux) -> torch.Tensor:
 
 def _stage_grad(out, term, inputs, carry):
     """Gradients of a stage's output (seeded with `carry`) and of its
-    MoE aux term (seeded with 1), with respect to `inputs`."""
+    MoE aux term (seeded with 1), with respect to `inputs` (none for
+    `vlm_enc`, where the chain ends)."""
+    if not inputs:
+        return ()
     if term is None:
         return torch.autograd.grad(out, inputs, carry, allow_unused=True)
     return torch.autograd.grad((out, term), inputs,
@@ -188,6 +309,8 @@ class StagedEngine:
         if hasattr(self.policy, "attach_health"):
             self.policy.attach_health(self.spool.health)
         self._stages = self._build_stages()
+        self._host = (_HostTier(self.spool.pool, self.tracker, self.device)
+                      if self.policy.host_inputs else None)
         self._step = 0
         self._closed = False
 
@@ -225,6 +348,12 @@ class StagedEngine:
             return fn
 
         stages = []
+        if cfg.family == "vlm":
+            # the JAX staged engine's cast: the run's dtype (the API's
+            # enc_states casts with the config's)
+            enc_dtype = dtype_of(settings.param_dtype)
+            stages.append(_Stage("vlm_enc", "vlm_enc", lambda p, batch: (
+                batch["enc_embeddings"].to(enc_dtype))))
         if self.api.enc_segments:
             enc_cfg = encoder_config(cfg)
             stages.append(_Stage(
@@ -277,6 +406,8 @@ class StagedEngine:
         for st in self._stages:
             if st.role in ("enc_embed", "embed"):
                 tree = emb
+            elif st.role == "vlm_enc":
+                tree = {}
             elif st.role == "enc_final":
                 tree = {"enc_norm": params["enc_norm"]}
             elif st.role == "head":
@@ -290,7 +421,7 @@ class StagedEngine:
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """Token ids and labels as int64 on the device; float inputs
-        (`embeddings`) in their own dtype."""
+        (`embeddings`, `enc_embeddings`) in their own dtype."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)
@@ -325,6 +456,9 @@ class StagedEngine:
                   "backward_s": 0.0}
         if any(s.aux for s in self._stages):
             counts.update(ce=0.0, moe_lb=0.0, moe_z=0.0)
+        if self._host is not None:
+            # layer stages whose input went to the host tier
+            counts["stages_host"] = 0
         loss_total, bwd_begin, dev_bwd_begin = 0.0, 0, 0
         sink = self.settings.opt_sink
         # the tap's step: the optimizer's, as the JAX hooks key it
@@ -418,6 +552,9 @@ class StagedEngine:
                                    tag=f"ckpt:{tx.key(si)}")
                 counts["stages_recomputed"] += 1
                 saved = None
+                if self._host is not None and _HostTier.movable(ins.get(si)):
+                    self._host.offload(si, ins[si], (tx.key(si), "k"))
+                    counts["stages_host"] += 1
             else:
                 saved, cell = [], []
                 with torch.autograd.graph.saved_tensors_hooks(
@@ -453,6 +590,9 @@ class StagedEngine:
             elif stage.role == "enc_final":
                 # the decoder's embed stage takes the batch, not this
                 enc = out.detach().requires_grad_(True)
+            elif stage.role == "vlm_enc":
+                # the chain ends here: no cotangent of enc is needed
+                enc = out.detach()
             else:
                 x = out.detach().requires_grad_(True)
                 ins[si + 1] = x
@@ -472,16 +612,38 @@ class StagedEngine:
         bwd_sp = obs.span("engine.bwd", cat="engine", step=self._step, mb=mb)
         bwd_sp.__enter__()
 
+        try:
+            self._backward(tx, batch, stage_params, params, grads, ins,
+                           outs, cells, terms, recompute, enc, counts, tap)
+        finally:
+            if self._host is not None:
+                self._host.clear()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        bwd_sp.__exit__(None, None, None)
+        counts["backward_s"] += time.perf_counter() - t_bwd
+        return loss_value, bwd_begin, dev_bwd_begin
+
+    def _backward(self, tx, batch, stage_params, params, grads, ins, outs,
+                  cells, terms, recompute, enc, counts, tap):
+        """The stages' backward in reverse order, prefetching one stage
+        ahead; accumulates into `grads` (`_run_microbatch`)."""
         carry = torch.ones((), dtype=torch.float32, device=self.device)
         enc_grad = None          # d loss / d enc, summed over cross stages
+        host = self._host
         for si in range(len(self._stages) - 1, -1, -1):
             stage = self._stages[si]
             for s in reuse_horizon(range(si - 1, -1, -1)):
                 tx.prefetch(s)
+                if host is not None:
+                    host.prefetch(s)
             leaves = tree_flatten(stage_params[si])[0]
+            enc_in = stage.takes_enc and enc.requires_grad
             inputs = leaves + ([ins[si]] if si in ins else []) + (
-                [enc] if stage.takes_enc else [])
+                [enc] if enc_in else [])
             if si in recompute:
+                if host is not None:
+                    host.restore(si)
                 got = self._recompute(stage, stage_params[si], batch, ins,
                                       enc, si, inputs, carry)
                 self.tracker.free((tx.key(si), "k"),
@@ -521,7 +683,7 @@ class StagedEngine:
             outs.pop(si)
             terms.pop(si, None)
             cells.pop(si, None)
-            if stage.takes_enc:
+            if enc_in:
                 enc_grad = (got[-1] if enc_grad is None
                             else enc_grad + got[-1])
                 got = got[:-1]
@@ -535,11 +697,6 @@ class StagedEngine:
                             got[:len(leaves)])
             if tap is not None and stage.tap_stage is not None:
                 self._tap(grads, stage, *tap)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        bwd_sp.__exit__(None, None, None)
-        counts["backward_s"] += time.perf_counter() - t_bwd
-        return loss_value, bwd_begin, dev_bwd_begin
 
     def _hooks(self, saved: list, cell: list, x_in=None, enc=None):
         """(pack, unpack) for one stage: saved tensors, minus parameters,
@@ -568,7 +725,7 @@ class StagedEngine:
 
     @staticmethod
     def _args_for(stage: _Stage, batch, x, enc):
-        if stage.role in ("enc_embed", "embed"):
+        if stage.role in ("vlm_enc", "enc_embed", "embed"):
             return (batch,)
         if stage.role == "head":
             return (x, batch["labels"])

@@ -25,9 +25,13 @@ profiling).
 
 The jit engine of the port is the staged engine with its placement set
 by `RunSettings.activation_policy` (`policy_for_jit`): "keep" is
-KeepPolicy, "remat" RecomputePolicy and "spool" `LayerSpoolPolicy`
-(layer stages through the spool, decoder layers as
-`RunSettings.spool_stages` marks them).
+KeepPolicy, "remat" RecomputePolicy, "offload" and "offload_ssd" (the
+JAX package's one host-memory tier, `repro/models/transformer.py:
+130-146`) `HostTierPolicy` (recomputed layers whose inputs, JAX's
+"blk_in", wait in pinned host memory), "save_names" of "blk_in"
+RecomputePolicy (a layer's input kept on the device is what it keeps),
+and "spool" `LayerSpoolPolicy` (layer stages through the spool, decoder
+layers as `RunSettings.spool_stages` marks them).
 """
 from __future__ import annotations
 
@@ -45,7 +49,12 @@ from repro_torch.core.adaptive import (BWD_FACTOR, BandwidthLike,
 RECOMPUTABLE_ROLES = ("layer", "enc_layer")
 
 #: the jit engine's activation placements (RunSettings.activation_policy)
-JIT_ACTIVATION_POLICIES = ("keep", "remat", "spool")
+JIT_ACTIVATION_POLICIES = ("keep", "remat", "offload", "offload_ssd",
+                           "save_names", "spool")
+
+#: the tensors the JAX package's layers name for its memory tiers; the
+#: port places "blk_in" (a layer stage's input) only
+OFFLOAD_NAMES = ("blk_in",)
 
 
 def _scale_bandwidths(bw: BandwidthLike, scale: float) -> BandwidthLike:
@@ -104,6 +113,10 @@ class OffloadPolicy:
 
     plan: Optional[OffloadPlan] = None
 
+    #: the engine moves a recomputed stage's input to pinned host memory
+    #: until its backward (the host tier)
+    host_inputs = False
+
     def recomputes(self, role: str) -> bool:
         """True if this stage's backward should re-run forward instead of
         saving residuals."""
@@ -157,6 +170,17 @@ class RecomputePolicy(OffloadPolicy):
         return False
 
 
+class HostTierPolicy(RecomputePolicy):
+    """The JAX jit engine's host-memory tier ("offload" /
+    "offload_ssd"): layer stages are recomputed, as under
+    RecomputePolicy, and each one's input waits in pinned host memory
+    from its forward to its backward instead of on the device (no spool
+    record, backend or file)."""
+
+    strategy = "offload"
+    host_inputs = True
+
+
 class LayerSpoolPolicy(OffloadPolicy):
     """The jit engine's "spool" placement: layer stages go through the
     spool (the JAX jit engine hooks only its scanned layers; embed, head
@@ -189,14 +213,23 @@ class LayerSpoolPolicy(OffloadPolicy):
 def policy_for_jit(settings, decoder_layers: Sequence[str] = ()
                    ) -> OffloadPolicy:
     """The staged engine's policy for a jit-engine RunSettings: "keep" ->
-    KeepPolicy, "remat" -> RecomputePolicy, "spool" -> LayerSpoolPolicy
-    over `decoder_layers` (the decoder layer stage names in order)."""
+    KeepPolicy, "remat" -> RecomputePolicy, "offload" / "offload_ssd" ->
+    HostTierPolicy, "save_names" -> RecomputePolicy, "spool" ->
+    LayerSpoolPolicy over `decoder_layers` (the decoder layer stage names
+    in order). The tiers take `settings.offload_names` of "blk_in" only:
+    the other names the JAX layers mark lie inside a stage."""
     name = settings.activation_policy
-    if name in ("offload", "offload_ssd"):
-        raise ValueError(
-            f"activation_policy {name!r} is an XLA memory-kind tier of the "
-            "JAX jit engine with no counterpart in the port (ROADMAP §1 "
-            "item 16); use 'spool' for activations on the spool")
+    if name in ("offload", "offload_ssd", "save_names"):
+        names = tuple(settings.offload_names)
+        if any(n not in OFFLOAD_NAMES for n in names):
+            raise ValueError(
+                f"offload_names {names!r}: the port places "
+                f"{OFFLOAD_NAMES!r} only; saving a tensor inside a layer "
+                "without recomputing its producers needs selective "
+                "recompute within a stage (ROADMAP §1 item 16)")
+        # no name: nothing saved or moved, which is remat
+        return HostTierPolicy() if names and name != "save_names" \
+            else RecomputePolicy()
     if name == "keep":
         return KeepPolicy()
     if name == "remat":

@@ -218,3 +218,20 @@ def embedding_batches(d_model: int, vocab_size: int, *, batch: int,
         yield {"embeddings": rng.standard_normal(
                    (batch, seq_len, d_model), dtype=np.float32),
                "labels": rng.integers(0, vocab_size, (batch, seq_len))}
+
+
+def vision_batches(vocab_size: int, d_model: int, enc_len: int, *,
+                   batch: int, seq_len: int, seed: int = 0
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+    """Batches for a vision model (llama-3.2-vision, whose image frontend
+    is a stub in both packages): next-token `tokens` and `labels` from a
+    uniform draw of seq_len + 1 ids, and patch embeddings
+    `enc_embeddings` (batch, enc_len, d_model) f32 from a standard
+    normal, all from one numpy generator seeded with `seed`. The JAX
+    package's data pipeline makes tokens only."""
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = rng.integers(0, vocab_size, (batch, seq_len + 1))
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+               "enc_embeddings": rng.standard_normal(
+                   (batch, enc_len, d_model), dtype=np.float32)}

@@ -26,14 +26,21 @@ __all__ = [
 def build_manager(kind: str, api, params, settings, kvcfg: KVCacheConfig,
                   n_slots: int, spool=None):
     """A KV-cache manager: kind in {"paged", "dense"}. An
-    encoder-decoder is refused: serving takes no encoder input, as in
-    the JAX package (its decode runs through `decode_step` after
-    `prefill`; ROADMAP §3)."""
+    encoder-decoder and a vision model are refused: serving takes no
+    encoder input, as in the JAX package, whose manager starts a
+    sequence with the tokens alone (`repro/kvcache/manager.py:347-349`).
+    They decode through `prefill`, then `decode_step` or
+    `decode_step_paged` (ROADMAP §3)."""
     if api.enc_segments:
         raise ValueError(
             f"{api.cfg.name}: an encoder-decoder is not served through a "
             "KV-cache manager (no encoder input; prefill then decode_step "
             "it, ROADMAP §3)")
+    if api.cfg.family == "vlm":
+        raise ValueError(
+            f"{api.cfg.name}: a vision model is not served through a "
+            "KV-cache manager (no enc_embeddings input; prefill then "
+            "decode_step or decode_step_paged it, ROADMAP §3)")
     if kind == "paged":
         return PagedKVCache(api, params, settings, kvcfg, n_slots, spool)
     if kind == "dense":

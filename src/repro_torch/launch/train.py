@@ -23,13 +23,15 @@ package's `repro/launch/train.py`.
       --steps 3 --batch 1 --seq 1024 --strategy spool
   python -m repro_torch.launch.train --arch llama4-scout-17b-a16e:reduced \
       --device cpu --engine jit --steps 2 --batch 2 --seq 64
+  python -m repro_torch.launch.train --arch llama-3.2-vision-90b:reduced \
+      --device cpu --steps 2 --batch 2 --seq 64 --strategy spool
 
-`--arch` takes every registry id but llama-3.2-vision-90b (whose
-cross-attention layers are not ported) and `<id>:reduced`, the paper's
+`--arch` takes every registry id and `<id>:reduced`, the paper's
 `small-gpt`, `small-bert`, `gpt-124m` and `gpt-h<H>-l<L>`. hubert-xlarge
-reads frame embeddings: the CLI feeds it seeded normal ones
-(`data.pipeline.embedding_batches`), as no data pipeline of either
-package makes them.
+reads frame embeddings and llama-3.2-vision-90b image patch embeddings
+beside its tokens: the CLI feeds them seeded normal ones
+(`data.pipeline.embedding_batches`, `data.pipeline.vision_batches`), as
+no data pipeline of either package makes them.
 
 `--engine jit` is the JAX CLI's jit engine on the port's one engine
 (layers recomputed in backward by default; `--host-offload opt_state`
@@ -78,7 +80,7 @@ import torch
 
 from repro_torch.configs import SpoolIoConfig, resolve_config
 from repro_torch.core.policies import STRATEGIES
-from repro_torch.data.pipeline import embedding_batches
+from repro_torch.data.pipeline import embedding_batches, vision_batches
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -285,7 +287,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     loader = (embedding_batches(cfg.d_model, cfg.vocab_size,
                                 batch=args.batch, seq_len=args.seq,
                                 seed=args.seed)
-              if cfg.input_kind == "embeddings" else None)
+              if cfg.input_kind == "embeddings" else
+              vision_batches(cfg.vocab_size, cfg.d_model,
+                             cfg.encoder_seq_len, batch=args.batch,
+                             seq_len=args.seq, seed=args.seed)
+              if cfg.family == "vlm" else None)
     with TrainSession(
             cfg, engine=args.engine, loader=loader,
             policy=args.strategy if args.engine == "staged" else None,

@@ -36,7 +36,13 @@ An encoder-decoder (T5, `family == "encdec"`) adds `enc_segments` (the
 bidirectional encoder stack) and `enc_norm`; the encoder embeds
 `batch["enc_tokens"]` through the shared `embed` / `pos_embed` tables,
 and every decoder layer is (causal self-attention, cross-attention with
-the dense MLP) over the normed encoder states.
+the dense MLP) over the normed encoder states. A vision model
+(llama-3.2-vision, `family == "vlm"`) reads precomputed patch
+embeddings, `batch["enc_embeddings"]` (B, encoder_seq_len, D), in
+`forward`, `loss` and `prefill`; its cross blocks project their K/V
+from them once at prefill, and the decode steps read those K/V from the
+caches (`decode_step`) or from the resident entries
+(`decode_step_paged`), never written.
 """
 from __future__ import annotations
 
@@ -332,12 +338,23 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                                        settings, positions=positions)
         return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
+    def enc_states(params, batch, settings: RunSettings):
+        """What the cross blocks attend to: an encoder-decoder's encoder
+        states, a vision model's `batch["enc_embeddings"]` (B, Se, D)
+        cast to `cfg.dtype` (its frontend is a stub in both packages),
+        else None."""
+        if enc_segs:
+            return encode(params, batch, settings)
+        if cfg.family == "vlm":
+            return batch["enc_embeddings"].to(dtype_of(cfg.dtype))
+        return None
+
     def hidden(params, batch, settings: RunSettings, *, emit_cache=False,
                cache_len=0):
         """The final hidden state (before the head), the decode caches
         when `emit_cache` (else an empty list), and the blocks' aux
         losses summed over layers."""
-        enc = encode(params, batch, settings) if enc_segs else None
+        enc = enc_states(params, batch, settings)
         x = embed_in(params, batch, cfg)
         S = x.shape[1]
         positions = (torch.arange(S, device=x.device) if cfg.use_rope

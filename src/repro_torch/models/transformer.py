@@ -13,12 +13,14 @@ dense MLP (classic or gated) or the MoE FFN (`models/moe.py`, with an
 always-on shared expert; kimi's leading layers dense) where the block
 has one, and the attention-free Mamba-2 (`ssm`) block with no MLP; the
 hybrid pattern of recurrentgemma repeats (rglru, rglru, attn) and puts
-the remainder in a second segment. With `post_block_norm` (gemma2) the
-mixer's and the MLP's outputs are normed before each residual add. Every
+the remainder in a second segment; llama-3.2-vision repeats
+`cross_attn_period - 1` attention blocks and one cross block (with the
+dense MLP) over the image patch embeddings. With `post_block_norm`
+(gemma2) the mixer's and the MLP's outputs are normed before each
+residual add. Every
 block has a one-token decode step against its cache (attention K/V, a
 ring for windowed layers; the encoder's K/V for cross; the conv window
-and recurrent state for rglru and ssm). Cross-attention layers every
-`cross_attn_period` (llama-3.2-vision) raise `NotImplementedError`.
+and recurrent state for rglru and ssm).
 
 A block's aux losses (MoE: `moe_lb`, `moe_z`) are added into the `aux`
 dict a caller passes to `apply_block`; decode steps drop them, as JAX's
@@ -42,8 +44,6 @@ from repro_torch.models.attention import attend, attend_decode
 from repro_torch.models.layers import (apply_mlp, apply_rope, dense_init,
                                        init_mlp, init_norm, rms_norm)
 from repro_torch.models.moe import MoESettings, apply_moe, init_moe
-
-_NOT_PORTED = "not ported yet (ROADMAP §1, 'the other architectures')"
 
 Params = Dict[str, Any]
 
@@ -70,10 +70,6 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
     """The segments of a config's layer stack: the decoder-only or
     encoder-only stack, or for an encoder-decoder its encoder's layers
     (`models/api.py` builds the decoder's own segment)."""
-    if cfg.cross_attn_period:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention layers (cross_attn_period) "
-            f"{_NOT_PORTED}")
     if cfg.family == "ssm":
         return [SegmentDef((BlockDef("ssm", mlp=None),), cfg.num_layers)]
     if cfg.hybrid_pattern:
@@ -85,6 +81,13 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
         if rem:
             segs.append(SegmentDef(pat[:rem], 1))
         return segs
+    if cfg.cross_attn_period:
+        k = cfg.cross_attn_period
+        if cfg.num_layers % k:
+            raise ValueError("num_layers must be a multiple of "
+                             "cross_attn_period")
+        blocks = (BlockDef("attn"),) * (k - 1) + (BlockDef("cross"),)
+        return [SegmentDef(blocks, cfg.num_layers // k)]
     mlp_kind = "moe" if cfg.moe_num_experts else "dense"
     if cfg.local_global_period:
         p = cfg.local_global_period
@@ -121,9 +124,14 @@ class RunSettings:
     device: str = "cuda"
     # the jit engine's activation placement (the staged engine takes an
     # OffloadPolicy instead): "keep" | "remat" (layers recomputed in
-    # backward) | "spool" (layer residuals through the spool); the JAX
-    # package's XLA memory tiers "offload" / "offload_ssd" are refused
+    # backward) | "offload" / "offload_ssd" (recomputed, each layer's
+    # input in pinned host memory until its backward) | "save_names"
+    # (recomputed, the `offload_names` kept on the device) | "spool"
+    # (layer residuals through the spool)
     activation_policy: str = "keep"
+    # the tensors "offload" moves to the host and "save_names" keeps:
+    # "blk_in", a layer's input, is the one the port places
+    offload_names: Tuple[str, ...] = ("blk_in",)
     # "spool" only: a per-decoder-layer mask (None: every layer spools;
     # False keeps that layer's residuals on the device), as
     # AdaptivePolicy.plan_for_jit() emits it

@@ -5,8 +5,10 @@ It owns config resolution, the placement policy, the spool (built from
 one `SpoolIoConfig`), the data loader (the synthetic one unless the
 caller passes `loader=`, any iterable of batches; a T5 batch carries
 `enc_tokens` beside `tokens` and `labels`, a hubert batch `embeddings`
-and `labels` (`data.pipeline.embedding_batches`; the synthetic loader
-makes tokens only, so such a model needs a loader)), the optimizer,
+and `labels` (`data.pipeline.embedding_batches`), a llama-3.2-vision
+batch `enc_embeddings` beside `tokens` and `labels`
+(`data.pipeline.vision_batches`; the synthetic loader makes tokens
+only, so the last two need a loader)), the optimizer,
 checkpoints,
 tracing and the metrics JSONL (the `StepReport` schema, with per-step
 spool deltas, the `resilience_*` block (and the `cache_*` block over a
@@ -29,8 +31,10 @@ and writes the Chrome/Perfetto trace on `close()`.
 
 `engine="jit"` is the JAX package's jit engine on the port's one
 engine: the staged engine with its placement from
-`settings.activation_policy` ("remat" by default, "keep", or "spool"
-with `io.host_offload="activations"`, decoder layers as
+`settings.activation_policy` ("remat" by default, "keep", "offload" /
+"offload_ssd" (the host tier: layer inputs in pinned host memory
+between forward and backward), "save_names", or "spool" with
+`io.host_offload="activations"`, decoder layers as
 `settings.spool_stages` marks them; `policy_for_jit`), and the steps of
 `repro_torch.launch.steps`. `io.host_offload="opt_state"` stages the
 optimizer state through the spool between steps; `opt_overlap` (the
@@ -168,6 +172,12 @@ class TrainSession:
                 f"the synthetic data makes tokens only: pass loader=, an "
                 f"iterable of batches of {{'{self.cfg.input_kind}', "
                 f"'labels'}} (data.pipeline.embedding_batches)")
+        if loader is None and self.cfg.family == "vlm":
+            raise ValueError(
+                f"{self.cfg.name} reads enc_embeddings beside its tokens "
+                f"and the synthetic data makes tokens only: pass loader=, "
+                f"an iterable of batches of {{'tokens', 'labels', "
+                f"'enc_embeddings'}} (data.pipeline.vision_batches)")
         self.io = io.validate() if io is not None else None
         # the optimizer overlap: the kwarg wins, else the io config's
         # knob. True runs the worker; "sync" the same per-layer updates

@@ -14,7 +14,8 @@ the JAX package: configs, model parity and the three smoke checks.
     past their window). `tests/test_torch_moe.py` holds the MoE layer's
     pieces and the engines.
   * The three checks of `tests/test_models_smoke.py` on the port's own
-    init for every id but llama-3.2-vision, which still refuses.
+    init for every id (llama-3.2-vision with its patch embeddings;
+    `tests/test_torch_vision.py` holds it against JAX).
   * hubert trains through `TrainSession` with a loader of frame
     embeddings, keep = spool bitwise; without a loader the session
     refuses with a ValueError naming the loader.
@@ -57,7 +58,7 @@ TOL = 1e-4
 B, S, CACHE = 2, 12, 24
 PARITY = ["qwen2.5-3b", "granite-3-2b", "granite-8b", "gemma2-27b",
           "hubert-xlarge", "llama4-scout-17b-a16e", "kimi-k2-1t-a32b"]
-SMOKE_IDS = [a for a in T_ARCH_IDS if a != "llama-3.2-vision-90b"]
+SMOKE_IDS = list(T_ARCH_IDS)
 TSET = RunSettings(attn_impl="torch", attn_chunk=8, param_dtype="float32",
                    device="cpu")
 
@@ -81,7 +82,8 @@ def perturbed_jax_weights(japi, seed=0):
 
 
 def batch_of(cfg, rng, b=B, s=S):
-    """Inputs ({"tokens"} or {"embeddings"}) and labels as numpy."""
+    """Inputs ({"tokens"} or {"embeddings"}, and a vision model's
+    {"enc_embeddings"}) and labels as numpy."""
     out = {"labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(
         np.int32)}
     if cfg.input_kind == "embeddings":
@@ -90,6 +92,9 @@ def batch_of(cfg, rng, b=B, s=S):
     else:
         out["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(
             np.int32)
+    if cfg.family == "vlm":
+        out["enc_embeddings"] = rng.standard_normal(
+            (b, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -143,9 +148,12 @@ def test_resolve_config_matches_jax_field_for_field(name):
 
 
 def test_vision_still_refuses():
-    with pytest.raises(NotImplementedError,
-                       match="cross-attention layers.*ROADMAP"):
-        build_model(get_config("llama-3.2-vision-90b"))
+    """Once a refusal, now the check that vision builds: its 100 layers
+    are 20 periods of four attention blocks and a cross block; an
+    unknown arch still refuses."""
+    (seg,) = build_model(get_config("llama-3.2-vision-90b")).segments
+    assert seg.n_repeat == 20
+    assert [b.mixer for b in seg.blocks] == ["attn"] * 4 + ["cross"]
     with pytest.raises(ValueError, match="unknown arch"):
         resolve_config("nope:reduced")
 
@@ -355,12 +363,15 @@ def test_prefill_decode_consistency(arch):
     cfg = _reduced32(arch)
     api = build_model(cfg)
     params = api.init(torch.Generator().manual_seed(2))
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, 16)))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 16)))
+    enc = ({"enc_embeddings": torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))}
+        if cfg.family == "vlm" else {})
     with torch.inference_mode():
-        full = api.forward(params, {"tokens": toks}, TSET)
-        last, caches = api.prefill(params, {"tokens": toks[:, :15]}, TSET,
-                                   cache_len=16)
+        full = api.forward(params, dict(enc, tokens=toks), TSET)
+        last, caches = api.prefill(params, dict(enc, tokens=toks[:, :15]),
+                                   TSET, cache_len=16)
         dec = api.decode_step(params, caches, {"tokens": toks[:, 15:]},
                               torch.tensor(15), TSET)
     np.testing.assert_allclose(last[:, 0].numpy(), full[:, 14].numpy(),

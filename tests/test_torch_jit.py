@@ -18,7 +18,8 @@ staged engine and against the JAX package's jit engine.
     checkpoint of a port overlap session restores in a JAX session and a
     JAX one in a port overlap session; the metric rows' keys match key
     for key.
-  * The refusals the JAX session makes, and the CLI on the CPU.
+  * The refusals the JAX session makes, the names the host tier cannot
+    place, and the CLI on the CPU.
 """
 import dataclasses
 import os
@@ -174,9 +175,13 @@ def test_refusals():
                                   host_offload="activations"),
                  settings=RunSettings(device="cpu",
                                       activation_policy="keep"))
-    for tier in ("offload", "offload_ssd"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            policy_for_jit(RunSettings(activation_policy=tier))
+    # the host tier places a layer's input; the names inside a layer
+    # wait for selective recompute (tests/test_torch_host_tier.py)
+    for tier in ("offload", "offload_ssd", "save_names"):
+        for name in ("attn_out", "mlp_hidden", "moe_hidden"):
+            with pytest.raises(ValueError, match="ROADMAP §1 item 16"):
+                policy_for_jit(RunSettings(activation_policy=tier,
+                                           offload_names=(name,)))
     with pytest.raises(ValueError, match="unknown engine"):
         _session(engine="xla")
     with pytest.raises(ValueError, match="device"):

@@ -85,10 +85,18 @@ def test_configs_match_jax():
         dataclasses.asdict(jax_get_config("qwen2.5-3b"))
     with pytest.raises(ValueError, match="unknown arch"):
         resolve_config("qwen9-1b")
-    # configurations the port does not carry are refused, not run wrong
-    with pytest.raises(NotImplementedError,
-                       match="cross-attention layers"):
-        build_model(dataclasses.replace(small_gpt(), cross_attn_period=2,
+    # cross-attention layers every `cross_attn_period` (refused until
+    # llama-3.2-vision was ported) build the JAX segments; a depth the
+    # period does not divide is refused, not run wrong
+    from repro.models.transformer import build_segments as jax_segments
+    cross = dict(cross_attn_period=2, encoder_seq_len=8)
+    got = build_model(dataclasses.replace(small_gpt(), **cross)).segments
+    want = jax_segments(dataclasses.replace(jax_small_gpt(), **cross))
+    assert [([b.mixer for b in g.blocks], g.n_repeat) for g in got] == \
+        [([b.mixer for b in w.blocks], w.n_repeat) for w in want] == \
+        [(["attn", "cross"], small_gpt().num_layers // 2)]
+    with pytest.raises(ValueError, match="cross_attn_period"):
+        build_model(dataclasses.replace(small_gpt(), cross_attn_period=3,
                                         encoder_seq_len=8))
 
 

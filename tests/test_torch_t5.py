@@ -207,8 +207,21 @@ def test_loss_and_grads_match_jax(weights):
     assert float(grads[id(params["pos_embed"])][SE:].abs().max()) == 0
 
 
+@pytest.fixture(scope="module")
+def jax_trainer(weights):
+    """One JAX StagedTrainer (sgd 1e-2, keep) for both microbatch cases:
+    its stage functions compile once (about 14 s on the CPU), and a keep
+    step reads nothing of an earlier one."""
+    jcfg = weights[0]
+    tr = StagedTrainer(jax_build(jcfg), _jset(), jopt.sgd(1e-2),
+                       strategy="keep")
+    yield tr
+    tr.close()
+
+
 @pytest.mark.parametrize("microbatches", [1, 2])
-def test_engine_matches_jax_staged_trainer(weights, microbatches):
+def test_engine_matches_jax_staged_trainer(weights, jax_trainer,
+                                           microbatches):
     """Three sgd steps through the port's staged engine and the JAX
     StagedTrainer on the same batches, the same stage list: the bars of
     test_torch_train.py::test_engine_matches_jax_staged_trainer."""
@@ -227,16 +240,12 @@ def test_engine_matches_jax_staged_trainer(weights, microbatches):
             losses.append(rep.loss)
     finally:
         eng.close()
-    jo = jopt.sgd(1e-2)
-    tr = StagedTrainer(jax_build(jcfg), _jset(), jo, strategy="keep")
-    p, st, jl = jparams, jo.init(jparams), []
-    try:
-        assert eng.stage_names == [s.name for s in tr._stages] == STAGES
-        for mbs in steps:
-            p, st, rep = tr.train_step(p, st, [_jax_batch(b) for b in mbs])
-            jl.append(rep.loss)
-    finally:
-        tr.close()
+    tr = jax_trainer
+    p, st, jl = jparams, tr.optimizer.init(jparams), []
+    assert eng.stage_names == [s.name for s in tr._stages] == STAGES
+    for mbs in steps:
+        p, st, rep = tr.train_step(p, st, [_jax_batch(b) for b in mbs])
+        jl.append(rep.loss)
     np.testing.assert_allclose(losses, jl, rtol=1e-5, atol=1e-6)
     for got, w in zip(tree_flatten(params)[0], tree_flatten(_params(p))[0]):
         np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=2e-4,
