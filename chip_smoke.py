@@ -208,7 +208,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
      0.25 of the plain path in bf16 and within 5e-3 in an f32 copy of
      the weights. Phase 3 holds its self- and cross-attention instances
      (B=1, 1024 x 1024, 64 / 8 heads of 128) with their times;
- 15. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 15. meshes (slice 12a): the paper's GPT at full width cut to 2 layers
+     (gpt-h8192-l2, f32, sgd, B=2, S=1024, 2 steps, the jit engine, fs
+     spool dirs): (a) one device, keep, in this process; then one spawn
+     of 2 ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+     device; CUDA tensors are staged through pinned host memory) runs
+     (b) a 1x2 mesh (tp=2), keep; (c) 1x2, the layers spooled; (d) (c)
+     again; (e) 1x2 with hooks and model over dp only (the model axis
+     one replica group, replica dedup across the two processes); (f)
+     (e) without dedup; (g) a 2x1 mesh (dp=2, fsdp + ZeRO-1), keep.
+     (b) and (g) within 1e-4 of (a); (c) = (b), (d) = (c), and (e) =
+     (a) and (f) = (e), bitwise ((e) runs (a)'s computation on each
+     rank: tp=None replicates the model); (c)'s shards 0 and 1 each with
+     4 offloads and fetches and bytes in = out; (e) shard 0 only, 4
+     offloads, 8 fetches, 4 replica skips, half the bytes handed to
+     the spool of (f); every spool dir empty; 4 flash launches per rank
+     and run; each rank's tracked activation peak lower in (c) than in
+     (b). The flash kernel at the tp-local shape (2, 1024, 32, 128), in
+     f32 (the path's) and bf16, against its plain version at phase 3's
+     bars, with its times. Prints each rank's device peaks beside
+     (a)'s, the backend and the bytes staged through host memory, and
+     the phase's time. `python3 chip_smoke.py --mesh-only` runs phases
+     1-3's device line and build, then this phase;
+ 16. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -423,6 +445,17 @@ T5_ATTN = (T5_BATCH,) + BERT_ATTN[1:]
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, and
 # operations/s for bf16 on the tensor cores and f32 on the CUDA cores.
+# phase 15: meshes on the one card: the paper's GPT (gpt-h8192) cut to
+# MESH_LAYERS layers in f32, sgd, B=MESH_BATCH, S=PAPER_SEQ, MESH_STEPS
+# steps; 2 ranks share cuda:0 over gloo. B=4 and 3 steps took 144.1 s
+# (measured on one H100); B=2 and 2 steps keep the phase in its 100 s
+MESH_LAYERS, MESH_BATCH, MESH_STEPS, MESH_RANKS = 2, 2, 2, 2
+# the flash instance a tp=2 rank launches: (B, S, H / 2, D)
+MESH_ATTN = (MESH_BATCH, PAPER_SEQ, PAPER_HIDDEN // 128 // 2, 128)
+# (b) and (g) against (a): the JAX package's GSPMD bar
+# (tests/test_multidevice.py:233)
+TOL_MESH = 1e-4
+
 PEAKS = {
     "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
     "pcie": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12},
@@ -2761,6 +2794,277 @@ def opt_phase(smi):
     return out["(c) jit overlap"]["launches"]["flash_attention"]
 
 
+def mesh_run(label, work, *, mesh=None, axes=None, offload=False,
+             dedupe=True):
+    """One run of phase 15 in this process: one device (`mesh` None) or
+    this rank of `mesh`; the jit engine keeps every layer, or with
+    `offload` spools them into `work/label` (a directory every rank of
+    the mesh shares). Flash launches are set to 0 just before the steps
+    and read just after. Returns losses, launches, the tracked and device
+    peaks, the run's shard totals over the ranks, the bytes staged
+    through host memory and, with `offload`, what the dir holds after
+    close."""
+    from repro_torch.configs import SpoolIoConfig, gpt
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import RunSettings
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.session import TrainSession
+    cfg = dataclasses.replace(gpt(PAPER_HIDDEN, MESH_LAYERS),
+                              dtype="float32")
+    d = os.path.join(work, label)
+    io = SpoolIoConfig(backend="fs", directory=d, codec="raw",
+                       pool_bytes=POOL_BYTES, host_offload="activations",
+                       dedupe_replicas=dedupe) if offload else None
+    settings = None if offload else RunSettings(
+        attn_impl="cuda", attn_chunk=256, param_dtype="float32",
+        device="cuda", activation_policy="keep")
+    t_wall = time.perf_counter()
+    sess = TrainSession(cfg, engine="jit", io=io, settings=settings,
+                        optimizer=sgd(PAPER_LR), batch_size=MESH_BATCH,
+                        seq_len=PAPER_SEQ, seed=0, device="cuda",
+                        attn_impl="cuda", mesh=mesh, mesh_axes=axes)
+    try:
+        sess.init()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        reps = sess.run(MESH_STEPS).reports
+        out = {"s": time.perf_counter() - t0,
+               "launches": flash_attention.launches,
+               "losses": [r.loss for r in reps],
+               "tracked": max(r.peak_activation_bytes for r in reps),
+               "device": max(r.extra["device_peak_bytes"] for r in reps),
+               "shards": sess.shard_totals() if mesh is not None else {},
+               "staged": sum(r.extra.get("comm_host_staged_bytes", 0)
+                             for r in reps),
+               "comm_s": {k: sum(r.extra.get(f"comm_{k}_s", 0.0)
+                                 for r in reps)
+                          for k in ("total", "wait", "stage")},
+               "backend": (reps[-1].extra.get("comm_backend")
+                           if mesh is not None else None),
+               "steps_s": [r.step_time for r in reps]}
+    finally:
+        sess.close()      # on a mesh: after every rank's spool closed
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    if offload:
+        out["left"] = sorted(os.listdir(d))
+    out["wall"] = time.perf_counter() - t_wall
+    return out
+
+
+def _mesh_rank(rank, port, work):
+    """One of phase 15's ranks: (b)-(f) on a 1x2 mesh, (g) on a 2x1 one;
+    its results (or its traceback) pickled into `work`."""
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        from repro_torch.parallel.comm import init_mesh, single_node_gloo
+        from repro_torch.parallel.sharding import MeshAxes
+        single_node_gloo()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        deterministic()
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=MESH_RANKS)
+        mesh = init_mesh((1, MESH_RANKS), ("data", "model"), device="cuda")
+        res = {"describe": mesh.comm.describe()}
+        # (a) runs in the parent while the ranks start: wait for it to
+        # end and give its memory back
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(os.path.join(work, "a_done")):
+            if time.perf_counter() > deadline:
+                raise RuntimeError("(a) did not end within 600 s")
+            time.sleep(0.05)
+        res["b"] = mesh_run("b", work, mesh=mesh)
+        res["c"] = mesh_run("c", work, mesh=mesh, offload=True)
+        res["d"] = mesh_run("d", work, mesh=mesh, offload=True)
+        dp_only = MeshAxes(dp=("data",), tp=None)
+        res["e"] = mesh_run("e", work, mesh=mesh, axes=dp_only,
+                            offload=True)
+        res["f"] = mesh_run("f", work, mesh=mesh, axes=dp_only,
+                            offload=True, dedupe=False)
+        mesh2 = init_mesh((MESH_RANKS, 1), ("data", "model"),
+                          device="cuda")
+        res["g"] = mesh_run("g", work, mesh=mesh2)
+        dist.destroy_process_group()
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def mesh_flash_check(gen, peaks, smi):
+    """The flash kernel at the shape a tp=2 rank gives it (MESH_ATTN,
+    causal), in f32 (the phase's dtype) and bf16, against its plain
+    version at phase 3's bars; the f32 instance's times, bound and
+    scaled_dot_product_attention's."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_reference
+    B, S, H, D = MESH_ATTN
+    out = {}
+    for dtype, tol in ((torch.bfloat16, TOL_BF16_ROW),
+                       (torch.float32, TOL_F32)):
+        q, k, v = (torch.randn((B, S, H, D), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        o = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = attention_reference(q.float(), k.float(), v.float(),
+                                   causal=True)
+        err, rel, ok = attn_error(o, want, tol)
+        del o, want
+        name = str(dtype)[6:]
+        print(f"  flash_attention tp-local shape B={B} S={S} H={H} D={D} "
+              f"causal {name}: max_abs_err {err:.3e} row_rel_err "
+              f"{rel:.3e} tol {tol:g} {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention disagrees with its plain version at "
+              f"the tp-local shape ({name})")
+        out[f"{name}_max_abs_err"] = err
+    out["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    out["ms_back_to_back"] = time_back_to_back_ms(
+        lambda: flash_attention(q, k, v, causal=True))
+    out["plain_ms"] = time_ms(lambda: attention_reference(q, k, v,
+                                                          causal=True))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out["library_ms"] = time_ms(lambda: torch.nn.functional.
+                                scaled_dot_product_attention(
+                                    qt, kt, vt, is_causal=True))
+    out["bound"] = bound_ms(q, k, v, True, 0, peaks)
+    print(f"  tp-local shape f32: kernel_ms {out['ms']:.4f} (back-to-back "
+          f"{out['ms_back_to_back']:.4f}) plain_ms {out['plain_ms']:.4f} "
+          f"library_ms {out['library_ms']:.4f} "
+          f"(scaled_dot_product_attention, yardstick only) bound_us "
+          f"{1e3 * out['bound'][0]:.1f} ({out['bound'][1]}) on {smi}")
+    del q, k, v, qt, kt, vt
+    return out
+
+
+def mesh_phase(gen, peaks, smi):
+    """Phase 15 (see the module docstring). Returns the flash row's mesh
+    numbers."""
+    import pickle
+    import socket
+    t_phase = time.perf_counter()
+    flash = mesh_flash_check(gen, peaks, smi)
+    deterministic()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    for sub in "cdef":
+        os.makedirs(os.path.join(work, sub))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    # the ranks start (CUDA, the process group) while (a) runs here;
+    # they train once (a) has ended
+    procs = torch.multiprocessing.start_processes(
+        _mesh_rank, args=(port, work), nprocs=MESH_RANKS,
+        start_method="spawn", join=False)
+    try:
+        a = mesh_run("a", work)
+    finally:
+        open(os.path.join(work, "a_done"), "w").close()
+    try:
+        while not procs.join():
+            pass
+    except Exception as e:                    # noqa: BLE001
+        fail(f"mesh: the {MESH_RANKS} ranks did not run: {e}")
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_RANKS):
+        path = os.path.join(work, f"rank{r}.pkl")
+        check(os.path.exists(path), f"mesh: rank {r} reported nothing")
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+        check("error" not in ranks[r],
+              f"mesh: rank {r} failed:\n{ranks[r].get('error')}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"mesh: {ranks[0]['describe']}")
+    print(f"  (a) one device: losses {a['losses']} device peak "
+          f"{a['device'] / 1e9:.2f} GB tracked {a['tracked'] / 1e9:.3f} GB "
+          f"({a['s']:.1f}s, steps {[round(x, 3) for x in a['steps_s']]})")
+    for r, res in enumerate(ranks):
+        for run in "bcdefg":
+            x = res[run]
+            print(f"  rank {r} ({run}): losses {x['losses']} device peak "
+                  f"{x['device'] / 1e9:.2f} GB tracked "
+                  f"{x['tracked'] / 1e9:.3f} GB flash launches "
+                  f"{x['launches']} staged {x['staged'] / 1e9:.3f} GB "
+                  f"through host memory, in collectives "
+                  f"{x['comm_s']['total']:.1f}s (waiting "
+                  f"{x['comm_s']['wait']:.1f}s, staging "
+                  f"{x['comm_s']['stage']:.1f}s) ({x['backend']}; "
+                  f"{x['s']:.1f}s of {x['wall']:.1f}s, "
+                  f"steps {[round(t, 3) for t in x['steps_s']]})")
+    print(f"  shards (c): {ranks[0]['c']['shards']}")
+    print(f"  shards (e): {ranks[0]['e']['shards']}")
+    print(f"  shards (f): {ranks[0]['f']['shards']}")
+    check(a["launches"] == MESH_LAYERS * MESH_STEPS,
+          f"mesh (a): flash launches {a['launches']}")
+    for r, res in enumerate(ranks):
+        for run in "bcdefg":
+            x = res[run]
+            check(all(math.isfinite(v) for v in x["losses"]),
+                  f"mesh ({run}) rank {r}: non-finite loss")
+            check(x["launches"] == MESH_LAYERS * MESH_STEPS,
+                  f"mesh ({run}) rank {r}: flash launches {x['launches']}, "
+                  f"want {MESH_LAYERS * MESH_STEPS}")
+            check(x["backend"] == "gloo", f"mesh ({run}): backend "
+                  f"{x['backend']}")
+        for run in "bg":
+            check(np.allclose(res[run]["losses"], a["losses"], rtol=TOL_MESH,
+                              atol=0.0),
+                  f"mesh ({run}) rank {r}: losses {res[run]['losses']} not "
+                  f"within {TOL_MESH} of (a)'s {a['losses']}")
+        for run, want in (("c", "b"), ("d", "c"), ("f", "e")):
+            check(res[run]["losses"] == res[want]["losses"],
+                  f"mesh ({run}) rank {r}: losses {res[run]['losses']} != "
+                  f"({want})'s {res[want]['losses']}")
+        check(res["e"]["losses"] == a["losses"],
+              f"mesh (e) rank {r}: losses {res['e']['losses']} != (a)'s "
+              f"{a['losses']}")
+        check(np.allclose(res["e"]["losses"], res["b"]["losses"],
+                          rtol=TOL_MESH, atol=0.0),
+              f"mesh (e) rank {r}: not within {TOL_MESH} of (b)")
+        for run in "cdef":
+            check(res[run]["left"] == [], f"mesh ({run}): spool dir not "
+                  f"empty after close: {res[run]['left'][:4]}")
+        check(res["c"]["tracked"] < res["b"]["tracked"],
+              f"mesh rank {r}: (c)'s tracked peak {res['c']['tracked']} "
+              f"not below (b)'s {res['b']['tracked']}")
+        check(res["b"]["staged"] > 0, "mesh (b): nothing staged through "
+              "host memory under gloo")
+    n = MESH_LAYERS * MESH_STEPS
+    c_sh, e_sh, f_sh = (ranks[0][x]["shards"] for x in "cef")
+    check(sorted(c_sh) == ["0", "1"], f"mesh (c): shards {sorted(c_sh)}")
+    for v in c_sh.values():
+        check(v["offloads"] == v["fetches"] == n
+              and v["bytes_in"] == v["bytes_out"] > 0,
+              f"mesh (c): shard counts {v}")
+    check(sorted(e_sh) == ["0"], f"mesh (e): shards {sorted(e_sh)}")
+    v = e_sh["0"]
+    check(v["offloads"] == n and v["fetches"] == 2 * n
+          and v["replica_skips"] == n, f"mesh (e): shard counts {v}")
+    f_in = sum(x["bytes_in"] for x in f_sh.values())
+    check(2 * v["bytes_in"] == f_in and f_in > 0, f"mesh (e): "
+          f"{v['bytes_in']} bytes to the spool, (f) {f_in}: not half")
+    dt = time.perf_counter() - t_phase
+    print(f"  mesh: (b), (g) within {TOL_MESH} of (a); (c) = (b), (d) = "
+          f"(c), (e) = (a), (f) = (e) bitwise; shards and replica skips "
+          f"as the JAX bridge counts them; spool dirs empty; device peaks "
+          f"per rank (b) {[x['b']['device'] / 1e9 for x in ranks]} GB, "
+          f"(c) {[x['c']['device'] / 1e9 for x in ranks]} GB, (g) "
+          f"{[x['g']['device'] / 1e9 for x in ranks]} GB, (a) "
+          f"{a['device'] / 1e9:.2f} GB; (a) and the ranks {ranks_s:.1f}s, "
+          f"phase "
+          f"{dt:.1f}s on {smi}")
+    flash["launches_per_rank_run"] = ranks[0]["b"]["launches"]
+    flash["phase_s"] = dt
+    return flash
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2804,6 +3108,12 @@ def main():
 
     # ---- 3. kernel vs plain version
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "--mesh-only" in sys.argv[1:]:
+        # a short run for work on the meshes: no result line
+        mesh_phase(gen, peaks, smi)
+        print(f"chip_smoke --mesh-only: phase 15 passed in "
+              f"{time.perf_counter() - T_START:.1f}s")
+        return 0
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -2998,11 +3308,16 @@ def main():
     # ---- 14. llama-3.2-vision: train kept, spooled and on the host
     # tier, then decode dense and paged
     vision = vision_phase(smi)
+    t9 = time.perf_counter()
+
+    # ---- 15. meshes: 2 ranks on the one card over gloo
+    mesh = mesh_phase(gen, peaks, smi)
     print(f"phase times: 13 the registry's archs {t8 - t7:.1f}s, 14 "
-          f"llama-3.2-vision {time.perf_counter() - t8:.1f}s; the script "
+          f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes "
+          f"{time.perf_counter() - t9:.1f}s; the script "
           f"{time.perf_counter() - T_START:.1f}s")
 
-    # ---- 15. result
+    # ---- 16. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -3087,6 +3402,17 @@ def main():
         "launches_per_vision_train_run": vision["train"],
         "launches_per_vision_host_tier_run": vision["host_tier"],
         "launches_per_vision_prefill": vision["prefill"],
+        # phase 15: a tp=2 rank of gpt-h8192-l2 (each rank's launches in
+        # each mesh run), the f32 instance at its shape (2, 1024, 32, 128)
+        "launches_per_mesh_rank_run": mesh["launches_per_rank_run"],
+        "tp_local_max_abs_err": mesh["float32_max_abs_err"],
+        "tp_local_bf16_max_abs_err": mesh["bfloat16_max_abs_err"],
+        "tp_local_ms": mesh["ms"],
+        "tp_local_ms_back_to_back": mesh["ms_back_to_back"],
+        "tp_local_plain_ms": mesh["plain_ms"],
+        "tp_local_library_ms": mesh["library_ms"],
+        "tp_local_bound_ms": mesh["bound"][0],
+        "tp_local_bound_by": mesh["bound"][1],
         # the D=80 instance (hubert-xlarge, bidirectional): its worst
         # f32 and bf16 errors, and its time at hubert's shape
         "d80_f32_max_abs_err": d80["d80 f32"],

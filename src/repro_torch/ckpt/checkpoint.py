@@ -28,7 +28,8 @@ package's step counter is, and restores as an int.
   * keep_last GC after each commit;
   * restore onto a device (`device=`), or in place into existing
     tensors (`in_place=True`, the train state's restore: no second copy
-    of the model); sharded restore waits for the multi-GPU slice.
+    of the model); sharded restore waits for slice 12b of meshes (a
+    mesh session refuses `ckpt_dir`).
 """
 from __future__ import annotations
 

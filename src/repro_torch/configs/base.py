@@ -153,8 +153,9 @@ class SpoolIoConfig:
     "none", "opt_state" (the optimizer state staged between steps) or
     "activations" (the layers' residuals); `opt_overlap` turns on the
     optimizer overlap (eager per-layer updates, moments on the spool).
-    `dedupe_replicas` belongs to meshes (ROADMAP §1 item 12) and refuses
-    anything but its default."""
+    `dedupe_replicas` (meshes): the primary replica of a replica group
+    stores one copy of a layer's saved tensors for the group (False:
+    every rank stores its own, `core/hooks.py`)."""
     backend: str = "fs"
     directory: Optional[str] = None        # None -> fresh temp dir
     stripe_dirs: Tuple[str, ...] = ()
@@ -210,8 +211,9 @@ class SpoolIoConfig:
              f"activations"),
             (isinstance(self.opt_overlap, bool),
              f"opt_overlap must be a bool, got {self.opt_overlap!r}"),
-            (self.dedupe_replicas, "dedupe_replicas=False is a mesh "
-             "option, not ported yet (ROADMAP §1 item 12)"),
+            (isinstance(self.dedupe_replicas, bool),
+             f"dedupe_replicas must be a bool, got "
+             f"{self.dedupe_replicas!r}"),
         ]
         for ok, msg in checks:
             if not ok:

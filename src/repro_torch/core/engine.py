@@ -80,6 +80,17 @@ the `enc` every layer stage with a cross block reads. The chain ends
 there, so `enc` is detached without `requires_grad`: no cotangent of it
 is computed or summed, and the stage's backward is empty.
 
+On a mesh (`settings.mesh`, one process per rank; `core/meshrun.py`)
+the engine trains on this rank's rows of the batch and shards of the
+parameters: a stage's leaves are gathered over the dp axes before it
+runs and their gradients reduce-scattered (or all-reduced) after its
+backward; the embed and head stages are vocab-parallel and the blocks
+tensor-parallel over `settings.tp_axis` (`parallel/comm.py`); an
+offloaded stage goes to the spool through the mesh hooks under the lease
+``jit{step}/s{shard}`` (`core/hooks.py`), its tensors replicated over the
+tensor axis stored as this rank's slice. A fetch that fails raises: a
+recompute on one rank would run collectives the others do not.
+
 The host tier (`core/policies.py::HostTierPolicy`, the jit name's
 `activation_policy` "offload" / "offload_ssd"): layer stages are
 recomputed, and after each one's forward its input (the previous
@@ -93,6 +104,7 @@ the device while it lies on the host.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -104,7 +116,8 @@ from repro_torch.configs.base import SpoolIoConfig
 from repro_torch.core.accounting import MemoryTracker
 from repro_torch.core.adaptive import ModuleProfile, OffloadPlan
 from repro_torch.core.ids import storage_ptr, tensor_key
-from repro_torch.core.policies import OffloadPolicy, resolve_policy
+from repro_torch.core.policies import (KeepPolicy, OffloadPolicy,
+                                       RecomputePolicy, resolve_policy)
 from repro_torch.core.report import StepReport
 from repro_torch.core.spool import (MIN_OFFLOAD_ELEMENTS, SpoolLoadError,
                                     build_spool)
@@ -114,6 +127,8 @@ from repro_torch.models.api import (MOE_LB_COEF, MOE_Z_COEF, ModelApi,
                                     embed_in, encoder_config, head)
 from repro_torch.models.layers import dtype_of, rms_norm
 from repro_torch.models.transformer import RunSettings, apply_block, layer
+from repro_torch.parallel.comm import (saved_replicated, tp_group,
+                                       vocab_parallel_ce)
 
 
 #: where a layer stage's parameters (and gradients) live, by role
@@ -308,11 +323,27 @@ class StagedEngine:
         # mid-run re-plan: the policy watches the spool's health monitor
         if hasattr(self.policy, "attach_health"):
             self.policy.attach_health(self.spool.health)
+        # a mesh (`core/meshrun.py`): this rank's batch rows, parameter
+        # shards, gradient reductions and its mesh hooks (`core/hooks.py`)
+        self._mesh = None
+        if settings.mesh is not None:
+            from repro_torch.core.meshrun import MeshRun, mesh_bridge
+            self._mesh = MeshRun(settings)
+            self._mesh.bridge = mesh_bridge(
+                self._mesh, self.spool, io_config,
+                offloads=not isinstance(self.policy,
+                                        (KeepPolicy, RecomputePolicy)))
         self._stages = self._build_stages()
         self._host = (_HostTier(self.spool.pool, self.tracker, self.device)
                       if self.policy.host_inputs else None)
         self._step = 0
         self._closed = False
+        self._flags: list = []          # the current stage's (`_hooks`)
+
+    @property
+    def mesh_run(self):
+        """The engine's `core/meshrun.py::MeshRun` (None off a mesh)."""
+        return self._mesh
 
     @property
     def plan(self) -> Optional[OffloadPlan]:
@@ -368,8 +399,9 @@ class StagedEngine:
                     n += 1
             stages.append(_Stage("enc_final", "enc_final", lambda p, x: (
                 rms_norm(x, p["enc_norm"]["scale"], cfg.norm_eps))))
+        tp = tp_group(settings)
         stages.append(_Stage("embed", "embed",
-                             lambda p, batch: embed_in(p, batch, cfg)))
+                             lambda p, batch: embed_in(p, batch, cfg, tp)))
         names = iter(layer_stage_names(self.api))
         n = 0
         for si, seg in enumerate(self.api.segments):
@@ -385,7 +417,10 @@ class StagedEngine:
             # chunked CE saves the stage input (held as a graph leaf
             # anyway), the parameters and the labels: no (B, S, V) logits
             if ce_chunk_applies(settings.ce_chunk, labels.shape[1]):
-                return chunked_ce(p, x, labels, cfg, settings.ce_chunk)[0]
+                return chunked_ce(p, x, labels, cfg, settings.ce_chunk,
+                                  tp)[0]
+            if tp is not None:
+                return vocab_parallel_ce(head(p, x, cfg, tp), labels, tp)[0]
             return ce_loss(head(p, x, cfg), labels)[0]
         stages.append(_Stage("head", "head", head_fn))
         return stages
@@ -397,9 +432,30 @@ class StagedEngine:
         the shared tables). Only an opt sink writes a stage's slices while
         backward holds others, so only then does each leaf get a version
         counter of its own (`_graph_leaf`): elsewhere autograd's check
-        of saved tensors stays whole."""
+        of saved tensors stays whole. On a mesh each leaf is this rank's
+        shard with its dp-sharded dim gathered (`MeshRun.gather_stage`),
+        and `self._stage_specs` holds each stage's leaf specs."""
         leaf_of = (_graph_leaf if self.settings.opt_sink is not None
                    else lambda t: t.detach().requires_grad_(True))
+        out = []
+        if self._mesh is None:
+            for tree in self._stage_trees(params):
+                leaves, tdef = tree_flatten(tree)
+                out.append(tree_unflatten(tdef, [leaf_of(t)
+                                                 for t in leaves]))
+            return out
+        self._stage_specs = []
+        for tree, specs in zip(self._stage_trees(params),
+                               self._stage_trees(self._mesh.specs)):
+            leaves, tdef = tree_flatten(tree)
+            specs = tree_flatten(specs)[0]
+            self._stage_specs.append(specs)
+            out.append(tree_unflatten(tdef, [
+                leaf_of(t) for t in self._mesh.gather_stage(leaves, specs)]))
+        return out
+
+    def _stage_trees(self, params) -> List[Any]:
+        """Each stage's subtree of `params` (or of a tree shaped like it)."""
         emb = {k: params[k] for k in ("embed", "pos_embed", "frontend_proj")
                if k in params}
         out = []
@@ -415,13 +471,14 @@ class StagedEngine:
                         "unembed": params["unembed"]}
             else:
                 tree = layer(params[_SEGMENTS[st.role]][st.seg], st.rep)
-            leaves, tdef = tree_flatten(tree)
-            out.append(tree_unflatten(tdef, [leaf_of(t) for t in leaves]))
+            out.append(tree)
         return out
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """Token ids and labels as int64 on the device; float inputs
         (`embeddings`, `enc_embeddings`) in their own dtype."""
+        if self._mesh is not None:
+            batch = self._mesh.local_batch(batch)
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)
@@ -447,6 +504,13 @@ class StagedEngine:
         self.tracker.reset_peak()
         self.spool.register_parameters(params)
         stage_params = self._stage_params(params)
+        self._n_mb = len(batches)
+        mesh = self._mesh
+        if mesh is not None:
+            # the gathered leaves are parameters too: never spooled
+            self.spool.register_parameters([params, stage_params])
+            staged0 = mesh.comm.host_staged_bytes
+            comm0 = dict(mesh.comm.seconds)
         profiles = [ModuleProfile(s.name, 0, 0.0) for s in self._stages]
         profiling = self.policy.wants_profile and self._step == 0
         grads: Dict[str, Any] = {}
@@ -485,8 +549,12 @@ class StagedEngine:
                             if sink else grads)
                     for g in tree_flatten(rest)[0]:
                         g.mul_(scale)
-                params, opt_state = (update or self.optimizer.update)(
-                    grads, opt_state, params)
+                if mesh is not None and update is None:
+                    params, opt_state = self.optimizer.update(
+                        grads, opt_state, params, sq_norm=mesh.sq_norm)
+                else:
+                    params, opt_state = (update or self.optimizer.update)(
+                        grads, opt_state, params)
                 del grads
                 if cuda:
                     torch.cuda.synchronize(self.device)
@@ -506,6 +574,12 @@ class StagedEngine:
             self.policy.on_profile(profiles, self.spool.planner_bandwidth())
         self._step += 1
         extra = dict(counts)
+        if mesh is not None:
+            loss_total = mesh.mean_loss(loss_total)
+            extra["comm_host_staged_bytes"] = (mesh.comm.host_staged_bytes
+                                               - staged0)
+            for k, v in mesh.comm.seconds.items():
+                extra[f"comm_{k}_s"] = v - comm0[k]
         for k in ("ce", "moe_lb", "moe_z"):
             if k in extra:
                 extra[k] /= len(batches)
@@ -537,6 +611,9 @@ class StagedEngine:
         terms: Dict[int, torch.Tensor] = {}    # MoE aux terms (graph roots)
         auxes = []                             # every aux stage's values
         recompute = set()
+        bridged = set()                        # stored through the mesh hooks
+        step_key = (self._step if self._n_mb == 1
+                    else f"{self._step}.{mb}")
         loss = None
         for si, stage in enumerate(self._stages):
             args = self._args_for(stage, batch, x, enc)
@@ -557,8 +634,10 @@ class StagedEngine:
                     counts["stages_host"] += 1
             else:
                 saved, cell = [], []
+                flags = self._flags = []
                 with torch.autograd.graph.saved_tensors_hooks(
-                        *self._hooks(saved, cell, ins.get(si), enc)):
+                        *self._hooks(saved, cell, ins.get(si), enc)), \
+                        self._save_scope():
                     out = stage.fn(stage_params[si], *args)
                     if stage.aux:
                         out, aux = out
@@ -572,7 +651,12 @@ class StagedEngine:
             if saved is not None:
                 profile = ModuleProfile(stage.name, _nbytes(saved), dt)
                 if self.policy.should_offload(si, profile):
-                    tx.offload(si, saved)
+                    if self._mesh is not None:
+                        # shard-qualified keys in the ranks' shared dir
+                        self._mesh.offload(step_key, si, saved, flags)
+                        bridged.add(si)
+                    else:
+                        tx.offload(si, saved)
                     counts["stages_offloaded"] += 1
                 else:
                     tx.keep(si, saved)
@@ -601,6 +685,11 @@ class StagedEngine:
         dev_bwd_begin = (torch.cuda.memory_allocated(self.device)
                          if self.device.type == "cuda" else 0)
         loss_value = float(loss.detach())       # waits for the forward
+        weight = 1.0
+        if self._mesh is not None:
+            # this rank's share of the dp mean (`MeshRun.loss_weight`)
+            weight = self._mesh.loss_weight(batch["labels"])
+            loss_value *= weight
         if auxes:
             counts["ce"] += loss_value
             for k in ("moe_lb", "moe_z"):
@@ -614,7 +703,12 @@ class StagedEngine:
 
         try:
             self._backward(tx, batch, stage_params, params, grads, ins,
-                           outs, cells, terms, recompute, enc, counts, tap)
+                           outs, cells, terms, recompute, enc, counts, tap,
+                           weight, bridged, step_key)
+            if bridged:
+                # the replicas in other processes have read every stage
+                # this rank stored for them
+                self._mesh.settle()
         finally:
             if self._host is not None:
                 self._host.clear()
@@ -625,10 +719,14 @@ class StagedEngine:
         return loss_value, bwd_begin, dev_bwd_begin
 
     def _backward(self, tx, batch, stage_params, params, grads, ins, outs,
-                  cells, terms, recompute, enc, counts, tap):
+                  cells, terms, recompute, enc, counts, tap, weight=1.0,
+                  bridged=(), step_key=None):
         """The stages' backward in reverse order, prefetching one stage
-        ahead; accumulates into `grads` (`_run_microbatch`)."""
-        carry = torch.ones((), dtype=torch.float32, device=self.device)
+        ahead; accumulates into `grads` (`_run_microbatch`). `weight`
+        seeds the loss's gradient; `bridged` stages come back through
+        the mesh hooks (key `step_key`)."""
+        carry = torch.full((), weight, dtype=torch.float32,
+                           device=self.device)
         enc_grad = None          # d loss / d enc, summed over cross stages
         host = self._host
         for si in range(len(self._stages) - 1, -1, -1):
@@ -648,6 +746,18 @@ class StagedEngine:
                                       enc, si, inputs, carry)
                 self.tracker.free((tx.key(si), "k"),
                                   tag=f"ckpt_done:{tx.key(si)}")
+            elif si in bridged:
+                # on a mesh a fetch that fails raises: a recompute on one
+                # rank would run collectives the others do not
+                fetched = self._mesh.fetch(step_key, si)
+                counts["stages_fetched"] += 1
+                cells[si][:] = fetched
+                try:
+                    got = _stage_grad(outs[si], terms.get(si), inputs,
+                                      carry)
+                finally:
+                    cells[si].clear()
+                del fetched
             else:
                 try:
                     fetched = tx.fetch(si)
@@ -693,17 +803,31 @@ class StagedEngine:
             elif stage.role == "embed" and enc is not None:
                 # the decoder stream is done: enc_final's backward next
                 carry, enc_grad, enc = enc_grad, None, None
-            self._add_grads(grads, params, stage, stage_params[si],
-                            got[:len(leaves)])
+            got = got[:len(leaves)]
+            if self._mesh is not None:
+                got = self._mesh.reduce_grads(
+                    [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, got)], self._stage_specs[si])
+            self._add_grads(grads, params, stage, stage_params[si], got)
             if tap is not None and stage.tap_stage is not None:
                 self._tap(grads, stage, *tap)
+
+    def _save_scope(self):
+        """Where the pack hook can tell a tensor replicated across the
+        tensor axis (`parallel/comm.py::save_scope`): on a tensor axis."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return self._mesh.scope()
 
     def _hooks(self, saved: list, cell: list, x_in=None, enc=None):
         """(pack, unpack) for one stage: saved tensors, minus parameters,
         views of the stage input `x_in` or of the encoder states `enc`
-        and duplicates, collect in `saved`; unpack serves them from
-        `cell`, which backward fills with the fetched list."""
+        and duplicates, collect in `saved` (and in `self._flags`, on a
+        mesh, whether each is the same on every rank of the tensor
+        axis); unpack serves them from `cell`, which backward fills with
+        the fetched list."""
         is_param = self.spool.registry.is_parameter
+        flags = self._flags if self._mesh is not None else None
         leaf_ptrs = {storage_ptr(t) for t in (x_in, enc) if t is not None}
         index: Dict[Tuple, int] = {}
 
@@ -715,6 +839,8 @@ class StagedEngine:
             if pos is None:
                 pos = index[k] = len(saved)
                 saved.append(t)
+                if flags is not None:
+                    flags.append(saved_replicated(t))
             return (True, pos)
 
         def unpack(h):
@@ -790,4 +916,6 @@ class StagedEngine:
         if self._closed:
             return
         self._closed = True
+        if self._mesh is not None and self._mesh.bridge is not None:
+            self._mesh.bridge.close()   # a step that raised left leases
         self.spool.close()

@@ -92,6 +92,9 @@ class JitOffloadPlan:
     activation_policy: str                     # "spool" | "keep"
     required_bw: float
     write_bw: float
+    #: fraction of each layer's profiled bytes the planned shard hands
+    #: the spool (1.0 = unsharded; see local_shard_fraction)
+    shard_fraction: float = 1.0
 
     def apply(self, settings):
         """The same RunSettings with this plan's placement choices."""
@@ -353,29 +356,63 @@ class AdaptivePolicy(OffloadPolicy):
                     "kv_page", 3.0 * t_step)
         return self.plan
 
-    def plan_for_jit(self) -> JitOffloadPlan:
+    def plan_for_jit(self, *, shard_fraction: float = 1.0
+                     ) -> JitOffloadPlan:
         """The profiled plan as per-decoder-layer placement for the jit
         engine: one policy object, profiled once (on either engine),
-        drives both. Unsharded: the JAX package's `shard_fraction`, which
-        re-plans for a mesh shard's local bytes, comes with meshes
-        (ROADMAP §1 item 12)."""
+        drives both.
+
+        `shard_fraction` scales the profiled per-layer byte estimates
+        before planning: on a mesh every shard spools only its local
+        block (the batch split over the dp axes), so the deadline test
+        should judge local bytes. `local_shard_fraction` gives the
+        fraction a mesh implies; a smaller fraction can only offload
+        more layers."""
         if self.plan is None or self.profiles is None:
             raise RuntimeError(
                 "plan_for_jit() needs a profiling step first: run one "
                 "staged step with this policy (on_profile) before "
                 "translating the plan for the jit engine")
+        if not 0.0 < shard_fraction <= 1.0:
+            raise ValueError(
+                f"shard_fraction must be in (0, 1], got {shard_fraction}")
+        plan = self.plan
+        if shard_fraction != 1.0:
+            scaled = [ModuleProfile(p.name,
+                                    int(round(p.bytes * shard_fraction)),
+                                    p.fwd_time)
+                      for p in self.profiles]
+            plan = plan_offload(scaled, self._priced(self.bandwidths),
+                                bwd_factor=self.bwd_factor,
+                                always_keep_last=self.always_keep_last)
         mask = tuple(bool(off)
-                     for prof, off in zip(self.profiles, self.plan.offload)
+                     for prof, off in zip(self.profiles, plan.offload)
                      if _is_decoder_layer(prof.name))
         return JitOffloadPlan(
             spool_stages=mask,
             activation_policy="spool" if any(mask) else "keep",
-            required_bw=self.plan.required_bw,
-            write_bw=self.plan.write_bw)
+            required_bw=plan.required_bw,
+            write_bw=plan.write_bw,
+            shard_fraction=shard_fraction)
 
     def __repr__(self):
         return (f"AdaptivePolicy(bwd_factor={self.bwd_factor}, "
                 f"planned={self.plan is not None})")
+
+
+def local_shard_fraction(mesh, dp_axes=("data",)) -> float:
+    """Fraction of a layer's saved bytes one shard hands the spool on a
+    mesh: the leading (batch) dim splits over the dp axes, so each shard
+    holds 1/dp_size of a batch-major tensor (tp slices shrink a rank's
+    bytes further but also multiply writers, leaving the per-host total
+    unchanged: dp is the term that scales a shard's deadline)."""
+    if mesh is None:
+        return 1.0
+    n = 1
+    for a in (dp_axes or ()):
+        if a in mesh.shape:
+            n *= int(mesh.shape[a])
+    return 1.0 / max(n, 1)
 
 
 #: the strategy names the CLI and `resolve_policy` accept

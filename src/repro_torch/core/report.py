@@ -6,7 +6,8 @@ device numbers (peak device bytes on the card) in `extra`. The `obs`
 block (the overlap analysis of the step's trace window, emitted as
 `obs_*` fields) is the JAX package's, key for key, and so are the
 cache-manager block (`cache_*`) and the resilience block
-(`resilience_*`). The per-shard block waits for meshes.
+(`resilience_*`), and so is the per-shard block of a mesh (`shards`:
+the step's hook traffic by shard id, summed over the ranks).
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ class StepReport:
     # repro_torch.obs overlap analysis for THIS step's trace window (see
     # repro_torch.obs.overlap.analyze); emitted with an obs_ prefix
     obs: Optional[Dict[str, Any]] = None
+    # per-shard hook traffic deltas for this step, keyed by shard id
+    # ("global" on a single device)
+    shard_stats: Optional[Dict[str, Dict[str, int]]] = None
     # cache-manager block for this step (managed backend only): counter
     # deltas + residency gauges from CacheManager.metrics_delta; emitted
     # with a cache_ prefix
@@ -66,6 +70,8 @@ class StepReport:
         if self.obs:
             for k, v in self.obs.items():
                 rec[f"obs_{k}"] = v
+        if self.shard_stats:
+            rec["shards"] = self.shard_stats
         if self.cache:
             for k, v in self.cache.items():
                 rec[f"cache_{k}"] = v

@@ -237,22 +237,39 @@ class SpoolStepTransaction:
     addressed by index and keyed ``{lease_id}_s{stage}``; `close` drops
     every record not consumed yet, so an aborted user never strands
     blobs on the backend. The training engine opens one lease per
-    microbatch (``mb{mb}``); the paged KV cache one per served sequence,
-    with logical page indices as stages."""
+    microbatch (``mb{mb}``), the mesh hooks one per step and shard
+    (``jit{step}/s{shard}``, `core/hooks.py`); the paged KV cache one per
+    served sequence, with logical page indices as stages.
 
-    __slots__ = ("_spool", "step_id", "_live", "_closed", "_tlock")
+    A stage recorded with ``consumers=n`` (the JAX package's countdown,
+    `repro/core/spool.py:205-372`; a record one replica stores for n
+    shards) is read by n `consume` calls: the first n-1 peek, without
+    cancelling a store still queued, and the last fetches and drops it.
+    `release` counts a consumer down without reading (a consumer in
+    another process that read the blob itself)."""
+
+    __slots__ = ("_spool", "step_id", "_live", "_closed", "_tlock",
+                 "_consumers", "_stage_locks")
 
     def __init__(self, spool: "ActivationSpool", step_id: str):
         self._spool = spool
         self.step_id = step_id
         self._live: Dict[Any, str] = {}     # stage -> spool key
+        # stage -> consume() calls left before the stage is dropped
+        self._consumers: Dict[Any, int] = {}
+        # stage -> lock serialising the consumers of one stage, so a
+        # peek never races the last consumer's drop (which releases the
+        # pooled buffer the peek's views borrow)
+        self._stage_locks: Dict[Any, threading.Lock] = {}
         self._closed = False
         self._tlock = threading.Lock()
 
     def key(self, stage) -> str:
         return f"{self.step_id}_s{stage}"
 
-    def _record(self, stage) -> str:
+    def _record(self, stage, consumers: int = 1) -> str:
+        if consumers < 1:
+            raise ValueError(f"consumers must be >= 1, got {consumers}")
         with self._tlock:
             if self._closed:
                 raise RuntimeError(
@@ -261,11 +278,14 @@ class SpoolStepTransaction:
                 raise KeyError(f"stage {stage!r} already live in lease "
                                f"{self.step_id!r}")
             key = self._live[stage] = self.key(stage)
+            self._consumers[stage] = consumers
+            self._stage_locks[stage] = threading.Lock()
         return key
 
-    def offload(self, stage, tree) -> None:
-        """Async-store a stage's tree under this lease."""
-        self._spool.offload(self._record(stage), tree)
+    def offload(self, stage, tree, *, consumers: int = 1) -> None:
+        """Async-store a stage's tree under this lease; `consumers` is
+        how many `consume` calls it expects."""
+        self._spool.offload(self._record(stage, consumers), tree)
 
     def offload_staged(self, stage, host, lease, blob=None,
                        device=None) -> None:
@@ -274,9 +294,17 @@ class SpoolStepTransaction:
         self._spool.offload_staged(self._record(stage), host, lease, blob,
                                    device)
 
-    def keep(self, stage, tree) -> None:
+    def keep(self, stage, tree, *, consumers: int = 1) -> None:
         """Record a stage's tree as kept in memory under this lease."""
-        self._spool.keep(self._record(stage), tree)
+        self._spool.keep(self._record(stage, consumers), tree)
+
+    def adopt(self, stage, tree) -> None:
+        """Record a stage whose blob another process stores under the
+        same key in a shared directory: `tree` (this process's identical
+        copy) gives the layout and the leaves kept in memory; the rest is
+        read back from that blob, which this lease never writes or
+        deletes (`ActivationSpool.adopt`)."""
+        self._spool.adopt(self._record(stage), tree)
 
     def has_stage(self, stage) -> bool:
         with self._tlock:
@@ -311,17 +339,64 @@ class SpoolStepTransaction:
         return self._spool.fetch(self._key(stage), cancel_pending=False,
                                  to_device=to_device)
 
-    def consume(self, stage):
-        """Fetch the stage's tree and drop the record (memory + blob)."""
-        out = self.fetch(stage)
-        self.drop(stage)
+    def _stage_lock(self, stage) -> threading.Lock:
+        with self._tlock:
+            if stage not in self._live:
+                raise KeyError(f"stage {stage!r} not recorded in lease "
+                               f"{self.step_id!r}")
+            return self._stage_locks[stage]
+
+    def consume(self, stage, *, to_device: bool = True):
+        """Fetch the stage's tree and count one consumer down; the last
+        consumer's call also drops the record (memory + blob)."""
+        slock = self._stage_lock(stage)
+        with slock:
+            last = self._take(stage)
+            if last:
+                out = self.fetch(stage, to_device=to_device)
+                self.drop(stage)
+            else:
+                # a peek that leaves no device copy with the record: the
+                # stage may wait for other consumers until its lease ends
+                out = self._spool.fetch(self._key(stage),
+                                        cancel_pending=False,
+                                        to_device=to_device, cache=False)
         return out
+
+    def release(self, stage) -> None:
+        """Count one consumer down without reading; the last one drops
+        the record."""
+        slock = self._stage_lock(stage)
+        with slock:
+            if self._take(stage):
+                self.drop(stage)
+
+    def _take(self, stage) -> bool:
+        """One consumer of `stage` less; True for the last."""
+        with self._tlock:
+            remaining = self._consumers.get(stage, 0)
+            if remaining <= 0:
+                raise KeyError(f"stage {stage!r} already consumed in "
+                               f"lease {self.step_id!r}")
+            self._consumers[stage] = remaining - 1
+            return remaining == 1
+
+    def consumers_left(self, stage) -> int:
+        with self._tlock:
+            return self._consumers.get(stage, 0)
 
     def drop(self, stage) -> None:
         with self._tlock:
             key = self._live.pop(stage, None)
+            self._consumers.pop(stage, None)
+            self._stage_locks.pop(stage, None)
         if key is not None:
             self._spool.drop(key)
+
+    @property
+    def live_stages(self):
+        with self._tlock:
+            return sorted(self._live)
 
     def close(self) -> None:
         """Drop every record not consumed yet and release the lease.
@@ -406,6 +481,11 @@ class ActivationSpool:
         self._threads: List[threading.Thread] = []
         self._codec_bw = float("inf")
         self._codec_ratio = 1.0
+        # replica dedup across processes (`core/hooks.py`): called with a
+        # key once its store has landed, and by a load of an adopted
+        # record before it reads (blocking until its writer's store has)
+        self.on_landed = None
+        self.remote_wait = None
         for name, q, n in (("store", self._store_q, store_threads),
                            ("load", self._load_q, load_threads)):
             for i in range(n):
@@ -618,6 +698,51 @@ class ActivationSpool:
                 "strides": [], "on_device": None, "acquired": acquired,
                 "load_used": False}
 
+    def adopt(self, key, tree) -> None:
+        """Record `key` as a blob another process writes: the replica
+        dedup of a mesh (`core/hooks.py`), where the primary replica
+        stores one copy in a directory every rank sees. `tree` is this
+        process's identical copy: its leaves that `offload` would keep
+        (parameters, small and duplicate leaves) stay, the rest are read
+        back from the blob, which must hold them in order. A load of it
+        first waits on `remote_wait(key)` (the store landed); `drop` never
+        deletes the blob, which its writer owns."""
+        leaves, treedef = tree_flatten(tree)
+        keep_idx, spool_idx, acquired = [], [], []
+        kept_bytes = 0
+        for i, leaf in enumerate(leaves):
+            if self.registry.is_parameter(leaf):
+                keep_idx.append(i)
+                continue
+            if leaf.numel() < self.min_offload_elements:
+                keep_idx.append(i)
+                kept_bytes += leaf.numel() * leaf.element_size()
+                continue
+            tid, dup = self.registry.acquire(leaf)
+            acquired.append((tensor_key(leaf), tid))
+            (keep_idx if dup else spool_idx).append(i)
+        spooled = [leaves[i] for i in spool_idx]
+        if kept_bytes:
+            self.tracker.alloc((key, "k"), kept_bytes,
+                               tag=f"kept_small:{key}")
+        job = None
+        if spooled:
+            job = _Job(key, None, "store")
+            job.state = DONE           # written elsewhere: never here
+        with self._lock:
+            if key in self._records:
+                raise KeyError(f"spool key {key!r} is already live")
+            self._records[key] = {
+                "treedef": treedef, "keep": {i: leaves[i] for i in keep_idx},
+                "spool_idx": spool_idx, "n_leaves": len(leaves),
+                "job": job, "nbytes": _nbytes(spooled), "loaded": None,
+                "load_job": None, "load_lease": None, "fwd_counted": False,
+                "device": spooled[0].device if spooled else None,
+                "strides": [_dense_stride(t) for t in spooled],
+                "on_device": None, "acquired": acquired,
+                "load_used": False, "remote": True,
+                "shapes": [tuple(t.shape) for t in spooled]}
+
     @staticmethod
     def _on_cuda(rec) -> bool:
         return rec["device"] is not None and rec["device"].type == "cuda"
@@ -670,7 +795,7 @@ class ActivationSpool:
         self._load_q.put(lj)
 
     def fetch(self, key, *, cancel_pending: bool = True,
-              to_device: bool = True):
+              to_device: bool = True, cache: bool = True):
         """Blocking: the full tree of `key`. Leaves of a record that came
         from the card are returned on it. Raises `SpoolLoadError` when
         the blob cannot be read back.
@@ -680,7 +805,8 @@ class ActivationSpool:
         for a later fetch. `to_device=False` returns the host leaves as
         they are, with no copy: a forwarded record's host copy (its
         device-to-host copy waited for) or a reloaded one's views over
-        its pooled lease, valid until the record is dropped."""
+        its pooled lease, valid until the record is dropped. `cache=False`
+        leaves the record no device copy of what it returns."""
         with self._lock:
             rec = self._records.get(key)
             if rec is None:
@@ -734,24 +860,34 @@ class ActivationSpool:
         leaves = [None] * rec["n_leaves"]
         for i, leaf in rec["keep"].items():
             leaves[i] = leaf
+        if rec.get("remote") and spooled is not None and (
+                len(spooled) != len(rec["spool_idx"])
+                or [tuple(h.shape) for h in spooled]
+                != rec["shapes"]):
+            raise SpoolLoadError(f"the blob of {key!r} does not hold the "
+                                 f"leaves this process recorded")
         if rec["spool_idx"]:
             if to_device:
-                spooled = self._materialize(rec, spooled, event, forwarded)
+                spooled = self._materialize(rec, spooled, event, forwarded,
+                                            cache)
             elif event is not None:
                 event.synchronize()     # the device-to-host copy landed
             for i, leaf in zip(rec["spool_idx"], spooled):
                 leaves[i] = leaf
         return tree_unflatten(rec["treedef"], leaves)
 
-    def _materialize(self, rec, host, event, forwarded):
+    def _materialize(self, rec, host, event, forwarded, cache=True):
         if self._on_cuda(rec):
-            if rec["on_device"] is None:
+            if rec["on_device"] is None or rec["on_device"][0] is None:
                 self._start_h2d(rec, host, event)
             out, done = rec["on_device"]
             cur = torch.cuda.current_stream(rec["device"])
             cur.wait_event(done)
             for t in out:
                 t.record_stream(cur)
+            if not cache:
+                # the event stays: drop releases the lease after the copy
+                rec["on_device"] = (None, done)
             return out
         if forwarded:
             return host
@@ -783,7 +919,7 @@ class ActivationSpool:
         self._release_after(rec.pop("load_lease"), done)
         self._reap()
         job = rec["job"]
-        if job is None:
+        if job is None or rec.get("remote"):
             return
         lease = None
         with job.cond:
@@ -1013,6 +1149,8 @@ class ActivationSpool:
             job.cond.notify_all()
         self._release_after(lease, h2d_done)
         self.tracker.free((job.key, "s"), tag=f"offloaded:{job.key}")
+        if self.on_landed is not None and not orphaned:
+            self.on_landed(job.key)
         if orphaned:
             # dropped while writing; a new record under the same key can
             # only appear under _lock, so check and delete under it
@@ -1027,6 +1165,10 @@ class ActivationSpool:
         key = str(job.key)
         with self._lock:
             rec = self._records.get(job.key)
+        if rec is not None and rec.get("remote") \
+                and self.remote_wait is not None:
+            self.remote_wait(job.key)
+            t0 = time.perf_counter()
         lease = None
         with obs.span(LOAD_SPAN, cat="spool", key=key) as load_sp:
             # pooled load: size the blob, readinto a leased aligned

@@ -37,7 +37,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from repro_torch.io.backend import (StorageBackend, as_memoryviews,
-                                    pwritev_all, register_backend)
+                                    blob_name, key_of, pwritev_all,
+                                    register_backend)
 from repro_torch.io.bufpool import DEFAULT_ALIGNMENT, AlignedBufferPool
 
 
@@ -112,7 +113,7 @@ class AioBackend(StorageBackend):
     # ------------------------------------------------------------ paths
 
     def _path(self, key: str) -> str:
-        return os.path.join(self.directory, f"{key}.act")
+        return os.path.join(self.directory, f"{blob_name(key)}.act")
 
     def _segments(self, nbytes: int) -> List[tuple]:
         """Split [0, nbytes) into up to queue_depth aligned spans."""
@@ -287,7 +288,8 @@ class AioBackend(StorageBackend):
             pass
 
     def keys(self) -> List[str]:
-        return sorted(f[:-len(".act")] for f in os.listdir(self.directory)
+        return sorted(key_of(f[:-len(".act")])
+                      for f in os.listdir(self.directory)
                       if f.endswith(".act"))
 
     def close(self) -> None:

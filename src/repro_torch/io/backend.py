@@ -161,6 +161,18 @@ def preadv_all(fd: int, buf: memoryview, offset: int = 0) -> int:
     return got
 
 
+def blob_name(key: str) -> str:
+    """A key as one file name: a mesh lease's ``jit3/s1_s2`` keeps its
+    ``/`` out of the path (escaped as ``%2F``, ``%`` as ``%25``); any
+    other key is its own name, so blobs stay the JAX package's."""
+    return key.replace("%", "%25").replace("/", "%2F")
+
+
+def key_of(name: str) -> str:
+    """`blob_name` undone."""
+    return name.replace("%2F", "/").replace("%25", "%")
+
+
 class StorageBackend(abc.ABC):
     """Subclasses implement `_write`, `_read` and `_delete` (and may
     override the vectored `_write_parts` / `_readinto` and `_size`); the

@@ -17,8 +17,8 @@ from repro_torch import obs
 from repro_torch.cache.placement import PlacementEngine
 from repro_torch.core.adaptive import TierBandwidth
 from repro_torch.io.backend import (StorageBackend, as_memoryviews,
-                                    preadv_all, pwritev_all,
-                                    register_backend)
+                                    blob_name, key_of, preadv_all,
+                                    pwritev_all, register_backend)
 
 
 @register_backend("fs")
@@ -43,7 +43,7 @@ class FilesystemBackend(StorageBackend):
         os.makedirs(directory, exist_ok=True)
 
     def _path(self, key: str) -> str:
-        return os.path.join(self.directory, f"{key}.act")
+        return os.path.join(self.directory, f"{blob_name(key)}.act")
 
     def _tmp_path(self, key: str) -> str:
         # pid+tid suffix: concurrent writers of *different* keys (the
@@ -100,7 +100,8 @@ class FilesystemBackend(StorageBackend):
             pass
 
     def keys(self) -> List[str]:
-        return sorted(f[:-len(".act")] for f in os.listdir(self.directory)
+        return sorted(key_of(f[:-len(".act")])
+                      for f in os.listdir(self.directory)
                       if f.endswith(".act"))
 
 
@@ -163,7 +164,8 @@ class StripedBackend(StorageBackend):
         return (start + i) % len(self.directories)
 
     def _path_on(self, dev: int, key: str, i: int) -> str:
-        return os.path.join(self.directories[dev], f"{key}.c{i}")
+        return os.path.join(self.directories[dev],
+                            f"{blob_name(key)}.c{i}")
 
     def _chunk_path(self, key: str, i: int) -> str:
         # default (pre-rebalance) placement; kept for back-compat
@@ -456,7 +458,7 @@ class StripedBackend(StorageBackend):
             for f in os.listdir(d):
                 key, dot, idx = f.rpartition(".c")
                 if dot and idx.isdigit():
-                    out.add(key)
+                    out.add(key_of(key))
         return sorted(out)
 
 

@@ -63,16 +63,31 @@ next step boundary with a final checkpoint. `--trace OUT.json` writes a
 Chrome/Perfetto trace (`python -m repro_torch.obs.validate OUT.json`
 checks it) and prints the last step's overlap analysis.
 
+`--mesh RxC` (jit engine) trains on a data x model mesh, one process
+per rank under `torch.distributed.run`; rank 0 prints, first the
+collective backend and why (NCCL when each rank has a GPU of its own,
+gloo when ranks share one card, CUDA tensors then staged through pinned
+host memory; `parallel/comm.py::backend_rule`):
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --device cpu --engine jit --mesh 2x2 \
+      --arch small-gpt --steps 2 --batch 4 --seq 64 --min-offload 4096 \
+      --host-offload activations
+
+`--spool-no-dedupe` stores one copy per rank, not one per replica group.
+A mesh whose size is not the world's, or one under `--engine staged`, is
+refused, as the JAX CLI refuses it.
+
 Runs on the card unless `--device cpu` is given; without CUDA it stops
 rather than fall back to the CPU. `--attn-impl cuda` (the default on the
 card) runs the hand-written kernels (flash attention, SSD scan, RG-LRU
-scan); `--attn-impl torch` the plain paths. Flags of the JAX package's
-CLI that the port has not ported yet are refused with an error, never
-ignored.
+scan); `--attn-impl torch` the plain paths.
 """
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import time
 from typing import List, Optional
 
@@ -85,17 +100,11 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.launch.cacheargs import add_cache_args, cache_overrides
+from repro_torch.parallel.comm import mesh_from_arg
+from repro_torch.parallel.mesh import parse_mesh
 from repro_torch.resilience import unwrap_chain
 from repro_torch.session import TrainSession
 from repro_torch.session.session import resolve_optimizer
-
-# flags of the JAX package's CLI that wait for later slices
-_WAITING = {
-    "--mesh": "multi-GPU meshes",
-    "--spool-no-dedupe": "multi-GPU meshes",
-}
-_FLAGS_WITH_VALUE = {"--spool-no-dedupe": False}
-
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -191,17 +200,32 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--attn-impl", default=None, choices=("cuda", "torch"),
                     help="kernels: cuda (default on the card) or the "
                          "plain torch paths (default on the CPU)")
+    ap.add_argument("--mesh", default=None,
+                    help="jit engine: mesh shape, e.g. '2x2' (data x "
+                         "model) or '4' (data only); one process per "
+                         "rank under python -m torch.distributed.run "
+                         "--nproc-per-node N (N = the mesh's size). "
+                         "--host-offload activations spools each rank's "
+                         "shard into one directory all ranks share")
+    ap.add_argument("--spool-no-dedupe", action="store_true",
+                    help="mesh activation offload: store one copy per "
+                         "rank instead of one per replica group")
     add_cache_args(ap)
-    for flag in _WAITING:
-        if _FLAGS_WITH_VALUE.get(flag, True):
-            ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(flag, action="store_true",
-                            help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag, what in _WAITING.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            ap.error(f"{flag}: {what} is not ported to repro_torch yet")
+    if args.mesh:
+        if args.engine != "jit":
+            ap.error("--mesh is a jit-engine flag")
+        try:
+            shape, _ = parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        n = math.prod(shape)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if n != world:
+            ap.error(f"--mesh {args.mesh} needs {n} ranks, have {world} "
+                     f"(hint: python -m torch.distributed.run "
+                     f"--nproc-per-node {n} -m repro_torch.launch.train "
+                     f"...)")
     if args.opt_overlap:
         if args.engine != "jit":
             ap.error("--opt-overlap is a jit-engine flag")
@@ -234,7 +258,7 @@ def io_config(args: argparse.Namespace) -> SpoolIoConfig:
         retry_attempts=args.retry_attempts,
         retry_backoff_s=args.retry_backoff_ms / 1e3,
         on_fetch_fail=args.on_fetch_fail, host_offload=args.host_offload,
-        **cache).validate()
+        dedupe_replicas=not args.spool_no_dedupe, **cache).validate()
 
 
 def storage_lines(spool) -> List[str]:
@@ -274,13 +298,32 @@ def storage_lines(spool) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     io = io_config(args)
+    mesh = (mesh_from_arg(args.mesh, device=args.device) if args.mesh
+            else None)
+    try:
+        _train(args, io, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, io, mesh) -> None:
+    """The run `main` describes; on a mesh only rank 0 prints."""
+    rank0 = mesh is None or mesh.rank == 0
+
+    def say(*a, **k):
+        if rank0:
+            print(*a, **k)
+
+    if mesh is not None:
+        say(mesh.comm.describe(), flush=True)
     # the overlap builds its optimizer clip-free (parse_args refused an
     # explicit clip)
     optimizer = resolve_optimizer(args.optimizer, args.lr,
                                   0 if args.opt_overlap else args.clip_norm)
     if args.opt_overlap and args.optimizer == "adamw":
-        print("opt-overlap: using clip-free adamw (global-norm clipping "
-              "is incompatible with eager per-layer updates)")
+        say("opt-overlap: using clip-free adamw (global-norm clipping "
+            "is incompatible with eager per-layer updates)")
     kernels = (flash_attention, ssd_scan, rglru_scan)
     launches0 = [k.launches for k in kernels]
     cfg = resolve_config(args.arch)
@@ -299,10 +342,11 @@ def main(argv: Optional[List[str]] = None) -> None:
             optimizer=optimizer,
             batch_size=args.batch, seq_len=args.seq, seed=args.seed,
             microbatches=args.microbatches, device=args.device,
-            attn_impl=args.attn_impl, metrics_path=args.metrics,
+            attn_impl=args.attn_impl,
+            metrics_path=args.metrics if rank0 else None,
             min_offload_elements=args.min_offload, ckpt_dir=args.ckpt,
             ckpt_every=args.ckpt_every, trace=args.trace,
-            trace_ring=args.trace_ring,
+            trace_ring=args.trace_ring, mesh=mesh,
             install_signal_handlers=True) as session:
         device = (torch.cuda.get_device_name(torch.device(args.device))
                   if args.device != "cpu" else "cpu")
@@ -310,22 +354,23 @@ def main(argv: Optional[List[str]] = None) -> None:
                      else f"activations={session.settings.activation_policy}"
                      f" host_offload={args.host_offload} opt_overlap="
                      f"{args.opt_overlap}")
-        print(f"arch={session.cfg.name} params={session.n_params / 1e6:.1f}M"
-              f" device={device} engine={args.engine} {placement} "
-              f"spool={args.spool_backend}/{args.codec} "
-              f"kernels={session.settings.attn_impl}", flush=True)
+        say(f"arch={session.cfg.name} params={session.n_params / 1e6:.1f}M"
+            + (" (rank 0's shard)" if mesh is not None else "")
+            + f" device={device} engine={args.engine} {placement} "
+            f"spool={args.spool_backend}/{args.codec} "
+            f"kernels={session.settings.attn_impl}", flush=True)
 
         def on_report(rep):
             st = rep.stats
             dev = rep.extra.get("device_peak_bytes")
-            print(f"step {rep.step:4d} loss {rep.loss:.4f} "
-                  f"t {rep.step_time:.3f}s act_peak "
-                  f"{rep.peak_activation_bytes / 1e6:.1f} MB"
-                  + (f" device_peak {dev / 1e9:.2f} GB" if dev else "")
-                  + (f" offloaded {st.bytes_offloaded / 1e6:.1f} MB loaded "
-                     f"{st.bytes_loaded / 1e6:.1f} MB forwarded "
-                     f"{st.bytes_forwarded / 1e6:.1f} MB" if st else ""),
-                  flush=True)
+            say(f"step {rep.step:4d} loss {rep.loss:.4f} "
+                f"t {rep.step_time:.3f}s act_peak "
+                f"{rep.peak_activation_bytes / 1e6:.1f} MB"
+                + (f" device_peak {dev / 1e9:.2f} GB" if dev else "")
+                + (f" offloaded {st.bytes_offloaded / 1e6:.1f} MB loaded "
+                   f"{st.bytes_loaded / 1e6:.1f} MB forwarded "
+                   f"{st.bytes_forwarded / 1e6:.1f} MB" if st else ""),
+                flush=True)
 
         t0 = time.perf_counter()
         result = session.run(args.steps, resume=args.resume,
@@ -333,50 +378,55 @@ def main(argv: Optional[List[str]] = None) -> None:
         dt = time.perf_counter() - t0
         spool = session.engine.spool
         spool.wait_io()
-        print(f"done: {args.steps} steps in {dt:.2f}s; fetch fallbacks "
-              f"{spool.stats.fetch_fallbacks}", flush=True)
+        say(f"done: {args.steps} steps in {dt:.2f}s; fetch fallbacks "
+            f"{spool.stats.fetch_fallbacks}", flush=True)
         if session.spool is not None:
             for line in storage_lines(session.spool):
-                print(line, flush=True)
+                say(line, flush=True)
+        if mesh is not None:
+            say(f"mesh hooks by shard (all ranks): "
+                f"{session.shard_totals()}; rank 0 staged "
+                f"{mesh.comm.host_staged_bytes / 1e6:.1f} MB through host "
+                f"memory for {mesh.comm.backend}", flush=True)
         bridge = session.opt_bridge
         if bridge is not None and bridge.seeded:
             st = bridge.stats()
-            print(f"opt-overlap: {st['opt_updates']} per-layer updates, "
-                  f"fetched {st['opt_fetched_bytes'] / 1e6:.1f} MB, staged "
-                  f"{st['opt_staged_bytes'] / 1e6:.1f} MB, skipped "
-                  f"{st['opt_stage_skips']} unchanged stage-backs "
-                  f"({st['opt_skipped_bytes'] / 1e6:.1f} MB not "
-                  f"rewritten)", flush=True)
+            say(f"opt-overlap: {st['opt_updates']} per-layer updates, "
+                f"fetched {st['opt_fetched_bytes'] / 1e6:.1f} MB, staged "
+                f"{st['opt_staged_bytes'] / 1e6:.1f} MB, skipped "
+                f"{st['opt_stage_skips']} unchanged stage-backs "
+                f"({st['opt_skipped_bytes'] / 1e6:.1f} MB not "
+                f"rewritten)", flush=True)
         plan = session.policy.plan if session.policy is not None else None
         if plan is not None:
-            print(f"plan: offload stages 0..{plan.last_offloaded} of "
-                  f"{len(session.engine.stage_names)}")
+            say(f"plan: offload stages 0..{plan.last_offloaded} of "
+                f"{len(session.engine.stage_names)}")
         ckpt = session.ckpt
         if ckpt is not None:
-            print(f"checkpoint: step {ckpt.latest_step()} in {ckpt.dir} "
-                  f"(last snapshot {ckpt.last_snapshot_s:.3f}s, write "
-                  f"{ckpt.last_write_s:.3f}s)"
-                  + (" after preemption" if session.preempted else ""),
-                  flush=True)
+            say(f"checkpoint: step {ckpt.latest_step()} in {ckpt.dir} "
+                f"(last snapshot {ckpt.last_snapshot_s:.3f}s, write "
+                f"{ckpt.last_write_s:.3f}s)"
+                + (" after preemption" if session.preempted else ""),
+                flush=True)
         last_obs = next((r.obs for r in reversed(result.reports)
                          if r.obs), None)
         if last_obs and last_obs["io_busy_s"] > 0:
-            print(f"overlap (last step): {last_obs['io_hidden_frac']:.0%} "
-                  f"of {last_obs['io_busy_s'] * 1e3:.1f} ms I/O hidden "
-                  f"under compute; exposed wait "
-                  f"{last_obs['exposed_wait_s'] * 1e3:.1f} ms: read "
-                  f"{last_obs['stall_read_s'] * 1e3:.1f} ms, decode "
-                  f"{last_obs['stall_decode_s'] * 1e3:.1f} ms, queue "
-                  f"{last_obs['stall_queue_s'] * 1e3:.1f} ms; store busy "
-                  f"{last_obs['store_s'] * 1e3:.1f} ms, load busy "
-                  f"{last_obs['load_s'] * 1e3:.1f} ms; prefetch hit rate "
-                  f"{last_obs['prefetch_hit_rate']:.0%}", flush=True)
-    print("kernels: " + ", ".join(
-        f"{k.__name__} launches {k.launches - n}"
-        for k, n in zip(kernels, launches0)))
+            say(f"overlap (last step): {last_obs['io_hidden_frac']:.0%} "
+                f"of {last_obs['io_busy_s'] * 1e3:.1f} ms I/O hidden "
+                f"under compute; exposed wait "
+                f"{last_obs['exposed_wait_s'] * 1e3:.1f} ms: read "
+                f"{last_obs['stall_read_s'] * 1e3:.1f} ms, decode "
+                f"{last_obs['stall_decode_s'] * 1e3:.1f} ms, queue "
+                f"{last_obs['stall_queue_s'] * 1e3:.1f} ms; store busy "
+                f"{last_obs['store_s'] * 1e3:.1f} ms, load busy "
+                f"{last_obs['load_s'] * 1e3:.1f} ms; prefetch hit rate "
+                f"{last_obs['prefetch_hit_rate']:.0%}", flush=True)
+    say("kernels: " + ", ".join(
+      f"{k.__name__} launches {k.launches - n}"
+      for k, n in zip(kernels, launches0)))
     # the session just closed: the trace file exists now
     if args.trace:
-        print(f"trace written to {args.trace}")
+        say(f"trace written to {args.trace}")
 
 
 if __name__ == "__main__":

@@ -56,6 +56,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dtype_of, embed_init, init_norm,
                                        rms_norm, softcap)
+from repro_torch.parallel.comm import (vocab_parallel_dlogits,
+                                       vocab_parallel_terms)
 from repro_torch.models.transformer import (BlockDef, RunSettings,
                                             SegmentDef, apply_block,
                                             apply_block_decode,
@@ -132,17 +134,46 @@ def _frontend_embed(params, embeddings, cfg: ModelConfig):
     return x
 
 
-def embed_in(params, batch, cfg: ModelConfig):
+def embed_in(params, batch, cfg: ModelConfig, tp=None):
     """Token embeddings (`_token_embed`), or for an embeddings-input model
     its frame embeddings through `frontend_proj`, plus learned positions
-    for non-RoPE models."""
+    for non-RoPE models. Under a tensor axis `tp`
+    (`parallel/comm.py::TpGroup`) `embed` holds this rank's rows of the
+    vocab (a token outside them looks up zeros; the ranks' lookups are
+    all-reduced) and `pos_embed` its columns of the width (gathered)."""
     if cfg.input_kind == "embeddings":
+        if tp is not None:
+            raise NotImplementedError("a tensor axis over an embeddings "
+                                      "input waits for slice 12b")
         x = _frontend_embed(params, batch["embeddings"], cfg)
+    elif tp is not None:
+        x = _vocab_parallel_embed(params, batch["tokens"], cfg, tp)
     else:
         x = _token_embed(params, batch["tokens"], cfg)
     if not cfg.use_rope:
         S = x.shape[1]
-        x = x + params["pos_embed"][:S][None].to(x.dtype)
+        pos = params["pos_embed"]
+        if tp is not None and pos.shape[1] != x.shape[-1]:
+            pos = tp.gather(pos, 1)
+        x = x + pos[:S][None].to(x.dtype)
+    return x
+
+
+def _vocab_parallel_embed(params, tokens, cfg: ModelConfig, tp):
+    """`_token_embed` over this rank's rows [rank*Vl, (rank+1)*Vl) of the
+    vocab, all-reduced over the tensor axis."""
+    table = params["embed"]
+    vl = table.shape[0]
+    with tp.region():
+        local = tokens - tp.rank * vl
+        inside = (local >= 0) & (local < vl)
+        x = torch.where(inside[..., None], table[local.clamp(0, vl - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+    x = tp.reduce(x)
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
     return x
 
 
@@ -171,23 +202,28 @@ def ce_loss(logits, labels):
     return nll / tokens.clamp_min(1.0), tokens
 
 
-def _vocab_bias(logits, cfg: ModelConfig):
-    """logits plus the padded-vocab mask (-1e30 past the vocab)."""
+def _vocab_bias(logits, cfg: ModelConfig, off: int = 0):
+    """logits plus the padded-vocab mask (-1e30 past the vocab); `off`:
+    the global column of the logits' first (a vocab-parallel slice)."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
-    bias = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
-                       device=logits.device)
-    bias[cfg.vocab_size:] = -1e30
+    cols = off + torch.arange(logits.shape[-1], device=logits.device)
+    bias = torch.where(cols >= cfg.vocab_size, -1e30, 0.0)
     return logits + bias
 
 
-def head(params, x, cfg: ModelConfig):
-    """Final norm, unembedding and the padded-vocab mask: f32 logits."""
+def head(params, x, cfg: ModelConfig, tp=None):
+    """Final norm, unembedding and the padded-vocab mask: f32 logits.
+    Under a tensor axis `tp` they are this rank's columns of the vocab
+    (`unembed` holds them)."""
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    if tp is not None:
+        x = tp.enter(x)
     logits = (x @ params["unembed"]).float()
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
-    return _vocab_bias(logits, cfg)
+    off = tp.rank * logits.shape[-1] if tp is not None else 0
+    return _vocab_bias(logits, cfg, off)
 
 
 def ce_chunk_applies(chunk: int, seq_len: int) -> bool:
@@ -208,24 +244,26 @@ class _ChunkedCE(torch.autograd.Function):
     last two in f32)."""
 
     @staticmethod
-    def forward(ctx, x, scale, unembed, labels, chunk, cfg):
+    def forward(ctx, x, scale, unembed, labels, chunk, cfg, tp):
         p = {"final_norm": {"scale": scale}, "unembed": unembed}
         nll, toks = [], []
         for c0 in range(0, x.shape[1], chunk):
-            n, t = _ce_terms(head(p, x[:, c0:c0 + chunk], cfg),
-                             labels[:, c0:c0 + chunk])
+            z = _head_plain(p, x[:, c0:c0 + chunk], cfg, tp)
+            li = labels[:, c0:c0 + chunk]
+            n, t = (_ce_terms(z, li) if tp is None
+                    else vocab_parallel_terms(z, li, tp)[:2])
             nll.append(n)
             toks.append(t)
         tokens = torch.stack(toks).sum()
         ctx.save_for_backward(x, scale, unembed, labels)
-        ctx.chunk, ctx.cfg = chunk, cfg
+        ctx.chunk, ctx.cfg, ctx.tp = chunk, cfg, tp
         ctx.mark_non_differentiable(tokens)
         return torch.stack(nll).sum() / tokens.clamp_min(1.0), tokens
 
     @staticmethod
     def backward(ctx, g, _):
         x, scale, unembed, labels = ctx.saved_tensors
-        cfg, chunk = ctx.cfg, ctx.chunk
+        cfg, chunk, tp = ctx.cfg, ctx.chunk, ctx.tp
         need_x, need_scale, need_u = ctx.needs_input_grad[:3]
         coef = g.float() / (labels >= 0).sum().float().clamp_min(1.0)
         cap = cfg.final_logit_softcap
@@ -243,12 +281,18 @@ class _ChunkedCE(torch.autograd.Function):
             hd = h.detach()
             z = (hd @ unembed).float()
             t = torch.tanh(z / cap) if cap else None
-            # d(lse - picked)/d logits = softmax - onehot, on masked rows
-            dl = torch.softmax(_vocab_bias(t * cap if cap else z, cfg),
-                               dim=-1)
+            off = tp.rank * z.shape[-1] if tp is not None else 0
+            zb = _vocab_bias(t * cap if cap else z, cfg, off)
             del z
-            dl.sub_(_label_mask(li, dl.shape[-1]).float())
-            dl.mul_((coef * (li >= 0).float())[..., None])
+            # d(lse - picked)/d logits = softmax - onehot, on masked rows
+            if tp is None:
+                dl = torch.softmax(zb, dim=-1)
+                dl.sub_(_label_mask(li, dl.shape[-1]).float())
+                dl.mul_((coef * (li >= 0).float())[..., None])
+            else:
+                lse = vocab_parallel_terms(zb, li, tp)[2]
+                dl = vocab_parallel_dlogits(zb, li, lse, coef, off)
+            del zb
             if cap:
                 dl.mul_(1.0 - t * t)
             del t
@@ -258,6 +302,10 @@ class _ChunkedCE(torch.autograd.Function):
                 du += (hd.flatten(0, 1).t() @ dz.flatten(0, 1)).float()
             dh = dz @ unembed.t()
             del dz
+            if tp is not None:
+                # each rank's columns give a share of the hidden
+                # state's gradient: their sum is the whole of it
+                dh = tp.comm.all_reduce_sum(dh, tp.axes)
             wrt = [v for v, n in ((xi, need_x), (sc, need_scale)) if n]
             if wrt:
                 got = torch.autograd.grad(h, wrt, dh)
@@ -266,14 +314,28 @@ class _ChunkedCE(torch.autograd.Function):
                 if need_scale:
                     dscale += got[-1].float()
         return (dx, dscale.to(scale.dtype) if need_scale else None,
-                du.to(unembed.dtype) if need_u else None, None, None, None)
+                du.to(unembed.dtype) if need_u else None, None, None, None,
+                None)
 
 
-def chunked_ce(params, x, labels, cfg: ModelConfig, chunk: int):
+def _head_plain(p, x, cfg: ModelConfig, tp):
+    """`head` for the chunked CE's forward: no `enter` (the Function
+    all-reduces the hidden state's gradient itself)."""
+    x = rms_norm(x, p["final_norm"]["scale"], cfg.norm_eps)
+    logits = (x @ p["unembed"]).float()
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    return _vocab_bias(logits, cfg,
+                       tp.rank * logits.shape[-1] if tp is not None else 0)
+
+
+def chunked_ce(params, x, labels, cfg: ModelConfig, chunk: int, tp=None):
     """The mean CE of the head over the final hidden state x (B, S, D),
-    `chunk` tokens at a time (`_ChunkedCE`). Returns (loss, tokens)."""
+    `chunk` tokens at a time (`_ChunkedCE`). Returns (loss, tokens).
+    Under a tensor axis `tp` `unembed` holds this rank's vocab columns
+    (`parallel/comm.py::vocab_parallel_terms`)."""
     return _ChunkedCE.apply(x, params["final_norm"]["scale"],
-                            params["unembed"], labels, chunk, cfg)
+                            params["unembed"], labels, chunk, cfg, tp)
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:

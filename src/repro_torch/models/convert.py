@@ -2,7 +2,8 @@
 
 `params_from_jax` takes the JAX params as numpy arrays (the caller runs
 `jax.tree.map(np.asarray, params)`) and returns the port's params, key
-for key, as tensors. bfloat16 arrays (numpy dtype name "bfloat16", from
+for key, as tensors; `shard_params_from_jax` returns one mesh rank's
+shard of them. bfloat16 arrays (numpy dtype name "bfloat16", from
 ml_dtypes) are read through their uint16 bit pattern, so neither jax nor
 ml_dtypes is imported here.
 """
@@ -39,3 +40,13 @@ def params_from_jax(tree: Any, *, device, dtype: Optional[str] = None):
     if dtype is not None:
         t = t.to(dtype_of(dtype))
     return t.to(device)
+
+
+def shard_params_from_jax(tree: Any, spec_tree: Any, mesh, *, device,
+                          dtype: Optional[str] = None):
+    """One rank's shard of the JAX package's numpy parameters: every leaf
+    cut by its spec (`parallel/sharding.py::param_specs`) at the rank's
+    coordinates on `mesh`, then carried over as `params_from_jax` does."""
+    from repro_torch.core.meshrun import shard_tree
+    return params_from_jax(shard_tree(tree, spec_tree, mesh), device=device,
+                           dtype=dtype)

@@ -17,8 +17,8 @@ depend on the routing, so the layer also runs on the meta device (the
 exact residual counter, `core/endurance.py`). The expert FFN is three
 batched products over all E*B*S rows, zero rows included, as in JAX.
 
-The expert-parallel shard_map path waits for meshes (ROADMAP §1 item
-12): `apply_moe` raises when it is given one.
+The expert-parallel shard_map path waits for slice 12b of meshes
+(ROADMAP §1 item 12): `apply_moe` raises when it is given one.
 """
 from __future__ import annotations
 
@@ -103,8 +103,8 @@ def apply_moe(params, x, settings: MoESettings, *, mesh=None
     """x: (B, S, D) -> (y (B, S, D), {"moe_lb", "moe_z"}): each token's
     output is the routing-weighted sum of its k experts' outputs."""
     if mesh is not None:
-        raise NotImplementedError("expert parallelism over a mesh is not "
-                                  "ported yet (ROADMAP §1 item 12)")
+        raise NotImplementedError("expert parallelism over a mesh waits "
+                                  "for slice 12b (ROADMAP §1 item 12)")
     B, S, D = x.shape
     T, E, k = B * S, settings.num_experts, settings.top_k
     xf = x.reshape(T, D)

@@ -44,6 +44,7 @@ from repro_torch.models.attention import attend, attend_decode
 from repro_torch.models.layers import (apply_mlp, apply_rope, dense_init,
                                        init_mlp, init_norm, rms_norm)
 from repro_torch.models.moe import MoESettings, apply_moe, init_moe
+from repro_torch.parallel.comm import tp_group
 
 Params = Dict[str, Any]
 
@@ -148,6 +149,12 @@ class RunSettings:
     # the JAX package's EP capacity factor; the port's local MoE path is
     # dropless and does not read it (as JAX's local path does not)
     moe_capacity_factor: float = 1.25
+    # this rank's mesh (`parallel/mesh.py`, with its `comm`) and the
+    # roles of its axes: blocks split heads and d_ff over `tp_axis`, the
+    # engine splits the batch and gathers fsdp leaves over `dp_axes`
+    mesh: Any = None
+    tp_axis: Optional[str] = None
+    dp_axes: Tuple[str, ...] = ()
 
 
 # ====================================================================
@@ -231,14 +238,41 @@ def _proj(x, w):
     return (x @ w.reshape(D, H * K)).unflatten(-1, (H, K))
 
 
-def _qkv(p, x, cfg: ModelConfig, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _qkv(p, x, cfg: ModelConfig, positions, tp=None):
+    """q, k, v of x. Under a tensor axis `tp` the projections hold this
+    rank's heads; kv projections whose heads the axis does not divide
+    are whole on every rank (the sharding rules replicate them), so
+    their gradient is summed over the axis and k, v keep the kv heads
+    this rank's query heads read."""
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    kv_whole = tp is not None and wk.shape[1] == cfg.num_kv_heads \
+        and cfg.num_kv_heads % tp.size
+    if kv_whole:
+        wk, wv = tp.grad_sum(wk), tp.grad_sum(wv)
+        if bk is not None:
+            bk, bv = tp.grad_sum(bk), tp.grad_sum(bv)
+    q, k, v = _proj(x, p["wq"]), _proj(x, wk), _proj(x, wv)
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
+    if kv_whole:
+        k, v = _local_kv(k, v, cfg, tp)
     if cfg.use_rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _local_kv(k, v, cfg: ModelConfig, tp):
+    """The kv heads this rank's query heads read, of all `num_kv_heads`
+    (query head h reads kv head h // (H / KV))."""
+    first, n = tp.local_heads(cfg.num_heads)
+    group = cfg.num_heads // cfg.num_kv_heads
+    if n % group and group % n:
+        raise ValueError(f"{cfg.name}: {n} query heads per rank do not "
+                         f"tile kv groups of {group}")
+    lo, hi = first // group, (first + n - 1) // group + 1
+    return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
 def _out_proj(o, wo):
@@ -248,15 +282,21 @@ def _out_proj(o, wo):
 
 
 def _mlp_sublayer(bdef: BlockDef, p, x, cfg: ModelConfig,
-                  aux: Optional[Dict] = None):
+                  aux: Optional[Dict] = None, tp=None):
     """x + MLP(rms_norm(x)) after a mixer whose block has an MLP: dense,
     or MoE (plus the shared expert), whose aux losses add into `aux`
-    when given; the MLP's output normed first with `post_block_norm`."""
+    when given; the MLP's output normed first with `post_block_norm`.
+    Under a tensor axis `tp` the dense MLP is column- then row-parallel
+    (this rank's share of d_ff)."""
     if bdef.mlp is None:
         return x
     h = rms_norm(x, p["mlp_norm"]["scale"], cfg.norm_eps)
     if bdef.mlp == "dense":
+        if tp is not None:
+            h = tp.enter(h)
         m = apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_glu)
+        if tp is not None:
+            m = tp.reduce(m)
     else:
         m, moe_aux = apply_moe(p["moe"], h, MoESettings(
             cfg.moe_num_experts, cfg.moe_top_k, act=cfg.act))
@@ -282,7 +322,19 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
     attention block, the encoder's (k, v) for a cross block,
     {"conv", "state"} for an ssm block, {"conv", "h"} for an rglru block.
     enc_kv: the encoder states (B, Se, D) a cross block attends to. An
-    MoE block adds its aux losses into `aux` when given."""
+    MoE block adds its aux losses into `aux` when given.
+
+    With a tensor axis in `settings` (`parallel/comm.py::tp_group`) the
+    parameters are this rank's shards: an attention block runs on its
+    query heads (Megatron: column-parallel q/k/v, row-parallel wo, the
+    output all-reduced), and its dense MLP likewise; the other mixers
+    and the MoE FFN wait for slice 12b (the engine refuses them)."""
+    tp = tp_group(settings)
+    if tp is not None and (bdef.mixer != "attn"
+                           or bdef.mlp not in (None, "dense")):
+        raise NotImplementedError(
+            f"a tensor axis over a {bdef.mixer} block with a {bdef.mlp} "
+            f"MLP waits for slice 12b")
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     if bdef.mixer == "cross":
         # each cross block projects its own K/V from the encoder states;
@@ -300,13 +352,17 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
         mix, cache = rg.apply_rglru(p["rglru"], h, cfg,
                                     impl=settings.attn_impl)
     else:
-        q, k, v = _qkv(p["attn"], h, cfg, positions)
+        if tp is not None:
+            h = tp.enter(h)
+        q, k, v = _qkv(p["attn"], h, cfg, positions, tp)
         o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
                    logit_cap=cfg.attn_logit_softcap,
                    chunk=settings.attn_chunk, impl=settings.attn_impl)
         mix, cache = _out_proj(o, p["attn"]["wo"]), (k, v)
+        if tp is not None:
+            mix = tp.reduce(mix)
     x = x + _post_norm(mix, p, "post_norm", cfg)
-    return _mlp_sublayer(bdef, p, x, cfg, aux), cache
+    return _mlp_sublayer(bdef, p, x, cfg, aux, tp), cache
 
 
 # ====================================================================

@@ -9,8 +9,8 @@ groups (pids), so one run reads as three synchronized timelines:
                            store/load workers, the engine's main
                            thread)
   pid 1  shards          — events that carry a `shard` arg, re-binned
-                           per mesh shard (none in the port until
-                           multi-GPU training)
+                           per mesh shard (the mesh hooks' `hook.*`
+                           events, `core/hooks.py`)
   pid 2  storage tiers   — backend I/O events re-binned per backend
                            kind (fs / striped / mem / tiered / aio /
                            fault), so a tiered store's RAM-vs-SSD split

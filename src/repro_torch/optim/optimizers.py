@@ -7,8 +7,16 @@ parameters, moments and (when clipping) gradients are overwritten, leaf
 by leaf and in slices of at most `CHUNK` elements along the leading
 dimension, so the float32 temporaries of a 2.9 B-parameter model stay a
 few hundred MB instead of several copies of the model. The math of each
-element is unchanged by the slicing. ZeRO-1 sharding waits for the
-multi-GPU slice.
+element is unchanged by the slicing.
+
+On a mesh each rank's `params` are its shards (`parallel/sharding.py::
+param_specs(fsdp=True)`), so the moments `init` makes are that rank's
+share, laid out as `spec_tree_for_optstate` says (ZeRO: the moments
+inherit the parameters' specs); `zero1_shardings` is the JAX package's
+rule for moments of unsharded parameters. The update then needs the
+squared global norm over the whole mesh, which the engine hands it as
+`update(..., sq_norm=fn)` (a rank's sum counts each replicated leaf
+once).
 
 Each optimizer also has the JAX package's `clip_norm` (the global-norm
 threshold its fused `update` applies; None: off) and `leaf_update`, the
@@ -22,7 +30,7 @@ update is bitwise equal to that layer's slice of the fused update.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, List, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,8 +82,11 @@ def _zeros_f32(params):
                                  for p in leaves])
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(g^2) in float32."""
+def global_norm(grads, sq_norm=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g^2) in float32 (`sq_norm`:
+    the squared norm of a tree sharded over a mesh)."""
+    if sq_norm is not None:
+        return torch.sqrt(sq_norm(grads))
     total = None
     for leaf in tree_flatten(grads)[0]:
         s = sum(g.float().square().sum() for g in _slices(leaf))
@@ -83,10 +94,11 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float,
+                        sq_norm=None) -> torch.Tensor:
     """Scale the gradients in place by min(1, max_norm / norm); returns
     the norm."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, sq_norm)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for (g,) in _zipped(grads):
         g.copy_(g.float() * scale)
@@ -107,9 +119,9 @@ def sgd(lr: float = 1e-3, momentum: float = 0.0,
             m, u = None, g.float()
         return (p.float() - lr * u).to(p.dtype), m, None
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, sq_norm=None):
         if clip_norm:
-            clip_by_global_norm(grads, clip_norm)
+            clip_by_global_norm(grads, clip_norm, sq_norm)
         if momentum:
             for p, m, g in _zipped(params, state.mu, grads):
                 new_p, new_m, _ = leaf_update(p, m, None, g, None)
@@ -148,9 +160,9 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         u = u + weight_decay * p32
         return (p32 - lr_t * u).to(p.dtype), m, v
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, sq_norm=None):
         if clip_norm:
-            clip_by_global_norm(grads, clip_norm)
+            clip_by_global_norm(grads, clip_norm, sq_norm)
         step = state.step + 1
         for p, m, v, g in _zipped(params, state.mu, state.nu, grads):
             new_p, new_m, new_v = leaf_update(p, m, v, g, step)
@@ -161,3 +173,23 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
 
     return Optimizer(init, update, "adamw", clip_norm=clip_norm,
                      leaf_update=leaf_update)
+
+
+def zero1_shardings(params_specs, dp_axes: Tuple[str, ...]):
+    """ZeRO-1 (the JAX package's `repro/optim/optimizers.py:140-154`):
+    shard each moment over the data axes on its parameter's first
+    unsharded dimension (a replicated scalar's spec shards dim 0; a leaf
+    sharded on every dim keeps its own spec)."""
+    from repro_torch.parallel.sharding import map_with_path
+
+    def shard_one(_, spec):
+        parts = list(spec) if spec else []
+        if not parts:
+            return (dp_axes,)
+        for i, p_ in enumerate(parts):
+            if p_ is None:
+                parts[i] = dp_axes
+                return tuple(parts)
+        return tuple(parts)
+
+    return map_with_path(shard_one, params_specs)

@@ -1,0 +1,218 @@
+"""Sharding rules: spec trees for parameters, optimizer state, batches and
+decode caches, per architecture, a copy of the JAX package's
+`repro/parallel/sharding.py` (its rules are name + shape only).
+
+Layout (production mesh ("pod",)"data","model"):
+  * batch / activations   — dim 0 (batch) over the dp axes ("pod","data");
+  * weights               — Megatron TP over "model" (q heads, d_ff, vocab,
+    experts) + ZeRO-3/FSDP over "data" on the non-TP contraction dim
+    (ZeRO-1 falls out: moments inherit the parameter specs);
+  * kv heads / odd dims   — over "model" only when divisible (qwen kv=2,
+    rg-lru kv=1 stay replicated; gemma2 kv=16 shards);
+  * decode caches         — batch over dp when divisible.
+
+A spec is a tuple with one entry per dimension: None, an axis name or a
+tuple of axis names (`parallel/mesh.py`). Trees are the port's nested
+dicts and lists; a leaf is anything with a `.shape`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+from repro_torch.parallel.mesh import Spec
+
+
+@dataclass(frozen=True)
+class MeshAxes:
+    """Logical roles of mesh axes. dp: batch+fsdp axes; tp: tensor axis
+    (None: no tensor parallelism, every other axis only replicates)."""
+    dp: Tuple[str, ...] = ("data",)
+    tp: Optional[str] = "model"
+
+    def dp_size(self, mesh) -> int:
+        n = 1
+        for a in self.dp:
+            n *= mesh.shape[a]
+        return n
+
+    def tp_size(self, mesh) -> int:
+        return mesh.shape[self.tp] if self.tp is not None else 1
+
+
+def default_axes(mesh) -> MeshAxes:
+    """The roles a session gives a mesh without `mesh_axes`: every axis
+    but "model" is dp, "model" (when there) is tp."""
+    return MeshAxes(dp=tuple(a for a in mesh.axis_names if a != "model"),
+                    tp="model" if "model" in mesh.axis_names else None)
+
+
+def _div(dim: int, size: int) -> bool:
+    return size > 0 and dim % size == 0
+
+
+def _axis_if(dim: int, axis, mesh) -> Optional[Any]:
+    """axis (str or tuple) if it divides dim, else None (replicated)."""
+    if axis is None:
+        return None
+    if isinstance(axis, tuple):
+        if not axis:
+            return None
+        n = 1
+        for a in axis:
+            n *= mesh.shape[a]
+        if not _div(dim, n):
+            return None
+        return axis[0] if len(axis) == 1 else axis
+    return axis if _div(dim, mesh.shape[axis]) else None
+
+
+def _rule(names: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+          axes: MeshAxes, fsdp: bool) -> Spec:
+    """The spec of one parameter leaf, identified by its key path."""
+    name = names[-1]
+    layered = "segments" in names or "enc_segments" in names
+    lead: Tuple = (None,) if layered else ()
+    body = shape[1:] if layered else shape
+    tp, dpx = axes.tp, (axes.dp if fsdp else None)
+
+    def spec(*parts):
+        return tuple(lead + parts)
+
+    # ---- scalars / vectors that stay replicated
+    if name in ("scale", "b_a", "b_i", "lambda_p", "dt_bias", "A_log",
+                "D_skip", "b"):
+        return spec(*([None] * len(body)))
+    if name == "norm_scale":                        # (I,) — tp if divisible
+        return spec(_axis_if(body[0], tp, mesh))
+
+    in_moe = "moe" in names
+    in_conv = "conv" in names
+
+    if in_conv and name == "w":                     # (width, C)
+        return spec(None, _axis_if(body[1], tp, mesh))
+
+    if name == "embed":                             # (V, D) vocab-sharded
+        return spec(_axis_if(body[0], tp, mesh), None)
+    if name == "pos_embed":                         # (Pmax, D)
+        return spec(None, _axis_if(body[1], tp, mesh))
+    if name == "unembed":                           # (D, V)
+        return spec(_axis_if(body[0], dpx, mesh),
+                    _axis_if(body[1], tp, mesh))
+    if name == "frontend_proj":                     # (D, D)
+        return spec(_axis_if(body[0], dpx, mesh),
+                    _axis_if(body[1], tp, mesh))
+
+    if name == "wq":                                # (D, H, hd)
+        return spec(_axis_if(body[0], dpx, mesh),
+                    _axis_if(body[1], tp, mesh), None)
+    if name in ("wk", "wv"):                        # (D, KV, hd)
+        return spec(_axis_if(body[0], dpx, mesh),
+                    _axis_if(body[1], tp, mesh), None)
+    if name == "wo":                                # (H, hd, D)
+        return spec(_axis_if(body[0], tp, mesh), None,
+                    _axis_if(body[2], dpx, mesh))
+    if name in ("bq", "bk", "bv"):                  # (H, hd)
+        return spec(_axis_if(body[0], tp, mesh), None)
+
+    if in_moe:
+        if name == "router":                        # (D, E)
+            return spec(_axis_if(body[0], dpx, mesh), None)
+        if name in ("w_in", "w_gate"):              # (E, D, F) — EP over tp
+            return spec(_axis_if(body[0], tp, mesh),
+                        _axis_if(body[1], dpx, mesh), None)
+        if name == "w_out":                         # (E, F, D)
+            return spec(_axis_if(body[0], tp, mesh), None,
+                        _axis_if(body[2], dpx, mesh))
+
+    if name in ("w_in", "w_gate", "w_zx", "w_bc", "w_branch_gate"):
+        # (D, F)-shaped input projections: contract dim fsdp, out dim tp
+        return spec(_axis_if(body[0], dpx, mesh),
+                    _axis_if(body[1], tp, mesh))
+    if name == "w_dt":                              # (D, H) H rarely divides
+        return spec(_axis_if(body[0], dpx, mesh),
+                    _axis_if(body[1], tp, mesh))
+    if name in ("w_a", "w_i"):                      # (W, W)
+        return spec(_axis_if(body[0], dpx, mesh),
+                    _axis_if(body[1], tp, mesh))
+    if name == "w_out":                             # (F, D)
+        return spec(_axis_if(body[0], tp, mesh),
+                    _axis_if(body[1], dpx, mesh))
+
+    # fallback: replicate
+    return spec(*([None] * len(body)))
+
+
+def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """fn(path, leaf) over nested dicts / lists / tuples; the path holds
+    dict keys and list indices as strings, as JAX's key paths name them."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_spec(tree):
+        out = [map_with_path(fn, v, path + (str(i),))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(path, tree)
+
+
+def _is_spec(x) -> bool:
+    """A spec tuple (not a container of subtrees)."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def param_specs(cfg, params_shapes, mesh, axes: MeshAxes, *,
+                fsdp: bool = True):
+    """A spec tree matching a params tree (of tensors, arrays or anything
+    with `.shape`). fsdp=False keeps weights TP-only (serving)."""
+    del cfg                          # the rules read names and shapes only
+    return map_with_path(
+        lambda path, leaf: _rule(path, tuple(leaf.shape), mesh, axes, fsdp),
+        params_shapes)
+
+
+def batch_specs(batch_shapes, mesh, axes: MeshAxes):
+    """Shard dim 0 (global batch) over dp where divisible; scalars and
+    indivisible batches replicate."""
+
+    def one(_, leaf):
+        if not leaf.shape:
+            return ()
+        ax = _axis_if(leaf.shape[0], axes.dp, mesh)
+        return (ax,) + (None,) * (len(leaf.shape) - 1)
+
+    return map_with_path(one, batch_shapes)
+
+
+def cache_specs(cache_shapes, mesh, axes: MeshAxes):
+    """Decode caches are (L, B, ...): batch over dp, kv heads over tp when
+    divisible (dim 3 of attention caches)."""
+
+    def one(_, leaf):
+        nd = len(leaf.shape)
+        parts = [None] * nd
+        if nd >= 2:
+            parts[1] = _axis_if(leaf.shape[1], axes.dp, mesh)
+        if nd == 5:  # (L, B, S, KV, hd) attention cache
+            parts[3] = _axis_if(leaf.shape[3], axes.tp, mesh)
+        return tuple(parts)
+
+    return map_with_path(one, cache_shapes)
+
+
+def spec_tree_for_optstate(param_spec_tree, opt_shapes):
+    """Optimizer state specs: step replicated; moments inherit the
+    parameter specs (=> ZeRO: moments are dp+tp sharded exactly like the
+    weights)."""
+    from repro_torch.optim.optimizers import OptState
+
+    mu = opt_shapes.mu and param_spec_tree
+    nu = opt_shapes.nu and param_spec_tree
+    return OptState(step=(), mu=mu, nu=nu)
+
+
+__all__ = ["MeshAxes", "batch_specs", "cache_specs", "default_axes",
+           "map_with_path", "param_specs", "spec_tree_for_optstate"]

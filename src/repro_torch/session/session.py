@@ -46,13 +46,30 @@ counters join the metrics rows). A profiled AdaptivePolicy drives the
 jit engine through `settings=policy.plan_for_jit().apply(settings)`.
 
 Runs on the card (`device="cuda"`, the default) unless the caller asks
-for the CPU; without CUDA it raises rather than fall back. Meshes are
-not ported yet.
+for the CPU; without CUDA it raises rather than fall back.
+
+`mesh=` (a `parallel/mesh.py::Mesh` with its `Comm`, one process per
+rank: `parallel/comm.py::init_mesh`) trains on a data x model mesh, as
+the JAX jit session does (`repro/session/session.py:132-166, 271-308`):
+`mesh_axes` (default: every axis but "model" is dp, "model" is tp) fills
+`settings.mesh / tp_axis / dp_axes`; each rank holds its shard of the
+parameters (`param_specs(fsdp=True)`, `init` cuts them from the seed's
+global weights) and of the moments (ZeRO), trains on its rows of the
+global batch, and with `io.host_offload="activations"` spools its layers
+through the mesh hooks (`core/hooks.py`) into one directory every rank
+shares (rank 0 makes it when `io.directory` is unset and removes it on
+close). The metrics rows gain the `shards` block (the step's hook traffic
+by shard, summed over the ranks), `comm_backend` and
+`comm_host_staged_bytes`. A mesh needs the jit engine, as JAX's, and a
+dense attention model (`core/meshrun.py::check_mesh_config`); the
+optimizer overlap and checkpoints of a mesh wait for slice 12b.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
+import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
@@ -61,6 +78,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import ModelConfig, SpoolIoConfig, resolve_config
 from repro_torch.core.engine import StagedEngine, layer_stage_names
+from repro_torch.core.meshrun import check_mesh_config, shard_tree
 from repro_torch.core.policies import OffloadPolicy, policy_for_jit
 from repro_torch.core.report import StepReport
 from repro_torch.core.tree import tree_flatten
@@ -71,6 +89,8 @@ from repro_torch.models.api import build_model
 from repro_torch.models.transformer import RunSettings
 from repro_torch.optim.optimizers import Optimizer, OptState, adamw, sgd
 from repro_torch.optim.overlap import OptBridge
+from repro_torch.parallel.comm import rank_device
+from repro_torch.parallel.sharding import default_axes, param_specs
 from repro_torch.resilience import unwrap_chain
 from repro_torch.runtime.trainer import TrainLoop, TrainState, batch_tokens
 
@@ -144,6 +164,7 @@ class TrainSession:
                  trace: Optional[str] = None, trace_ring: int = 0,
                  settings: Optional[RunSettings] = None,
                  opt_overlap: Union[bool, str, None] = None,
+                 mesh: Any = None, mesh_axes: Any = None,
                  install_signal_handlers: bool = False):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; "
@@ -166,6 +187,11 @@ class TrainSession:
                              f"the session's device {device!r}")
         self.cfg = (resolve_config(arch) if isinstance(arch, str)
                     else arch.validate())
+        self.mesh, self.mesh_axes = mesh, None
+        self._own_shared_dir = None
+        if mesh is not None:
+            io = self._init_mesh(engine, io, mesh_axes, opt_overlap,
+                                 ckpt_dir, device)
         if loader is None and self.cfg.input_kind != "tokens":
             raise ValueError(
                 f"{self.cfg.name} takes {self.cfg.input_kind} inputs and "
@@ -206,6 +232,10 @@ class TrainSession:
         base = RunSettings(
             attn_impl=attn_impl or ("torch" if device == "cpu" else "cuda"),
             attn_chunk=256, param_dtype=self.cfg.dtype, device=device)
+        if mesh is not None:
+            base = self._with_mesh(base)
+            if settings is not None:
+                settings = self._with_mesh(settings)
         self.opt_bridge: Optional[OptBridge] = None
         self._optb_snapshot: Dict[str, int] = {}
         if engine == "staged":
@@ -249,6 +279,44 @@ class TrainSession:
         self._counters_snapshot: Dict[str, float] = {}
         self._cache_snapshot = None
         self._resil_snapshot: Dict[str, Any] = {}
+        self._shard_snapshot: Dict[str, Dict[str, int]] = {}
+
+    def _init_mesh(self, engine, io, mesh_axes, opt_overlap, ckpt_dir,
+                   device):
+        """Check a mesh run, pick the axes' roles and share one spool
+        directory between the ranks. Returns the io config to use."""
+        if engine != "jit":
+            raise ValueError(
+                "mesh-sharded training is a jit-engine feature; the "
+                "staged engine runs one device")
+        check_mesh_config(self.cfg)
+        if opt_overlap or (io is not None and io.opt_overlap):
+            raise ValueError("the optimizer overlap on a mesh waits for "
+                             "slice 12b")
+        if ckpt_dir is not None:
+            raise ValueError("checkpoints of a mesh (sharded restore) wait "
+                             "for slice 12b")
+        if self.mesh.comm is None:
+            raise ValueError("the mesh has no Comm: build it with "
+                             "parallel.comm.init_mesh")
+        self.mesh_axes = mesh_axes or default_axes(self.mesh)
+        if device != "cpu":
+            torch.cuda.set_device(torch.device(rank_device("cuda")))
+        if io is not None and io.directory is None:
+            # one directory every rank sees: the primary replica's blobs
+            # are read by the others
+            d = (tempfile.mkdtemp(prefix="repro_torch_mesh_spool_")
+                 if self.mesh.rank == 0 else None)
+            d = self.mesh.comm.gather_objects(d)[0]
+            if self.mesh.rank == 0:
+                self._own_shared_dir = d
+            io = dataclasses.replace(io, directory=d)
+        return io
+
+    def _with_mesh(self, settings: RunSettings) -> RunSettings:
+        return dataclasses.replace(settings, mesh=self.mesh,
+                                   tp_axis=self.mesh_axes.tp,
+                                   dp_axes=self.mesh_axes.dp)
 
     def _init_jit(self, base, settings, min_offload_elements) -> None:
         """The jit engine: the engine with the placement the settings
@@ -296,9 +364,34 @@ class TrainSession:
         session's device, and the optimizer state."""
         if self.params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
-            self.params = self.api.init(gen)
+            params = self.api.init(gen)
+            if self.mesh is not None:
+                # this rank's shards (the moments follow: ZeRO)
+                specs = param_specs(self.cfg, params, self.mesh,
+                                    self.mesh_axes, fsdp=True)
+                self.engine.mesh_run.set_specs(specs)
+                params = shard_tree(params, specs, self.mesh)
+            self.params = params
             self.opt_state = self.optimizer.init(self.params)
         return self.params
+
+    def set_params(self, params) -> None:
+        """Start from these global weights, a tree of numpy arrays (the
+        JAX package's, `jax.tree.map(np.asarray, ...)`) in place of the
+        seed's: on a mesh this rank's shards of them
+        (`models/convert.py::shard_params_from_jax`). The optimizer state
+        starts anew."""
+        from repro_torch.models.convert import (params_from_jax,
+                                                shard_params_from_jax)
+        if self.mesh is not None:
+            specs = param_specs(self.cfg, params, self.mesh,
+                                self.mesh_axes, fsdp=True)
+            self.engine.mesh_run.set_specs(specs)
+            self.params = shard_params_from_jax(params, specs, self.mesh,
+                                                device=self.device)
+        else:
+            self.params = params_from_jax(params, device=self.device)
+        self.opt_state = self.optimizer.init(self.params)
 
     @property
     def n_params(self) -> int:
@@ -354,8 +447,9 @@ class TrainSession:
             prev = self._optb_snapshot
             extra.update({k: cur[k] - prev.get(k, 0) for k in cur})
             self._optb_snapshot = cur
-        if "device_peak_bytes" in rep.extra:
-            extra["device_peak_bytes"] = rep.extra["device_peak_bytes"]
+        for k, v in rep.extra.items():
+            if k == "device_peak_bytes" or k.startswith("comm_"):
+                extra[k] = v
         return StepReport(
             loss=extra["loss"], step_time=dt,
             peak_activation_bytes=rep.peak_activation_bytes,
@@ -377,6 +471,9 @@ class TrainSession:
                    if self.engine_name == "jit" else metrics["report"])
             rep.step = step
             rep.stats, rep.obs = self._step_deltas()
+            if self.mesh is not None:
+                rep.shard_stats = self._shard_deltas()
+                rep.extra["comm_backend"] = self.mesh.comm.backend
             if self.spool is not None:
                 rep.cache, rep.resilience = self._storage_deltas()
             tokens = sum(batch_tokens(b) for b in batches)
@@ -432,6 +529,32 @@ class TrainSession:
         return stats, overlap.analyze(
             events, {k: v - prev_c.get(k, 0) for k, v in counters.items()})
 
+    def _shard_deltas(self) -> Dict[str, Dict[str, int]]:
+        """The step's mesh-hook traffic by shard id, summed over the ranks
+        (each rank counts its own calls): a collective every rank makes
+        at each step's end."""
+        bridge = self.engine.mesh_run.bridge
+        mine = bridge.stats_by_shard() if bridge is not None else {}
+        cur: Dict[str, Dict[str, int]] = {}
+        for rank_stats in self.mesh.comm.gather_objects(mine):
+            for shard, rec in rank_stats.items():
+                tot = cur.setdefault(str(shard), dict.fromkeys(rec, 0))
+                for k, v in rec.items():
+                    tot[k] += v
+        prev, self._shard_snapshot = self._shard_snapshot, cur
+        out = {}
+        for shard, rec in cur.items():
+            d = {k: v - prev.get(shard, {}).get(k, 0)
+                 for k, v in rec.items()}
+            if any(d.values()):
+                out[shard] = d
+        return out
+
+    def shard_totals(self) -> Dict[str, Dict[str, int]]:
+        """The run's mesh-hook traffic by shard, summed over the ranks
+        (as of the last step)."""
+        return {k: dict(v) for k, v in self._shard_snapshot.items()}
+
     def _storage_deltas(self):
         """The step's cache-manager block (managed backends only) and
         resilience block, as the JAX session computes them: the deltas
@@ -485,6 +608,11 @@ class TrainSession:
         if self.opt_bridge is not None:
             self.opt_bridge.close()     # stops the worker, drops leases
         self.engine.close()
+        if self.mesh is not None:
+            # every rank's spool is closed before the shared dir goes
+            self.mesh.comm.barrier()
+            if self._own_shared_dir is not None:
+                shutil.rmtree(self._own_shared_dir, ignore_errors=True)
         if self._own_loader is not None:
             self._own_loader.close()
         if self._metrics_f is not None:

@@ -489,13 +489,15 @@ def test_build_backend_from_config(pkg, tmp_path):
 
 
 def test_port_config_keeps_refusing_later_slices():
-    # the jit engine's host offload and the optimizer overlap are ported
+    # the jit engine's host offload, the optimizer overlap and the
+    # meshes' replica dedup switch are ported
     for kw in ({"host_offload": "opt_state"},
-               {"host_offload": "activations"}, {"opt_overlap": True}):
+               {"host_offload": "activations"}, {"opt_overlap": True},
+               {"dedupe_replicas": False}):
         TIo(**kw).validate()
         JIo(**kw).validate()
     for kw in ({"host_offload": "optimizer"}, {"opt_overlap": "sync"},
-               {"dedupe_replicas": False}, {"backend": "nvram"},
+               {"dedupe_replicas": "no"}, {"backend": "nvram"},
                {"alignment": 3000}, {"retry_attempts": 0}):
         with pytest.raises(ValueError):
             TIo(**kw).validate()
@@ -777,18 +779,21 @@ def test_train_cli_takes_every_storage_flag(tmp_path, capsys):
     assert "resilience_health" in row
     args = train.parse_args(base + ["--host-mem-budget-mb", "8"])
     assert train.io_config(args).host_mem_budget_bytes == 8 << 20
-    # the jit engine's flags reach the config; on the staged engine, and
-    # the mesh flags anywhere, they are refused
+    # the jit engine's flags reach the config, and so does the meshes'
+    # dedup switch; the jit flags on the staged engine, and a mesh on
+    # the staged engine or larger than the world, are refused
     jit = base + ["--engine", "jit"]
     for flags, mode in ((["--host-offload"], "opt_state"),
                         (["--host-offload", "activations"], "activations"),
                         (["--opt-overlap", "--clip-norm", "0"], "none")):
         args = train.parse_args(jit + flags)
         assert train.io_config(args).host_offload == mode
+    for flags in (["--spool-no-dedupe"], jit[len(base):] + [
+            "--spool-no-dedupe"]):
+        args = train.parse_args(base + flags)
+        assert train.io_config(args).dedupe_replicas is False
     for bad in (["--host-offload", "opt_state"], ["--opt-overlap"],
-                ["--mesh", "2x4"], ["--spool-no-dedupe"],
-                ["--engine", "jit", "--mesh", "2x4"],
-                ["--engine", "jit", "--spool-no-dedupe"]):
+                ["--mesh", "2x4"], ["--engine", "jit", "--mesh", "2x4"]):
         with pytest.raises(SystemExit):
             train.parse_args(base + bad)
 

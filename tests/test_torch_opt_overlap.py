@@ -311,8 +311,10 @@ def test_refusals():
     with pytest.raises(ValueError, match="clipping"):
         TrainSession(CFG, engine="jit", opt_overlap=True, device="cpu",
                      optimizer=topt.adamw(1e-3, clip_norm=1.0))
+    # the meshes' dedup switch is ported: a bool, nothing else
+    SpoolIoConfig(dedupe_replicas=False).validate()
     with pytest.raises(ValueError, match="dedupe_replicas"):
-        SpoolIoConfig(dedupe_replicas=False).validate()
+        SpoolIoConfig(dedupe_replicas="no").validate()
 
 
 # ------------------------------------------------- the per-leaf kernel
