@@ -45,7 +45,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      fetched, the directory empty after close, and the kernel launched
      once per layer per step in each run; one full-width layer through
      the kernel must agree with the plain path;
-  6. policy matrix at a depth-4 cut: Recompute, Adaptive on fs and on
+  6. policy matrix at a depth-2 cut: Recompute, Adaptive on fs and on
      mem, the mem backend and the zlib codec, each bitwise equal to
      Keep; every spool run reads blobs back (the zlib run waits for its
      layer stores before backward, so every layer goes through the codec
@@ -122,21 +122,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
  11. the optimizer state and the jit engine on the paper's GPT cut to
      2 layers (gpt-h8192-l2, random weights from seed 0, adamw with lr
      3e-4 and no clipping, B=4, S=1024, fs, raw, traced without a
-     file): (a) the
+     file), 2 steps: (a) the
      staged engine, KeepPolicy, the fused update (the reference); (b)
      `engine="jit"`, `host_offload="opt_state"` (the whole state staged
      through the spool between steps); (c) `engine="jit"`,
      `opt_overlap=True` (each layer updated as its gradients land in
      backward, its moments on the spool); (d) (c) with
      `host_offload="activations"` (activations on the spool too); (e)
-     `opt_overlap="sync"`, 2 steps. (b), (c) and (e) keep their
+     `opt_overlap="sync"`. (b), (c) and (e) keep their
      activations (`activation_policy="keep"`), as (a) does. Losses
      bitwise equal to (a)'s, final parameters of (b)-(d) bitwise equal
-     to (a)'s, and the parameters' and moments' (`materialize()`)
+     to (a)'s ((e)'s too), and the parameters' and moments' (`materialize()`)
      fingerprints (two 64-bit weighted sums of their bits, on the card:
      a host copy of a 32 GB state per run does not fit beside the
      spool's pool) equal to (a)'s after as many steps; 2 flash launches
-     a step; moments fetched in steps 2-3; the spool dirs empty after
+     a step; moments fetched in step 2; the spool dirs empty after
      close; (c)'s device peak at least 6.44 GB (half the layers' 12.88
      GB of moments) below (a)'s. Each run prints its step times, device
      peak, `opt_updates`, fetched / staged / skipped bytes,
@@ -163,7 +163,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (chunk 8): y and the final state, and its time at the longest
      prompt beside its bound;
  13. the registry's archs (random bf16 weights from seed 0) through
-     `TrainSession`, sgd (lr 3e-4, no momentum), S=1024, 3 steps, kept
+     `TrainSession`, sgd (lr 3e-4, no momentum), S=1024, 2 steps, kept
      and spooled (fs, raw) as in phase 5: (a) qwen2.5-3b at full width
      and depth (36 layers, GQA 16/2, qkv biases, B=1), (b) gemma2-27b at
      full width cut to 4 layers (2 local/global pairs: window 4096,
@@ -229,8 +229,47 @@ Phases, each of which ends the run with a non-zero exit on failure:
      bars, with its times. Prints each rank's device peaks beside
      (a)'s, the backend and the bytes staged through host memory, and
      the phase's time. `python3 chip_smoke.py --mesh-only` runs phases
-     1-3's device line and build, then this phase;
- 16. a `kernels` JSON line, the nvidia-smi line, and the result line.
+     1-3's device line and build, then this phase and phase 16;
+ 16. expert parallelism, the GPipe pipeline and the int8 compressed dp
+     mean (slice 12b part 1): llama4-scout-17b-a16e at full width (40/8
+     heads of 128, 16 experts of 5120 -> 8192 top-1 and the shared
+     expert, vocab 202048) cut to 1 layer (4.27 B parameters), f32, sgd,
+     B=1, S=1024, 2 steps, the jit engine: (a) one device, keep, in this
+     process, which ends and frees the card before the ranks allocate;
+     then one spawn of 2 ranks sharing cuda:0 over gloo runs (b) a 1x2
+     mesh (tp=2: 8 experts a rank, dropless, the shared expert column /
+     row parallel), keep; (c) (b) with the layers spooled; (d)
+     `ep_axis="model"` at capacity factor 16 (E/k: every local row has
+     its slot); (e) `ep_axis="model"` at 1.25, kept, and (e2) spooled;
+     (f) GPipe of gpt-h8192 cut to 2 layers on a ("pipe",) mesh of 2, one
+     layer a rank, f32, 4 microbatches of 1x1024 through the transformer
+     block on the flash kernel, against the 2 layers in sequence on the
+     rank; (g) the compressed and the exact mean over a ("data",) mesh
+     of 2 of each rank's stage gradients from (f) (one gpt-h8192 layer's),
+     then 16 error-feedback rounds. (b)'s losses within 1e-4 of (a)'s,
+     and its first-step gradients within 1e-4 of (a)'s shards of them
+     (at 65536 seeded positions a leaf, over (a)'s largest magnitude);
+     (c) = (b), (d) = (b) and (e2) = (e) bitwise in losses and
+     parameters; no row dropped in (a)-(d) (the model's own count,
+     `moe.dropped_rows`), (e)'s dropped rows printed; (c)'s and (e2)'s
+     shards 0 and 1 each with 2 offloads and fetches, bytes in = out;
+     spool dirs empty; (c)'s tracked activation peak under (b)'s; 2 flash
+     launches a rank a run; (f) outputs within 1e-5 and the stage's
+     gradients within 1e-4 of the sequential run (largest difference
+     over the largest magnitude; bitwise or not printed), 4 flash
+     launches a stage; (g) within 5% of the exact mean and the 16 rounds'
+     mean nearer than one round's. Phase 3's table gains the flash
+     kernel at llama4's one-device shape (1, 1024, 40/8, 128) f32 and
+     its tp=2 shape (1, 1024, 20/4, 128) f32, kimi's tp=4 shape (1, 1024,
+     16/2, 128) bf16 and the stage's (1, 1024, 64, 128) f32, each
+     against its plain version with its times. `python3
+     chip_smoke.py --kimi-4card` (four cards) runs the device line, the
+     build, then kimi-k2-1t-a32b at full width cut to 2 layers (the
+     leading dense layer and one MoE layer of 384 experts), bf16, sgd,
+     B=1, S=1024, 3 steps, on a 1x4 mesh over NCCL, one rank a card:
+     dropless and at `ep_axis="model"` capacity factor 1.25, each kept
+     and spooled, bitwise;
+ 17. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -310,8 +349,9 @@ TOL_SSD_PATH = 1e-5
 TOL_LAYER = 2 ** -6
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ = "mamba2-2.7b", 3, 1024
 # phase 6's depth (8 until PR 21; cut to 4 in PR 22 to make room for
-# phase 13 in the 1200 s the script has; its bounds scale with it)
-MATRIX_DEPTH = 4
+# phase 13, and to 2 in PR 25 after the whole script took 1174 s of its
+# 1200 on an H100 80GB HBM3 at 700 W; its bounds scale with it)
+MATRIX_DEPTH = 2
 
 # (B, S, W): tests/test_kernels.py::RGLRU_CASES (their chunk and block
 # width are the Pallas kernel's tiling, which the CUDA kernel has not)
@@ -355,7 +395,10 @@ STORAGE_HOST_BOUND = "2gb"
 # card at once fails. (b) can have two state blobs on disk at once (2.44 B
 # parameters' f32 moments, 19.5 GB each): OPT_FREE_GB of free space
 OPT_LAYERS = 2
-OPT_STEPS, OPT_SYNC_STEPS = 3, 2
+# 2 steps (3 took 250 s on an H100 80GB HBM3 at 700 W with the spool on
+# 9p; cut to make room for phase 16): (e) then runs as many as the
+# others, and its parameters are held to (a)'s too
+OPT_STEPS, OPT_SYNC_STEPS = 2, 2
 OPT_FREE_GB = 45
 # phase 8's chunked-CE runs: the JAX package's `make_train_step` default,
 # and the bar on their losses against the unchunked ones (the order of
@@ -379,7 +422,7 @@ REST_SERVE = dict(requests=8, slots=4, prompt_len=48, max_new=16,
 SERVE_EXTRA = (37, 200)
 OPT_DROP_GB = 6.44
 # phase 13: the registry's archs, (arch, layers (None: the config's),
-# batch), sgd without momentum at PAPER_LR, S=1024, TRAIN_STEPS steps;
+# batch), sgd without momentum at PAPER_LR, S=1024, REG_STEPS steps;
 # then the serving trace of phase 12 on REG_SERVE at full width. The runs
 # cut in depth spool through `drained_spool_policy`: 2-4 layers run
 # forward faster than 9p writes one of their 1.5-5 GB blobs, so without
@@ -395,6 +438,9 @@ OPT_DROP_GB = 6.44
 REG_TRAIN = [("qwen2.5-3b", None, 1), ("gemma2-27b", 4, 2),
              ("hubert-xlarge", None, 2), ("llama4-scout-17b-a16e", 2, 8)]
 REG_SEQ = 1024
+# the steps of phase 13's runs, cut from 3 to make room for phase 16 (its
+# checks hold at any step count; the launches scale with it)
+REG_STEPS = 2
 REG_SERVE = "qwen2.5-3b"
 # phase 3: the flash instances phase 13 launches, (label, (B, Sq, Skv,
 # Hq, Hkv, D, causal, window, cap), dtype, tol): D=80 at a ragged length
@@ -455,6 +501,48 @@ MESH_ATTN = (MESH_BATCH, PAPER_SEQ, PAPER_HIDDEN // 128 // 2, 128)
 # (b) and (g) against (a): the JAX package's GSPMD bar
 # (tests/test_multidevice.py:233)
 TOL_MESH = 1e-4
+# phase 16: expert parallelism, the GPipe pipeline and the int8
+# compressed dp mean. llama4-scout at full width (40/8 heads of 128, 16
+# experts of 5120 -> 8192 and the shared one, vocab 202048) cut to
+# MOE_LAYERS layer, f32 (the GSPMD bar applies to f32), sgd, B=1,
+# S=PAPER_SEQ, MOE_STEPS steps: 4.27 B parameters, 17.1 GB, so (a) on one
+# device ends and frees the card before the 2 ranks allocate. (e) runs
+# the expert-parallel capacity path at MOE_DROP_CAP (JAX's default).
+MOE_ARCH, MOE_LAYERS, MOE_STEPS, MOE_DROP_CAP = \
+    "llama4-scout-17b-a16e", 1, 2, 1.25
+# (b)'s first-step gradients against (a)'s cut by the specs, at
+# GRAD_SAMPLES seeded positions of each leaf's shard (every entry of a
+# smaller leaf), each within TOL_MESH of (a)'s largest magnitude
+GRAD_SAMPLES = 1 << 16
+# (f): gpt-h8192 cut to PIPE_LAYERS layers, one a stage, PIPE_M
+# microbatches of (1, PAPER_SEQ); the outputs and each stage's gradients
+# against the layers in sequence on one device, each as its largest
+# difference over the reference's largest magnitude, at JAX's bars
+# (tests/test_multidevice.py:97-114)
+PIPE_LAYERS, PIPE_M = 2, 4
+TOL_PIPE_OUT, TOL_PIPE_GRAD = 1e-5, 1e-4
+# (g): one round of the compressed mean within TOL_COMP of the exact mean
+# (on its scale), and COMP_ROUNDS error-feedback rounds nearer than one
+# (tests/test_multidevice.py:116-138)
+COMP_ROUNDS, TOL_COMP = 16, 0.05
+# `--kimi-4card`: kimi-k2 at full width cut to KIMI_LAYERS layers (the
+# leading dense layer and one MoE layer of 384 experts), bf16, sgd, B=1,
+# S=PAPER_SEQ, KIMI_STEPS steps, on a 1xKIMI_RANKS mesh over NCCL, one
+# rank a card
+KIMI_ARCH, KIMI_LAYERS, KIMI_STEPS, KIMI_RANKS = "kimi-k2-1t-a32b", 2, 3, 4
+# phase 16's flash instances: llama4 on one device ((a): 40/8 heads, f32)
+# and at tp=2 (20/4 heads a rank, f32), kimi at tp=4 (16/2 heads a rank,
+# bf16) and the pipeline's stage (64 heads, f32), all causal
+MOE_FLASH_CASES = [
+    ("llama4 one device", (1, 1024, 1024, 40, 8, 128, True, 0, 0.0),
+     torch.float32, TOL_F32),
+    ("llama4 tp=2", (1, 1024, 1024, 20, 4, 128, True, 0, 0.0),
+     torch.float32, TOL_F32),
+    ("kimi tp=4", (1, 1024, 1024, 16, 2, 128, True, 0, 0.0),
+     torch.bfloat16, TOL_BF16_ROW),
+    ("pipeline stage", (1, 1024, 1024, 64, 64, 128, True, 0, 0.0),
+     torch.float32, TOL_F32),
+]
 
 PEAKS = {
     "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
@@ -963,8 +1051,9 @@ def flash_bert_phase(gen, peaks, smi):
     return res
 
 
-def flash_registry_phase(gen, peaks, smi):
-    """The flash instances phase 13 launches (REG_FLASH_CASES) against
+def flash_registry_phase(gen, peaks, smi, cases=REG_FLASH_CASES):
+    """The flash instances phase 13 launches (`cases`: REG_FLASH_CASES;
+    phase 16 passes MOE_FLASH_CASES) against
     the plain attention in f32; at each path shape its time (one call
     and back to back) beside the plain version's, the bound and
     scaled_dot_product_attention's (with the window as a boolean mask
@@ -977,7 +1066,7 @@ def flash_registry_phase(gen, peaks, smi):
     from repro_torch.kernels.ref import attention_reference
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res, d80 = {}, {"d80 f32": 0.0, "d80 bf16": 0.0}
-    for label, case, dtype, tol in REG_FLASH_CASES:
+    for label, case, dtype, tol in cases:
         B, Sq, Skv, Hq, Hkv, D, causal, window, cap = case
         q = torch.randn((B, Sq, Hq, D), generator=gen,
                         device="cuda").to(dtype)
@@ -1106,7 +1195,7 @@ def drained_spool_policy():
 
 def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
               batch=1, keep_params=None, snap=None, settings=None,
-              stage_bytes=None, engine="staged"):
+              stage_bytes=None, engine="staged", steps=TRAIN_STEPS):
     """TrainSession steps at B=batch, S=seq on the card. Every kernel's
     launch count is set to 0 just before the steps and read just after.
     Returns (losses, params, reports, {kernel: launches}, run peak, stage
@@ -1118,7 +1207,8 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     `settings`: the session's RunSettings (the default's, with the
     kernels, otherwise). Given a list `stage_bytes`, it gets the bytes
     the spool stored for each stage of the first step, in stage order.
-    A spool run prints its pool's stats. `engine="jit"` runs the jit
+    A spool run prints its pool's stats; `steps` steps (TRAIN_STEPS by
+    default). `engine="jit"` runs the jit
     name (policy None, its placement from `settings`); its reports carry
     the loss, the tracked footprints and the device peak."""
     from repro_torch.core.tree import tree_flatten
@@ -1164,9 +1254,9 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
             reports = sess.run(2).reports
             snap["params"] = [t.detach().cpu()
                               for t in tree_flatten(sess.params)[0]]
-            reports += sess.run(TRAIN_STEPS - 2).reports
+            reports += sess.run(steps - 2).reports
         else:
-            reports = sess.run(TRAIN_STEPS).reports
+            reports = sess.run(steps).reports
         launches = {k.__name__: k.launches for k in kernels}
         if io is not None:
             print(f"  {label} pool: {pool_line(sess.spool)}")
@@ -1247,7 +1337,7 @@ def same_params(a, b) -> bool:
 
 def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
                   hold=False, settings=None, label=None, policy=None,
-                  act_lower=False, keep_out=None):
+                  act_lower=False, keep_out=None, steps=TRAIN_STEPS):
     """Full-width training of `cfg` kept on the card, then spooled (fs,
     raw) to a fresh directory: bitwise losses and parameters, a lower
     peak, bytes offloaded, every stored stage fetched (the stage count
@@ -1263,7 +1353,7 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
     peak, the keep run's parameters after step 2 and the bytes the spool
     stored per stage in step 1, with each run's device peak. A dict
     `keep_out` gets the keep run's losses, reports, device peak and final
-    parameters' host copy."""
+    parameters' host copy. Each run takes `steps` steps."""
     from repro_torch.configs import SpoolIoConfig
     from repro_torch.core.endurance import residual_bytes_per_layer
     from repro_torch.core.policies import KeepPolicy, SpoolPolicy
@@ -1276,7 +1366,7 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
                                           f"{label} keep",
                                           optimizer=optimizer, seq=seq,
                                           batch=batch, snap=snap,
-                                          settings=settings)
+                                          settings=settings, steps=steps)
     spool_dir = tempfile.mkdtemp(prefix="chip_smoke_spool_")
     mnt, fstype = mount_of(spool_dir)
     ls, same, rs, ns, peak_s, n_stages = train_run(
@@ -1284,7 +1374,8 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
             backend="fs", directory=spool_dir, codec="raw",
             pool_bytes=POOL_BYTES),
         f"{label} spool", optimizer=optimizer, seq=seq, batch=batch,
-        keep_params=pk, settings=settings, stage_bytes=stage_bytes)
+        keep_params=pk, settings=settings, stage_bytes=stage_bytes,
+        steps=steps)
     n_leaves = len(pk)
     if keep_out is not None:
         keep_out.update(losses=lk, reports=rk, peak=peak_k, params=pk)
@@ -1297,7 +1388,7 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
                     for reps in (rk, rs))
     print(f"train: {label} {cfg.num_layers + cfg.num_decoder_layers} "
           f"layers in {n_stages} "
-          f"stages, d_model {cfg.d_model}, {TRAIN_STEPS} steps at B={batch} "
+          f"stages, d_model {cfg.d_model}, {steps} steps at B={batch} "
           f"S={seq}; keep losses {lk}, spool losses {ls}; peak device "
           f"memory keep {peak_k / 1e9:.2f} GB, spool {peak_s / 1e9:.2f} GB;"
           f" tracked activation peak keep {act_k / 1e9:.3f} GB, spool "
@@ -2483,12 +2574,12 @@ def registry_phase(gen, smi):
                      for seg in segs)
         out[arch] = keep_vs_spool(
             cfg, REG_SEQ, sgd(PAPER_LR),
-            {"flash_attention": n_attn * TRAIN_STEPS, "ssd_scan": 0,
+            {"flash_attention": n_attn * REG_STEPS, "ssd_scan": 0,
              "rglru_scan": 0}, smi, batch=batch,
             stages=sum(seg.n_repeat for seg in segs) + 2,
             label=f"{arch}" + (f" d{layers}" if layers else ""),
             policy=drained_spool_policy() if layers else None,
-            act_lower=True)
+            act_lower=True, steps=REG_STEPS)
         print(f"  {arch}: {time.perf_counter() - t0:.1f}s")
     n_layers = resolve_config(REG_SERVE).num_layers
     serve_launches, _ = serve_rest_arch(
@@ -2739,7 +2830,8 @@ def opt_phase(smi):
           f"under {work}, need {OPT_FREE_GB} GB for phase 11")
     write_stall_probe(work)
     a = opt_run(cfg, "(a) staged keep", engine="staged",
-                snap_at=OPT_SYNC_STEPS)
+                snap_at=(OPT_SYNC_STEPS if OPT_SYNC_STEPS < OPT_STEPS
+                         else None))
     runs = {
         "(b) jit opt_state": dict(host_offload="opt_state"),
         "(c) jit overlap": dict(opt_overlap=True),
@@ -3065,6 +3157,559 @@ def mesh_phase(gen, peaks, smi):
     return flash
 
 
+def moe_cfg(arch, layers, dtype):
+    """`arch` at full width cut to `layers` layers, in `dtype`."""
+    from repro_torch.configs import resolve_config
+    return dataclasses.replace(resolve_config(arch), num_layers=layers,
+                               dtype=dtype)
+
+
+def grad_samples(leaves):
+    """GRAD_SAMPLES entries of each leaf, at flat positions drawn from a
+    generator seeded with the leaf's index (every entry of a smaller
+    leaf), as f32 numpy arrays."""
+    out = []
+    for i, g in enumerate(leaves):
+        n = g.numel()
+        idx = (torch.arange(n) if n <= GRAD_SAMPLES else torch.randint(
+            n, (GRAD_SAMPLES,), generator=torch.Generator().manual_seed(i)))
+        out.append(g.detach().reshape(-1)[idx.to(g.device)].float().cpu()
+                   .numpy())
+    return out
+
+
+def shard_samples(grads, params):
+    """Phase 16 (a)'s probe: for each rank of the 1xMESH_RANKS mesh, the
+    shapes of its shards of the one-device gradients (cut by the specs a
+    mesh session gives the parameters) and `grad_samples` of them."""
+    from repro_torch.core.meshrun import shard_tree
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.parallel.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import default_axes, param_specs
+    out = []
+    for r in range(MESH_RANKS):
+        m = make_test_mesh((1, MESH_RANKS), ("data", "model"), rank=r)
+        # the rules read the leaves' names and shapes, not the config
+        specs = param_specs(None, params, m, default_axes(m), fsdp=True)
+        leaves = tree_flatten(shard_tree(grads, specs, m))[0]
+        out.append(([tuple(t.shape) for t in leaves], grad_samples(leaves)))
+        del leaves
+    return out
+
+
+def sample_errors(grads, want):
+    """This rank's first-step gradients against (a)'s samples of its
+    shards (`shard_samples`): per leaf, the largest difference over (a)'s
+    largest magnitude; None when the shards' shapes differ."""
+    from repro_torch.core.tree import tree_flatten
+    leaves = tree_flatten(grads)[0]
+    shapes, ref = want
+    if [tuple(t.shape) for t in leaves] != shapes:
+        return None
+    return [float(np.abs(g - w).max() / max(float(np.abs(w).max()), 1e-30))
+            for g, w in zip(grad_samples(leaves), ref)]
+
+
+def moe_run(cfg, label, work, *, steps, mesh=None, offload=False,
+            ep_axis=None, cap=1.25, probe=None):
+    """One MoE training run of phase 16 (or of `--kimi-4card`) in this
+    process: one device (`mesh` None) or this rank of `mesh`, sgd, B=1,
+    S=PAPER_SEQ, the jit engine keeping every layer, or with `offload`
+    spooling them into `work/label` (a directory every rank shares);
+    `ep_axis` and `cap` the expert-parallel path's axis and capacity
+    factor; `probe(grads, params)` is called on the first step's
+    gradients, before its update, and its result returned. Flash launches
+    and the rows the capacity drops (`moe.dropped_rows`) are set to 0
+    just before the steps and read just after. Returns losses, launches,
+    dropped rows, the tracked and device peaks, the shard totals over the
+    ranks, the bytes staged through host memory, the final parameters'
+    fingerprint and, with `offload`, what the dir holds after close."""
+    from repro_torch.configs import SpoolIoConfig
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import RunSettings
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.session import TrainSession
+    d = os.path.join(work, label)
+    io = SpoolIoConfig(backend="fs", directory=d, codec="raw",
+                       pool_bytes=POOL_BYTES,
+                       host_offload="activations") if offload else None
+    settings = RunSettings(
+        attn_impl="cuda", attn_chunk=256, param_dtype=cfg.dtype,
+        device="cuda", activation_policy="spool" if offload else "keep",
+        ep_axis=ep_axis, moe_capacity_factor=cap)
+    opt, probed = sgd(PAPER_LR), []
+    if probe is not None:
+        base = opt.update
+
+        def update(grads, state, params, **kw):
+            if not probed:
+                probed.append(probe(grads, params))
+            return base(grads, state, params, **kw)
+        opt = dataclasses.replace(opt, update=update)
+    t_wall = time.perf_counter()
+    sess = TrainSession(cfg, engine="jit", io=io, settings=settings,
+                        optimizer=opt, batch_size=1,
+                        seq_len=PAPER_SEQ, seed=0, device="cuda",
+                        attn_impl="cuda", mesh=mesh)
+    try:
+        sess.init()
+        flash_attention.launches = 0
+        moe.dropped_rows.reset()
+        t0 = time.perf_counter()
+        reps = sess.run(steps).reports
+        out = {"s": time.perf_counter() - t0,
+               "launches": flash_attention.launches,
+               "dropped": moe.dropped_rows.read(),
+               "losses": [r.loss for r in reps],
+               "aux": [(r.extra["moe_lb"], r.extra["moe_z"]) for r in reps],
+               "tracked": max(r.peak_activation_bytes for r in reps),
+               "device": max(r.extra["device_peak_bytes"] for r in reps),
+               "shards": sess.shard_totals() if mesh is not None else {},
+               "staged": sum(r.extra.get("comm_host_staged_bytes", 0)
+                             for r in reps),
+               "comm_s": sum(r.extra.get("comm_total_s", 0.0)
+                             for r in reps),
+               "backend": (reps[-1].extra.get("comm_backend")
+                           if mesh is not None else None),
+               "fp": bit_fingerprint(tree_flatten(sess.params)[0]),
+               "steps_s": [r.step_time for r in reps],
+               "probe": probed[0] if probed else None}
+    finally:
+        sess.close()      # on a mesh: after every rank's spool closed
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    if offload:
+        out["left"] = sorted(os.listdir(d))
+    out["wall"] = time.perf_counter() - t_wall
+    return out
+
+
+def pipe_run(pmesh):
+    """Phase 16 (f) on this rank of the ("pipe",) mesh: gpt-h8192 cut to
+    PIPE_LAYERS layers in f32 (random weights from seed 0, the same on
+    every rank), one layer a stage, PIPE_M microbatches of (1, PAPER_SEQ,
+    PAPER_HIDDEN) through `pipeline_apply` with the transformer block on
+    the flash kernel, and the loss sum(y * w) of a random w backward
+    through the pipeline's drain. Then the layers in sequence on
+    this rank, microbatch by microbatch: the reference. Returns the
+    errors, whether each is bitwise, the flash launches of the pipeline
+    run, its seconds and this stage's parameter gradients."""
+    from repro_torch.configs import gpt
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import (BlockDef, RunSettings,
+                                                apply_block, init_block,
+                                                layer)
+    from repro_torch.parallel.pipeline import pipeline_apply
+    cfg = dataclasses.replace(gpt(PAPER_HIDDEN, PIPE_LAYERS),
+                              dtype="float32")
+    settings = RunSettings(attn_impl="cuda", attn_chunk=256,
+                           param_dtype="float32", device="cuda")
+    bdef = BlockDef("attn")
+
+    def stage_fn(p, x):
+        return apply_block(bdef, p, x, cfg, settings)[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stacked = init_block(gen, bdef, cfg, torch.float32, PIPE_LAYERS)
+    x_mb = torch.randn((PIPE_M, 1, PAPER_SEQ, PAPER_HIDDEN), generator=gen,
+                       device="cuda")
+    w = torch.randn(x_mb.shape, generator=gen, device="cuda")
+    sid = pmesh.coords["pipe"]
+    leaves, tdef = tree_flatten(stacked)
+    leaves = [t.requires_grad_(True) for t in leaves]
+    tree = tree_unflatten(tdef, leaves)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    y_pipe = pipeline_apply(stage_fn, tree, x_mb, pmesh)
+    loss = (y_pipe * w).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    y_pipe = y_pipe.detach()
+    grads = [t.grad[sid].clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    # the reference: the layers in order on this rank
+    ys = []
+    for m in range(PIPE_M):
+        y = x_mb[m]
+        for s in range(PIPE_LAYERS):
+            y = stage_fn(layer(tree, s), y)
+        ys.append(y)
+    y_ref = torch.stack(ys)
+    loss_ref = (y_ref * w).sum()
+    loss_ref.backward()
+    out = {"s": run_s, "launches": launches,
+           "loss": loss.item(), "loss_ref": loss_ref.item()}
+    out["y_err"] = rel_err(y_pipe, y_ref)
+    out["y_bitwise"] = bool(torch.equal(y_pipe, y_ref))
+    errs = [rel_err(a, b.grad[sid]) for a, b in zip(grads, leaves)]
+    out["g_err"] = max(errs)
+    out["g_bitwise"] = all(torch.equal(a, b.grad[sid])
+                           for a, b in zip(grads, leaves))
+    del tree, ys, y_ref, y_pipe, stacked, leaves, x_mb, w
+    del loss, loss_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, grads
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|: an error on the tensor's own scale."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def comp_run(gmesh, grads):
+    """Phase 16 (g) on this rank of the ("data",) mesh: the compressed
+    and the exact dp mean of this rank's gradients (one gpt-h8192
+    layer's: its pipeline stage's from (f), so the ranks' differ), then
+    COMP_ROUNDS error-feedback rounds of the same gradients. Returns the
+    worst leaf's error of one round and of the rounds' mean, each over
+    the exact mean's largest magnitude, and the seconds."""
+    from repro_torch.parallel.compress import (compressed_mean_grads,
+                                               exact_mean_grads,
+                                               init_error_state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = exact_mean_grads(grads, gmesh, "data")
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comp, _ = compressed_mean_grads(grads, init_error_state(grads), gmesh,
+                                    "data")
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    rel = max(rel_err(c, e) for c, e in zip(comp, exact))
+    del comp
+    acc = [torch.zeros_like(g) for g in grads]
+    err = init_error_state(grads)
+    t0 = time.perf_counter()
+    for _ in range(COMP_ROUNDS):
+        c, err = compressed_mean_grads(grads, err, gmesh, "data")
+        for a, x in zip(acc, c):
+            a.add_(x, alpha=1.0 / COMP_ROUNDS)
+        del c
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    rel_acc = max(rel_err(a, e) for a, e in zip(acc, exact))
+    n = sum(g.numel() for g in grads)
+    del acc, err, exact
+    return {"rel": rel, "rel_acc": rel_acc, "exact_s": exact_s,
+            "comp_s": comp_s, "rounds_s": rounds_s, "elements": n,
+            "staged": gmesh.comm.host_staged_bytes}
+
+
+def _moe_rank(rank, port, work):
+    """One of phase 16's ranks: (b)-(e) on a 1x2 mesh, (f) on a ("pipe",)
+    mesh of 2, (g) on a ("data",) mesh of 2; its results (or its
+    traceback) pickled into `work`."""
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        from repro_torch.parallel.comm import init_mesh, single_node_gloo
+        single_node_gloo()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        deterministic()
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=MESH_RANKS)
+        mesh = init_mesh((1, MESH_RANKS), ("data", "model"), device="cuda")
+        res = {"describe": mesh.comm.describe()}
+        # (a) runs in the parent first: wait for it to end and give its
+        # memory back, as (a) and two ranks would not fit the card
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(os.path.join(work, "a_done")):
+            if time.perf_counter() > deadline:
+                raise RuntimeError("(a) did not end within 600 s")
+            time.sleep(0.05)
+        cfg = moe_cfg(MOE_ARCH, MOE_LAYERS, "float32")
+        full = cfg.moe_num_experts / cfg.moe_top_k
+        with open(os.path.join(work, "a_grads.pkl"), "rb") as f:
+            want = pickle.load(f)[rank]
+        for label, kw in (("b", dict(probe=lambda g, p: sample_errors(
+                                         g, want))),
+                          ("c", dict(offload=True)),
+                          ("d", dict(ep_axis="model", cap=full)),
+                          ("e", dict(ep_axis="model", cap=MOE_DROP_CAP)),
+                          ("e2", dict(ep_axis="model", cap=MOE_DROP_CAP,
+                                      offload=True))):
+            res[label] = moe_run(cfg, label, work, steps=MOE_STEPS,
+                                 mesh=mesh, **kw)
+        pmesh = init_mesh((MESH_RANKS,), ("pipe",), device="cuda")
+        res["f"], grads = pipe_run(pmesh)
+        gmesh = init_mesh((MESH_RANKS,), ("data",), device="cuda")
+        res["g"] = comp_run(gmesh, grads)
+        del grads
+        dist.destroy_process_group()
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def moe_phase(gen, peaks, smi):
+    """Phase 16 (see the module docstring). Returns the flash rows of its
+    shapes and the launches of its runs."""
+    import pickle
+    import socket
+    t_phase = time.perf_counter()
+    flash, _ = flash_registry_phase(gen, peaks, smi, cases=MOE_FLASH_CASES)
+    deterministic()
+    work = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    for sub in ("c", "e2"):
+        os.makedirs(os.path.join(work, sub))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    # the ranks start (CUDA, the process group) while (a) runs here; they
+    # allocate once (a) has ended
+    procs = torch.multiprocessing.start_processes(
+        _moe_rank, args=(port, work), nprocs=MESH_RANKS,
+        start_method="spawn", join=False)
+    try:
+        cfg = moe_cfg(MOE_ARCH, MOE_LAYERS, "float32")
+        a = moe_run(cfg, "a", work, steps=MOE_STEPS, probe=shard_samples)
+        with open(os.path.join(work, "a_grads.pkl"), "wb") as f:
+            pickle.dump(a["probe"], f)
+    finally:
+        open(os.path.join(work, "a_done"), "w").close()
+    try:
+        while not procs.join():
+            pass
+    except Exception as e:                    # noqa: BLE001
+        fail(f"moe: the {MESH_RANKS} ranks did not run: {e}")
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_RANKS):
+        path = os.path.join(work, f"rank{r}.pkl")
+        check(os.path.exists(path), f"moe: rank {r} reported nothing")
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+        check("error" not in ranks[r],
+              f"moe: rank {r} failed:\n{ranks[r].get('error')}")
+    shutil.rmtree(work, ignore_errors=True)
+    runs = ("b", "c", "d", "e", "e2")
+    print(f"moe: {MOE_ARCH} at {MOE_LAYERS} layer(s), f32, sgd, B=1, "
+          f"S={PAPER_SEQ}, {MOE_STEPS} steps; {ranks[0]['describe']}")
+    print(f"  (a) one device: losses {a['losses']} aux (moe_lb, moe_z) "
+          f"{a['aux']} device peak {a['device'] / 1e9:.2f} GB tracked "
+          f"{a['tracked'] / 1e9:.3f} GB ({a['s']:.1f}s of "
+          f"{a['wall']:.1f}s, steps {[round(x, 3) for x in a['steps_s']]})")
+    for r, res in enumerate(ranks):
+        for run in runs:
+            x = res[run]
+            print(f"  rank {r} ({run}): losses {x['losses']} dropped rows "
+                  f"{x['dropped']} device peak {x['device'] / 1e9:.2f} GB "
+                  f"tracked {x['tracked'] / 1e9:.3f} GB flash launches "
+                  f"{x['launches']} staged {x['staged'] / 1e9:.3f} GB "
+                  f"through host memory, {x['comm_s']:.1f}s in "
+                  f"collectives ({x['backend']}; {x['s']:.1f}s of "
+                  f"{x['wall']:.1f}s, steps "
+                  f"{[round(t, 3) for t in x['steps_s']]})")
+        ge = res["b"]["probe"]
+        print(f"  rank {r} (b) first-step gradients against (a)'s shards: "
+              + ("shapes differ" if ge is None else
+                 f"largest error {max(ge):.3e} over {len(ge)} leaves"))
+        f, g = res["f"], res["g"]
+        print(f"  rank {r} (f) pipeline: loss {f['loss']:.6f} (sequential "
+              f"{f['loss_ref']:.6f}), output error {f['y_err']:.3e} "
+              f"(bitwise {f['y_bitwise']}), its stage's gradients "
+              f"{f['g_err']:.3e} (bitwise {f['g_bitwise']}), flash "
+              f"launches {f['launches']}, {f['s']:.2f}s")
+        print(f"  rank {r} (g) compressed mean of {g['elements']} "
+              f"gradients: error {g['rel']:.3e} of the exact mean's scale "
+              f"(one round, {g['comp_s']:.2f}s; exact {g['exact_s']:.2f}s), "
+              f"{COMP_ROUNDS} rounds' mean {g['rel_acc']:.3e} "
+              f"({g['rounds_s']:.1f}s)")
+    print(f"  shards (c): {ranks[0]['c']['shards']}")
+    print(f"  shards (e2): {ranks[0]['e2']['shards']}")
+    n = MOE_LAYERS * MOE_STEPS
+    check(a["launches"] == n, f"moe (a): flash launches {a['launches']}")
+    check(a["dropped"] == 0, f"moe (a): {a['dropped']} rows dropped")
+    for r, res in enumerate(ranks):
+        for run in runs:
+            x = res[run]
+            check(all(math.isfinite(v) for v in x["losses"]),
+                  f"moe ({run}) rank {r}: non-finite loss")
+            check(x["launches"] == n, f"moe ({run}) rank {r}: flash "
+                  f"launches {x['launches']}, want {n}")
+            check(x["backend"] == "gloo", f"moe ({run}): backend "
+                  f"{x['backend']}")
+        check(np.allclose(res["b"]["losses"], a["losses"], rtol=TOL_MESH,
+                          atol=0.0),
+              f"moe (b) rank {r}: losses {res['b']['losses']} not within "
+              f"{TOL_MESH} of (a)'s {a['losses']}")
+        ge = res["b"]["probe"]
+        check(ge is not None, f"moe (b) rank {r}: its gradients' shards "
+              f"differ in shape from (a)'s cut by the specs")
+        check(max(ge) <= TOL_MESH, f"moe (b) rank {r}: first-step "
+              f"gradients {max(ge):.3e} from (a)'s shards (leaf "
+              f"{int(np.argmax(ge))} of {len(ge)}), bar {TOL_MESH}")
+        for run, want in (("c", "b"), ("d", "b"), ("e2", "e")):
+            check(res[run]["losses"] == res[want]["losses"]
+                  and res[run]["fp"] == res[want]["fp"],
+                  f"moe ({run}) rank {r}: losses {res[run]['losses']} or "
+                  f"parameters differ from ({want})'s "
+                  f"{res[want]['losses']}")
+        for run in ("b", "c", "d"):
+            check(res[run]["dropped"] == 0, f"moe ({run}) rank {r}: "
+                  f"{res[run]['dropped']} rows dropped")
+        for run in ("c", "e2"):
+            check(res[run]["left"] == [], f"moe ({run}): spool dir not "
+                  f"empty after close: {res[run]['left'][:4]}")
+        check(res["c"]["tracked"] < res["b"]["tracked"],
+              f"moe rank {r}: (c)'s tracked peak {res['c']['tracked']} not "
+              f"below (b)'s {res['b']['tracked']}")
+        f, g = res["f"], res["g"]
+        check(f["launches"] == PIPE_M, f"moe (f) rank {r}: flash launches "
+              f"{f['launches']}, want {PIPE_M}")
+        check(f["y_err"] <= TOL_PIPE_OUT, f"moe (f) rank {r}: pipeline "
+              f"output {f['y_err']} from the sequential layers, bar "
+              f"{TOL_PIPE_OUT}")
+        check(f["g_err"] <= TOL_PIPE_GRAD, f"moe (f) rank {r}: stage "
+              f"gradients {f['g_err']} from the sequential layers', bar "
+              f"{TOL_PIPE_GRAD}")
+        check(g["rel"] < TOL_COMP, f"moe (g) rank {r}: compressed mean "
+              f"{g['rel']} from the exact one, bar {TOL_COMP}")
+        check(g["rel_acc"] < g["rel"], f"moe (g) rank {r}: {COMP_ROUNDS} "
+              f"rounds' mean {g['rel_acc']} not nearer than one round's "
+              f"{g['rel']}")
+    for run in ("c", "e2"):
+        sh = ranks[0][run]["shards"]
+        check(sorted(sh) == ["0", "1"], f"moe ({run}): shards {sorted(sh)}")
+        for v in sh.values():
+            check(v["offloads"] == v["fetches"] == n
+                  and v["bytes_in"] == v["bytes_out"] > 0,
+                  f"moe ({run}): shard counts {v}")
+    dt = time.perf_counter() - t_phase
+    print(f"  moe: (b) within {TOL_MESH} of (a); (c) = (b), (d) = (b), "
+          f"(e2) = (e) bitwise (losses and parameters); (f) within "
+          f"{TOL_PIPE_OUT} / {TOL_PIPE_GRAD}; (g) within {TOL_COMP}, "
+          f"{COMP_ROUNDS} rounds nearer; shards exact; spool dirs empty; "
+          f"device peaks per rank (b) "
+          f"{[round(x['b']['device'] / 1e9, 2) for x in ranks]} GB, (c) "
+          f"{[round(x['c']['device'] / 1e9, 2) for x in ranks]} GB, (a) "
+          f"{a['device'] / 1e9:.2f} GB; (a) and the ranks {ranks_s:.1f}s, "
+          f"phase {dt:.1f}s on {smi}")
+    return flash, {"moe_rank_run": ranks[0]["b"]["launches"],
+                   "moe_one_device_run": a["launches"],
+                   "pipeline_rank_run": ranks[0]["f"]["launches"],
+                   "phase_s": dt}
+
+
+def _kimi_rank(rank, port, work):
+    """One of `--kimi-4card`'s ranks, on its own card over NCCL: kimi-k2
+    at full width cut to KIMI_LAYERS layers, bf16, on a 1xKIMI_RANKS mesh,
+    dropless and then with `ep_axis="model"` at MOE_DROP_CAP, each kept
+    and spooled; its results (or its traceback) pickled into `work`."""
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        from repro_torch.parallel.comm import init_mesh
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        deterministic()
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=KIMI_RANKS)
+        mesh = init_mesh((1, KIMI_RANKS), ("data", "model"), device="cuda")
+        res = {"describe": mesh.comm.describe()}
+        cfg = moe_cfg(KIMI_ARCH, KIMI_LAYERS, "bfloat16")
+        for label, kw in (("keep", {}), ("spool", dict(offload=True)),
+                          ("ep_keep", dict(ep_axis="model",
+                                           cap=MOE_DROP_CAP)),
+                          ("ep_spool", dict(ep_axis="model",
+                                            cap=MOE_DROP_CAP,
+                                            offload=True))):
+            res[label] = moe_run(cfg, label, work, steps=KIMI_STEPS,
+                                 mesh=mesh, **kw)
+        dist.destroy_process_group()
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def kimi_phase(smi):
+    """`--kimi-4card`: kimi-k2 on KIMI_RANKS cards (see `_kimi_rank`).
+    Each path kept = spooled bitwise (losses and parameters), the
+    dropless runs drop no row, a flash launch per layer a step, spool
+    dirs empty."""
+    import pickle
+    import socket
+    n_cards = torch.cuda.device_count()
+    check(n_cards >= KIMI_RANKS, f"--kimi-4card needs {KIMI_RANKS} cards, "
+          f"have {n_cards}")
+    t0 = time.perf_counter()
+    deterministic()
+    work = tempfile.mkdtemp(prefix="chip_smoke_kimi_")
+    for sub in ("spool", "ep_spool"):
+        os.makedirs(os.path.join(work, sub))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    try:
+        torch.multiprocessing.start_processes(
+            _kimi_rank, args=(port, work), nprocs=KIMI_RANKS,
+            start_method="spawn")
+    except Exception as e:                    # noqa: BLE001
+        fail(f"kimi: the {KIMI_RANKS} ranks did not run: {e}")
+    ranks = []
+    for r in range(KIMI_RANKS):
+        path = os.path.join(work, f"rank{r}.pkl")
+        check(os.path.exists(path), f"kimi: rank {r} reported nothing")
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+        check("error" not in ranks[r],
+              f"kimi: rank {r} failed:\n{ranks[r].get('error')}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"kimi: {KIMI_ARCH} at {KIMI_LAYERS} layers, bf16, sgd, B=1, "
+          f"S={PAPER_SEQ}, {KIMI_STEPS} steps; {ranks[0]['describe']}")
+    n = KIMI_LAYERS * KIMI_STEPS
+    for r, res in enumerate(ranks):
+        for run in ("keep", "spool", "ep_keep", "ep_spool"):
+            x = res[run]
+            print(f"  rank {r} ({run}): losses {x['losses']} aux "
+                  f"{x['aux']} dropped rows {x['dropped']} device peak "
+                  f"{x['device'] / 1e9:.2f} GB tracked "
+                  f"{x['tracked'] / 1e9:.3f} GB flash launches "
+                  f"{x['launches']}, {x['comm_s']:.1f}s in collectives "
+                  f"({x['backend']}; {x['s']:.1f}s of {x['wall']:.1f}s, "
+                  f"steps {[round(t, 3) for t in x['steps_s']]})")
+            check(all(math.isfinite(v) for v in x["losses"]),
+                  f"kimi ({run}) rank {r}: non-finite loss")
+            check(x["launches"] == n, f"kimi ({run}) rank {r}: flash "
+                  f"launches {x['launches']}, want {n}")
+            check(x["backend"] == "nccl", f"kimi ({run}): backend "
+                  f"{x['backend']}")
+        for a, b in (("spool", "keep"), ("ep_spool", "ep_keep")):
+            check(res[a]["losses"] == res[b]["losses"]
+                  and res[a]["fp"] == res[b]["fp"],
+                  f"kimi ({a}) rank {r}: losses {res[a]['losses']} or "
+                  f"parameters differ from ({b})'s {res[b]['losses']}")
+            check(res[a]["left"] == [], f"kimi ({a}): spool dir not empty")
+        check(res["keep"]["dropped"] == 0, f"kimi rank {r}: the dropless "
+              f"run dropped {res['keep']['dropped']} rows")
+    print(f"  kimi: kept = spooled bitwise on both paths; shards (spool) "
+          f"{ranks[0]['spool']['shards']}; device peaks per rank keep "
+          f"{[round(x['keep']['device'] / 1e9, 2) for x in ranks]} GB, "
+          f"spool {[round(x['spool']['device'] / 1e9, 2) for x in ranks]} "
+          f"GB; {time.perf_counter() - t0:.1f}s on {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3110,8 +3755,18 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--mesh-only" in sys.argv[1:]:
         # a short run for work on the meshes: no result line
+        t15 = time.perf_counter()
         mesh_phase(gen, peaks, smi)
-        print(f"chip_smoke --mesh-only: phase 15 passed in "
+        t16 = time.perf_counter()
+        moe_phase(gen, peaks, smi)
+        print(f"chip_smoke --mesh-only: phases 15 ({t16 - t15:.1f}s) and "
+              f"16 ({time.perf_counter() - t16:.1f}s) passed in "
+              f"{time.perf_counter() - T_START:.1f}s")
+        return 0
+    if "--kimi-4card" in sys.argv[1:]:
+        # kimi-k2 on four cards over NCCL: no result line
+        kimi_phase(smi)
+        print(f"chip_smoke --kimi-4card: passed in "
               f"{time.perf_counter() - T_START:.1f}s")
         return 0
 
@@ -3312,12 +3967,18 @@ def main():
 
     # ---- 15. meshes: 2 ranks on the one card over gloo
     mesh = mesh_phase(gen, peaks, smi)
+    t10 = time.perf_counter()
+
+    # ---- 16. expert parallelism, the pipeline and compression: 2 ranks
+    # on the one card over gloo
+    moe_flash, moe_launches = moe_phase(gen, peaks, smi)
     print(f"phase times: 13 the registry's archs {t8 - t7:.1f}s, 14 "
-          f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes "
-          f"{time.perf_counter() - t9:.1f}s; the script "
+          f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes {t10 - t9:.1f}s, "
+          f"16 expert parallelism, pipeline and compression "
+          f"{time.perf_counter() - t10:.1f}s; the script "
           f"{time.perf_counter() - T_START:.1f}s")
 
-    # ---- 16. result
+    # ---- 17. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -3413,6 +4074,27 @@ def main():
         "tp_local_library_ms": mesh["library_ms"],
         "tp_local_bound_ms": mesh["bound"][0],
         "tp_local_bound_by": mesh["bound"][1],
+        # phase 16: each rank's launches in a run of llama4-scout at one
+        # layer (2 steps) on the 1x2 mesh, (a)'s on one device, and a
+        # pipeline stage's (PIPE_M microbatches); the instances at
+        # llama4's one-device shape (f32, (a)'s) and tp=2 shape (f32),
+        # kimi's tp=4 shape (bf16, launched by --kimi-4card) and the
+        # pipeline stage's (f32)
+        "launches_per_moe_rank_run": moe_launches["moe_rank_run"],
+        "launches_per_moe_one_device_run": moe_launches[
+            "moe_one_device_run"],
+        "launches_per_pipeline_stage_run": moe_launches[
+            "pipeline_rank_run"],
+        **{f"{pre}_{k}": (moe_flash[label]["bound"][0] if k == "bound_ms"
+                          else moe_flash[label]["bound"][1]
+                          if k == "bound_by" else moe_flash[label][k])
+           for pre, label in (("llama4_one_device", "llama4 one device"),
+                              ("llama4_tp2", "llama4 tp=2"),
+                              ("kimi_tp4", "kimi tp=4"),
+                              ("pipe_stage", "pipeline stage"))
+           for k in ("max_abs_err", "max_row_rel_err", "ms",
+                     "ms_back_to_back", "plain_ms", "sdpa_ms",
+                     "library_ms", "bound_ms", "bound_by")},
         # the D=80 instance (hubert-xlarge, bidirectional): its worst
         # f32 and bf16 errors, and its time at hubert's shape
         "d80_f32_max_abs_err": d80["d80 f32"],

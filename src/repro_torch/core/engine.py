@@ -67,7 +67,12 @@ adds `MOE_LB_COEF * moe_lb + MOE_Z_COEF * moe_z`; under "jit" a layer
 stage with an MoE block returns that sum of its blocks beside its
 output, backward seeds it with 1 beside the carry, the step's loss adds
 every stage's term, and the report's `extra` carries `ce`, `moe_lb`
-and `moe_z` (summed over layers, averaged over microbatches).
+and `moe_z` (summed over layers, averaged over microbatches). On a
+mesh every rank's aux term is that of the global batch (the router's
+statistics are summed over the dp axes, `models/moe.py::_route`), whose
+backward leaves each rank the gradient of its own rows: its seed is the
+dp size, so the dp mean of the gradients is the term's gradient, and the
+report counts it once (`ce` is the dp mean of the ranks' CE).
 
 An embeddings-input model (hubert) takes `batch["embeddings"]` (float,
 moved to the device as it is) through the embed stage's
@@ -285,16 +290,16 @@ def _aux_term(aux) -> torch.Tensor:
     return MOE_LB_COEF * aux["moe_lb"] + MOE_Z_COEF * aux["moe_z"]
 
 
-def _stage_grad(out, term, inputs, carry):
+def _stage_grad(out, term, inputs, carry, aux_seed: float = 1.0):
     """Gradients of a stage's output (seeded with `carry`) and of its
-    MoE aux term (seeded with 1), with respect to `inputs` (none for
-    `vlm_enc`, where the chain ends)."""
+    MoE aux term (seeded with `aux_seed`), with respect to `inputs`
+    (none for `vlm_enc`, where the chain ends)."""
     if not inputs:
         return ()
     if term is None:
         return torch.autograd.grad(out, inputs, carry, allow_unused=True)
     return torch.autograd.grad((out, term), inputs,
-                               (carry, torch.ones_like(term)),
+                               (carry, torch.full_like(term, aux_seed)),
                                allow_unused=True)
 
 
@@ -333,6 +338,10 @@ class StagedEngine:
                 self._mesh, self.spool, io_config,
                 offloads=not isinstance(self.policy,
                                         (KeepPolicy, RecomputePolicy)))
+        # the MoE aux terms' seed: the dp mean of the gradients divides
+        # each rank's gradient of the global term by the dp size
+        self._aux_seed = (float(self._mesh.dp_size) if self._mesh is not None
+                          else 1.0)
         self._stages = self._build_stages()
         self._host = (_HostTier(self.spool.pool, self.tracker, self.device)
                       if self.policy.host_inputs else None)
@@ -576,6 +585,8 @@ class StagedEngine:
         extra = dict(counts)
         if mesh is not None:
             loss_total = mesh.mean_loss(loss_total)
+            if "ce" in extra:
+                extra["ce"] = mesh.mean_loss(extra["ce"])
             extra["comm_host_staged_bytes"] = (mesh.comm.host_staged_bytes
                                                - staged0)
             for k, v in mesh.comm.seconds.items():
@@ -754,7 +765,7 @@ class StagedEngine:
                 cells[si][:] = fetched
                 try:
                     got = _stage_grad(outs[si], terms.get(si), inputs,
-                                      carry)
+                                      carry, self._aux_seed)
                 finally:
                     cells[si].clear()
                 del fetched
@@ -781,7 +792,7 @@ class StagedEngine:
                     cells[si][:] = fetched
                     try:
                         got = _stage_grad(outs[si], terms.get(si), inputs,
-                                          carry)
+                                          carry, self._aux_seed)
                     finally:
                         # a backward that raises leaves its graph's saved
                         # tensors unpacked, and their unpack hook holds
@@ -869,7 +880,7 @@ class StagedEngine:
             if stage.aux:
                 out, aux = out
                 term = _aux_term(aux)
-            return _stage_grad(out, term, inputs, carry)
+            return _stage_grad(out, term, inputs, carry, self._aux_seed)
 
     def _add_grads(self, grads, params, stage, p_stage, got) -> None:
         """Write (or add, for later microbatches, and for the shared

@@ -102,14 +102,11 @@ def _zip_map(fn, tree, specs):
 
 
 def check_mesh_config(cfg) -> None:
-    """Refuse a config whose layers a mesh cannot run yet: the MoE FFN
-    (expert parallelism), mamba2, RG-LRU, encoder-decoder and vision
-    models, and embeddings inputs, wait for slice 12b. Never run them
-    unsharded in silence."""
+    """Refuse a config whose layers a mesh cannot run yet: mamba2, RG-LRU,
+    encoder-decoder and vision models, and embeddings inputs, wait for
+    slice 12b. Never run them unsharded in silence."""
     what = None
-    if cfg.moe_num_experts:
-        what = "an MoE FFN (expert parallelism)"
-    elif cfg.family == "ssm":
+    if cfg.family == "ssm":
         what = "mamba2 layers"
     elif cfg.hybrid_pattern:
         what = "RG-LRU layers"
@@ -122,8 +119,8 @@ def check_mesh_config(cfg) -> None:
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name} has {what}: meshes of it wait for slice 12b of "
-            f"the port (ROADMAP §1 item 12b); this slice runs dense "
-            f"attention + MLP decoders and encoders on a mesh")
+            f"the port (ROADMAP §1 item 12b); this slice runs attention "
+            f"decoders and encoders with dense or MoE MLPs on a mesh")
 
 
 #: backends whose blobs may sit in one process's memory: no other rank

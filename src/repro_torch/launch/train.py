@@ -74,6 +74,14 @@ host memory; `parallel/comm.py::backend_rule`):
       --arch small-gpt --steps 2 --batch 4 --seq 64 --min-offload 4096 \
       --host-offload activations
 
+MoE archs take a mesh too (each rank runs its experts of the "model"
+axis, dropless; the aux terms over the global batch), as JAX's CLI runs
+them, without an `ep_axis` flag:
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --device cpu --engine jit --mesh 1x2 \
+      --arch llama4-scout-17b-a16e:reduced --steps 2 --batch 2 --seq 32
+
 `--spool-no-dedupe` stores one copy per rank, not one per replica group.
 A mesh whose size is not the world's, or one under `--engine staged`, is
 refused, as the JAX CLI refuses it.

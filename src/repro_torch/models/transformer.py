@@ -146,8 +146,9 @@ class RunSettings:
     # longer), so the (B, S, V) f32 logits never exist; backward
     # recomputes one chunk's logits at a time. 0 = off
     ce_chunk: int = 0
-    # the JAX package's EP capacity factor; the port's local MoE path is
-    # dropless and does not read it (as JAX's local path does not)
+    # the expert-parallel capacity factor (`ep_axis` only: the local MoE
+    # path and a mesh without `ep_axis` are dropless and do not read it,
+    # as JAX's do not)
     moe_capacity_factor: float = 1.25
     # this rank's mesh (`parallel/mesh.py`, with its `comm`) and the
     # roles of its axes: blocks split heads and d_ff over `tp_axis`, the
@@ -155,6 +156,10 @@ class RunSettings:
     mesh: Any = None
     tp_axis: Optional[str] = None
     dp_axes: Tuple[str, ...] = ()
+    # the expert-parallel axis: the MoE FFN's GShard capacity path
+    # (`models/moe.py`); it must be the axis that splits the experts,
+    # `tp_axis` ("model")
+    ep_axis: Optional[str] = None
 
 
 # ====================================================================
@@ -281,30 +286,40 @@ def _out_proj(o, wo):
     return o.flatten(-2) @ wo.reshape(H * K, D)
 
 
+def _parallel_mlp(p, h, act: str, glu: bool, tp=None):
+    """A dense MLP, column- then row-parallel under a tensor axis `tp`
+    (this rank's share of d_ff, the output summed over the axis)."""
+    if tp is None:
+        return apply_mlp(p, h, act, glu)
+    return tp.reduce(apply_mlp(p, tp.enter(h), act, glu))
+
+
 def _mlp_sublayer(bdef: BlockDef, p, x, cfg: ModelConfig,
-                  aux: Optional[Dict] = None, tp=None):
+                  aux: Optional[Dict] = None, tp=None,
+                  settings: Optional[RunSettings] = None):
     """x + MLP(rms_norm(x)) after a mixer whose block has an MLP: dense,
     or MoE (plus the shared expert), whose aux losses add into `aux`
     when given; the MLP's output normed first with `post_block_norm`.
-    Under a tensor axis `tp` the dense MLP is column- then row-parallel
-    (this rank's share of d_ff)."""
+    Under a tensor axis `tp` the dense MLP and the shared expert are
+    column- then row-parallel, and the MoE FFN runs this rank's experts
+    (`models/moe.py`) on `settings`' mesh."""
     if bdef.mlp is None:
         return x
     h = rms_norm(x, p["mlp_norm"]["scale"], cfg.norm_eps)
     if bdef.mlp == "dense":
-        if tp is not None:
-            h = tp.enter(h)
-        m = apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_glu)
-        if tp is not None:
-            m = tp.reduce(m)
+        m = _parallel_mlp(p["mlp"], h, cfg.act, cfg.mlp_glu, tp)
     else:
-        m, moe_aux = apply_moe(p["moe"], h, MoESettings(
-            cfg.moe_num_experts, cfg.moe_top_k, act=cfg.act))
+        s = settings or RunSettings()
+        m, moe_aux = apply_moe(
+            p["moe"], h, MoESettings(cfg.moe_num_experts, cfg.moe_top_k,
+                                     s.moe_capacity_factor, cfg.act),
+            mesh=s.mesh, ep_axis=s.ep_axis, dp_axes=s.dp_axes,
+            tp_axis=s.tp_axis)
         if aux is not None:
             for k, v in moe_aux.items():
                 aux[k] = aux[k] + v if k in aux else v
         if "moe_shared" in p:
-            m = m + apply_mlp(p["moe_shared"], h, cfg.act, True)
+            m = m + _parallel_mlp(p["moe_shared"], h, cfg.act, True, tp)
     return x + _post_norm(m, p, "mlp_post_norm", cfg)
 
 
@@ -327,14 +342,14 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
     With a tensor axis in `settings` (`parallel/comm.py::tp_group`) the
     parameters are this rank's shards: an attention block runs on its
     query heads (Megatron: column-parallel q/k/v, row-parallel wo, the
-    output all-reduced), and its dense MLP likewise; the other mixers
-    and the MoE FFN wait for slice 12b (the engine refuses them)."""
+    output all-reduced), its dense MLP and shared expert likewise, and
+    its MoE FFN on this rank's experts; the other mixers wait for slice
+    12b (the engine refuses them)."""
     tp = tp_group(settings)
-    if tp is not None and (bdef.mixer != "attn"
-                           or bdef.mlp not in (None, "dense")):
+    if tp is not None and bdef.mixer != "attn":
         raise NotImplementedError(
-            f"a tensor axis over a {bdef.mixer} block with a {bdef.mlp} "
-            f"MLP waits for slice 12b")
+            f"a tensor axis over a {bdef.mixer} block waits for slice "
+            f"12b")
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     if bdef.mixer == "cross":
         # each cross block projects its own K/V from the encoder states;
@@ -362,7 +377,7 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
         if tp is not None:
             mix = tp.reduce(mix)
     x = x + _post_norm(mix, p, "post_norm", cfg)
-    return _mlp_sublayer(bdef, p, x, cfg, aux, tp), cache
+    return _mlp_sublayer(bdef, p, x, cfg, aux, tp, settings), cache
 
 
 # ====================================================================

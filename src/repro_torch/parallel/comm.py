@@ -33,7 +33,15 @@ The Functions a tensor-parallel block runs (Megatron's pair, on the
     the axis splits;
   * `vocab_parallel_ce`: the mean cross-entropy over a vocab split across
     the axis (global max, sum of exponentials and picked logit by
-    all-reduce).
+    all-reduce);
+  * `sum_over(t, comm, axes)`: all-reduce forward, identity backward,
+    over any axes; the MoE router's dp-global statistics
+    (`models/moe.py::_route`).
+
+Point to point (`Comm.send` / `Comm.recv`, one axis, the peer named by
+its index on that axis) and `Comm.broadcast` carry the pipeline's
+activations (`parallel/pipeline.py`): host-staged under gloo, direct
+under NCCL.
 
 Which saved tensors are identical across the axis: a stage's forward
 runs inside `save_scope()`. Between `reduce` (and the stage's start)
@@ -290,6 +298,66 @@ class Comm:
         dist.all_gather_object(out, obj, group=pgs[0])
         return [out[p] for p in pos]
 
+    def _peer(self, axis: str, index: int) -> Tuple[Any, int]:
+        """(the axis group's first channel, the global rank at `index` on
+        `axis` with this rank's other coordinates)."""
+        pgs = self._groups[self._canon((axis,))]
+        return pgs[0], self.mesh.group_ranks((axis,))[index]
+
+    def send(self, t: torch.Tensor, axis: str, to: int) -> None:
+        """Send `t` to the member at index `to` on `axis` (blocking; the
+        receiver posts a `recv` of the same shape and dtype)."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        pg, dst = self._peer(axis, to)
+        dist.send(self._out(t), dst=dst, group=pg)
+        self.seconds["total"] += time.perf_counter() - t0
+
+    def recv(self, shape, dtype, device, axis: str, frm: int
+             ) -> torch.Tensor:
+        """The tensor the member at index `frm` on `axis` sends, on
+        `device`."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        pg, src = self._peer(axis, frm)
+        staged = self.host_staged and torch.device(device).type == "cuda"
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if staged else device,
+                          pin_memory=staged)
+        dist.recv(buf, src=src, group=pg)
+        if staged:
+            self.host_staged_bytes += buf.numel() * buf.element_size()
+            buf = buf.to(device)
+        self.seconds["total"] += time.perf_counter() - t0
+        return buf
+
+    def broadcast(self, t: Optional[torch.Tensor], axis: str, src: int, *,
+                  shape=None, dtype=None, device=None) -> torch.Tensor:
+        """The member at index `src` on `axis` sends `t`; every member
+        returns it (the others pass None with its shape, dtype and
+        device)."""
+        import torch.distributed as dist
+        if self.mesh.shape[axis] == 1:
+            return t
+        t0 = time.perf_counter()
+        pg, root = self._peer(axis, src)
+        if self.mesh.coords[axis] == src:
+            buf = self._out(t)
+            out = t
+        else:
+            staged = self.host_staged and torch.device(device).type == "cuda"
+            buf = torch.empty(tuple(shape), dtype=dtype,
+                              device="cpu" if staged else device,
+                              pin_memory=staged)
+            out = None
+        dist.broadcast(buf, src=root, group=pg)
+        if out is None:
+            if buf.device != torch.device(device):
+                self.host_staged_bytes += buf.numel() * buf.element_size()
+            out = buf.to(device)
+        self.seconds["total"] += time.perf_counter() - t0
+        return out
+
     def barrier(self, axes=None) -> None:
         self.gather_objects(None, axes)
 
@@ -391,8 +459,14 @@ def _set_region(region: str, marked: Optional[torch.Tensor] = None):
         return
     sc.region = region
     if marked is not None:
-        sc.refs.append(marked)
-        sc.ptrs.add(marked.untyped_storage().data_ptr())
+        _mark_replicated(marked)
+
+
+def _mark_replicated(t: torch.Tensor) -> None:
+    sc = getattr(_SCOPE, "cur", None)
+    if sc is not None:
+        sc.refs.append(t)
+        sc.ptrs.add(t.untyped_storage().data_ptr())
 
 
 class _CopyToTp(torch.autograd.Function):
@@ -446,6 +520,9 @@ class TpGroup:
         return out
 
     def grad_sum(self, w: torch.Tensor) -> torch.Tensor:
+        """A value replicated over the axis that a parallel region reads
+        (its storage is marked replicated for the pack hook)."""
+        _mark_replicated(w)
         return _CopyToTp.apply(w, self)
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -469,14 +546,40 @@ class TpGroup:
 def tp_group(settings) -> Optional[TpGroup]:
     """The tensor axis of `settings` (RunSettings with `mesh` and
     `tp_axis`), or None when the run has none (or it has one rank)."""
-    mesh = getattr(settings, "mesh", None)
-    axis = getattr(settings, "tp_axis", None)
+    return axis_group(getattr(settings, "mesh", None),
+                      getattr(settings, "tp_axis", None))
+
+
+def axis_group(mesh, axis: Optional[str]) -> Optional[TpGroup]:
+    """`axis` of `mesh` as a block sees a tensor axis (one per mesh and
+    axis), or None for no mesh, no axis or an axis of one rank."""
     if mesh is None or axis is None or mesh.shape.get(axis, 1) <= 1:
         return None
     cache = mesh.__dict__.setdefault("_tp_groups", {})
     if axis not in cache:
         cache[axis] = TpGroup(mesh.comm, axis)
     return cache[axis]
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, axes):
+        return comm.all_reduce_sum(t, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(t: torch.Tensor, comm: Comm, axes) -> torch.Tensor:
+    """`t` summed over the members of `axes` in index order (the same
+    bits on every member). The backward is the identity: each member's
+    gradient is that of its own term, and a caller whose gradients are
+    then averaged over `axes` scales its seed by their size (the
+    engine's MoE aux terms, `core/engine.py`)."""
+    if comm.size(axes) == 1:
+        return t
+    return _SumOver.apply(t, comm, tuple(axes))
 
 
 # ====================================================================
@@ -541,7 +644,8 @@ def vocab_parallel_ce(z, labels, tp: TpGroup):
     return _VocabParallelCE.apply(z, labels, tp)
 
 
-__all__ = ["Comm", "TpGroup", "backend_rule", "init_mesh", "mesh_from_arg",
-           "rank_device", "save_scope", "saved_replicated", "tp_group",
+__all__ = ["Comm", "TpGroup", "axis_group", "backend_rule", "init_mesh",
+           "mesh_from_arg", "rank_device", "save_scope", "saved_replicated",
+           "sum_over", "tp_group",
            "vocab_parallel_ce", "vocab_parallel_dlogits",
            "vocab_parallel_terms"]

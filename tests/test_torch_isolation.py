@@ -54,5 +54,6 @@ def test_port_imports_without_jax_or_the_jax_package():
                    "resilience.health", "resilience.chaos", "io.bufpool",
                    "io.aio", "io.faults", "io.factory", "cache.placement",
                    "cache.manager", "launch.cacheargs", "optim.overlap",
-                   "launch.steps"):
+                   "launch.steps", "parallel.pipeline",
+                   "parallel.compress"):
         assert f"repro_torch.{module}" in names, module

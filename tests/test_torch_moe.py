@@ -14,7 +14,9 @@ at JAX's `reduced(...)`) against the JAX package's local dropless path.
     metric rows).
   * Inside the port: keep = spool bitwise under both names, the
     dispatch adds into no buffer (no `index_add_` / `scatter_add_`), a
-    mesh is refused, and the exact residual counter runs the MoE layer
+    mesh whose expert axis does not divide the experts is refused (the
+    mesh paths are in `tests/test_torch_mesh_moe.py`), and the exact
+    residual counter runs the MoE layer
     on the meta device and equals the engine's layer bytes.
 """
 import dataclasses
@@ -164,8 +166,36 @@ def test_dispatch_adds_into_no_buffer_and_refuses_a_mesh(monkeypatch):
     (y.square().sum() + aux["moe_lb"]).backward()
     monkeypatch.undo()
     assert x.grad is not None and params["w_in"].grad.abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.apply_moe(params, x, ts, mesh=object())
+    # a mesh whose expert axis does not divide the experts
+    from repro_torch.parallel.mesh import make_test_mesh
+    with pytest.raises(ValueError, match="do not split"):
+        moe.apply_moe(params, x, ts, mesh=make_test_mesh((1, 3)),
+                      ep_axis="model")
+
+
+@pytest.mark.parametrize("cap", [0.5, 8.0])
+def test_dropped_rows_counts_what_the_capacity_drops(cap):
+    """`moe.dropped_rows` adds, per forward, the assignments ranked at or
+    past the capacity C: over the experts, max(0, rows routed - C)."""
+    from repro_torch.parallel.mesh import make_test_mesh
+    cfg, p = _moe_params("llama4-scout-17b-a16e")
+    _, ts = _moe_settings(cfg)
+    ts = dataclasses.replace(ts, capacity_factor=cap)
+    params = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32))
+    E, k = ts.num_experts, ts.top_k
+    C = int(np.ceil(B * S * k / E * cap))
+    eids, _, _ = moe._route(x.reshape(-1, cfg.d_model), params["router"], ts)
+    counts = np.bincount(eids.numpy().reshape(-1), minlength=E)
+    want = int(np.maximum(counts - C, 0).sum())
+    moe.dropped_rows.reset()
+    moe.apply_moe(params, x, ts, mesh=make_test_mesh((1, 1)),
+                  ep_axis="model")
+    assert moe.dropped_rows.read() == want
+    assert (want > 0) == (cap < 1.0)
+    moe.apply_moe(params, x, ts)                  # dropless: adds 0
+    assert moe.dropped_rows.read() == want
 
 
 @pytest.mark.parametrize("arch", ARCHS)
