@@ -36,8 +36,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      must be bitwise equal, every evicted page restored, the spool
      directory empty after close, and the kernel launched once per
      layer per prefill in the paged run;
-  5. train: mamba2-2.7b at full width (64 layers, random weights from
-     seed 0) through `repro_torch.session.TrainSession`, adamw, B=1,
+  5. train: mamba2-2.7b at full width cut to 32 of its 64 layers
+     (random weights from seed 0) through `repro_torch.session.TrainSession`, adamw, B=1,
      S=1024, 3 steps on the SSD-scan kernel, once with every residual
      kept on the card and once spooled to a fresh directory (fs, raw).
      Losses and final parameters must be bitwise equal, the spool run's
@@ -52,12 +52,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
      both ways on the card); each adaptive plan is the one the paper's
      rule gives for the profiled stages and the calibrated write rate,
      and its steps read blobs back where it stores bytes;
-  7. train: recurrentgemma-9b at full width (38 layers: 12 super-layers
-     of rglru, rglru, local attention and a remainder of two rglru
-     blocks; random weights from seed 0) through `TrainSession`, sgd
-     (lr 3e-4, no momentum, clip 1.0), B=1, S=2048, 3 steps on the
+  7. train: recurrentgemma-9b at full width cut to 26 of its 38 layers
+     (8 super-layers of rglru, rglru, local attention and a remainder of
+     two rglru blocks; random weights from seed 0) through
+     `TrainSession`, sgd
+     (lr 3e-4, no momentum, clip 1.0), B=1, S=2048, 2 steps on the
      RG-LRU and flash kernels, kept and spooled (fs, raw). The checks of
-     phase 5, with the stage count taken from the engine (15 stages),
+     phase 5, with the stage count taken from the engine (11 stages),
      and the RG-LRU kernel launched once per rglru block per step in
      forward and once in backward, the flash kernel once per attention
      block per step;
@@ -120,7 +121,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      aligned and unaligned offsets are printed beside torch's pinned
      memory's;
  11. the optimizer state and the jit engine on the paper's GPT cut to
-     2 layers (gpt-h8192-l2, random weights from seed 0, adamw with lr
+     1 layer (gpt-h8192-l1, random weights from seed 0, adamw with lr
      3e-4 and no clipping, B=4, S=1024, fs, raw, traced without a
      file), 2 steps: (a) the
      staged engine, KeepPolicy, the fused update (the reference); (b)
@@ -135,9 +136,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      to (a)'s ((e)'s too), and the parameters' and moments' (`materialize()`)
      fingerprints (two 64-bit weighted sums of their bits, on the card:
      a host copy of a 32 GB state per run does not fit beside the
-     spool's pool) equal to (a)'s after as many steps; 2 flash launches
+     spool's pool) equal to (a)'s after as many steps; a flash launch
      a step; moments fetched in step 2; the spool dirs empty after
-     close; (c)'s device peak at least 6.44 GB (half the layers' 12.88
+     close; (c)'s device peak at least 3.22 GB (half the layer's 6.44
      GB of moments) below (a)'s. Each run prints its step times, device
      peak, `opt_updates`, fetched / staged / skipped bytes,
      `opt_io_busy_s`, `opt_exposed_wait_s`, `opt_hidden_frac`, its
@@ -169,7 +170,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      full width cut to 4 layers (2 local/global pairs: window 4096,
      softcap 50, post-block norms; B=2), (c) hubert-xlarge at full width
      and depth (48 bidirectional layers of 16 heads of 80, frame
-     embeddings from a seeded generator through `loader`, B=2), (d)
+     embeddings from a seeded generator through `loader`, B=2; in f32,
+     its keep run phase 17's one-device reference), (d)
      llama4-scout-17b-a16e at full width cut to 2 layers (16 experts
      top-1 plus a shared one, GQA 40/8, B=8); (b) and (d) spool through
      `drained_spool_policy` (REG_TRAIN says why). Each: losses and final
@@ -216,20 +218,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (b) a 1x2 mesh (tp=2), keep; (c) 1x2, the layers spooled; (d) (c)
      again; (e) 1x2 with hooks and model over dp only (the model axis
      one replica group, replica dedup across the two processes); (f)
-     (e) without dedup; (g) a 2x1 mesh (dp=2, fsdp + ZeRO-1), keep.
-     (b) and (g) within 1e-4 of (a); (c) = (b), (d) = (c), and (e) =
-     (a) and (f) = (e), bitwise ((e) runs (a)'s computation on each
-     rank: tp=None replicates the model); (c)'s shards 0 and 1 each with
-     4 offloads and fetches and bytes in = out; (e) shard 0 only, 4
-     offloads, 8 fetches, 4 replica skips, half the bytes handed to
-     the spool of (f); every spool dir empty; 4 flash launches per rank
-     and run; each rank's tracked activation peak lower in (c) than in
-     (b). The flash kernel at the tp-local shape (2, 1024, 32, 128), in
-     f32 (the path's) and bf16, against its plain version at phase 3's
-     bars, with its times. Prints each rank's device peaks beside
-     (a)'s, the backend and the bytes staged through host memory, and
-     the phase's time. `python3 chip_smoke.py --mesh-only` runs phases
-     1-3's device line and build, then this phase and phase 16;
+     (e) without dedup; (h) 1x2 with adamw (lr 3e-4, no clipping), keep,
+     the fused update on each rank's ZeRO-1 shards; (i) (h) with the
+     optimizer overlap (each layer updated as its gradient shards land,
+     its moments on each rank's spool, leases `opt{step}L{stage}/s{rank}`
+     in the shared dir); (g) a 2x1 mesh (dp=2, fsdp + ZeRO-1), keep,
+     that starts from the checkpoint (b) wrote after step 1 (the logical
+     arrays, gathered over the ranks and written by rank 0; each (g)
+     rank restores its shards in place) and runs step 2. (b) and (g)
+     within 1e-4 of (a) ((g)'s step-2 loss against (a)'s); (c) = (b),
+     (d) = (c), (i) = (h) (losses, final parameters and the moments'
+     fingerprints), and (e) = (a) and (f) = (e), bitwise ((e) runs (a)'s
+     computation on each rank: tp=None replicates the model); (c)'s
+     shards 0 and 1 each with 4 offloads and fetches and bytes in = out;
+     (e) shard 0 only, 4 offloads, 8 fetches, 4 replica skips, half the
+     bytes handed to the spool of (f); every spool dir empty and the
+     checkpoint dir removed; 4 flash launches per rank and run (2 in
+     (g)); each rank's tracked activation peak lower in (c) than in (b).
+     The flash kernel at the tp-local shape (2, 1024, 32, 128), in f32
+     (the path's) and bf16, against its plain version at phase 3's bars,
+     with its times. Prints each rank's device peaks beside (a)'s, the
+     backend and the bytes staged through host memory, the checkpoint's
+     bytes, save and restore seconds, and the phase's time. `python3
+     chip_smoke.py --mesh-only` runs phases 1-3's device line and build,
+     then this phase and phases 16 and 17;
  16. expert parallelism, the GPipe pipeline and the int8 compressed dp
      mean (slice 12b part 1): llama4-scout-17b-a16e at full width (40/8
      heads of 128, 16 experts of 5120 -> 8192 top-1 and the shared
@@ -269,7 +281,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      B=1, S=1024, 3 steps, on a 1x4 mesh over NCCL, one rank a card:
      dropless and at `ep_axis="model"` capacity factor 1.25, each kept
      and spooled, bitwise;
- 17. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 17. hubert and llama-3.2-vision on a mesh (slice 12b part 2), sgd (lr
+     3e-4), S=1024, 2 steps, the jit engine, each (b) kept and (c)
+     spooled (fs, one dir the ranks share) on a 1x2 mesh of 2 ranks
+     sharing cuda:0 over gloo: hubert-xlarge at full width and depth (48
+     layers, 8 of 16 heads of 80 a rank, `frontend_proj` column-parallel
+     with its width gathered), f32, B=2, its (a) phase 13's keep run;
+     llama-3.2-vision-90b at full width cut to one period (5 layers: four
+     self-attention blocks and a cross block over the 1024 patch
+     embeddings, column-parallel q/k/v and row-parallel wo; 6.4 B
+     parameters), bf16, B=1, its (a) one device, keep, in this process,
+     ended before the ranks allocate. hubert's (b) within 1e-4 of (a) and
+     each rank's tracked activation peak lower in (c); both families (c)
+     = (b) in losses and parameters' fingerprints, each shard storing and
+     fetching every layer stage once a step, spool dirs empty, and one
+     flash launch per attention block per step (96 a rank a run for
+     hubert, 10 for vision: 4 self, 1 cross a step); the vision model's
+     one-device losses printed beside the mesh's (bf16 sums in another
+     order: no bar). Phase 3's table gains the flash kernel at hubert's
+     one-device f32 shape (2, 1024, 16, 80) and its tp=2 rank's (2, 1024,
+     8, 80) f32, and at a vision tp=2 rank's (1, 1024, 32/4, 128) bf16,
+     causal and not, each against its plain version with its times;
+ 18. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -348,6 +381,9 @@ TOL_SSD_PATH = 1e-5
 # or two bf16 roundings (2**-7 relative) of the output's scale
 TOL_LAYER = 2 ** -6
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ = "mamba2-2.7b", 3, 1024
+# phase 7's steps, cut from TRAIN_STEPS to make room for phase 17 (its
+# checks hold at any step count; the launches scale with it)
+RG_STEPS = 2
 # phase 6's depth (8 until PR 21; cut to 4 in PR 22 to make room for
 # phase 13, and to 2 in PR 25 after the whole script took 1174 s of its
 # 1200 on an H100 80GB HBM3 at 700 W; its bounds scale with it)
@@ -367,6 +403,12 @@ FLASH_D256_CASES = [
     (1, 512, 16, 1, 256, True, 128, torch.float32, TOL_F32),
 ]
 RG_ARCH, RG_SEQ, RG_LR, RG_CLIP = "recurrentgemma-9b", 2048, 3e-4, 1.0
+# phases 5 and 7 train at full width cut in depth (to make room for
+# phases 15 and 17, after the whole script took 1131.7 s of its 1200 on
+# an H100 80GB HBM3 at 700 W): mamba2-2.7b to TRAIN_LAYERS of its 64
+# layers, recurrentgemma-9b to RG_LAYERS of its 38 (8 super-layers and
+# the remainder of two rglru blocks); their checks scale with the depth
+TRAIN_LAYERS, RG_LAYERS = 32, 26
 # the paper's GPT, BERT and T5 at its first scenario (§4.2): hidden 8192,
 # 4 layers, S=1024, sgd without momentum; B=4 keeps the phase short (the
 # paper's micro-batch of 16 runs in benchmarks/torch_fig10.py --paper).
@@ -387,14 +429,14 @@ POOL_BYTES = 6 << 30
 # phase 10: the managed backend's host bound, below one step's offload
 # (~5 GB at B=4), so blobs are demoted to the SSD tier
 STORAGE_HOST_BOUND = "2gb"
-# phase 11: adamw on the paper's GPT cut to OPT_LAYERS layers (4 until
-# PR 22; cut to 2 to make room for phase 13); (e), the sync drain, runs 2
-# steps. (c)'s device peak must fall by half the layers' moments
-# (OPT_DROP_GB: 2 layers of 12 * 8192**2 parameters, m and v in f32,
-# halved: 6.44 GB), so a design that holds both layers' moments on the
-# card at once fails. (b) can have two state blobs on disk at once (2.44 B
-# parameters' f32 moments, 19.5 GB each): OPT_FREE_GB of free space
-OPT_LAYERS = 2
+# phase 11: adamw on the paper's GPT cut to OPT_LAYERS layers (4 at
+# first; cut to 2 to make room for phase 13, and to 1 to make room for
+# phases 15 and 17); (e), the sync drain, runs 2 steps. (c)'s
+# device peak must fall by half the layers' moments (OPT_DROP_GB: a
+# layer of 12 * 8192**2 parameters, m and v in f32, halved: 3.22 GB), so
+# a design that holds a whole layer's moments on the card at once fails.
+# (b) can have two state blobs on disk at once: OPT_FREE_GB of free space
+OPT_LAYERS = 1
 # 2 steps (3 took 250 s on an H100 80GB HBM3 at 700 W with the spool on
 # 9p; cut to make room for phase 16): (e) then runs as many as the
 # others, and its parameters are held to (a)'s too
@@ -420,7 +462,7 @@ TOL_E2E_F32 = 5e-3
 REST_SERVE = dict(requests=8, slots=4, prompt_len=48, max_new=16,
                   cache_len=64, page_tokens=16, quantum=4)
 SERVE_EXTRA = (37, 200)
-OPT_DROP_GB = 6.44
+OPT_DROP_GB = 3.22
 # phase 13: the registry's archs, (arch, layers (None: the config's),
 # batch), sgd without momentum at PAPER_LR, S=1024, REG_STEPS steps;
 # then the serving trace of phase 12 on REG_SERVE at full width. The runs
@@ -437,6 +479,9 @@ OPT_DROP_GB = 6.44
 # other layer's activations (1.4 GB a sample), is the higher
 REG_TRAIN = [("qwen2.5-3b", None, 1), ("gemma2-27b", 4, 2),
              ("hubert-xlarge", None, 2), ("llama4-scout-17b-a16e", 2, 8)]
+# phase 13 trains these in f32: hubert-xlarge's keep run is then phase
+# 17's one-device reference (a), which phase 17 need not run again
+REG_F32 = ("hubert-xlarge",)
 REG_SEQ = 1024
 # the steps of phase 13's runs, cut from 3 to make room for phase 16 (its
 # checks hold at any step count; the launches scale with it)
@@ -453,6 +498,8 @@ REG_FLASH_CASES = [
      TOL_BF16_ROW),
     ("hubert-xlarge", (2, 1024, 1024, 16, 16, 80, False, 0, 0.0),
      torch.bfloat16, TOL_BF16_ROW),
+    ("hubert-xlarge f32", (2, 1024, 1024, 16, 16, 80, False, 0, 0.0),
+     torch.float32, TOL_F32),
     ("qwen2.5-3b", (1, 1024, 1024, 16, 2, 128, True, 0, 0.0),
      torch.bfloat16, TOL_BF16_ROW),
     ("llama4-scout", (1, 1024, 1024, 40, 8, 128, True, 0, 0.0),
@@ -542,6 +589,29 @@ MOE_FLASH_CASES = [
      torch.bfloat16, TOL_BF16_ROW),
     ("pipeline stage", (1, 1024, 1024, 64, 64, 128, True, 0, 0.0),
      torch.float32, TOL_F32),
+]
+# phase 17: the families on a 1x2 mesh of MESH_RANKS ranks sharing the
+# card over gloo, sgd at PAPER_LR, S=REG_SEQ, MESH_STEPS steps (phase 13's
+# REG_STEPS): hubert-xlarge at full width and depth in f32 (phase 13's
+# keep run, in f32 too, is its one-device (a)), and llama-3.2-vision-90b
+# at full width cut to one period (FAMILY_VISION_LAYERS layers: four
+# self-attention blocks and a cross block, 6.4 B parameters) in bf16 (in
+# f32 two ranks' parameters, gradients and the update's copies do not
+# fit on one card)
+FAMILY_HUBERT, FAMILY_VISION = "hubert-xlarge", "llama-3.2-vision-90b"
+FAMILY_VISION_LAYERS = 5
+FAMILY_BATCH = {FAMILY_HUBERT: 2, FAMILY_VISION: 1}
+# phase 17's flash instances, a tp=2 rank's shapes: hubert's 8 of 16
+# heads of 80 (f32, bidirectional), the vision model's 32 of 64 query
+# and 4 of 8 kv heads of 128 (bf16), causal self-attention and the cross
+# block's attention over the 1024 patch embeddings
+FAMILY_FLASH_CASES = [
+    ("hubert tp=2", (2, 1024, 1024, 8, 8, 80, False, 0, 0.0),
+     torch.float32, TOL_F32),
+    ("vision self tp=2", (1, 1024, 1024, 32, 4, 128, True, 0, 0.0),
+     torch.bfloat16, TOL_BF16_ROW),
+    ("vision cross tp=2", (1, 1024, 1024, 32, 4, 128, False, 0, 0.0),
+     torch.bfloat16, TOL_BF16_ROW),
 ]
 
 PEAKS = {
@@ -1193,6 +1263,29 @@ def drained_spool_policy():
     return DrainedSpoolPolicy()
 
 
+def drained_adaptive_policy():
+    """An AdaptivePolicy that, on a planned step, waits before the head
+    stage for the store of every earlier stage to land, as
+    `drained_spool_policy` does: a planned step's bytes are then written
+    and read back within the step, and its stats delta (taken at the
+    step's end) holds them. Undrained, a layer's write on a slow
+    directory outlasts the step, and its bytes land in a later step's
+    delta or after the last one. The profiling step is not drained
+    before its head, so the profile and the plan are the policy's own."""
+    from repro_torch.core.policies import AdaptivePolicy
+
+    class DrainedAdaptivePolicy(AdaptivePolicy):
+        spool = None
+
+        def should_offload(self, stage, profile=None):
+            if (self.plan is not None and profile is not None
+                    and profile.name == "head"):
+                self.spool.wait_io()
+            return super().should_offload(stage, profile)
+
+    return DrainedAdaptivePolicy()
+
+
 def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
               batch=1, keep_params=None, snap=None, settings=None,
               stage_bytes=None, engine="staged", steps=TRAIN_STEPS):
@@ -1432,30 +1525,32 @@ def keep_vs_spool(cfg, seq, optimizer, want, smi, batch=1, stages=None,
 
 
 def train_phase(smi):
-    """Full-width mamba2-2.7b with adamw: the SSD kernel once per layer
-    per step."""
+    """Full-width mamba2-2.7b cut to TRAIN_LAYERS layers with adamw: the
+    SSD kernel once per layer per step."""
     from repro_torch.configs import resolve_config
-    cfg = resolve_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(resolve_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS)
     return keep_vs_spool(cfg, TRAIN_SEQ, "adamw",
                          {"ssd_scan": cfg.num_layers * TRAIN_STEPS}, smi)
 
 
 def rg_train_phase(smi):
-    """Full-width recurrentgemma-9b with sgd (no momentum: adamw's f32
-    moments, 83.6 GB, pass one card): the RG-LRU kernel once per rglru
-    block per step in forward and once in backward, the flash kernel once
-    per attention block per step (its backward is the plain VJP)."""
+    """Full-width recurrentgemma-9b cut to RG_LAYERS layers with sgd (no
+    momentum: adamw's f32 moments, 83.6 GB at full depth, pass one
+    card): the RG-LRU kernel once per rglru block per step in forward
+    and once in backward, the flash kernel once per attention block per
+    step (its backward is the plain VJP)."""
     from repro_torch.configs import resolve_config
     from repro_torch.optim.optimizers import sgd
     from repro_torch.models.api import build_model
-    cfg = resolve_config(RG_ARCH)
+    cfg = dataclasses.replace(resolve_config(RG_ARCH), num_layers=RG_LAYERS)
     kinds = [b.mixer for seg in build_model(cfg).segments
              for _ in range(seg.n_repeat) for b in seg.blocks]
     return keep_vs_spool(
         cfg, RG_SEQ, sgd(RG_LR, clip_norm=RG_CLIP),
-        {"rglru_scan": 2 * kinds.count("rglru") * TRAIN_STEPS,
-         "flash_attention": kinds.count("attn") * TRAIN_STEPS,
-         "ssd_scan": 0}, smi)
+        {"rglru_scan": 2 * kinds.count("rglru") * RG_STEPS,
+         "flash_attention": kinds.count("attn") * RG_STEPS,
+         "ssd_scan": 0}, smi, steps=RG_STEPS)
 
 
 def paper_train_phase(smi):
@@ -1970,9 +2065,10 @@ def adaptive_check(label, policy, reps):
     of 1..m + (1 + bwd_factor) x forward time of m+1..) within the rate,
     and the plan takes the largest such m short of the last stage. The
     profiling step offloads every stage and reads blobs back. A planned
-    step reads blobs back where it stores bytes, and it does store bytes
-    where its plan holds a layer stage (the embed stage's saved token ids
-    fall under the spool's size filter). The write rate is the
+    step (drained: `drained_adaptive_policy`) reads blobs back where it
+    stores bytes, and it does store bytes where the plan it started under
+    holds a layer stage (the embed stage's saved token ids fall under the
+    spool's size filter). The write rate is the
     calibrated tiers' rate for the plan's bytes, scaled as the policy
     scales it after a health event of the backend (a re-plan)."""
     from repro_torch.core.adaptive import effective_write_bandwidth
@@ -2016,8 +2112,10 @@ def adaptive_check(label, policy, reps):
           f"{label}: plan 0..{m}, the rule gives 0..{want}")
     check(reps[0].stats.bytes_loaded > 0,
           f"{label}: the profiling step read nothing back")
-    for r in reps[1:]:
-        if m >= 1:
+    # each planned step against the plan it started under: the one in
+    # force at the end of the step before (a re-plan swaps the object)
+    for prev, r in zip(reps, reps[1:]):
+        if prev.plan.last_offloaded >= 1:
             check(r.stats.bytes_offloaded > 0,
                   f"{label}: a plan with layer stages stored nothing")
         if r.stats.bytes_offloaded > 0:
@@ -2029,8 +2127,8 @@ def matrix_phase():
     """Depth-cut policy matrix: every run bitwise equal to keep, and
     every run that offloads reads blobs back."""
     from repro_torch.configs import SpoolIoConfig, resolve_config
-    from repro_torch.core.policies import (AdaptivePolicy, KeepPolicy,
-                                           RecomputePolicy, SpoolPolicy)
+    from repro_torch.core.policies import (KeepPolicy, RecomputePolicy,
+                                           SpoolPolicy)
     cfg = dataclasses.replace(resolve_config(TRAIN_ARCH),
                               num_layers=MATRIX_DEPTH)
     deterministic()
@@ -2039,11 +2137,13 @@ def matrix_phase():
     # Adaptive plans the offloaded prefix from the profiled forward time
     # and the backend's calibrated write rate, so on a slow directory the
     # plan may hold no layer stage: it is held to its own arithmetic
-    # (adaptive_check) and must read blobs back where it stores bytes
+    # (adaptive_check) and must read blobs back where it stores bytes;
+    # its planned steps are drained, so each step's writes land in its
+    # own stats
     runs = [("recompute", RecomputePolicy(), None, 2),
-            ("adaptive fs raw", AdaptivePolicy(),
+            ("adaptive fs raw", drained_adaptive_policy(),
              SpoolIoConfig(backend="fs", codec="raw"), 1),
-            ("adaptive mem raw", AdaptivePolicy(),
+            ("adaptive mem raw", drained_adaptive_policy(),
              SpoolIoConfig(backend="mem", codec="raw"), 1),
             ("spool mem raw", SpoolPolicy(),
              SpoolIoConfig(backend="mem", codec="raw"), 1),
@@ -2109,7 +2209,7 @@ def bit_fingerprint(tensors):
 def opt_run(cfg, label, *, engine="jit", host_offload="none",
             activations="keep", opt_overlap=None, steps=OPT_STEPS,
             keep_params=None, snap_at=None):
-    """One run of phase 11: gpt-h8192-l2, adamw (lr 3e-4, no clipping),
+    """One run of phase 11: gpt-h8192-l1, adamw (lr 3e-4, no clipping),
     B=4, S=1024, fs, raw, traced (no file). (a) is the staged engine
     with KeepPolicy and the fused update; the others the jit engine with
     `activations` placement, `host_offload` and `opt_overlap`. Every
@@ -2556,18 +2656,22 @@ def serve_rest_phase(gen, peaks, smi):
 def registry_phase(gen, smi):
     """Phase 13: the registry's archs of REG_TRAIN kept vs spooled at
     S=REG_SEQ with sgd (keep_vs_spool's checks; one flash launch per
-    attention block per step), then REG_SERVE served at full width as
-    phase 12 serves. Returns ({arch: the spool run's launches}, the
-    paged serve run's launches)."""
+    attention block per step; REG_F32's in f32), then REG_SERVE served
+    at full width as phase 12 serves. Returns ({arch: the spool run's
+    launches}, the paged serve run's launches, {arch: the keep run's
+    losses} of REG_F32's archs)."""
     from repro_torch.configs import resolve_config
     from repro_torch.models.transformer import build_segments
     from repro_torch.optim.optimizers import sgd
-    out = {}
+    out, keep_losses = {}, {}
     for arch, layers, batch in REG_TRAIN:
         t0 = time.perf_counter()
         cfg = resolve_config(arch)
         if layers:
             cfg = dataclasses.replace(cfg, num_layers=layers)
+        if arch in REG_F32:
+            cfg = dataclasses.replace(cfg, dtype="float32")
+        keep_out = {}
         segs = build_segments(cfg)
         n_attn = sum(seg.n_repeat * sum(b.mixer == "attn"
                                         for b in seg.blocks)
@@ -2579,13 +2683,16 @@ def registry_phase(gen, smi):
             stages=sum(seg.n_repeat for seg in segs) + 2,
             label=f"{arch}" + (f" d{layers}" if layers else ""),
             policy=drained_spool_policy() if layers else None,
-            act_lower=True, steps=REG_STEPS)
+            act_lower=True, steps=REG_STEPS, keep_out=keep_out)
+        if arch in REG_F32:
+            keep_losses[arch] = keep_out["losses"]
+        del keep_out
         print(f"  {arch}: {time.perf_counter() - t0:.1f}s")
     n_layers = resolve_config(REG_SERVE).num_layers
     serve_launches, _ = serve_rest_arch(
         REG_SERVE, gen, smi, {"flash_attention": n_layers, "ssd_scan": 0,
                               "rglru_scan": 0}, TOL_E2E)
-    return out, serve_launches
+    return out, serve_launches, keep_losses
 
 
 def vision_pages(caches, paged, tables, n_phys, page):
@@ -2887,91 +2994,169 @@ def opt_phase(smi):
 
 
 def mesh_run(label, work, *, mesh=None, axes=None, offload=False,
-             dedupe=True):
-    """One run of phase 15 in this process: one device (`mesh` None) or
-    this rank of `mesh`; the jit engine keeps every layer, or with
-    `offload` spools them into `work/label` (a directory every rank of
-    the mesh shares). Flash launches are set to 0 just before the steps
-    and read just after. Returns losses, launches, the tracked and device
-    peaks, the run's shard totals over the ranks, the bytes staged
-    through host memory and, with `offload`, what the dir holds after
-    close."""
+             dedupe=True, cfg=None, loader=None, optimizer=None,
+             batch=MESH_BATCH, overlap=None, save_dir=None, resume_dir=None,
+             keep_params=None, host_params=False, fingerprints=False):
+    """One run of phases 15 and 17 in this process: one device (`mesh`
+    None) or this rank of `mesh`, MESH_STEPS steps of the jit engine on
+    `cfg` (gpt-h8192-l2 in f32 by default) with `optimizer` (sgd at
+    PAPER_LR by default) at B=`batch`, S=PAPER_SEQ; every layer kept, or
+    with `offload` spooled into `work/label` (a directory every rank of
+    the mesh shares); `overlap`: the optimizer overlap, each rank's
+    moments on its spool in `work/label`. `save_dir`: after step 1 the
+    train state is checkpointed there (`ckpt.save_train_state` through a
+    `ShardLayout`: the logical arrays, gathered over the ranks, and
+    written by rank 0 in the background, its `CheckpointManager` under
+    "ckpt_manager") and the run goes on; `resume_dir`: the run starts
+    from the checkpoint there (each rank restores its shards in place)
+    and takes the steps after it. Flash launches are set to 0 just before
+    the steps and read just after. Returns losses, launches, the tracked
+    and device peaks, the run's shard totals over the ranks, the bytes
+    staged through host memory, with `offload` or `overlap` what the
+    dir holds after close, the checkpoint's gather and snapshot seconds,
+    with
+    `host_params` the final parameters on the host (given `keep_params`,
+    whether they equal those), and with `fingerprints` those of the
+    parameters and moments (`materialize()` under the overlap)."""
+    from repro_torch.ckpt.checkpoint import (CheckpointManager,
+                                             restore_train_state,
+                                             save_train_state)
     from repro_torch.configs import SpoolIoConfig, gpt
+    from repro_torch.core.meshrun import ShardLayout
+    from repro_torch.core.tree import tree_flatten
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.transformer import RunSettings
     from repro_torch.optim.optimizers import sgd
     from repro_torch.session import TrainSession
-    cfg = dataclasses.replace(gpt(PAPER_HIDDEN, MESH_LAYERS),
-                              dtype="float32")
+    cfg = cfg or dataclasses.replace(gpt(PAPER_HIDDEN, MESH_LAYERS),
+                                     dtype="float32")
     d = os.path.join(work, label)
+    spooled = offload or overlap
+    if spooled:
+        os.makedirs(d, exist_ok=True)
     io = SpoolIoConfig(backend="fs", directory=d, codec="raw",
-                       pool_bytes=POOL_BYTES, host_offload="activations",
-                       dedupe_replicas=dedupe) if offload else None
+                       pool_bytes=POOL_BYTES,
+                       host_offload="activations" if offload else "none",
+                       dedupe_replicas=dedupe) if spooled else None
     settings = None if offload else RunSettings(
-        attn_impl="cuda", attn_chunk=256, param_dtype="float32",
+        attn_impl="cuda", attn_chunk=256, param_dtype=cfg.dtype,
         device="cuda", activation_policy="keep")
     t_wall = time.perf_counter()
     sess = TrainSession(cfg, engine="jit", io=io, settings=settings,
-                        optimizer=sgd(PAPER_LR), batch_size=MESH_BATCH,
-                        seq_len=PAPER_SEQ, seed=0, device="cuda",
-                        attn_impl="cuda", mesh=mesh, mesh_axes=axes)
+                        optimizer=optimizer or sgd(PAPER_LR),
+                        batch_size=batch, seq_len=PAPER_SEQ, seed=0,
+                        device="cuda", attn_impl="cuda", loader=loader,
+                        mesh=mesh, mesh_axes=axes, opt_overlap=overlap)
+
+    def manager(path):
+        return CheckpointManager(path, layout=None if mesh is None else
+                                 ShardLayout(mesh, sess.engine.mesh_run.specs,
+                                             "cuda"))
+
+    out = {}
     try:
         sess.init()
+        steps = MESH_STEPS
+        if resume_dir is not None:
+            t0 = time.perf_counter()
+            mgr = manager(resume_dir)
+            step, _, sess.opt_state = restore_train_state(
+                mgr, sess.params, sess.opt_state, sess.loader)
+            out["restore_s"] = time.perf_counter() - t0
+            check(step == 1, f"mesh ({label}): restored step {step}")
+            steps -= step
         flash_attention.launches = 0
         t0 = time.perf_counter()
-        reps = sess.run(MESH_STEPS).reports
-        out = {"s": time.perf_counter() - t0,
-               "launches": flash_attention.launches,
-               "losses": [r.loss for r in reps],
-               "tracked": max(r.peak_activation_bytes for r in reps),
-               "device": max(r.extra["device_peak_bytes"] for r in reps),
-               "shards": sess.shard_totals() if mesh is not None else {},
-               "staged": sum(r.extra.get("comm_host_staged_bytes", 0)
-                             for r in reps),
-               "comm_s": {k: sum(r.extra.get(f"comm_{k}_s", 0.0)
-                                 for r in reps)
-                          for k in ("total", "wait", "stage")},
-               "backend": (reps[-1].extra.get("comm_backend")
-                           if mesh is not None else None),
-               "steps_s": [r.step_time for r in reps]}
+        if save_dir is not None:
+            reps = sess.run(1).reports
+            t1 = time.perf_counter()
+            # the write runs on rank 0's checkpoint thread while the
+            # phase goes on; the caller joins it (`ckpt_manager`)
+            mgr = out["ckpt_manager"] = manager(save_dir)
+            save_train_state(mgr, sess.step, sess.params, sess.opt_state,
+                             sess.loader)
+            out["save_s"] = time.perf_counter() - t1
+            reps += sess.run(steps - 1).reports
+            run_s = time.perf_counter() - t0 - out["save_s"]
+        else:
+            reps = sess.run(steps).reports
+            run_s = time.perf_counter() - t0
+        out.update({
+            "s": run_s, "launches": flash_attention.launches,
+            "losses": [r.loss for r in reps],
+            "tracked": max(r.peak_activation_bytes for r in reps),
+            "device": max(r.extra["device_peak_bytes"] for r in reps),
+            "shards": sess.shard_totals() if mesh is not None else {},
+            "staged": sum(r.extra.get("comm_host_staged_bytes", 0)
+                          for r in reps),
+            "comm_s": {k: sum(r.extra.get(f"comm_{k}_s", 0.0)
+                              for r in reps)
+                       for k in ("total", "wait", "stage")},
+            "backend": (reps[-1].extra.get("comm_backend")
+                        if mesh is not None else None),
+            "steps_s": [r.step_time for r in reps]})
+        leaves = tree_flatten(sess.params)[0]
+        if fingerprints:
+            bridge = sess.opt_bridge
+            state = bridge.materialize() if bridge is not None \
+                else sess.opt_state
+            out["fp"] = (bit_fingerprint(leaves), bit_fingerprint([
+                t for t in tree_flatten(state.mu)[0]
+                + tree_flatten(state.nu)[0] if t is not None]))
+            del state
+        if keep_params is not None:
+            out["same_params"] = same_params(leaves, keep_params)
+        elif host_params:
+            out["params"] = [t.detach().cpu() for t in leaves]
+        del leaves
     finally:
         sess.close()      # on a mesh: after every rank's spool closed
         del sess
         gc.collect()
         torch.cuda.empty_cache()
-    if offload:
+    if spooled:
         out["left"] = sorted(os.listdir(d))
     out["wall"] = time.perf_counter() - t_wall
     return out
 
 
+def _rank_setup(rank, port, work):
+    """A spawned rank of phases 15-17: gloo over the loopback device,
+    f32 matmuls without TF32, deterministic kernels, the process group;
+    then it waits for the parent's one-device run (a) to end and give the
+    card's memory back."""
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.parallel.comm import single_node_gloo
+    single_node_gloo()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=MESH_RANKS)
+    deadline = time.perf_counter() + 600
+    while not os.path.exists(os.path.join(work, "a_done")):
+        if time.perf_counter() > deadline:
+            raise RuntimeError("(a) did not end within 600 s")
+        time.sleep(0.05)
+
+
 def _mesh_rank(rank, port, work):
-    """One of phase 15's ranks: (b)-(f) on a 1x2 mesh, (g) on a 2x1 one;
-    its results (or its traceback) pickled into `work`."""
+    """One of phase 15's ranks: (b)-(f), (h) and (i) on a 1x2 mesh, (g) on
+    a 2x1 one from (b)'s checkpoint; its results (or its traceback)
+    pickled into `work`."""
     import pickle
     import traceback
     import torch.distributed as dist
     try:
-        sys.path.insert(0, os.path.join(ROOT, "src"))
-        from repro_torch.parallel.comm import init_mesh, single_node_gloo
+        _rank_setup(rank, port, work)
+        from repro_torch.optim.optimizers import adamw
+        from repro_torch.parallel.comm import init_mesh
         from repro_torch.parallel.sharding import MeshAxes
-        single_node_gloo()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        deterministic()
-        dist.init_process_group("gloo",
-                                init_method=f"tcp://localhost:{port}",
-                                rank=rank, world_size=MESH_RANKS)
         mesh = init_mesh((1, MESH_RANKS), ("data", "model"), device="cuda")
         res = {"describe": mesh.comm.describe()}
-        # (a) runs in the parent while the ranks start: wait for it to
-        # end and give its memory back
-        deadline = time.perf_counter() + 600
-        while not os.path.exists(os.path.join(work, "a_done")):
-            if time.perf_counter() > deadline:
-                raise RuntimeError("(a) did not end within 600 s")
-            time.sleep(0.05)
-        res["b"] = mesh_run("b", work, mesh=mesh)
+        ck = os.path.join(work, "ckpt")
+        res["b"] = mesh_run("b", work, mesh=mesh, save_dir=ck)
         res["c"] = mesh_run("c", work, mesh=mesh, offload=True)
         res["d"] = mesh_run("d", work, mesh=mesh, offload=True)
         dp_only = MeshAxes(dp=("data",), tp=None)
@@ -2979,14 +3164,68 @@ def _mesh_rank(rank, port, work):
                             offload=True)
         res["f"] = mesh_run("f", work, mesh=mesh, axes=dp_only,
                             offload=True, dedupe=False)
+        res["h"] = mesh_run("h", work, mesh=mesh,
+                            optimizer=adamw(PAPER_LR, clip_norm=None),
+                            host_params=True, fingerprints=True)
+        res["i"] = mesh_run("i", work, mesh=mesh,
+                            optimizer=adamw(PAPER_LR, clip_norm=None),
+                            overlap=True, keep_params=res["h"].pop("params"),
+                            fingerprints=True)
+        # (b)'s checkpoint has landed before (g) reads it
+        mgr = res["b"].pop("ckpt_manager")
+        mgr.wait()
+        res["b"]["write_s"] = mgr.last_write_s
+        npz = os.path.join(ck, "step_00000001", "arrays.npz")
+        res["b"]["ckpt_bytes"] = (os.path.getsize(npz) if rank == 0 else 0)
+        mesh.comm.barrier()
         mesh2 = init_mesh((MESH_RANKS, 1), ("data", "model"),
                           device="cuda")
-        res["g"] = mesh_run("g", work, mesh=mesh2)
+        res["g"] = mesh_run("g", work, mesh=mesh2, resume_dir=ck)
+        mesh2.comm.barrier()
+        if rank == 0:
+            shutil.rmtree(ck)
+        res["ckpt_left"] = os.path.exists(ck) if rank == 0 else False
         dist.destroy_process_group()
     except BaseException:
         res = {"error": traceback.format_exc()}
     with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
+
+
+def spawn_ranks(target, work, parent_runs):
+    """Start MESH_RANKS ranks running `target(rank, port, work)`, run
+    `parent_runs()` here while they start, then tell them it ended and
+    join them. Returns (what `parent_runs` returned, each rank's
+    results, the seconds from the start to the join)."""
+    import pickle
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = torch.multiprocessing.start_processes(
+        target, args=(port, work), nprocs=MESH_RANKS, start_method="spawn",
+        join=False)
+    try:
+        here = parent_runs()
+    finally:
+        open(os.path.join(work, "a_done"), "w").close()
+    try:
+        while not procs.join():
+            pass
+    except Exception as e:                    # noqa: BLE001
+        fail(f"the {MESH_RANKS} ranks of {target.__name__} did not run: {e}")
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_RANKS):
+        path = os.path.join(work, f"rank{r}.pkl")
+        check(os.path.exists(path), f"{target.__name__}: rank {r} reported "
+              f"nothing")
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+        check("error" not in ranks[r], f"{target.__name__}: rank {r} "
+              f"failed:\n{ranks[r].get('error')}")
+    return here, ranks, ranks_s
 
 
 def mesh_flash_check(gen, peaks, smi):
@@ -3037,48 +3276,21 @@ def mesh_flash_check(gen, peaks, smi):
 def mesh_phase(gen, peaks, smi):
     """Phase 15 (see the module docstring). Returns the flash row's mesh
     numbers."""
-    import pickle
-    import socket
     t_phase = time.perf_counter()
     flash = mesh_flash_check(gen, peaks, smi)
     deterministic()
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    for sub in "cdef":
-        os.makedirs(os.path.join(work, sub))
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    t0 = time.perf_counter()
     # the ranks start (CUDA, the process group) while (a) runs here;
     # they train once (a) has ended
-    procs = torch.multiprocessing.start_processes(
-        _mesh_rank, args=(port, work), nprocs=MESH_RANKS,
-        start_method="spawn", join=False)
-    try:
-        a = mesh_run("a", work)
-    finally:
-        open(os.path.join(work, "a_done"), "w").close()
-    try:
-        while not procs.join():
-            pass
-    except Exception as e:                    # noqa: BLE001
-        fail(f"mesh: the {MESH_RANKS} ranks did not run: {e}")
-    ranks_s = time.perf_counter() - t0
-    ranks = []
-    for r in range(MESH_RANKS):
-        path = os.path.join(work, f"rank{r}.pkl")
-        check(os.path.exists(path), f"mesh: rank {r} reported nothing")
-        with open(path, "rb") as f:
-            ranks.append(pickle.load(f))
-        check("error" not in ranks[r],
-              f"mesh: rank {r} failed:\n{ranks[r].get('error')}")
+    a, ranks, ranks_s = spawn_ranks(_mesh_rank, work,
+                                    lambda: mesh_run("a", work))
     shutil.rmtree(work, ignore_errors=True)
     print(f"mesh: {ranks[0]['describe']}")
     print(f"  (a) one device: losses {a['losses']} device peak "
           f"{a['device'] / 1e9:.2f} GB tracked {a['tracked'] / 1e9:.3f} GB "
           f"({a['s']:.1f}s, steps {[round(x, 3) for x in a['steps_s']]})")
     for r, res in enumerate(ranks):
-        for run in "bcdefg":
+        for run in "bcdefghi":
             x = res[run]
             print(f"  rank {r} ({run}): losses {x['losses']} device peak "
                   f"{x['device'] / 1e9:.2f} GB tracked "
@@ -3093,41 +3305,61 @@ def mesh_phase(gen, peaks, smi):
     print(f"  shards (c): {ranks[0]['c']['shards']}")
     print(f"  shards (e): {ranks[0]['e']['shards']}")
     print(f"  shards (f): {ranks[0]['f']['shards']}")
+    b0, g0 = ranks[0]["b"], ranks[0]["g"]
+    print(f"  checkpoint of (b) after step 1 (1x2, logical arrays, rank 0 "
+          f"writing): {b0['ckpt_bytes'] / 1e9:.3f} GB, gathers and host "
+          f"snapshot {b0['save_s']:.1f}s, write {b0['write_s']:.1f}s in "
+          f"the background while (b)-(i) ran; (g) on "
+          f"2x1 restored it in {[x['g']['restore_s'] for x in ranks]} s "
+          f"and ran step 2: loss {g0['losses']} against (a)'s "
+          f"{a['losses'][1:]}")
     check(a["launches"] == MESH_LAYERS * MESH_STEPS,
           f"mesh (a): flash launches {a['launches']}")
     for r, res in enumerate(ranks):
-        for run in "bcdefg":
+        for run in "bcdefghi":
             x = res[run]
+            n = MESH_LAYERS * (MESH_STEPS - 1 if run == "g" else MESH_STEPS)
             check(all(math.isfinite(v) for v in x["losses"]),
                   f"mesh ({run}) rank {r}: non-finite loss")
-            check(x["launches"] == MESH_LAYERS * MESH_STEPS,
-                  f"mesh ({run}) rank {r}: flash launches {x['launches']}, "
-                  f"want {MESH_LAYERS * MESH_STEPS}")
+            check(x["launches"] == n, f"mesh ({run}) rank {r}: flash "
+                  f"launches {x['launches']}, want {n}")
             check(x["backend"] == "gloo", f"mesh ({run}): backend "
                   f"{x['backend']}")
-        for run in "bg":
-            check(np.allclose(res[run]["losses"], a["losses"], rtol=TOL_MESH,
-                              atol=0.0),
-                  f"mesh ({run}) rank {r}: losses {res[run]['losses']} not "
-                  f"within {TOL_MESH} of (a)'s {a['losses']}")
-        for run, want in (("c", "b"), ("d", "c"), ("f", "e")):
+        check(np.allclose(res["b"]["losses"], a["losses"], rtol=TOL_MESH,
+                          atol=0.0),
+              f"mesh (b) rank {r}: losses {res['b']['losses']} not within "
+              f"{TOL_MESH} of (a)'s {a['losses']}")
+        check(np.allclose(res["g"]["losses"], a["losses"][1:],
+                          rtol=TOL_MESH, atol=0.0),
+              f"mesh (g) rank {r}: step-2 loss {res['g']['losses']} from "
+              f"(b)'s checkpoint not within {TOL_MESH} of (a)'s "
+              f"{a['losses'][1:]}")
+        for run, want in (("c", "b"), ("d", "c"), ("f", "e"), ("i", "h")):
             check(res[run]["losses"] == res[want]["losses"],
                   f"mesh ({run}) rank {r}: losses {res[run]['losses']} != "
                   f"({want})'s {res[want]['losses']}")
+        check(res["i"]["same_params"], f"mesh (i) rank {r}: final "
+              f"parameters differ from (h)'s")
+        check(res["i"]["fp"] == res["h"]["fp"], f"mesh (i) rank {r}: "
+              f"fingerprints {res['i']['fp']} of the parameters and "
+              f"moments differ from (h)'s {res['h']['fp']}")
         check(res["e"]["losses"] == a["losses"],
               f"mesh (e) rank {r}: losses {res['e']['losses']} != (a)'s "
               f"{a['losses']}")
         check(np.allclose(res["e"]["losses"], res["b"]["losses"],
                           rtol=TOL_MESH, atol=0.0),
               f"mesh (e) rank {r}: not within {TOL_MESH} of (b)")
-        for run in "cdef":
+        for run in "cdefi":
             check(res[run]["left"] == [], f"mesh ({run}): spool dir not "
                   f"empty after close: {res[run]['left'][:4]}")
+        check(not res["ckpt_left"], "mesh: the checkpoint dir was not "
+              "removed")
         check(res["c"]["tracked"] < res["b"]["tracked"],
               f"mesh rank {r}: (c)'s tracked peak {res['c']['tracked']} "
               f"not below (b)'s {res['b']['tracked']}")
         check(res["b"]["staged"] > 0, "mesh (b): nothing staged through "
               "host memory under gloo")
+    check(b0["ckpt_bytes"] > 0, "mesh (b): no checkpoint written")
     n = MESH_LAYERS * MESH_STEPS
     c_sh, e_sh, f_sh = (ranks[0][x]["shards"] for x in "cef")
     check(sorted(c_sh) == ["0", "1"], f"mesh (c): shards {sorted(c_sh)}")
@@ -3144,17 +3376,159 @@ def mesh_phase(gen, peaks, smi):
           f"{v['bytes_in']} bytes to the spool, (f) {f_in}: not half")
     dt = time.perf_counter() - t_phase
     print(f"  mesh: (b), (g) within {TOL_MESH} of (a); (c) = (b), (d) = "
-          f"(c), (e) = (a), (f) = (e) bitwise; shards and replica skips "
-          f"as the JAX bridge counts them; spool dirs empty; device peaks "
-          f"per rank (b) {[x['b']['device'] / 1e9 for x in ranks]} GB, "
-          f"(c) {[x['c']['device'] / 1e9 for x in ranks]} GB, (g) "
-          f"{[x['g']['device'] / 1e9 for x in ranks]} GB, (a) "
+          f"(c), (e) = (a), (f) = (e), (i) = (h) bitwise (the overlap's "
+          f"parameters and moments too); shards and replica skips as the "
+          f"JAX bridge counts them; spool dirs empty, the checkpoint dir "
+          f"removed; device peaks per rank (b) "
+          f"{[x['b']['device'] / 1e9 for x in ranks]} GB, (c) "
+          f"{[x['c']['device'] / 1e9 for x in ranks]} GB, (g) "
+          f"{[x['g']['device'] / 1e9 for x in ranks]} GB, (h) "
+          f"{[x['h']['device'] / 1e9 for x in ranks]} GB, (i) "
+          f"{[x['i']['device'] / 1e9 for x in ranks]} GB, (a) "
           f"{a['device'] / 1e9:.2f} GB; (a) and the ranks {ranks_s:.1f}s, "
-          f"phase "
-          f"{dt:.1f}s on {smi}")
+          f"phase {dt:.1f}s on {smi}")
     flash["launches_per_rank_run"] = ranks[0]["b"]["launches"]
     flash["phase_s"] = dt
     return flash
+
+
+def family_cfg(arch):
+    """Phase 17's config of `arch`: hubert-xlarge at full width and depth
+    in f32, llama-3.2-vision-90b at full width cut to FAMILY_VISION_LAYERS
+    layers in bf16."""
+    from repro_torch.configs import resolve_config
+    cfg = resolve_config(arch)
+    if arch == FAMILY_HUBERT:
+        return dataclasses.replace(cfg, dtype="float32")
+    return dataclasses.replace(cfg, num_layers=FAMILY_VISION_LAYERS)
+
+
+def family_run(arch, label, work, **kw):
+    """One run of phase 17 (`mesh_run` over `family_cfg(arch)` and the
+    seeded batches phases 13 and 14 train the family on)."""
+    from repro_torch.data.pipeline import embedding_batches, vision_batches
+    cfg, batch = family_cfg(arch), FAMILY_BATCH[arch]
+    loader = (embedding_batches(cfg.d_model, cfg.vocab_size, batch=batch,
+                                seq_len=REG_SEQ, seed=0)
+              if cfg.input_kind == "embeddings" else
+              vision_batches(cfg.vocab_size, cfg.d_model,
+                             cfg.encoder_seq_len, batch=batch,
+                             seq_len=REG_SEQ, seed=0))
+    return mesh_run(label, work, cfg=cfg, loader=loader, batch=batch,
+                    fingerprints=True, **kw)
+
+
+def _family_rank(rank, port, work):
+    """One of phase 17's ranks: each family kept and spooled on a 1x2
+    mesh; its results (or its traceback) pickled into `work`."""
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    try:
+        _rank_setup(rank, port, work)
+        from repro_torch.parallel.comm import init_mesh
+        mesh = init_mesh((1, MESH_RANKS), ("data", "model"), device="cuda")
+        res = {}
+        for arch in (FAMILY_HUBERT, FAMILY_VISION):
+            res[arch] = {
+                "b": family_run(arch, f"{arch}_b", work, mesh=mesh),
+                "c": family_run(arch, f"{arch}_c", work, mesh=mesh,
+                                offload=True)}
+        dist.destroy_process_group()
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def family_phase(gen, peaks, smi, hubert_keep=None):
+    """Phase 17 (see the module docstring). `hubert_keep`: phase 13's
+    f32 keep losses of hubert-xlarge, its (a) (run here when None).
+    Returns the flash rows of its shapes and each rank's launches a
+    run."""
+    from repro_torch.models.transformer import build_segments
+    t_phase = time.perf_counter()
+    flash, _ = flash_registry_phase(gen, peaks, smi,
+                                    cases=FAMILY_FLASH_CASES)
+    deterministic()
+    work = tempfile.mkdtemp(prefix="chip_smoke_family_")
+
+    def one_device():
+        out = {FAMILY_VISION: family_run(FAMILY_VISION, "vision_a", work)}
+        if hubert_keep is None:
+            out[FAMILY_HUBERT] = family_run(FAMILY_HUBERT, "hubert_a", work)
+        return out
+
+    a, ranks, ranks_s = spawn_ranks(_family_rank, work, one_device)
+    shutil.rmtree(work, ignore_errors=True)
+    a_losses = {arch: (a[arch]["losses"] if arch in a else hubert_keep)
+                for arch in (FAMILY_HUBERT, FAMILY_VISION)}
+    launches = {}
+    for arch in (FAMILY_HUBERT, FAMILY_VISION):
+        cfg = family_cfg(arch)
+        segs = build_segments(cfg)
+        per_step = sum(seg.n_repeat * len(seg.blocks) for seg in segs)
+        stages = sum(seg.n_repeat for seg in segs)
+        n = per_step * MESH_STEPS
+        launches[arch] = ranks[0][arch]["b"]["launches"]
+        if arch in a:
+            x = a[arch]
+            check(x["launches"] == n, f"{arch} (a): flash launches "
+                  f"{x['launches']}, want {n}")
+            print(f"  {arch} (a) one device ({cfg.dtype}): losses "
+                  f"{x['losses']} device peak {x['device'] / 1e9:.2f} GB "
+                  f"tracked {x['tracked'] / 1e9:.3f} GB ({x['s']:.1f}s)")
+        else:
+            print(f"  {arch} (a) one device ({cfg.dtype}): phase 13's keep "
+                  f"losses {hubert_keep}")
+        for r, res in enumerate(ranks):
+            for run in "bc":
+                x = res[arch][run]
+                print(f"  {arch} rank {r} ({run}): losses {x['losses']} "
+                      f"device peak {x['device'] / 1e9:.2f} GB tracked "
+                      f"{x['tracked'] / 1e9:.3f} GB flash launches "
+                      f"{x['launches']} staged {x['staged'] / 1e9:.3f} GB "
+                      f"through host memory, in collectives "
+                      f"{x['comm_s']['total']:.1f}s ({x['s']:.1f}s of "
+                      f"{x['wall']:.1f}s, steps "
+                      f"{[round(t, 3) for t in x['steps_s']]})")
+            b, c = res[arch]["b"], res[arch]["c"]
+            for run, x in (("b", b), ("c", c)):
+                check(all(math.isfinite(v) for v in x["losses"]),
+                      f"{arch} ({run}) rank {r}: non-finite loss")
+                check(x["launches"] == n, f"{arch} ({run}) rank {r}: flash "
+                      f"launches {x['launches']}, want {n}")
+            check(c["losses"] == b["losses"] and c["fp"][0] == b["fp"][0],
+                  f"{arch} rank {r}: spooled losses {c['losses']} or "
+                  f"parameters differ from kept ({b['losses']})")
+            check(c["left"] == [], f"{arch} (c): spool dir not empty after "
+                  f"close: {c['left'][:4]}")
+            if arch == FAMILY_HUBERT:
+                check(np.allclose(b["losses"], a_losses[arch],
+                                  rtol=TOL_MESH, atol=0.0),
+                      f"{arch} (b) rank {r}: losses {b['losses']} not "
+                      f"within {TOL_MESH} of (a)'s {a_losses[arch]}")
+                check(c["tracked"] < b["tracked"], f"{arch} rank {r}: (c)'s "
+                      f"tracked peak {c['tracked']} not below (b)'s "
+                      f"{b['tracked']}")
+        shards = ranks[0][arch]["c"]["shards"]
+        print(f"  {arch} shards (c): {shards}")
+        check(sorted(shards) == ["0", "1"], f"{arch} (c): shards "
+              f"{sorted(shards)}")
+        for v in shards.values():
+            check(v["offloads"] == v["fetches"] == stages * MESH_STEPS
+                  and v["bytes_in"] == v["bytes_out"] > 0,
+                  f"{arch} (c): shard counts {v}")
+        print(f"  {arch}: (a) losses {a_losses[arch]}, 1x2 "
+              f"{ranks[0][arch]['b']['losses']}"
+              + (f" (within {TOL_MESH})" if arch == FAMILY_HUBERT else
+                 " (bf16: sums in another order, no bar)")
+              + f"; spooled = kept bitwise; {n} flash launches a rank a "
+              f"run")
+    dt = time.perf_counter() - t_phase
+    print(f"  families: (a) and the ranks {ranks_s:.1f}s, phase {dt:.1f}s "
+          f"on {smi}")
+    return flash, launches
 
 
 def moe_cfg(arch, layers, dtype):
@@ -3413,24 +3787,12 @@ def _moe_rank(rank, port, work):
     import traceback
     import torch.distributed as dist
     try:
-        sys.path.insert(0, os.path.join(ROOT, "src"))
-        from repro_torch.parallel.comm import init_mesh, single_node_gloo
-        single_node_gloo()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        deterministic()
-        dist.init_process_group("gloo",
-                                init_method=f"tcp://localhost:{port}",
-                                rank=rank, world_size=MESH_RANKS)
+        # (a) runs in the parent first: (a) and two ranks would not fit
+        # the card
+        _rank_setup(rank, port, work)
+        from repro_torch.parallel.comm import init_mesh
         mesh = init_mesh((1, MESH_RANKS), ("data", "model"), device="cuda")
         res = {"describe": mesh.comm.describe()}
-        # (a) runs in the parent first: wait for it to end and give its
-        # memory back, as (a) and two ranks would not fit the card
-        deadline = time.perf_counter() + 600
-        while not os.path.exists(os.path.join(work, "a_done")):
-            if time.perf_counter() > deadline:
-                raise RuntimeError("(a) did not end within 600 s")
-            time.sleep(0.05)
         cfg = moe_cfg(MOE_ARCH, MOE_LAYERS, "float32")
         full = cfg.moe_num_experts / cfg.moe_top_k
         with open(os.path.join(work, "a_grads.pkl"), "rb") as f:
@@ -3460,43 +3822,23 @@ def moe_phase(gen, peaks, smi):
     """Phase 16 (see the module docstring). Returns the flash rows of its
     shapes and the launches of its runs."""
     import pickle
-    import socket
     t_phase = time.perf_counter()
     flash, _ = flash_registry_phase(gen, peaks, smi, cases=MOE_FLASH_CASES)
     deterministic()
     work = tempfile.mkdtemp(prefix="chip_smoke_moe_")
     for sub in ("c", "e2"):
         os.makedirs(os.path.join(work, sub))
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    t0 = time.perf_counter()
-    # the ranks start (CUDA, the process group) while (a) runs here; they
-    # allocate once (a) has ended
-    procs = torch.multiprocessing.start_processes(
-        _moe_rank, args=(port, work), nprocs=MESH_RANKS,
-        start_method="spawn", join=False)
-    try:
+
+    def one_device():
         cfg = moe_cfg(MOE_ARCH, MOE_LAYERS, "float32")
         a = moe_run(cfg, "a", work, steps=MOE_STEPS, probe=shard_samples)
         with open(os.path.join(work, "a_grads.pkl"), "wb") as f:
             pickle.dump(a["probe"], f)
-    finally:
-        open(os.path.join(work, "a_done"), "w").close()
-    try:
-        while not procs.join():
-            pass
-    except Exception as e:                    # noqa: BLE001
-        fail(f"moe: the {MESH_RANKS} ranks did not run: {e}")
-    ranks_s = time.perf_counter() - t0
-    ranks = []
-    for r in range(MESH_RANKS):
-        path = os.path.join(work, f"rank{r}.pkl")
-        check(os.path.exists(path), f"moe: rank {r} reported nothing")
-        with open(path, "rb") as f:
-            ranks.append(pickle.load(f))
-        check("error" not in ranks[r],
-              f"moe: rank {r} failed:\n{ranks[r].get('error')}")
+        return a
+
+    # the ranks start (CUDA, the process group) while (a) runs here; they
+    # allocate once (a) has ended
+    a, ranks, ranks_s = spawn_ranks(_moe_rank, work, one_device)
     shutil.rmtree(work, ignore_errors=True)
     runs = ("b", "c", "d", "e", "e2")
     print(f"moe: {MOE_ARCH} at {MOE_LAYERS} layer(s), f32, sgd, B=1, "
@@ -3759,9 +4101,11 @@ def main():
         mesh_phase(gen, peaks, smi)
         t16 = time.perf_counter()
         moe_phase(gen, peaks, smi)
-        print(f"chip_smoke --mesh-only: phases 15 ({t16 - t15:.1f}s) and "
-              f"16 ({time.perf_counter() - t16:.1f}s) passed in "
-              f"{time.perf_counter() - T_START:.1f}s")
+        t17 = time.perf_counter()
+        family_phase(gen, peaks, smi)
+        print(f"chip_smoke --mesh-only: phases 15 ({t16 - t15:.1f}s), 16 "
+              f"({t17 - t16:.1f}s) and 17 ({time.perf_counter() - t17:.1f}s)"
+              f" passed in {time.perf_counter() - T_START:.1f}s")
         return 0
     if "--kimi-4card" in sys.argv[1:]:
         # kimi-k2 on four cards over NCCL: no result line
@@ -3957,7 +4301,7 @@ def main():
           f"{t7 - t6:.1f}s")
 
     # ---- 13. the registry's archs: train four, serve qwen2.5-3b
-    reg_launches, reg_serve_launches = registry_phase(gen, smi)
+    reg_launches, reg_serve_launches, reg_keep = registry_phase(gen, smi)
     t8 = time.perf_counter()
 
     # ---- 14. llama-3.2-vision: train kept, spooled and on the host
@@ -3972,13 +4316,20 @@ def main():
     # ---- 16. expert parallelism, the pipeline and compression: 2 ranks
     # on the one card over gloo
     moe_flash, moe_launches = moe_phase(gen, peaks, smi)
+    t11 = time.perf_counter()
+
+    # ---- 17. hubert and llama-3.2-vision on a 1x2 mesh: 2 ranks on the
+    # one card over gloo
+    fam_flash, fam_launches = family_phase(gen, peaks, smi,
+                                           reg_keep[FAMILY_HUBERT])
     print(f"phase times: 13 the registry's archs {t8 - t7:.1f}s, 14 "
           f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes {t10 - t9:.1f}s, "
           f"16 expert parallelism, pipeline and compression "
-          f"{time.perf_counter() - t10:.1f}s; the script "
+          f"{t11 - t10:.1f}s, 17 hubert and vision on a mesh "
+          f"{time.perf_counter() - t11:.1f}s; the script "
           f"{time.perf_counter() - T_START:.1f}s")
 
-    # ---- 17. result
+    # ---- 18. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -4027,7 +4378,7 @@ def main():
         "launches_per_resumed_gpt_step": ckpt_launches[1],
         # phase 10: the striped, managed, aio and chaos runs
         "launches_per_storage_run": storage_launches,
-        # phase 11: the overlap run (c), adamw, 3 steps
+        # phase 11: the overlap run (c), adamw, OPT_STEPS steps
         "launches_per_opt_overlap_run": opt_launches,
         # phase 12: recurrentgemma-9b served paged (8 prefills)
         "launches_per_rg_serve_run": rest_launches[RG_ARCH][
@@ -4092,6 +4443,23 @@ def main():
                               ("llama4_tp2", "llama4 tp=2"),
                               ("kimi_tp4", "kimi tp=4"),
                               ("pipe_stage", "pipeline stage"))
+           for k in ("max_abs_err", "max_row_rel_err", "ms",
+                     "ms_back_to_back", "plain_ms", "sdpa_ms",
+                     "library_ms", "bound_ms", "bound_by")},
+        # phase 17: each rank's launches in a 2-step run of hubert-xlarge
+        # (48 layers) and of llama-3.2-vision-90b at one period (4 self-
+        # and 1 cross-attention blocks) on the 1x2 mesh, and their tp=2
+        # instances; phase 13's hubert-xlarge runs in f32
+        "launches_per_hubert_mesh_rank_run": fam_launches[FAMILY_HUBERT],
+        "launches_per_vision_mesh_rank_run": fam_launches[FAMILY_VISION],
+        **{f"{pre}_{k}": (flash_rows[label]["bound"][0] if k == "bound_ms"
+                          else flash_rows[label]["bound"][1]
+                          if k == "bound_by" else flash_rows[label][k])
+           for pre, label, flash_rows in (
+               ("hubert_tp2", "hubert tp=2", fam_flash),
+               ("vision_self_tp2", "vision self tp=2", fam_flash),
+               ("vision_cross_tp2", "vision cross tp=2", fam_flash),
+               ("hubert_f32", "hubert-xlarge f32", reg_attn))
            for k in ("max_abs_err", "max_row_rel_err", "ms",
                      "ms_back_to_back", "plain_ms", "sdpa_ms",
                      "library_ms", "bound_ms", "bound_by")},

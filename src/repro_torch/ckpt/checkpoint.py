@@ -28,17 +28,25 @@ package's step counter is, and restores as an int.
   * keep_last GC after each commit;
   * restore onto a device (`device=`), or in place into existing
     tensors (`in_place=True`, the train state's restore: no second copy
-    of the model); sharded restore waits for slice 12b of meshes (a
-    mesh session refuses `ckpt_dir`).
+    of the model);
+  * meshes (`layout=`, a `core/meshrun.py::ShardLayout`): the files
+    hold the logical (global) arrays, as the JAX package's do. On save
+    every rank takes part in gathering each sharded leaf, and only the
+    writer (rank 0) snapshots, writes and collects old steps; on restore
+    every rank reads the logical arrays and copies its own shard out of
+    each. So a checkpoint restores onto any mesh or one device, and
+    either package reads it.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import struct
 import threading
 import time
 import warnings
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -96,10 +104,16 @@ def _host_array(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def host_snapshot(tree) -> List[HostItem]:
-    """Host copies of every leaf of `tree`, taken now."""
+def host_snapshot(tree, layout=None) -> List[HostItem]:
+    """Host copies of every leaf of `tree`, taken now. With a mesh
+    `layout`, of the logical leaves (a collective; empty off the
+    writer)."""
     out = []
     for key, leaf in flatten_with_paths(tree):
+        if layout is not None:
+            leaf = layout.gather(key, leaf)
+            if leaf is None:
+                continue
         arr, dtype = _host_array(leaf)
         out.append((key, arr, dtype))
     return out
@@ -185,6 +199,63 @@ def latest_step(directory: str) -> Optional[int]:
     return None
 
 
+#: bytes a restore reads a call
+READ_CHUNK = 64 << 20
+
+
+class _NpzReader:
+    """The arrays of an `arrays.npz` by leaf key, each read from its
+    offset in the file READ_CHUNK bytes a call. Both packages write the
+    file with `np.savez`, whose members are stored uncompressed, C-ordered
+    `.npy` files; `np.load` reads a member 256 KiB a call, which on the
+    card machine's 9p mount ran at a quarter of this reader's rate and
+    set a restore's time."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = open(path, "rb")
+        self._zip = zipfile.ZipFile(self._f)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        info = self._zip.getinfo(name + ".npy")
+        refused = ValueError(f"{self.path}: member {info.filename} is not "
+                             f"a stored C-ordered array (np.savez's)")
+        if info.compress_type != zipfile.ZIP_STORED:
+            raise refused
+        f, fmt = self._f, np.lib.format
+        f.seek(info.header_offset)
+        name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        read_header = {(1, 0): fmt.read_array_header_1_0,
+                       (2, 0): fmt.read_array_header_2_0}.get(
+                           fmt.read_magic(f))
+        if read_header is None:
+            raise refused
+        shape, fortran, dtype = read_header(f)
+        if fortran or dtype.hasobject:
+            raise refused
+        arr = np.empty(shape, dtype)
+        buf = memoryview(arr.reshape(-1).view(np.uint8))
+        off = 0
+        while off < len(buf):
+            n = f.readinto(buf[off:off + READ_CHUNK])
+            if not n:
+                raise ValueError(f"{self.path}: member {info.filename} is "
+                                 f"truncated")
+            off += n
+        return arr
+
+    def close(self) -> None:
+        self._zip.close()
+        self._f.close()
+
+    def __enter__(self) -> "_NpzReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def _leaf_from(arr: np.ndarray, dtype: str, like, device, in_place):
     if isinstance(like, torch.Tensor):
         host = (array_to_tensor(arr.view(np.int16)).view(torch.bfloat16)
@@ -218,13 +289,15 @@ def _rebuild(like, prefix, restored: Dict[str, Any]):
 
 def restore_checkpoint(directory: str, tree_like, *,
                        step: Optional[int] = None, device=None,
-                       in_place: bool = False):
+                       in_place: bool = False, layout=None):
     """Restore into the structure of `tree_like` (tensors, ints or
     arrays). Tensor leaves land on `device` (default: the like-leaf's
     device) with the stored dtype; with `in_place`, they are copied into
     the like-leaves themselves (no second copy on their device; the
-    dtypes must match). A missing leaf raises KeyError, a shape or dtype
-    mismatch ValueError. Returns (tree, manifest)."""
+    dtypes must match). With a mesh `layout` the like-leaves are this
+    rank's shards, cut from the stored logical arrays. A missing leaf
+    raises KeyError, a shape or dtype mismatch ValueError. Returns
+    (tree, manifest)."""
     if in_place and device is not None:
         raise ValueError("in_place restores onto the leaves' own devices")
     if step is None:
@@ -237,12 +310,14 @@ def restore_checkpoint(directory: str, tree_like, *,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     restored = {}
-    with np.load(os.path.join(path, "arrays.npz")) as data:
+    with _NpzReader(os.path.join(path, "arrays.npz")) as data:
         for key, like in flatten_with_paths(tree_like):
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             arr = data[key.replace("/", "|")]
+            if layout is not None:
+                arr = layout.cut(key, arr)
             shape = tuple(like.shape) if hasattr(like, "shape") else ()
             if tuple(arr.shape) != shape:
                 raise ValueError(
@@ -257,13 +332,17 @@ def restore_checkpoint(directory: str, tree_like, *,
 class CheckpointManager:
     """Async save + GC + restore with a stable directory layout.
     `last_snapshot_s` / `last_write_s` are the latest save's host
-    snapshot time (on the caller's thread) and write time (on the
-    background thread, known after `wait()`); `last_restore_s` the
-    latest restore's time."""
+    snapshot time (on the caller's thread; on a mesh the gathers
+    included) and write time (on the background thread, known after
+    `wait()`); `last_restore_s` the latest restore's time. With a mesh
+    `layout` every rank calls `save` and `restore`, and only the writer
+    writes and collects old steps."""
 
-    def __init__(self, directory: str, *, keep_last: int = 3):
+    def __init__(self, directory: str, *, keep_last: int = 3,
+                 layout=None):
         self.dir = directory
         self.keep_last = keep_last
+        self.layout = layout
         self.last_snapshot_s = 0.0
         self.last_write_s = 0.0
         self.last_restore_s = 0.0
@@ -276,8 +355,10 @@ class CheckpointManager:
         # step updates the parameters in place
         self.wait()
         t0 = time.perf_counter()
-        items = host_snapshot(tree)
+        items = host_snapshot(tree, self.layout)
         self.last_snapshot_s = time.perf_counter() - t0
+        if self.layout is not None and not self.layout.writer:
+            return
         self._thread = threading.Thread(
             target=self._save_worker, args=(step, items, metadata),
             daemon=True, name="ckpt-save")
@@ -314,7 +395,8 @@ class CheckpointManager:
         self.wait()
         t0 = time.perf_counter()
         out = restore_checkpoint(self.dir, tree_like, step=step,
-                                 device=device, in_place=in_place)
+                                 device=device, in_place=in_place,
+                                 layout=self.layout)
         self.last_restore_s = time.perf_counter() - t0
         return out
 
@@ -332,6 +414,9 @@ def save_train_state(ckpt: CheckpointManager, step: int, params, opt_state,
               metadata=meta)
     if final:
         ckpt.wait()
+        if ckpt.layout is not None:
+            # every rank sees the committed step once this returns
+            ckpt.layout.barrier()
 
 
 def restore_train_state(ckpt: CheckpointManager, params, opt_state,

@@ -71,25 +71,90 @@ def _dp_dim(spec, dp: Tuple[str, ...]) -> Optional[int]:
     return None
 
 
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def cut_leaf(leaf, spec: LeafSpec, mesh):
+    """This rank's shard of one leaf (a tensor or numpy array of the
+    global shape) as `spec` lays it out."""
+    for d, entry in enumerate(spec.spec):
+        if entry is None:
+            continue
+        axes = _entry_axes(entry)
+        n = axes_size(mesh, axes)
+        i = linear_axis_index(mesh, axes)
+        size = leaf.shape[d] // n
+        idx = [slice(None)] * len(leaf.shape)
+        idx[d] = slice(i * size, (i + 1) * size)
+        leaf = leaf[tuple(idx)]
+    return leaf.contiguous() if isinstance(leaf, torch.Tensor) \
+        else leaf.copy()
+
+
 def shard_tree(tree, spec_tree, mesh):
     """This rank's shard of every leaf of `tree` (tensors or numpy arrays
     of the global shapes) as `spec_tree` lays them out."""
+    return _zip_map(lambda leaf, spec: cut_leaf(leaf, spec, mesh), tree,
+                    wrap_specs(spec_tree))
 
-    def cut(leaf, spec):
-        for d, entry in enumerate(spec.spec):
-            if entry is None:
-                continue
-            axes = entry if isinstance(entry, tuple) else (entry,)
-            n = axes_size(mesh, axes)
-            i = linear_axis_index(mesh, axes)
-            size = leaf.shape[d] // n
-            idx = [slice(None)] * len(leaf.shape)
-            idx[d] = slice(i * size, (i + 1) * size)
-            leaf = leaf[tuple(idx)]
-        return leaf.contiguous() if isinstance(leaf, torch.Tensor) \
-            else leaf.copy()
 
-    return _zip_map(cut, tree, wrap_specs(spec_tree))
+def gather_leaf(shard: torch.Tensor, spec: LeafSpec, mesh) -> torch.Tensor:
+    """`cut_leaf` undone: the global leaf from every rank's shard, on
+    every rank (a collective over the axes of each sharded dim)."""
+    for d, entry in enumerate(spec.spec):
+        if entry is not None:
+            shard = mesh.comm.all_gather_cat(shard, _entry_axes(entry), d)
+    return shard
+
+
+class ShardLayout:
+    """A mesh session's train state as the logical arrays a checkpoint
+    stores (`ckpt/checkpoint.py`, the JAX package's layout, which keeps
+    global arrays and reshards on restore): on save each leaf sharded by
+    its spec is gathered over the spec's axes (every rank takes part, the
+    writer, rank 0, keeps the result and writes it); on restore every
+    rank cuts its shard out of the logical array (`cut_leaf`). Keys are
+    the checkpoint's leaf keys: `params/...` take the parameters' specs
+    (`param_specs(fsdp=True)`), the moments `opt_state/.mu/...` and
+    `.nu/...` the same ones (ZeRO-1,
+    `parallel/sharding.py::spec_tree_for_optstate`), and any other leaf
+    (the step counter) is replicated."""
+
+    _PREFIXES = ("params/", "opt_state/.mu/", "opt_state/.nu/")
+
+    def __init__(self, mesh, spec_tree, device):
+        from repro_torch.ckpt.checkpoint import flatten_with_paths
+        self.mesh, self.device = mesh, torch.device(device)
+        self.writer = mesh.rank == 0
+        self._specs = dict(flatten_with_paths(spec_tree))
+
+    def spec_of(self, key: str) -> Optional[LeafSpec]:
+        for pre in self._PREFIXES:
+            if key.startswith(pre):
+                return self._specs.get(key[len(pre):])
+        return None
+
+    def gather(self, key: str, leaf):
+        """The logical leaf of `key` on the writer (None on the others).
+        A moment the optimizer overlap materialized on the host goes to
+        the rank's device first under NCCL, which takes no host tensor."""
+        spec = self.spec_of(key)
+        if spec is not None and isinstance(leaf, torch.Tensor) and any(
+                e is not None for e in spec.spec):
+            if self.mesh.comm.backend == "nccl" and \
+                    leaf.device != self.device:
+                leaf = leaf.to(self.device)
+            leaf = gather_leaf(leaf, spec, self.mesh)
+        return leaf if self.writer else None
+
+    def cut(self, key: str, arr):
+        """This rank's shard of the stored logical array of `key`."""
+        spec = self.spec_of(key)
+        return arr if spec is None else cut_leaf(arr, spec, self.mesh)
+
+    def barrier(self) -> None:
+        self.mesh.comm.barrier()
 
 
 def _zip_map(fn, tree, specs):
@@ -102,9 +167,9 @@ def _zip_map(fn, tree, specs):
 
 
 def check_mesh_config(cfg) -> None:
-    """Refuse a config whose layers a mesh cannot run yet: mamba2, RG-LRU,
-    encoder-decoder and vision models, and embeddings inputs, wait for
-    slice 12b. Never run them unsharded in silence."""
+    """Refuse a config whose layers a mesh cannot run yet: mamba2, RG-LRU
+    and encoder-decoder models wait for part 3 of slice 12b. Never run
+    them unsharded in silence."""
     what = None
     if cfg.family == "ssm":
         what = "mamba2 layers"
@@ -112,15 +177,13 @@ def check_mesh_config(cfg) -> None:
         what = "RG-LRU layers"
     elif cfg.family == "encdec":
         what = "an encoder-decoder"
-    elif cfg.family == "vlm" or cfg.cross_attn_period:
-        what = "cross-attention over image embeddings"
-    elif cfg.input_kind != "tokens":
-        what = f"{cfg.input_kind} inputs"
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name} has {what}: meshes of it wait for slice 12b of "
-            f"the port (ROADMAP §1 item 12b); this slice runs attention "
-            f"decoders and encoders with dense or MoE MLPs on a mesh")
+            f"{cfg.name} has {what}: meshes of it wait for part 3 of slice "
+            f"12b of the port (ROADMAP §1 item 12b); a mesh runs attention "
+            f"decoders and encoders with dense or MoE MLPs, embeddings "
+            f"inputs (hubert) and cross-attention over image embeddings "
+            f"(llama-3.2-vision)")
 
 
 #: backends whose blobs may sit in one process's memory: no other rank

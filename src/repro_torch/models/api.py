@@ -123,11 +123,19 @@ def _token_embed(params, tokens, cfg: ModelConfig):
     return x
 
 
-def _frontend_embed(params, embeddings, cfg: ModelConfig):
+def _frontend_embed(params, embeddings, cfg: ModelConfig, tp=None):
     """Precomputed frame embeddings (B, S, D) through `frontend_proj`, in
-    the parameter dtype (scaled as `_token_embed` scales)."""
+    the parameter dtype (scaled as `_token_embed` scales). Under a tensor
+    axis `tp` the projection holds this rank's columns of the width
+    (column-parallel, the JAX spec (fsdp, tp)): each rank projects its
+    columns and the width is gathered over the axis."""
     w = params["frontend_proj"]
-    x = embeddings.to(w.dtype) @ w
+    if tp is not None and w.shape[1] != cfg.d_model:
+        with tp.region():
+            x = embeddings.to(w.dtype) @ w
+        x = tp.gather(x, x.dim() - 1)
+    else:
+        x = embeddings.to(w.dtype) @ w
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -140,12 +148,10 @@ def embed_in(params, batch, cfg: ModelConfig, tp=None):
     for non-RoPE models. Under a tensor axis `tp`
     (`parallel/comm.py::TpGroup`) `embed` holds this rank's rows of the
     vocab (a token outside them looks up zeros; the ranks' lookups are
-    all-reduced) and `pos_embed` its columns of the width (gathered)."""
+    all-reduced), `pos_embed` its columns of the width (gathered), and
+    `frontend_proj` its columns of the width too (`_frontend_embed`)."""
     if cfg.input_kind == "embeddings":
-        if tp is not None:
-            raise NotImplementedError("a tensor axis over an embeddings "
-                                      "input waits for slice 12b")
-        x = _frontend_embed(params, batch["embeddings"], cfg)
+        x = _frontend_embed(params, batch["embeddings"], cfg, tp)
     elif tp is not None:
         x = _vocab_parallel_embed(params, batch["tokens"], cfg, tp)
     else:

@@ -243,20 +243,27 @@ def _proj(x, w):
     return (x @ w.reshape(D, H * K)).unflatten(-1, (H, K))
 
 
-def _qkv(p, x, cfg: ModelConfig, positions, tp=None):
-    """q, k, v of x. Under a tensor axis `tp` the projections hold this
-    rank's heads; kv projections whose heads the axis does not divide
-    are whole on every rank (the sharding rules replicate them), so
-    their gradient is summed over the axis and k, v keep the kv heads
-    this rank's query heads read."""
+def _kv_weights(p, cfg: ModelConfig, tp=None):
+    """(wk, wv, bk, bv, whole): the kv projections of an attention or
+    cross block. Under a tensor axis `tp` those whose heads the axis does
+    not divide are whole on every rank (the sharding rules replicate
+    them), so their gradient is summed over the axis, and the caller
+    keeps the kv heads this rank's query heads read (`_local_kv`)."""
     wk, wv = p["wk"], p["wv"]
     bk, bv = p.get("bk"), p.get("bv")
-    kv_whole = tp is not None and wk.shape[1] == cfg.num_kv_heads \
-        and cfg.num_kv_heads % tp.size
-    if kv_whole:
+    whole = bool(tp is not None and wk.shape[1] == cfg.num_kv_heads
+                 and cfg.num_kv_heads % tp.size)
+    if whole:
         wk, wv = tp.grad_sum(wk), tp.grad_sum(wv)
         if bk is not None:
             bk, bv = tp.grad_sum(bk), tp.grad_sum(bv)
+    return wk, wv, bk, bv, whole
+
+
+def _qkv(p, x, cfg: ModelConfig, positions, tp=None):
+    """q, k, v of x. Under a tensor axis `tp` the projections hold this
+    rank's heads (`_kv_weights` for kv heads the axis does not divide)."""
+    wk, wv, bk, bv, kv_whole = _kv_weights(p, cfg, tp)
     q, k, v = _proj(x, p["wq"]), _proj(x, wk), _proj(x, wv)
     if "bq" in p:
         q, k, v = q + p["bq"], k + bk, v + bv
@@ -340,26 +347,34 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
     MoE block adds its aux losses into `aux` when given.
 
     With a tensor axis in `settings` (`parallel/comm.py::tp_group`) the
-    parameters are this rank's shards: an attention block runs on its
-    query heads (Megatron: column-parallel q/k/v, row-parallel wo, the
-    output all-reduced), its dense MLP and shared expert likewise, and
-    its MoE FFN on this rank's experts; the other mixers wait for slice
-    12b (the engine refuses them)."""
+    parameters are this rank's shards: an attention or cross block runs
+    on its query heads (Megatron: column-parallel q/k/v, row-parallel
+    wo, the output all-reduced; a cross block's K/V projected from the
+    encoder states, which enter the parallel region as its normed input
+    does), its dense MLP and shared expert likewise, and its MoE FFN on
+    this rank's experts; the ssm and rglru mixers wait for part 3 of
+    slice 12b (the engine refuses them)."""
     tp = tp_group(settings)
-    if tp is not None and bdef.mixer != "attn":
+    if tp is not None and bdef.mixer not in ("attn", "cross"):
         raise NotImplementedError(
-            f"a tensor axis over a {bdef.mixer} block waits for slice "
-            f"12b")
+            f"a tensor axis over a {bdef.mixer} block waits for part 3 of "
+            f"slice 12b")
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     if bdef.mixer == "cross":
         # each cross block projects its own K/V from the encoder states;
         # no RoPE, no mask, no window, no softcap
+        if tp is not None:
+            h, enc_kv = tp.enter(h), tp.enter(enc_kv)
+        wk, wv, _, _, kv_whole = _kv_weights(p["attn"], cfg, tp)
         q = _proj(h, p["attn"]["wq"])
-        ek, ev = _proj(enc_kv, p["attn"]["wk"]), _proj(enc_kv,
-                                                       p["attn"]["wv"])
+        ek, ev = _proj(enc_kv, wk), _proj(enc_kv, wv)
+        if kv_whole:
+            ek, ev = _local_kv(ek, ev, cfg, tp)
         o = attend(q, ek, ev, causal=False, chunk=settings.attn_chunk,
                    impl=settings.attn_impl)
         mix, cache = _out_proj(o, p["attn"]["wo"]), (ek, ev)
+        if tp is not None:
+            mix = tp.reduce(mix)
     elif bdef.mixer == "ssm":
         mix, cache = m2.apply_mamba2(p["ssm"], h, cfg,
                                      impl=settings.attn_impl)

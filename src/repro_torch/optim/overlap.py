@@ -52,10 +52,14 @@ Moment leases are per (step, stage): `spool.step(f"opt{step}L{stage}")`
 with the payload at stage 0 (spool keys `opt{step}L{stage}_s0`), stages
 numbered as the JAX package numbers them (decoder layers from 0, encoder
 layers from `ENC_STAGE_BASE`); the `opt` prefix is what the cache
-manager's opt_state class and the trace analyzer classify on. One
-departure: the port's optimizers update in place, so the JAX bridge's
-`_restack` is the worker writing each layer's slice of
-`params[key][si]` where it lies.
+manager's opt_state class and the trace analyzer classify on. On a mesh
+each rank runs its own bridge over its ZeRO-1 shards (the tap fires
+after the engine's gradient reduction, so its leaves are this rank's
+shards), and the ranks share one spool directory: `lease_suffix` (the
+rank's shard, `/s{rank}`) makes the keys `opt{step}L{stage}/s{rank}`,
+so two ranks' leases never name one blob. One departure: the port's
+optimizers update in place, so the JAX bridge's `_restack` is the worker
+writing each layer's slice of `params[key][si]` where it lies.
 """
 from __future__ import annotations
 
@@ -125,7 +129,8 @@ class OptBridge:
     OptState for checkpoints and the end of a run."""
 
     def __init__(self, optimizer: Optimizer, spool, *, eager: bool = True,
-                 join_timeout: float = DEFAULT_JOIN_TIMEOUT_S):
+                 join_timeout: float = DEFAULT_JOIN_TIMEOUT_S,
+                 lease_suffix: str = ""):
         if optimizer.leaf_update is None:
             raise ValueError(
                 f"optimizer {optimizer.name!r} has no per-leaf update "
@@ -139,6 +144,7 @@ class OptBridge:
         self.spool = spool
         self.eager = eager
         self.join_timeout = join_timeout
+        self.lease_suffix = lease_suffix
         self._leaf_fn = optimizer.leaf_update
         self.seeded = False
         self._step: int = 0
@@ -201,7 +207,7 @@ class OptBridge:
                 for stage, (key, si, li) in self._layout.items():
                     payload = self._slice_moments(opt_state, key, si, li)
                     self._mom_tx[stage] = self._stage_out(
-                        f"opt{self._step}L{stage}", payload)
+                        self._lease_id(self._step, stage), payload)
                     self._moment_bytes += sum(
                         t.numel() * t.element_size() for t in payload)
         self.seeded = True
@@ -219,6 +225,13 @@ class OptBridge:
             out += [leaf[li]
                     for leaf in tree_flatten(opt_state.nu[key][si])[0]]
         return out
+
+    def _lease_id(self, step: int, stage: int) -> str:
+        return f"opt{step}L{stage}{self.lease_suffix}"
+
+    def lease_ids(self) -> List[str]:
+        """The moment leases the bridge holds now."""
+        return sorted(tx.step_id for tx in self._mom_tx.values())
 
     def _on_stream(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None
@@ -364,9 +377,10 @@ class OptBridge:
             obs.instant("opt.stage_skip", cat="opt", step=step,
                         stage=stage, bytes=nbytes)
             return
+        lease_id = self._lease_id(new_step, stage)
         with obs.span("opt.stage", cat="opt", step=step, stage=stage,
-                      key=f"opt{new_step}L{stage}") as sp:
-            ntx = self.spool.step(f"opt{new_step}L{stage}")
+                      key=lease_id) as sp:
+            ntx = self.spool.step(lease_id)
             ntx.offload_staged(0, new, lease, blob, device=dev)
             sp.set(bytes=nbytes)
         self.counters["opt_staged_bytes"] += nbytes

@@ -28,7 +28,12 @@
     and with an `opt_bridge` (`repro_torch.optim.overlap`) the bridge
     owns the optimizer state's placement, per layer, so "opt_state"
     staging is off and the loop's state holds the bridge's light
-    `(step, None, None)`.
+    `(step, None, None)`;
+  * meshes: a `ckpt_layout` (`core/meshrun.py::ShardLayout`) makes the
+    checkpoints hold logical arrays, written by rank 0 and cut back into
+    every rank's shards on resume; `lease_suffix` qualifies the staged
+    state's lease (`opt{step}` + suffix, the rank's shard, e.g. `/s1`),
+    since the ranks share one spool directory.
 
 Each step's time is taken after a synchronize of the card (the JAX loop
 blocks on the new parameters), the optimizer state's fetch included;
@@ -130,6 +135,7 @@ class TrainLoop:
                  spool: Any = None,
                  host_offload: Any = "none",
                  opt_bridge: Any = None,
+                 ckpt_layout: Any = None, lease_suffix: str = "",
                  on_step: Optional[Callable[[int, float, Any, Any],
                                             None]] = None,
                  install_signal_handlers: bool = False):
@@ -146,11 +152,13 @@ class TrainLoop:
             host_offload = "none"
         self.spool = spool
         self.host_offload = host_offload if spool is not None else "none"
+        self.lease_suffix = lease_suffix
         self._opt_tx = None          # the staged-out optimizer state
         self.step_fn = step_fn
         self.state = init_state
         self.loader = loader
-        self.ckpt = (CheckpointManager(ckpt_dir, keep_last=keep_last)
+        self.ckpt = (CheckpointManager(ckpt_dir, keep_last=keep_last,
+                                       layout=ckpt_layout)
                      if ckpt_dir is not None else None)
         self.ckpt_every = ckpt_every
         self.metrics_path = metrics_path
@@ -200,7 +208,7 @@ class TrainLoop:
         if self.host_offload != "opt_state":
             return opt_state
         with obs.span("engine.opt_stage", cat="engine", step=step):
-            tx = self.spool.step(f"opt{step}")
+            tx = self.spool.step(f"opt{step}{self.lease_suffix}")
             # the step counter rides as a kept leaf; an absent moment
             # (sgd) is an empty list
             tx.offload(0, [torch.tensor(opt_state.step),

@@ -60,9 +60,15 @@ through the mesh hooks (`core/hooks.py`) into one directory every rank
 shares (rank 0 makes it when `io.directory` is unset and removes it on
 close). The metrics rows gain the `shards` block (the step's hook traffic
 by shard, summed over the ranks), `comm_backend` and
-`comm_host_staged_bytes`. A mesh needs the jit engine, as JAX's, and a
-dense attention model (`core/meshrun.py::check_mesh_config`); the
-optimizer overlap and checkpoints of a mesh wait for slice 12b.
+`comm_host_staged_bytes`. A mesh needs the jit engine, as JAX's, and an
+attention model (`core/meshrun.py::check_mesh_config`: dense and MoE
+decoders and encoders, hubert's embeddings input, llama-3.2-vision's
+cross blocks; T5, mamba2 and recurrentgemma wait for part 3 of slice
+12b). Checkpoints of a mesh hold the logical arrays, gathered over the
+ranks and written by rank 0, and restore onto any mesh or one device
+(`core/meshrun.py::ShardLayout`); the optimizer overlap and
+`io.host_offload="opt_state"` run on each rank's ZeRO-1 shards, their
+leases qualified by the rank (`/s{rank}`) in the shared directory.
 """
 from __future__ import annotations
 
@@ -78,7 +84,8 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import ModelConfig, SpoolIoConfig, resolve_config
 from repro_torch.core.engine import StagedEngine, layer_stage_names
-from repro_torch.core.meshrun import check_mesh_config, shard_tree
+from repro_torch.core.meshrun import (ShardLayout, check_mesh_config,
+                                     shard_tree)
 from repro_torch.core.policies import OffloadPolicy, policy_for_jit
 from repro_torch.core.report import StepReport
 from repro_torch.core.tree import tree_flatten
@@ -190,8 +197,7 @@ class TrainSession:
         self.mesh, self.mesh_axes = mesh, None
         self._own_shared_dir = None
         if mesh is not None:
-            io = self._init_mesh(engine, io, mesh_axes, opt_overlap,
-                                 ckpt_dir, device)
+            io = self._init_mesh(engine, io, mesh_axes, device)
         if loader is None and self.cfg.input_kind != "tokens":
             raise ValueError(
                 f"{self.cfg.name} takes {self.cfg.input_kind} inputs and "
@@ -281,8 +287,7 @@ class TrainSession:
         self._resil_snapshot: Dict[str, Any] = {}
         self._shard_snapshot: Dict[str, Dict[str, int]] = {}
 
-    def _init_mesh(self, engine, io, mesh_axes, opt_overlap, ckpt_dir,
-                   device):
+    def _init_mesh(self, engine, io, mesh_axes, device):
         """Check a mesh run, pick the axes' roles and share one spool
         directory between the ranks. Returns the io config to use."""
         if engine != "jit":
@@ -290,12 +295,6 @@ class TrainSession:
                 "mesh-sharded training is a jit-engine feature; the "
                 "staged engine runs one device")
         check_mesh_config(self.cfg)
-        if opt_overlap or (io is not None and io.opt_overlap):
-            raise ValueError("the optimizer overlap on a mesh waits for "
-                             "slice 12b")
-        if ckpt_dir is not None:
-            raise ValueError("checkpoints of a mesh (sharded restore) wait "
-                             "for slice 12b")
         if self.mesh.comm is None:
             raise ValueError("the mesh has no Comm: build it with "
                              "parallel.comm.init_mesh")
@@ -312,6 +311,12 @@ class TrainSession:
                 self._own_shared_dir = d
             io = dataclasses.replace(io, directory=d)
         return io
+
+    def _lease_suffix(self) -> str:
+        """What qualifies the optimizer state's leases in the directory
+        the ranks share: this rank's shard (its linear index over every
+        axis, its rank)."""
+        return "" if self.mesh is None else f"/s{self.mesh.rank}"
 
     def _with_mesh(self, settings: RunSettings) -> RunSettings:
         return dataclasses.replace(settings, mesh=self.mesh,
@@ -350,7 +355,8 @@ class TrainSession:
         if self.opt_overlap:
             self.opt_bridge = OptBridge(
                 self.optimizer, self.engine.spool,
-                eager=self.opt_overlap != "sync")
+                eager=self.opt_overlap != "sync",
+                lease_suffix=self._lease_suffix())
             self.settings = dataclasses.replace(self.settings,
                                                 opt_sink=self.opt_bridge)
             self.engine.settings = self.settings
@@ -428,6 +434,12 @@ class TrainSession:
                 ckpt_every=self.ckpt_every, keep_last=self.keep_last,
                 spool=self.engine.spool, host_offload=self.host_offload,
                 opt_bridge=self.opt_bridge,
+                ckpt_layout=(ShardLayout(self.mesh,
+                                         self.engine.mesh_run.specs,
+                                         self.settings.device)
+                             if self.mesh is not None
+                             and self.ckpt_dir is not None else None),
+                lease_suffix=self._lease_suffix(),
                 install_signal_handlers=self.install_signal_handlers)
         return self._loop
 

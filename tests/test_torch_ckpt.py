@@ -198,3 +198,30 @@ def test_async_save_snapshots_at_save_and_gc_keeps_the_newest(tmp_path):
         assert torch.equal(got["w"], torch.full((256, 256), float(s)))
         assert manifest["metadata"] == {"s": s}
     assert mgr.last_write_s > 0
+
+
+def test_the_reader_reads_what_np_savez_writes(tmp_path):
+    """A restore reads `arrays.npz` members from their offsets in large
+    calls (`ckpt/checkpoint.py::_NpzReader`): the arrays `np.savez`
+    writes come back bitwise, a 0-d and an empty one included, and a
+    member it does not write (compressed, Fortran-ordered) is refused."""
+    arrays = {"a|b": np.arange(10 ** 5, dtype=np.float32).reshape(100, -1),
+              "step": np.asarray(3, np.int32),
+              "bf": np.arange(12, dtype=np.uint16).reshape(3, 4),
+              "empty": np.zeros((0, 3), np.float32)}
+    path = str(tmp_path / "a.npz")
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    with tckpt._NpzReader(path) as data:
+        for name, want in arrays.items():
+            got = data[name]
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert np.array_equal(got, want), name
+    for bad, write in (("z.npz", lambda f: np.savez_compressed(f, **arrays)),
+                       ("f.npz", lambda f: np.savez(f, x=np.asfortranarray(
+                           arrays["a|b"])))):
+        with open(tmp_path / bad, "wb") as f:
+            write(f)
+        with tckpt._NpzReader(str(tmp_path / bad)) as data:
+            with pytest.raises(ValueError, match="np.savez"):
+                data["x" if bad == "f.npz" else "step"]

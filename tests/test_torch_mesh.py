@@ -386,13 +386,12 @@ def test_blob_names_keep_a_slash_out_of_the_path(tmp_path):
 # ------------------------------------------------------------ refusals
 
 @pytest.mark.parametrize("arch", [
-    "mamba2-2.7b:reduced", "recurrentgemma-9b:reduced",
-    "llama-3.2-vision-90b:reduced", "hubert-xlarge:reduced", "small-t5"])
+    "mamba2-2.7b:reduced", "recurrentgemma-9b:reduced", "small-t5"])
 def test_a_mesh_of_what_waits_for_12b_is_refused(arch):
     from repro_torch.configs import small_t5
     from repro_torch.session import TrainSession
     cfg = small_t5() if arch == "small-t5" else arch
-    with pytest.raises(NotImplementedError, match="slice 12b"):
+    with pytest.raises(NotImplementedError, match="part 3 of slice 12b"):
         TrainSession(cfg, engine="jit", device="cpu",
                      mesh=tmesh.make_test_mesh((1, 2)))
 
@@ -412,15 +411,35 @@ def test_moe_archs_build_a_mesh_session(arch):
 
 
 def test_a_mesh_needs_the_jit_engine_and_no_overlap_or_checkpoints(tmp_path):
+    """A mesh needs the jit engine. The optimizer overlap and checkpoints
+    of a mesh run since slice 12b part 2 (tests/test_torch_mesh_overlap.py,
+    tests/test_torch_mesh_ckpt.py): with either, a session over a stub
+    mesh gets as far as asking for its Comm."""
     from repro_torch.session import TrainSession
     mesh = tmesh.make_test_mesh((2, 1))
     with pytest.raises(ValueError, match="jit-engine"):
         TrainSession("small-gpt", engine="staged", device="cpu", mesh=mesh)
-    with pytest.raises(ValueError, match="12b"):
-        TrainSession("small-gpt", engine="jit", device="cpu", mesh=mesh,
-                     opt_overlap=True)
-    with pytest.raises(ValueError, match="12b"):
-        TrainSession("small-gpt", engine="jit", device="cpu", mesh=mesh,
-                     ckpt_dir=str(tmp_path))
+    for kw in ({"opt_overlap": True}, {"ckpt_dir": str(tmp_path)}, {}):
+        with pytest.raises(ValueError, match="init_mesh"):
+            TrainSession("small-gpt", engine="jit", device="cpu", mesh=mesh,
+                         **kw)
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge:reduced",
+                                  "llama-3.2-vision-90b:reduced"])
+def test_hubert_and_vision_build_a_mesh_session(arch):
+    """Embeddings inputs and cross blocks pass the mesh check: a session
+    over a stub mesh gets as far as asking for its Comm."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.core.meshrun import check_mesh_config
+    from repro_torch.data.pipeline import embedding_batches, vision_batches
+    from repro_torch.session import TrainSession
+    cfg = resolve_config(arch)
+    check_mesh_config(cfg)
+    loader = (embedding_batches(cfg.d_model, cfg.vocab_size, batch=2,
+                                seq_len=8) if cfg.input_kind == "embeddings"
+              else vision_batches(cfg.vocab_size, cfg.d_model,
+                                  cfg.encoder_seq_len, batch=2, seq_len=8))
     with pytest.raises(ValueError, match="init_mesh"):
-        TrainSession("small-gpt", engine="jit", device="cpu", mesh=mesh)
+        TrainSession(arch, engine="jit", device="cpu", loader=loader,
+                     mesh=tmesh.make_test_mesh((1, 2)))

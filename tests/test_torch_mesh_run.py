@@ -304,6 +304,12 @@ def test_cli_parses_the_mesh_flags(monkeypatch):
     assert args.mesh == "2x2"
     assert train.io_config(args).dedupe_replicas is False
     assert train.io_config(train.parse_args(base)).dedupe_replicas is True
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    args = train.parse_args(base + ["--mesh", "1x2", "--opt-overlap",
+                                    "--ckpt", "D", "--resume"])
+    assert (args.mesh, args.opt_overlap, args.ckpt, args.resume) == (
+        "1x2", True, "D", True)
+    monkeypatch.setenv("WORLD_SIZE", "4")
     for bad in (["--mesh", "2x2", "--engine", "staged"],
                 ["--mesh", "2x4"], ["--mesh", "2y2"]):
         with pytest.raises(SystemExit):
