@@ -36,7 +36,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      must be bitwise equal, every evicted page restored, the spool
      directory empty after close, and the kernel launched once per
      layer per prefill in the paged run;
-  5. train: mamba2-2.7b at full width cut to 32 of its 64 layers
+  5. train: mamba2-2.7b at full width cut to 16 of its 64 layers
      (random weights from seed 0) through `repro_torch.session.TrainSession`, adamw, B=1,
      S=1024, 3 steps on the SSD-scan kernel, once with every residual
      kept on the card and once spooled to a fresh directory (fs, raw).
@@ -52,8 +52,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      both ways on the card); each adaptive plan is the one the paper's
      rule gives for the profiled stages and the calibrated write rate,
      and its steps read blobs back where it stores bytes;
-  7. train: recurrentgemma-9b at full width cut to 26 of its 38 layers
-     (8 super-layers of rglru, rglru, local attention and a remainder of
+  7. train: recurrentgemma-9b at full width cut to 14 of its 38 layers
+     (4 super-layers of rglru, rglru, local attention and a remainder of
      two rglru blocks; random weights from seed 0) through
      `TrainSession`, sgd
      (lr 3e-4, no momentum, clip 1.0), B=1, S=2048, 2 steps on the
@@ -169,11 +169,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and depth (36 layers, GQA 16/2, qkv biases, B=1), (b) gemma2-27b at
      full width cut to 4 layers (2 local/global pairs: window 4096,
      softcap 50, post-block norms; B=2), (c) hubert-xlarge at full width
-     and depth (48 bidirectional layers of 16 heads of 80, frame
+     cut to 24 of its 48 bidirectional layers (16 heads of 80, frame
      embeddings from a seeded generator through `loader`, B=2; in f32,
      its keep run phase 17's one-device reference), (d)
      llama4-scout-17b-a16e at full width cut to 2 layers (16 experts
-     top-1 plus a shared one, GQA 40/8, B=8); (b) and (d) spool through
+     top-1 plus a shared one, GQA 40/8, B=8); (b), (c) and (d) spool through
      `drained_spool_policy` (REG_TRAIN says why). Each: losses and final
      parameters bitwise equal, the engine's stage count, every stored
      stage fetched, the spool dir empty, the tracked activation peak and
@@ -211,7 +211,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      the weights. Phase 3 holds its self- and cross-attention instances
      (B=1, 1024 x 1024, 64 / 8 heads of 128) with their times;
  15. meshes (slice 12a): the paper's GPT at full width cut to 2 layers
-     (gpt-h8192-l2, f32, sgd, B=2, S=1024, 2 steps, the jit engine, fs
+     (gpt-h8192-l1, f32, sgd, B=2, S=1024, 2 steps, the jit engine, fs
      spool dirs): (a) one device, keep, in this process; then one spawn
      of 2 ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
      device; CUDA tensors are staged through pinned host memory) runs
@@ -230,10 +230,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (d) = (c), (i) = (h) (losses, final parameters and the moments'
      fingerprints), and (e) = (a) and (f) = (e), bitwise ((e) runs (a)'s
      computation on each rank: tp=None replicates the model); (c)'s
-     shards 0 and 1 each with 4 offloads and fetches and bytes in = out;
-     (e) shard 0 only, 4 offloads, 8 fetches, 4 replica skips, half the
+     shards 0 and 1 each with 2 offloads and fetches and bytes in = out;
+     (e) shard 0 only, 2 offloads, 4 fetches, 2 replica skips, half the
      bytes handed to the spool of (f); every spool dir empty and the
-     checkpoint dir removed; 4 flash launches per rank and run (2 in
+     checkpoint dir removed; 2 flash launches per rank and run (1 in
      (g)); each rank's tracked activation peak lower in (c) than in (b).
      The flash kernel at the tp-local shape (2, 1024, 32, 128), in f32
      (the path's) and bf16, against its plain version at phase 3's bars,
@@ -241,7 +241,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      backend and the bytes staged through host memory, the checkpoint's
      bytes, save and restore seconds, and the phase's time. `python3
      chip_smoke.py --mesh-only` runs phases 1-3's device line and build,
-     then this phase and phases 16 and 17;
+     then this phase and phases 16 to 18;
  16. expert parallelism, the GPipe pipeline and the int8 compressed dp
      mean (slice 12b part 1): llama4-scout-17b-a16e at full width (40/8
      heads of 128, 16 experts of 5120 -> 8192 top-1 and the shared
@@ -284,8 +284,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
  17. hubert and llama-3.2-vision on a mesh (slice 12b part 2), sgd (lr
      3e-4), S=1024, 2 steps, the jit engine, each (b) kept and (c)
      spooled (fs, one dir the ranks share) on a 1x2 mesh of 2 ranks
-     sharing cuda:0 over gloo: hubert-xlarge at full width and depth (48
-     layers, 8 of 16 heads of 80 a rank, `frontend_proj` column-parallel
+     sharing cuda:0 over gloo: hubert-xlarge at full width cut to phase
+     13's 24 layers (8 of 16 heads of 80 a rank, `frontend_proj` column-parallel
      with its width gathered), f32, B=2, its (a) phase 13's keep run;
      llama-3.2-vision-90b at full width cut to one period (5 layers: four
      self-attention blocks and a cross block over the 1024 patch
@@ -302,7 +302,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
      one-device f32 shape (2, 1024, 16, 80) and its tp=2 rank's (2, 1024,
      8, 80) f32, and at a vision tp=2 rank's (1, 1024, 32/4, 128) bf16,
      causal and not, each against its plain version with its times;
- 18. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 18. mamba2, recurrentgemma and T5 on a mesh (slice 12b part 3), in
+     phase 17's spawn, f32, sgd (lr 3e-4), S=1024, 2 steps, the jit
+     engine, each (b) kept and (c) spooled (fs, one dir the ranks share)
+     on the 1x2 mesh, its (a) one device, keep, in this process, ended
+     before the ranks allocate: mamba2-2.7b at full width cut to 8 layers
+     (40 of 80 SSM heads of 64 a rank, state 128: the SSD kernel on each
+     rank's heads, `w_zx` and the conv laid out by heads, B and C whole),
+     B=2; recurrentgemma-9b at one period (rglru, rglru and the MQA block,
+     2048 of the 4096 RG-LRU channels a rank, the gates' input gathered),
+     B=1; the paper's T5 at hidden 8192, t5(8192, 4) (2 encoder layers,
+     then 2 decoder layers of self- and cross-attention), B=1. (b) within 1e-4
+     of (a), (c) = (b) in losses and parameters' fingerprints, each shard
+     storing and fetching every layer stage once a step, spool dirs
+     empty, each rank's tracked activation peak lower in (c), and each
+     rank's launches a run exact (16 SSD calls; 8 RG-LRU wrapper calls and
+     2 flash; 12 flash for T5: its 2 encoder layers, 2 decoder layers'
+     self- and cross-attention). Phase 3's table gains the SSD scan at a
+     rank's (2, 1024, 40, 64) with f32 B/C (2, 1024, 128), the RG-LRU
+     forward and fused backward at (1, 1024, 2048), and flash at
+     recurrentgemma's rank (1, 1024, 8/1, 256, window 2048) and T5's (1,
+     1024, 32, 128), non-causal and causal, all f32, each against its
+     plain version with its times;
+ 19. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -405,10 +427,11 @@ FLASH_D256_CASES = [
 RG_ARCH, RG_SEQ, RG_LR, RG_CLIP = "recurrentgemma-9b", 2048, 3e-4, 1.0
 # phases 5 and 7 train at full width cut in depth (to make room for
 # phases 15 and 17, after the whole script took 1131.7 s of its 1200 on
-# an H100 80GB HBM3 at 700 W): mamba2-2.7b to TRAIN_LAYERS of its 64
-# layers, recurrentgemma-9b to RG_LAYERS of its 38 (8 super-layers and
-# the remainder of two rglru blocks); their checks scale with the depth
-TRAIN_LAYERS, RG_LAYERS = 32, 26
+# an H100 80GB HBM3 at 700 W, and again for phase 18): mamba2-2.7b to
+# TRAIN_LAYERS of its 64 layers (32 before phase 18), recurrentgemma-9b
+# to RG_LAYERS of its 38 (4 super-layers and the remainder of two rglru
+# blocks; 26 before phase 18); their checks scale with the depth
+TRAIN_LAYERS, RG_LAYERS = 16, 14
 # the paper's GPT, BERT and T5 at its first scenario (§4.2): hidden 8192,
 # 4 layers, S=1024, sgd without momentum; B=4 keeps the phase short (the
 # paper's micro-batch of 16 runs in benchmarks/torch_fig10.py --paper).
@@ -478,7 +501,7 @@ OPT_DROP_GB = 3.22
 # ways); from B=7 the first layer's backward, where keep also holds the
 # other layer's activations (1.4 GB a sample), is the higher
 REG_TRAIN = [("qwen2.5-3b", None, 1), ("gemma2-27b", 4, 2),
-             ("hubert-xlarge", None, 2), ("llama4-scout-17b-a16e", 2, 8)]
+             ("hubert-xlarge", 24, 2), ("llama4-scout-17b-a16e", 2, 8)]
 # phase 13 trains these in f32: hubert-xlarge's keep run is then phase
 # 17's one-device reference (a), which phase 17 need not run again
 REG_F32 = ("hubert-xlarge",)
@@ -541,8 +564,10 @@ T5_ATTN = (T5_BATCH,) + BERT_ATTN[1:]
 # phase 15: meshes on the one card: the paper's GPT (gpt-h8192) cut to
 # MESH_LAYERS layers in f32, sgd, B=MESH_BATCH, S=PAPER_SEQ, MESH_STEPS
 # steps; 2 ranks share cuda:0 over gloo. B=4 and 3 steps took 144.1 s
-# (measured on one H100); B=2 and 2 steps keep the phase in its 100 s
-MESH_LAYERS, MESH_BATCH, MESH_STEPS, MESH_RANKS = 2, 2, 2, 2
+# (measured on one H100); B=2 and 2 steps keep the phase in its 100 s;
+# one layer (two before phase 18) makes room for phase 18: its checks
+# scale with the depth
+MESH_LAYERS, MESH_BATCH, MESH_STEPS, MESH_RANKS = 1, 2, 2, 2
 # the flash instance a tp=2 rank launches: (B, S, H / 2, D)
 MESH_ATTN = (MESH_BATCH, PAPER_SEQ, PAPER_HIDDEN // 128 // 2, 128)
 # (b) and (g) against (a): the JAX package's GSPMD bar
@@ -592,8 +617,9 @@ MOE_FLASH_CASES = [
 ]
 # phase 17: the families on a 1x2 mesh of MESH_RANKS ranks sharing the
 # card over gloo, sgd at PAPER_LR, S=REG_SEQ, MESH_STEPS steps (phase 13's
-# REG_STEPS): hubert-xlarge at full width and depth in f32 (phase 13's
-# keep run, in f32 too, is its one-device (a)), and llama-3.2-vision-90b
+# REG_STEPS): hubert-xlarge at full width in f32 cut to phase 13's depth
+# (24 of its 48 layers since phase 18 came; phase 13's keep run, in f32
+# too, is its one-device (a)), and llama-3.2-vision-90b
 # at full width cut to one period (FAMILY_VISION_LAYERS layers: four
 # self-attention blocks and a cross block, 6.4 B parameters) in bf16 (in
 # f32 two ranks' parameters, gradients and the update's copies do not
@@ -612,6 +638,36 @@ FAMILY_FLASH_CASES = [
      torch.bfloat16, TOL_BF16_ROW),
     ("vision cross tp=2", (1, 1024, 1024, 32, 4, 128, False, 0, 0.0),
      torch.bfloat16, TOL_BF16_ROW),
+]
+
+# phase 18: mamba2, recurrentgemma and T5 on the 1x2 mesh of phase 17's
+# spawn, f32 (the GSPMD bar), sgd at PAPER_LR, S=REG_SEQ, MESH_STEPS
+# steps, at full width cut in depth (REC_LAYERS): mamba2-2.7b to 8 of its
+# 64 layers (80 SSM heads of 64, 40 a rank; state 128), B=2;
+# recurrentgemma-9b to one period (rglru, rglru and the MQA attention
+# block; W=4096, 2048 a rank; 16/1 heads of 256, window 2048), B=1; the
+# paper's T5 at hidden 8192, t5(8192, REC_LAYERS[REC_T5]) (its encoder
+# and decoder layers), B=1. Each (a) one device, keep, in this process
+REC_MAMBA, REC_RG, REC_T5 = "mamba2-2.7b", "recurrentgemma-9b", "t5"
+REC_ARCHS = (REC_MAMBA, REC_RG, REC_T5)
+REC_LAYERS = {REC_MAMBA: 8, REC_RG: 3, REC_T5: 4}
+REC_BATCH = {REC_MAMBA: 2, REC_RG: 1, REC_T5: 1}
+# phase 18's kernel instances, a tp=2 rank's shapes: the SSD scan over 40
+# of mamba2's 80 heads at B=2 (f32 B and C: strided views of the conv
+# output, 2560 x channels then 128 + 128), the RG-LRU scan over 2048 of
+# the 4096 channels, forward and fused backward, and flash at
+# recurrentgemma's 8 of 16 query heads over its one kv head (window 2048)
+# and T5's 32 of 64 heads (non-causal: encoder and cross; causal: the
+# decoder's self-attention), all f32
+REC_SSD = (REC_BATCH[REC_MAMBA], REG_SEQ, 40, 64, 128, 2560)
+REC_RGLRU = (REC_BATCH[REC_RG], REG_SEQ, 2048)
+REC_FLASH_CASES = [
+    ("recurrentgemma tp=2", (1, 1024, 1024, 8, 1, 256, True, 2048, 0.0),
+     torch.float32, TOL_F32),
+    ("t5 tp=2", (1, 1024, 1024, 32, 32, 128, False, 0, 0.0),
+     torch.float32, TOL_F32),
+    ("t5 self tp=2", (1, 1024, 1024, 32, 32, 128, True, 0, 0.0),
+     torch.float32, TOL_F32),
 ]
 
 PEAKS = {
@@ -2999,7 +3055,7 @@ def mesh_run(label, work, *, mesh=None, axes=None, offload=False,
              keep_params=None, host_params=False, fingerprints=False):
     """One run of phases 15 and 17 in this process: one device (`mesh`
     None) or this rank of `mesh`, MESH_STEPS steps of the jit engine on
-    `cfg` (gpt-h8192-l2 in f32 by default) with `optimizer` (sgd at
+    `cfg` (gpt-h8192-l1 in f32 by default) with `optimizer` (sgd at
     PAPER_LR by default) at B=`batch`, S=PAPER_SEQ; every layer kept, or
     with `offload` spooled into `work/label` (a directory every rank of
     the mesh shares); `overlap`: the optimizer overlap, each rank's
@@ -3024,6 +3080,7 @@ def mesh_run(label, work, *, mesh=None, axes=None, offload=False,
     from repro_torch.configs import SpoolIoConfig, gpt
     from repro_torch.core.meshrun import ShardLayout
     from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import rglru_scan, ssd_scan
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.transformer import RunSettings
     from repro_torch.optim.optimizers import sgd
@@ -3065,7 +3122,8 @@ def mesh_run(label, work, *, mesh=None, axes=None, offload=False,
             out["restore_s"] = time.perf_counter() - t0
             check(step == 1, f"mesh ({label}): restored step {step}")
             steps -= step
-        flash_attention.launches = 0
+        for k in (flash_attention, ssd_scan.ssd_scan, rglru_scan.rglru_scan):
+            k.launches = 0
         t0 = time.perf_counter()
         if save_dir is not None:
             reps = sess.run(1).reports
@@ -3083,6 +3141,8 @@ def mesh_run(label, work, *, mesh=None, axes=None, offload=False,
             run_s = time.perf_counter() - t0
         out.update({
             "s": run_s, "launches": flash_attention.launches,
+            "ssd_launches": ssd_scan.ssd_scan.launches,
+            "rglru_launches": rglru_scan.rglru_scan.launches,
             "losses": [r.loss for r in reps],
             "tracked": max(r.peak_activation_bytes for r in reps),
             "device": max(r.extra["device_peak_bytes"] for r in reps),
@@ -3393,13 +3453,14 @@ def mesh_phase(gen, peaks, smi):
 
 
 def family_cfg(arch):
-    """Phase 17's config of `arch`: hubert-xlarge at full width and depth
-    in f32, llama-3.2-vision-90b at full width cut to FAMILY_VISION_LAYERS
-    layers in bf16."""
+    """Phase 17's config of `arch`: hubert-xlarge at full width in f32 at
+    phase 13's depth, llama-3.2-vision-90b at full width cut to
+    FAMILY_VISION_LAYERS layers in bf16."""
     from repro_torch.configs import resolve_config
     cfg = resolve_config(arch)
     if arch == FAMILY_HUBERT:
-        return dataclasses.replace(cfg, dtype="float32")
+        layers = dict((a, n) for a, n, _ in REG_TRAIN)[arch]
+        return dataclasses.replace(cfg, dtype="float32", num_layers=layers)
     return dataclasses.replace(cfg, num_layers=FAMILY_VISION_LAYERS)
 
 
@@ -3418,9 +3479,45 @@ def family_run(arch, label, work, **kw):
                     fingerprints=True, **kw)
 
 
+def rec_cfg(arch):
+    """Phase 18's config of `arch` (REC_LAYERS deep, f32)."""
+    from repro_torch.configs import resolve_config, t5
+    cfg = (t5(PAPER_HIDDEN, REC_LAYERS[arch]) if arch == REC_T5 else
+           dataclasses.replace(resolve_config(arch),
+                               num_layers=REC_LAYERS[arch]))
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def rec_run(arch, label, work, **kw):
+    """One run of phase 18 (`mesh_run` over `rec_cfg(arch)`; T5 reads the
+    encoder-decoder batches phase 8 trains it on)."""
+    from repro_torch.data.pipeline import encoder_decoder_batches
+    cfg, batch = rec_cfg(arch), REC_BATCH[arch]
+    loader = (encoder_decoder_batches(cfg.vocab_size, batch=batch,
+                                      seq_len=REG_SEQ, seed=0)
+              if cfg.family == "encdec" else None)
+    return mesh_run(label, work, cfg=cfg, loader=loader, batch=batch,
+                    fingerprints=True, **kw)
+
+
+def rec_launches(arch):
+    """(layer stages, flash, SSD and RG-LRU launches) of one step of
+    `rec_cfg(arch)`: a flash launch per attention or cross block, an SSD
+    call per ssm block, an RG-LRU forward and fused backward per rglru
+    block."""
+    from repro_torch.models.api import build_model
+    api = build_model(rec_cfg(arch))
+    segs = tuple(api.enc_segments) + tuple(api.segments)
+    mixers = [b.mixer for seg in segs for _ in range(seg.n_repeat)
+              for b in seg.blocks]
+    return (sum(seg.n_repeat for seg in segs),
+            sum(m in ("attn", "cross") for m in mixers),
+            mixers.count("ssm"), 2 * mixers.count("rglru"))
+
+
 def _family_rank(rank, port, work):
-    """One of phase 17's ranks: each family kept and spooled on a 1x2
-    mesh; its results (or its traceback) pickled into `work`."""
+    """One of phases 17 and 18's ranks: each family kept and spooled on a
+    1x2 mesh; its results (or its traceback) pickled into `work`."""
     import pickle
     import traceback
     import torch.distributed as dist
@@ -3434,6 +3531,11 @@ def _family_rank(rank, port, work):
                 "b": family_run(arch, f"{arch}_b", work, mesh=mesh),
                 "c": family_run(arch, f"{arch}_c", work, mesh=mesh,
                                 offload=True)}
+        for arch in REC_ARCHS:
+            res[arch] = {
+                "b": rec_run(arch, f"{arch}_b", work, mesh=mesh),
+                "c": rec_run(arch, f"{arch}_c", work, mesh=mesh,
+                             offload=True)}
         dist.destroy_process_group()
     except BaseException:
         res = {"error": traceback.format_exc()}
@@ -3441,15 +3543,106 @@ def _family_rank(rank, port, work):
         pickle.dump(res, f)
 
 
+def recurrent_kernels(gen, peaks, smi):
+    """Phase 18's SSD and RG-LRU instances (REC_SSD, REC_RGLRU) against
+    their plain versions at phase 3's bars, with their times (one call
+    and back to back) beside the plain version's and the bound (no
+    single PyTorch call computes either scan). Returns {"ssd": ...,
+    "rglru": ...}."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan_bwd,
+                                                rglru_scan_fwd,
+                                                rglru_sequential)
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_fwd
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    B, S, H, P, N, inner = REC_SSD
+    conv = rand((B, S, inner + 2 * N))
+    Bs, Cs = conv[..., inner:inner + N], conv[..., inner + N:]
+    xh = rand((B, S, H, P))
+    a = -torch.nn.functional.softplus(rand((B, S, H)))
+    y, st = ssd_scan_fwd(xh, a, Bs, Cs, chunk=128)
+    torch.cuda.synchronize()
+    yr, sr = ssd_chunked(xh, a, Bs, Cs, 128)
+    # phase 3's bar at the training shape: both read the same values and
+    # sum in f32, so only the order of the N=128 and Q=128 sums differs
+    scale = yr.abs().max().item()
+    err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
+    ok = err <= TOL_SSD_PATH * scale and bool(torch.isfinite(y).all())
+    print(f"  ssd_scan mamba2 tp=2 B={B} S={S} H={H} P={P} N={N} chunk=128 "
+          f"float32 (strided B/C): max_abs_err {err:.3e} (output scale "
+          f"{scale:.1f}, tol {TOL_SSD_PATH:g} relative) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "ssd_scan disagrees with its plain version at a tp=2 rank's "
+          "shape")
+    ssd = {"max_abs_err": err, "rel_err": err / scale,
+           "ms": time_ms(lambda: ssd_scan_fwd(xh, a, Bs, Cs, chunk=128)),
+           "ms_back_to_back": time_back_to_back_ms(
+               lambda: ssd_scan_fwd(xh, a, Bs, Cs, chunk=128)),
+           "plain_ms": time_ms(lambda: ssd_chunked(xh, a, Bs, Cs, 128)),
+           "bound": ssd_bound_ms(xh, a, Bs, Cs, 128, peaks)}
+    print(f"  ssd_scan mamba2 tp=2 shape: kernel_ms {ssd['ms']:.4f} "
+          f"(back-to-back {ssd['ms_back_to_back']:.4f}) plain_ms "
+          f"{ssd['plain_ms']:.4f} library_ms none bound_us "
+          f"{1e3 * ssd['bound'][0]:.1f} ({ssd['bound'][1]}) on {smi}")
+    del conv, Bs, Cs, xh, a, y, st, yr, sr
+
+    shape = REC_RGLRU
+    la, x, g = -(rand(shape) * 0.5).abs(), rand(shape), rand(shape)
+    h = rglru_scan_fwd(la, x)
+    dla, dx = rglru_scan_bwd(la, g, h)
+    torch.cuda.synchronize()
+    la_, x_ = (t.clone().requires_grad_(True) for t in (la, x))
+    h_ = rglru_sequential(la_, x_)
+    wla, wx = torch.autograd.grad(h_, (la_, x_), g)
+    errs = {"forward": scan_err(h, h_.detach(), TOL_RGLRU),
+            "backward dx": scan_err(dx, wx, TOL_RGLRU_GRAD),
+            "backward dlog_a": scan_err(dla, wla, TOL_RGLRU_GRAD)}
+    for what, (e, bar) in errs.items():
+        print(f"  rglru_scan recurrentgemma tp=2 B={shape[0]} S={shape[1]} "
+              f"W={shape[2]} {what}: max_abs_err {e:.3e}, {bar:.3f} of the "
+              f"bar {'ok' if bar <= 1 else 'FAIL'}")
+        check(bar <= 1 and math.isfinite(e), f"rglru_scan {what} disagrees "
+              f"with its plain version at a tp=2 rank's shape")
+    del la_, x_, h_, wla, wx
+    rg = {"max_abs_err": max(e for e, _ in errs.values()),
+          "max_err_over_bar": max(b for _, b in errs.values()),
+          "ms": time_ms(lambda: rglru_scan_fwd(la, x)),
+          "ms_back_to_back": time_back_to_back_ms(
+              lambda: rglru_scan_fwd(la, x)),
+          "backward_ms": time_ms(lambda: rglru_scan_bwd(la, g, h)),
+          "backward_ms_back_to_back": time_back_to_back_ms(
+              lambda: rglru_scan_bwd(la, g, h)),
+          "plain_ms": time_ms(lambda: rglru_sequential(la, x)),
+          "bound": rglru_bound_ms(x, peaks),
+          "backward_bound": rglru_bound_ms(x, peaks, tensors=5)}
+    print(f"  rglru_scan recurrentgemma tp=2 shape: kernel_ms "
+          f"{rg['ms']:.4f} (back-to-back {rg['ms_back_to_back']:.4f}), "
+          f"fused backward {rg['backward_ms']:.4f} "
+          f"({rg['backward_ms_back_to_back']:.4f}; bound_us "
+          f"{1e3 * rg['backward_bound'][0]:.1f}) plain_ms "
+          f"{rg['plain_ms']:.4f} library_ms none bound_us "
+          f"{1e3 * rg['bound'][0]:.1f} ({rg['bound'][1]}) on {smi}")
+    del la, x, g, h, dla, dx
+    torch.cuda.empty_cache()
+    return {"ssd": ssd, "rglru": rg}
+
+
 def family_phase(gen, peaks, smi, hubert_keep=None):
-    """Phase 17 (see the module docstring). `hubert_keep`: phase 13's
-    f32 keep losses of hubert-xlarge, its (a) (run here when None).
-    Returns the flash rows of its shapes and each rank's launches a
-    run."""
-    from repro_torch.models.transformer import build_segments
+    """Phases 17 and 18 (see the module docstring), one spawn of ranks.
+    `hubert_keep`: phase 13's f32 keep losses of hubert-xlarge, its (a)
+    (run here when None). Returns the flash rows of their shapes, phase
+    18's SSD and RG-LRU rows, each rank's launches a run, and the
+    seconds of each phase's runs."""
     t_phase = time.perf_counter()
     flash, _ = flash_registry_phase(gen, peaks, smi,
                                     cases=FAMILY_FLASH_CASES)
+    t_rec = time.perf_counter()
+    flash.update(flash_registry_phase(gen, peaks, smi,
+                                      cases=REC_FLASH_CASES)[0])
+    scans = recurrent_kernels(gen, peaks, smi)
+    rec_kernels_s = time.perf_counter() - t_rec
     deterministic()
     work = tempfile.mkdtemp(prefix="chip_smoke_family_")
 
@@ -3457,10 +3650,33 @@ def family_phase(gen, peaks, smi, hubert_keep=None):
         out = {FAMILY_VISION: family_run(FAMILY_VISION, "vision_a", work)}
         if hubert_keep is None:
             out[FAMILY_HUBERT] = family_run(FAMILY_HUBERT, "hubert_a", work)
+        for arch in REC_ARCHS:
+            out[arch] = rec_run(arch, f"{arch}_a", work)
         return out
 
     a, ranks, ranks_s = spawn_ranks(_family_rank, work, one_device)
     shutil.rmtree(work, ignore_errors=True)
+    launches = family_checks(a, ranks, hubert_keep)
+    launches.update(recurrent_checks(a, ranks))
+    # each family's runs: its (a), then the slower rank's (b) and (c)
+    walls = {arch: (a[arch]["wall"] if arch in a else 0.0) + max(
+                 res[arch]["b"]["wall"] + res[arch]["c"]["wall"]
+                 for res in ranks)
+             for arch in (FAMILY_HUBERT, FAMILY_VISION) + REC_ARCHS}
+    t18 = rec_kernels_s + sum(walls[arch] for arch in REC_ARCHS)
+    dt = time.perf_counter() - t_phase
+    print(f"  families: (a) and the ranks {ranks_s:.1f}s, phases 17 and 18 "
+          f"{dt:.1f}s on {smi}, of which phase 18's kernels "
+          f"{rec_kernels_s:.1f}s; each family's runs, (a) and the slower "
+          f"rank's (b) and (c): "
+          + ", ".join(f"{arch} {w:.1f}s" for arch, w in walls.items()))
+    return flash, scans, launches, (dt - t18, t18)
+
+
+def family_checks(a, ranks, hubert_keep):
+    """Phase 17's checks of hubert and vision on the 1x2 mesh. Returns
+    each rank's flash launches a run."""
+    from repro_torch.models.transformer import build_segments
     a_losses = {arch: (a[arch]["losses"] if arch in a else hubert_keep)
                 for arch in (FAMILY_HUBERT, FAMILY_VISION)}
     launches = {}
@@ -3525,10 +3741,74 @@ def family_phase(gen, peaks, smi, hubert_keep=None):
                  " (bf16: sums in another order, no bar)")
               + f"; spooled = kept bitwise; {n} flash launches a rank a "
               f"run")
-    dt = time.perf_counter() - t_phase
-    print(f"  families: (a) and the ranks {ranks_s:.1f}s, phase {dt:.1f}s "
-          f"on {smi}")
-    return flash, launches
+    return launches
+
+
+def recurrent_checks(a, ranks):
+    """Phase 18's checks of mamba2, recurrentgemma and T5 on the 1x2
+    mesh: (b) within TOL_MESH of (a), (c) = (b) in losses and parameters'
+    fingerprints, each shard storing and fetching every layer stage once
+    a step, empty spool dirs, a lower tracked peak in (c), and each
+    kernel's launches a rank a run exact. Returns them."""
+    launches = {}
+    for arch in REC_ARCHS:
+        cfg = rec_cfg(arch)
+        stages, flash, ssd, rglru = (n * MESH_STEPS
+                                     for n in rec_launches(arch))
+        want = {"launches": flash, "ssd_launches": ssd,
+                "rglru_launches": rglru}
+        x = a[arch]
+        print(f"  {arch} (a) one device ({cfg.num_layers} layers, f32, "
+              f"B={REC_BATCH[arch]}): losses {x['losses']} device peak "
+              f"{x['device'] / 1e9:.2f} GB tracked {x['tracked'] / 1e9:.3f} "
+              f"GB launches flash {x['launches']} ssd {x['ssd_launches']} "
+              f"rglru {x['rglru_launches']} ({x['s']:.1f}s)")
+        check(all(x[k] == n for k, n in want.items()),
+              f"{arch} (a): launches { {k: x[k] for k in want} }, want "
+              f"{want}")
+        for r, res in enumerate(ranks):
+            for run in "bc":
+                x = res[arch][run]
+                print(f"  {arch} rank {r} ({run}): losses {x['losses']} "
+                      f"device peak {x['device'] / 1e9:.2f} GB tracked "
+                      f"{x['tracked'] / 1e9:.3f} GB launches flash "
+                      f"{x['launches']} ssd {x['ssd_launches']} rglru "
+                      f"{x['rglru_launches']} staged "
+                      f"{x['staged'] / 1e9:.3f} GB through host memory, in "
+                      f"collectives {x['comm_s']['total']:.1f}s "
+                      f"({x['s']:.1f}s of {x['wall']:.1f}s, steps "
+                      f"{[round(t, 3) for t in x['steps_s']]})")
+                check(all(math.isfinite(v) for v in x["losses"]),
+                      f"{arch} ({run}) rank {r}: non-finite loss")
+                check(all(x[k] == n for k, n in want.items()),
+                      f"{arch} ({run}) rank {r}: launches "
+                      f"{ {k: x[k] for k in want} }, want {want}")
+            b, c = res[arch]["b"], res[arch]["c"]
+            check(np.allclose(b["losses"], a[arch]["losses"], rtol=TOL_MESH,
+                              atol=0.0),
+                  f"{arch} (b) rank {r}: losses {b['losses']} not within "
+                  f"{TOL_MESH} of (a)'s {a[arch]['losses']}")
+            check(c["losses"] == b["losses"] and c["fp"][0] == b["fp"][0],
+                  f"{arch} rank {r}: spooled losses {c['losses']} or "
+                  f"parameters differ from kept ({b['losses']})")
+            check(c["left"] == [], f"{arch} (c): spool dir not empty after "
+                  f"close: {c['left'][:4]}")
+            check(c["tracked"] < b["tracked"], f"{arch} rank {r}: (c)'s "
+                  f"tracked peak {c['tracked']} not below (b)'s "
+                  f"{b['tracked']}")
+        shards = ranks[0][arch]["c"]["shards"]
+        print(f"  {arch} shards (c): {shards}")
+        check(sorted(shards) == ["0", "1"], f"{arch} (c): shards "
+              f"{sorted(shards)}")
+        for v in shards.values():
+            check(v["offloads"] == v["fetches"] == stages
+                  and v["bytes_in"] == v["bytes_out"] > 0,
+                  f"{arch} (c): shard counts {v}, want {stages} stages")
+        launches[arch] = {k: ranks[0][arch]["b"][k] for k in want}
+        print(f"  {arch}: (a) losses {a[arch]['losses']}, 1x2 "
+              f"{ranks[0][arch]['b']['losses']} (within {TOL_MESH}); "
+              f"spooled = kept bitwise; launches a rank a run {want}")
+    return launches
 
 
 def moe_cfg(arch, layers, dtype):
@@ -4102,10 +4382,10 @@ def main():
         t16 = time.perf_counter()
         moe_phase(gen, peaks, smi)
         t17 = time.perf_counter()
-        family_phase(gen, peaks, smi)
+        *_, (s17, s18) = family_phase(gen, peaks, smi)
         print(f"chip_smoke --mesh-only: phases 15 ({t16 - t15:.1f}s), 16 "
-              f"({t17 - t16:.1f}s) and 17 ({time.perf_counter() - t17:.1f}s)"
-              f" passed in {time.perf_counter() - T_START:.1f}s")
+              f"({t17 - t16:.1f}s), 17 ({s17:.1f}s) and 18 ({s18:.1f}s) "
+              f"passed in {time.perf_counter() - T_START:.1f}s")
         return 0
     if "--kimi-4card" in sys.argv[1:]:
         # kimi-k2 on four cards over NCCL: no result line
@@ -4318,18 +4598,18 @@ def main():
     moe_flash, moe_launches = moe_phase(gen, peaks, smi)
     t11 = time.perf_counter()
 
-    # ---- 17. hubert and llama-3.2-vision on a 1x2 mesh: 2 ranks on the
-    # one card over gloo
-    fam_flash, fam_launches = family_phase(gen, peaks, smi,
-                                           reg_keep[FAMILY_HUBERT])
+    # ---- 17. hubert and llama-3.2-vision, 18. mamba2, recurrentgemma
+    # and T5 on a 1x2 mesh: 2 ranks on the one card over gloo, one spawn
+    fam_flash, rec_scans, fam_launches, (s17, s18) = family_phase(
+        gen, peaks, smi, reg_keep[FAMILY_HUBERT])
     print(f"phase times: 13 the registry's archs {t8 - t7:.1f}s, 14 "
           f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes {t10 - t9:.1f}s, "
           f"16 expert parallelism, pipeline and compression "
-          f"{t11 - t10:.1f}s, 17 hubert and vision on a mesh "
-          f"{time.perf_counter() - t11:.1f}s; the script "
-          f"{time.perf_counter() - T_START:.1f}s")
+          f"{t11 - t10:.1f}s, 17 hubert and vision on a mesh {s17:.1f}s, "
+          f"18 mamba2, recurrentgemma and T5 on a mesh {s18:.1f}s; the "
+          f"script {time.perf_counter() - T_START:.1f}s")
 
-    # ---- 18. result
+    # ---- 19. result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -4414,7 +4694,7 @@ def main():
         "launches_per_vision_train_run": vision["train"],
         "launches_per_vision_host_tier_run": vision["host_tier"],
         "launches_per_vision_prefill": vision["prefill"],
-        # phase 15: a tp=2 rank of gpt-h8192-l2 (each rank's launches in
+        # phase 15: a tp=2 rank of gpt-h8192-l1 (each rank's launches in
         # each mesh run), the f32 instance at its shape (2, 1024, 32, 128)
         "launches_per_mesh_rank_run": mesh["launches_per_rank_run"],
         "tp_local_max_abs_err": mesh["float32_max_abs_err"],
@@ -4447,11 +4727,17 @@ def main():
                      "ms_back_to_back", "plain_ms", "sdpa_ms",
                      "library_ms", "bound_ms", "bound_by")},
         # phase 17: each rank's launches in a 2-step run of hubert-xlarge
-        # (48 layers) and of llama-3.2-vision-90b at one period (4 self-
+        # (24 layers) and of llama-3.2-vision-90b at one period (4 self-
         # and 1 cross-attention blocks) on the 1x2 mesh, and their tp=2
         # instances; phase 13's hubert-xlarge runs in f32
         "launches_per_hubert_mesh_rank_run": fam_launches[FAMILY_HUBERT],
         "launches_per_vision_mesh_rank_run": fam_launches[FAMILY_VISION],
+        # phase 18: each rank's launches in a 2-step run of
+        # recurrentgemma-9b at one period (one attention block) and of
+        # t5(8192, L) (L encoder, L self- and L cross-attention blocks)
+        # on the 1x2 mesh, and their tp=2 instances (f32)
+        "launches_per_rg_mesh_rank_run": fam_launches[REC_RG]["launches"],
+        "launches_per_t5_mesh_rank_run": fam_launches[REC_T5]["launches"],
         **{f"{pre}_{k}": (flash_rows[label]["bound"][0] if k == "bound_ms"
                           else flash_rows[label]["bound"][1]
                           if k == "bound_by" else flash_rows[label][k])
@@ -4459,7 +4745,10 @@ def main():
                ("hubert_tp2", "hubert tp=2", fam_flash),
                ("vision_self_tp2", "vision self tp=2", fam_flash),
                ("vision_cross_tp2", "vision cross tp=2", fam_flash),
-               ("hubert_f32", "hubert-xlarge f32", reg_attn))
+               ("hubert_f32", "hubert-xlarge f32", reg_attn),
+               ("rg_tp2", "recurrentgemma tp=2", fam_flash),
+               ("t5_tp2", "t5 tp=2", fam_flash),
+               ("t5_self_tp2", "t5 self tp=2", fam_flash))
            for k in ("max_abs_err", "max_row_rel_err", "ms",
                      "ms_back_to_back", "plain_ms", "sdpa_ms",
                      "library_ms", "bound_ms", "bound_by")},
@@ -4522,6 +4811,16 @@ def main():
         "serve_plain_ms": ssd_serve["plain_ms"],
         "serve_bound_ms": ssd_serve["bound"][0],
         "serve_bound_by": ssd_serve["bound"][1],
+        # phase 18: mamba2-2.7b at 8 layers on the 1x2 mesh (each rank's
+        # calls in a 2-step run) and a tp=2 rank's instance (40 heads)
+        "launches_per_mesh_rank_run": fam_launches[REC_MAMBA][
+            "ssd_launches"],
+        **{f"tp2_{k}": (rec_scans["ssd"]["bound"][0] if k == "bound_ms"
+                        else rec_scans["ssd"]["bound"][1]
+                        if k == "bound_by" else rec_scans["ssd"][k])
+           for k in ("max_abs_err", "rel_err", "ms", "ms_back_to_back",
+                     "plain_ms", "bound_ms", "bound_by")},
+        "tp2_library_ms": None,
     }, {
         "name": "rglru_scan",
         "route": "cuda",
@@ -4555,6 +4854,22 @@ def main():
         "backward_bound_ms": rg["backward_bound"][0],
         # phase 12: recurrentgemma-9b served paged (forward only)
         "launches_per_serve_run": rest_launches[RG_ARCH]["rglru_scan"],
+        # phase 18: recurrentgemma-9b at one period on the 1x2 mesh (each
+        # rank's wrapper calls in a 2-step run) and a tp=2 rank's
+        # instance (2048 channels), forward and fused backward
+        "launches_per_mesh_rank_run": fam_launches[REC_RG][
+            "rglru_launches"],
+        **{f"tp2_{k}": (rec_scans["rglru"]["bound"][0] if k == "bound_ms"
+                        else rec_scans["rglru"]["bound"][1]
+                        if k == "bound_by" else
+                        rec_scans["rglru"]["backward_bound"][0]
+                        if k == "backward_bound_ms" else
+                        rec_scans["rglru"][k])
+           for k in ("max_abs_err", "max_err_over_bar", "ms",
+                     "ms_back_to_back", "backward_ms",
+                     "backward_ms_back_to_back", "plain_ms", "bound_ms",
+                     "bound_by", "backward_bound_ms")},
+        "tp2_library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -89,8 +89,9 @@ On a mesh (`settings.mesh`, one process per rank; `core/meshrun.py`)
 the engine trains on this rank's rows of the batch and shards of the
 parameters: a stage's leaves are gathered over the dp axes before it
 runs and their gradients reduce-scattered (or all-reduced) after its
-backward; the embed and head stages are vocab-parallel and the blocks
-tensor-parallel over `settings.tp_axis` (`parallel/comm.py`); an
+backward; the embed stages (T5's encoder's too) and the head are
+vocab-parallel and the blocks tensor-parallel over `settings.tp_axis`
+(`parallel/comm.py`); an
 offloaded stage goes to the spool through the mesh hooks under the lease
 ``jit{step}/s{shard}`` (`core/hooks.py`), its tensors replicated over the
 tensor axis stored as this rank's slice. A fetch that fails raises: a
@@ -388,6 +389,7 @@ class StagedEngine:
             return fn
 
         stages = []
+        tp = tp_group(settings)
         if cfg.family == "vlm":
             # the JAX staged engine's cast: the run's dtype (the API's
             # enc_states casts with the config's)
@@ -398,7 +400,7 @@ class StagedEngine:
             enc_cfg = encoder_config(cfg)
             stages.append(_Stage(
                 "enc_embed", "enc_embed", lambda p, batch: embed_in(
-                    p, {"tokens": batch["enc_tokens"]}, enc_cfg)))
+                    p, {"tokens": batch["enc_tokens"]}, enc_cfg, tp)))
             n = ENC_STAGE_BASE
             for si, seg in enumerate(self.api.enc_segments):
                 fn = layer_fn(seg, enc_cfg)
@@ -408,7 +410,6 @@ class StagedEngine:
                     n += 1
             stages.append(_Stage("enc_final", "enc_final", lambda p, x: (
                 rms_norm(x, p["enc_norm"]["scale"], cfg.norm_eps))))
-        tp = tp_group(settings)
         stages.append(_Stage("embed", "embed",
                              lambda p, batch: embed_in(p, batch, cfg, tp)))
         names = iter(layer_stage_names(self.api))

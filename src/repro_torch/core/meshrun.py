@@ -32,13 +32,14 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.hooks import HookBridge, ReplicaLink, plan_shards
 from repro_torch.parallel.comm import save_scope, tp_group
 from repro_torch.parallel.mesh import (axes_size, linear_axis_index,
                                        spec_axes)
-from repro_torch.parallel.sharding import map_with_path
+from repro_torch.parallel.sharding import Concat, map_with_path
 
 
 class LeafSpec:
@@ -75,19 +76,38 @@ def _entry_axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def _narrow(leaf, d: int, start: int, size: int):
+    idx = [slice(None)] * len(leaf.shape)
+    idx[d] = slice(start, start + size)
+    return leaf[tuple(idx)]
+
+
+def _cat(parts, d: int):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=d)
+    return np.concatenate(parts, axis=d)
+
+
 def cut_leaf(leaf, spec: LeafSpec, mesh):
     """This rank's shard of one leaf (a tensor or numpy array of the
-    global shape) as `spec` lays it out."""
+    global shape) as `spec` lays it out (a `Concat` dim part by part)."""
     for d, entry in enumerate(spec.spec):
         if entry is None:
             continue
+        if isinstance(entry, Concat):
+            pieces, off = [], 0
+            for size, ax in entry.parts:
+                part = _narrow(leaf, d, off, size)
+                off += size
+                if ax is not None:
+                    k = size // mesh.shape[ax]
+                    part = _narrow(part, d, mesh.coords[ax] * k, k)
+                pieces.append(part)
+            leaf = _cat(pieces, d)
+            continue
         axes = _entry_axes(entry)
-        n = axes_size(mesh, axes)
-        i = linear_axis_index(mesh, axes)
-        size = leaf.shape[d] // n
-        idx = [slice(None)] * len(leaf.shape)
-        idx[d] = slice(i * size, (i + 1) * size)
-        leaf = leaf[tuple(idx)]
+        size = leaf.shape[d] // axes_size(mesh, axes)
+        leaf = _narrow(leaf, d, linear_axis_index(mesh, axes) * size, size)
     return leaf.contiguous() if isinstance(leaf, torch.Tensor) \
         else leaf.copy()
 
@@ -99,11 +119,25 @@ def shard_tree(tree, spec_tree, mesh):
                     wrap_specs(spec_tree))
 
 
+def _concat_pieces(t, d: int, entry: "Concat", mesh):
+    """(piece, its part's axis) for each part of `t`'s `Concat` dim `d`,
+    as this rank holds them."""
+    off = 0
+    for (_, ax), k in zip(entry.parts, entry.local_sizes(mesh)):
+        yield t.narrow(d, off, k), ax
+        off += k
+
+
 def gather_leaf(shard: torch.Tensor, spec: LeafSpec, mesh) -> torch.Tensor:
     """`cut_leaf` undone: the global leaf from every rank's shard, on
     every rank (a collective over the axes of each sharded dim)."""
     for d, entry in enumerate(spec.spec):
-        if entry is not None:
+        if isinstance(entry, Concat):
+            shard = torch.cat([
+                p if ax is None else
+                mesh.comm.all_gather_cat(p.contiguous(), (ax,), d)
+                for p, ax in _concat_pieces(shard, d, entry, mesh)], dim=d)
+        elif entry is not None:
             shard = mesh.comm.all_gather_cat(shard, _entry_axes(entry), d)
     return shard
 
@@ -157,6 +191,19 @@ class ShardLayout:
         self.mesh.comm.barrier()
 
 
+def _leaf_pieces(g, spec, mesh):
+    """(piece, the axes it is sharded over) of a leaf's shard: the shard
+    itself, or one piece per part of its `Concat` dim."""
+    plain = set(spec_axes(tuple(e for e in spec
+                                if not isinstance(e, Concat))))
+    for d, entry in enumerate(spec):
+        if isinstance(entry, Concat):
+            for piece, ax in _concat_pieces(g, d, entry, mesh):
+                yield piece, plain | ({ax} if ax else set())
+            return
+    yield g, plain
+
+
 def _zip_map(fn, tree, specs):
     if isinstance(tree, dict):
         return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
@@ -166,24 +213,18 @@ def _zip_map(fn, tree, specs):
     return fn(tree, specs)
 
 
-def check_mesh_config(cfg) -> None:
-    """Refuse a config whose layers a mesh cannot run yet: mamba2, RG-LRU
-    and encoder-decoder models wait for part 3 of slice 12b. Never run
-    them unsharded in silence."""
-    what = None
-    if cfg.family == "ssm":
-        what = "mamba2 layers"
-    elif cfg.hybrid_pattern:
-        what = "RG-LRU layers"
-    elif cfg.family == "encdec":
-        what = "an encoder-decoder"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name} has {what}: meshes of it wait for part 3 of slice "
-            f"12b of the port (ROADMAP §1 item 12b); a mesh runs attention "
-            f"decoders and encoders with dense or MoE MLPs, embeddings "
-            f"inputs (hubert) and cross-attention over image embeddings "
-            f"(llama-3.2-vision)")
+def check_mesh_config(cfg, mesh=None, axes=None) -> None:
+    """Refuse a mesh whose tensor axis does not divide what a recurrent
+    block splits over it: mamba2's SSM heads, the RG-LRU width
+    (`models/transformer.py::check_tensor_axis`, a ValueError naming the
+    shapes). Every family the port has trains on a mesh: attention
+    decoders and encoders with dense or MoE MLPs, embeddings inputs
+    (hubert), cross-attention over image embeddings (llama-3.2-vision),
+    T5's encoder and decoder streams, mamba2 on each rank's heads and
+    recurrentgemma's RG-LRU on each rank's width."""
+    from repro_torch.models.transformer import check_tensor_axis
+    if mesh is not None and axes is not None and axes.tp is not None:
+        check_tensor_axis(cfg, mesh.shape.get(axes.tp, 1))
 
 
 #: backends whose blobs may sit in one process's memory: no other rank
@@ -345,18 +386,19 @@ class MeshRun:
 
     def sq_norm(self, grads) -> torch.Tensor:
         """The squared global norm of a tree of this rank's gradient
-        shards: each leaf counted on the ranks at index 0 of the axes it
-        is replicated over, then summed over the mesh."""
+        shards: each leaf (each part of a `Concat` dim) counted on the
+        ranks at index 0 of the axes it is replicated over, then summed
+        over the mesh."""
         pairs: List = []
         _zip_map(lambda g, s: pairs.append((g, s)), grads,
                  {k: self.specs[k] for k in grads})
         total = torch.zeros((), dtype=torch.float32,
                             device=pairs[0][0].device)
         for g, spec in pairs:
-            sharded = set(spec_axes(spec.spec))
-            if all(self.mesh.coords[a] == 0 for a in self.mesh.axis_names
-                   if a not in sharded):
-                total = total + g.float().square().sum()
+            for piece, sharded in _leaf_pieces(g, spec.spec, self.mesh):
+                if all(self.mesh.coords[a] == 0
+                       for a in self.mesh.axis_names if a not in sharded):
+                    total = total + piece.float().square().sum()
         return self.comm.all_reduce_sum(total.reshape(1),
                                         self.mesh.axis_names)[0]
 

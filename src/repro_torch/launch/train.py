@@ -82,6 +82,14 @@ them, without an `ep_axis` flag:
       -m repro_torch.launch.train --device cpu --engine jit --mesh 1x2 \
       --arch llama4-scout-17b-a16e:reduced --steps 2 --batch 2 --seq 32
 
+mamba2 and recurrentgemma take a mesh as well (each rank runs its SSM
+heads or its share of the RG-LRU width; a "model" axis that does not
+divide them is refused):
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --device cpu --engine jit --mesh 1x2 \
+      --arch mamba2-2.7b:reduced --steps 2 --batch 2 --seq 32
+
 `--spool-no-dedupe` stores one copy per rank, not one per replica group.
 A mesh whose size is not the world's, or one under `--engine staged`, is
 refused, as the JAX CLI refuses it.

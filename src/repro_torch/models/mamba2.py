@@ -8,6 +8,18 @@ chunked VJP (on CPU tensors its plain version): the port's counterpart of
 the JAX package's `impl="pallas"`. `decode_mamba2` is the one-token
 decode step of serving: the conv window and the f32 (H, P, N) state
 advance by one token, written into the cache IN PLACE.
+
+Under a tensor axis (`tp`, `parallel/comm.py::TpGroup`) `apply_mamba2`
+runs this rank's heads on the layout of `parallel/sharding.py::
+layout_specs`: its z and x columns of `w_zx`, its x channels of the conv
+weight beside the whole B | C channels, its columns of `w_dt` and
+`norm_scale`, its rows of `w_out` (the caller sums the output over the
+axis). B and C, which every head reads, are computed whole on every
+rank from `w_bc` and the conv's B | C channels, and `dt_bias`, `A_log`,
+`D_skip` and the conv bias are whole, each rank reading its heads'
+slice: each of these takes `grad_sum`, so its gradient is the sum over
+the axis. The gated norm's variance over the whole inner width sums its
+squares over the axis in both directions (`TpGroup.sum`).
 """
 from __future__ import annotations
 
@@ -22,7 +34,7 @@ from repro_torch.models.layers import (apply_conv1d, dense_init,
                                        init_conv1d, silu)
 
 __all__ = ["SSMDims", "ssm_dims", "init_mamba2", "apply_mamba2",
-           "decode_mamba2", "ssd_chunked"]
+           "decode_mamba2", "ssd_chunked", "tp_heads"]
 
 
 class SSMDims(NamedTuple):
@@ -64,9 +76,25 @@ def init_mamba2(gen, cfg: ModelConfig, dtype, lead=()) -> dict:
     }
 
 
-def _gated_norm(y, z, scale, eps):
+def tp_heads(dims: SSMDims, tp_size: int) -> int:
+    """The SSM heads a rank of a tensor axis of `tp_size` runs; a
+    ValueError when the axis does not divide them."""
+    if dims.n_heads % tp_size:
+        raise ValueError(f"a tensor axis of {tp_size} ranks does not divide "
+                         f"the {dims.n_heads} SSM heads of {dims.head_dim} "
+                         f"(d_inner {dims.d_inner})")
+    return dims.n_heads // tp_size
+
+
+def _gated_norm(y, z, scale, eps, tp=None):
+    """rms_norm(y * silu(z)) over the inner width; `y`, `z` and `scale`
+    this rank's share of it under a tensor axis `tp`."""
     y32 = y.float() * silu(z.float())
-    var = y32.square().mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = y32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp.sum(y32.square().sum(dim=-1, keepdim=True)) / (
+            y32.shape[-1] * tp.size)
     return y32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
 
 
@@ -78,15 +106,35 @@ def _split_proj(p, x, dims: SSMDims):
     return z, xs, bc, dt
 
 
-def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch"):
-    """Training / prefill. x: (B, S, D) -> (y, final_cache)."""
+def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
+    """Training / prefill. x: (B, S, D) -> (y, final_cache). Under a
+    tensor axis `tp` x is the parallel region's input (`TpGroup.enter`)
+    and y this rank's partial sum of the output (see the module doc)."""
     if impl not in ("torch", "cuda"):
         raise ValueError(f"unknown ssm impl {impl!r} (torch | cuda)")
     dims = ssm_dims(cfg)
     B, S, _ = x.shape
+    n_heads, conv = dims.n_heads, p["conv"]
+    if tp is not None:
+        n_heads = tp_heads(dims, tp.size)
+        h0, inner = tp.rank * n_heads, n_heads * dims.head_dim
+        w_bc, conv_w, conv_b, dt_bias, A_log, D_skip = tp.grad_sum(
+            p["w_bc"], p["conv"]["w"], p["conv"]["b"], p["dt_bias"],
+            p["A_log"], p["D_skip"])
+        heads = slice(h0, h0 + n_heads)
+        p = dict(p, w_bc=w_bc, dt_bias=dt_bias[heads], A_log=A_log[heads],
+                 D_skip=D_skip[heads])
+        # the local conv weight is [x channels of these heads | B | C]:
+        # its x part is this rank's own, its B | C part (and the whole
+        # bias) replicated
+        conv = {"w": torch.cat([conv["w"][:, :inner], conv_w[:, inner:]],
+                               dim=1),
+                "b": torch.cat([conv_b[h0 * dims.head_dim:
+                                       h0 * dims.head_dim + inner],
+                                conv_b[dims.d_inner:]])}
+        dims = dims._replace(d_inner=inner)
     z, xs, bc, dt = _split_proj(p, x, dims)
-    conv_in = torch.cat([xs, bc], dim=-1)
-    conv_out, conv_state = apply_conv1d(p["conv"], conv_in)
+    conv_out, conv_state = apply_conv1d(conv, torch.cat([xs, bc], dim=-1))
     conv_out = silu(conv_out.float()).to(x.dtype)
     xs = conv_out[..., :dims.d_inner]
     B_s = conv_out[..., dims.d_inner:dims.d_inner + dims.state]
@@ -94,7 +142,7 @@ def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch"):
 
     A = -torch.exp(p["A_log"])                         # (H,) negative
     dA_log = dt * A                                    # (B,S,H)
-    xh32 = xs.reshape(B, S, dims.n_heads, dims.head_dim).float()
+    xh32 = xs.reshape(B, S, n_heads, dims.head_dim).float()
     xh_dt = xh32 * dt[..., None]
 
     if impl == "cuda":
@@ -104,7 +152,7 @@ def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch"):
         y, final_state = ssd_chunked(xh_dt, dA_log, B_s, C_s, cfg.ssm_chunk)
     y = y + xh32 * p["D_skip"][:, None]
     y = y.reshape(B, S, dims.d_inner)
-    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x.dtype)
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps, tp).to(x.dtype)
     out = y @ p["w_out"]
     return out, {"conv": conv_state, "state": final_state}
 

@@ -11,6 +11,15 @@ its reverse-recurrence backward (on CPU tensors its plain version): the
 port's counterpart of the JAX package's `impl="pallas"`. `decode_rglru`
 is the one-token decode step of serving: the conv window and the f32
 (B, W) state advance by one token, written into the cache IN PLACE.
+
+Under a tensor axis (`tp`, `parallel/comm.py::TpGroup`) `apply_rglru`
+runs this rank's share of the width W: its columns of `w_branch_gate`,
+`w_in`, `w_a` and `w_i`, its channels of the conv, its rows of `w_out`
+(the caller sums the output over the axis). The gates are products of
+the whole conv output `u` with this rank's columns, so `u` is gathered
+over the axis and its gradient reduce-scattered back
+(`TpGroup.gather_partial`); `b_a`, `b_i`, `lambda_p` and the conv bias
+are whole, each rank reading its slice after `grad_sum`.
 """
 from __future__ import annotations
 
@@ -46,25 +55,47 @@ def init_rglru(gen, cfg: ModelConfig, dtype, lead=()) -> dict:
     }
 
 
-def _gates(p, u):
-    """u: (..., W) post-conv signal -> (log_a, scaled input), f32."""
+def tp_width(width: int, tp_size: int) -> int:
+    """The RG-LRU width a rank of a tensor axis of `tp_size` runs; a
+    ValueError when the axis does not divide it."""
+    if width % tp_size:
+        raise ValueError(f"a tensor axis of {tp_size} ranks does not divide "
+                         f"the RG-LRU width {width}")
+    return width // tp_size
+
+
+def _gates(p, u, u_all=None):
+    """u: (..., W) post-conv signal -> (log_a, scaled input), f32. Under
+    a tensor axis `u` is this rank's share of the width and `u_all` the
+    whole."""
     u32 = u.float()
-    r = torch.sigmoid(matmul_f32(u32, p["w_a"]) + p["b_a"])
-    i = torch.sigmoid(matmul_f32(u32, p["w_i"]) + p["b_i"])
+    uw = u32 if u_all is None else u_all.float()
+    r = torch.sigmoid(matmul_f32(uw, p["w_a"]) + p["b_a"])
+    i = torch.sigmoid(matmul_f32(uw, p["w_i"]) + p["b_i"])
     log_a = -_C * F.softplus(p["lambda_p"]) * r               # (..., W) < 0
     a2 = torch.exp(2.0 * log_a)
     scaled = torch.sqrt(torch.clamp(1.0 - a2, min=1e-9)) * (i * u32)
     return log_a, scaled
 
 
-def apply_rglru(p, x, cfg: ModelConfig, *, impl: str = "torch"):
-    """Training / prefill. x: (B, S, D) -> (y, cache)."""
+def apply_rglru(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
+    """Training / prefill. x: (B, S, D) -> (y, cache). Under a tensor axis
+    `tp` x is the parallel region's input (`TpGroup.enter`) and y this
+    rank's partial sum of the output (see the module doc)."""
     if impl not in ("torch", "cuda"):
         raise ValueError(f"unknown rglru impl {impl!r} (torch | cuda)")
     gate = gelu_tanh((x @ p["w_branch_gate"]).float())
     u = x @ p["w_in"]
+    if tp is not None:
+        n = tp_width(cfg.rglru_width or cfg.d_model, tp.size)
+        mine = slice(tp.rank * n, (tp.rank + 1) * n)
+        conv_b, b_a, b_i, lam = (t[mine] for t in tp.grad_sum(
+            p["conv"]["b"], p["b_a"], p["b_i"], p["lambda_p"]))
+        p = dict(p, conv={"w": p["conv"]["w"], "b": conv_b}, b_a=b_a,
+                 b_i=b_i, lambda_p=lam)
     u, conv_state = apply_conv1d(p["conv"], u)
-    log_a, scaled = _gates(p, u)
+    u_all = None if tp is None else tp.gather_partial(u, u.dim() - 1)
+    log_a, scaled = _gates(p, u, u_all)
     h = (rglru_scan(log_a, scaled) if impl == "cuda"
          else rglru_sequential(log_a, scaled))
     y = (h * gate).to(x.dtype)

@@ -254,9 +254,10 @@ def _kv_weights(p, cfg: ModelConfig, tp=None):
     whole = bool(tp is not None and wk.shape[1] == cfg.num_kv_heads
                  and cfg.num_kv_heads % tp.size)
     if whole:
-        wk, wv = tp.grad_sum(wk), tp.grad_sum(wv)
-        if bk is not None:
-            bk, bv = tp.grad_sum(bk), tp.grad_sum(bv)
+        if bk is None:
+            wk, wv = tp.grad_sum(wk, wv)
+        else:
+            wk, wv, bk, bv = tp.grad_sum(wk, wv, bk, bv)
     return wk, wv, bk, bv, whole
 
 
@@ -347,24 +348,24 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
     MoE block adds its aux losses into `aux` when given.
 
     With a tensor axis in `settings` (`parallel/comm.py::tp_group`) the
-    parameters are this rank's shards: an attention or cross block runs
-    on its query heads (Megatron: column-parallel q/k/v, row-parallel
-    wo, the output all-reduced; a cross block's K/V projected from the
-    encoder states, which enter the parallel region as its normed input
-    does), its dense MLP and shared expert likewise, and its MoE FFN on
-    this rank's experts; the ssm and rglru mixers wait for part 3 of
-    slice 12b (the engine refuses them)."""
+    parameters are this rank's shards: the normed input enters the
+    parallel region, the mixer runs this rank's share, and its output is
+    summed over the axis (Megatron). An attention or cross block runs
+    its query heads (column-parallel q/k/v, row-parallel wo; a cross
+    block's K/V projected from the encoder states, which enter the
+    region too), an ssm block its SSM heads (`models/mamba2.py`), an
+    rglru block its share of the width (`models/rglru.py`); the dense
+    MLP and shared expert are column- then row-parallel, and the MoE FFN
+    runs this rank's experts."""
     tp = tp_group(settings)
-    if tp is not None and bdef.mixer not in ("attn", "cross"):
-        raise NotImplementedError(
-            f"a tensor axis over a {bdef.mixer} block waits for part 3 of "
-            f"slice 12b")
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    if tp is not None:
+        h = tp.enter(h)
     if bdef.mixer == "cross":
         # each cross block projects its own K/V from the encoder states;
         # no RoPE, no mask, no window, no softcap
         if tp is not None:
-            h, enc_kv = tp.enter(h), tp.enter(enc_kv)
+            enc_kv = tp.enter(enc_kv)
         wk, wv, _, _, kv_whole = _kv_weights(p["attn"], cfg, tp)
         q = _proj(h, p["attn"]["wq"])
         ek, ev = _proj(enc_kv, wk), _proj(enc_kv, wv)
@@ -373,26 +374,33 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
         o = attend(q, ek, ev, causal=False, chunk=settings.attn_chunk,
                    impl=settings.attn_impl)
         mix, cache = _out_proj(o, p["attn"]["wo"]), (ek, ev)
-        if tp is not None:
-            mix = tp.reduce(mix)
     elif bdef.mixer == "ssm":
         mix, cache = m2.apply_mamba2(p["ssm"], h, cfg,
-                                     impl=settings.attn_impl)
+                                     impl=settings.attn_impl, tp=tp)
     elif bdef.mixer == "rglru":
         mix, cache = rg.apply_rglru(p["rglru"], h, cfg,
-                                    impl=settings.attn_impl)
+                                    impl=settings.attn_impl, tp=tp)
     else:
-        if tp is not None:
-            h = tp.enter(h)
         q, k, v = _qkv(p["attn"], h, cfg, positions, tp)
         o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
                    logit_cap=cfg.attn_logit_softcap,
                    chunk=settings.attn_chunk, impl=settings.attn_impl)
         mix, cache = _out_proj(o, p["attn"]["wo"]), (k, v)
-        if tp is not None:
-            mix = tp.reduce(mix)
+    if tp is not None:
+        mix = tp.reduce(mix)
     x = x + _post_norm(mix, p, "post_norm", cfg)
     return _mlp_sublayer(bdef, p, x, cfg, aux, tp, settings), cache
+
+
+def check_tensor_axis(cfg: ModelConfig, tp_size: int) -> None:
+    """A ValueError naming the shapes when a tensor axis of `tp_size`
+    ranks does not divide what a recurrent block of `cfg` splits over
+    it: mamba2's SSM heads, the RG-LRU width."""
+    mixers = {b.mixer for seg in build_segments(cfg) for b in seg.blocks}
+    if "ssm" in mixers:
+        m2.tp_heads(m2.ssm_dims(cfg), tp_size)
+    if "rglru" in mixers:
+        rg.tp_width(cfg.rglru_width or cfg.d_model, tp_size)
 
 
 # ====================================================================

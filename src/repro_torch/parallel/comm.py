@@ -25,12 +25,21 @@ The Functions a tensor-parallel block runs (Megatron's pair, on the
   * `TpGroup.reduce(y)`: all-reduce forward, identity backward; the
     output of the row-parallel `wo/w_out` and of the vocab-parallel
     embedding lookup;
-  * `TpGroup.grad_sum(w)`: identity forward, all-reduce of the gradient;
-    a weight replicated over the axis but used inside the parallel
-    region (kv projections whose heads the axis does not divide);
+  * `TpGroup.grad_sum(*ws)`: identity forward, all-reduce of the
+    gradients (one message for all of `ws`) backward; values replicated
+    over the axis but used inside the parallel region (kv projections
+    whose heads the axis does not divide, a recurrent block's biases and
+    decays that each rank reads a slice of);
   * `TpGroup.gather(t, dim)`: all-gather forward, this rank's slice of
     the (replicated) gradient backward; `pos_embed`, whose model width
     the axis splits;
+  * `TpGroup.gather_partial(t, dim)`: all-gather forward, reduce-scatter
+    of the gradient backward: the whole of a split value for a parallel
+    region whose downstream differs across the axis (the RG-LRU gates,
+    column-parallel products of the whole width);
+  * `TpGroup.sum(t)`: all-reduce forward and backward: a value every
+    rank's outputs read (the sum of squares of mamba2's gated norm over
+    the whole inner width);
   * `vocab_parallel_ce`: the mean cross-entropy over a vocab split across
     the axis (global max, sum of exponentials and picked logit by
     all-reduce);
@@ -501,6 +510,52 @@ class _GatherFromTp(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n), None, None
 
 
+class _CopyManyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, *ws):
+        ctx.tp = tp
+        ctx.shapes = [(w.shape, w.dtype, w.device) for w in ws]
+        return tuple(w.view_as(w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros(shape, dtype=dt, device=dev) if g is None else g
+              for g, (shape, dt, dev) in zip(gs, ctx.shapes)]
+        out = [None] * len(gs)
+        for dt in dict.fromkeys(g.dtype for g in gs):
+            # one message a dtype
+            idx = [i for i, g in enumerate(gs) if g.dtype == dt]
+            flat = ctx.tp.comm.all_reduce_sum(
+                torch.cat([gs[i].reshape(-1) for i in idx]), ctx.tp.axes)
+            for i, piece in zip(idx, flat.split([gs[i].numel()
+                                                 for i in idx])):
+                out[i] = piece.view(gs[i].shape)
+        return (None,) + tuple(out)
+
+
+class _GatherToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return tp.comm.all_gather_cat(t, tp.axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.comm.reduce_scatter_sum(g, ctx.tp.axes,
+                                              ctx.dim), None, None
+
+
+class _SumBothWays(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, tp):
+        ctx.tp = tp
+        return tp.comm.all_reduce_sum(t, tp.axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.comm.all_reduce_sum(g, ctx.tp.axes), None
+
+
 class TpGroup:
     """The tensor axis as a block sees it: `size` ranks, this one at
     `rank`, collectives through `comm`."""
@@ -519,14 +574,32 @@ class TpGroup:
         _set_region("rep")
         return out
 
-    def grad_sum(self, w: torch.Tensor) -> torch.Tensor:
-        """A value replicated over the axis that a parallel region reads
-        (its storage is marked replicated for the pack hook)."""
-        _mark_replicated(w)
-        return _CopyToTp.apply(w, self)
+    def grad_sum(self, *ws: torch.Tensor):
+        """Values replicated over the axis that a parallel region reads
+        (their storage is marked replicated for the pack hook): each of
+        `ws`, or the one value given, its gradient summed over the axis
+        (all of them in one message)."""
+        for w in ws:
+            _mark_replicated(w)
+        out = _CopyManyToTp.apply(self, *ws)
+        return out[0] if len(ws) == 1 else out
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return _GatherFromTp.apply(t, dim, self)
+
+    def gather_partial(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of `t` (this rank's slice along `dim`) on every rank,
+        read inside a parallel region: each rank's gradient of the whole
+        is partial, so backward sums them and hands each its slice. The
+        whole is the same on every rank (stored as 1/tp slices)."""
+        out = _GatherToTp.apply(t, dim, self)
+        _mark_replicated(out)
+        return out
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the axis, where every rank's outputs read the
+        sum: its gradient is summed over the axis too."""
+        return _SumBothWays.apply(t, self)
 
     @contextlib.contextmanager
     def region(self):

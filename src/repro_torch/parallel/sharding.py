@@ -14,6 +14,11 @@ Layout (production mesh ("pod",)"data","model"):
 A spec is a tuple with one entry per dimension: None, an axis name or a
 tuple of axis names (`parallel/mesh.py`). Trees are the port's nested
 dicts and lists; a leaf is anything with a `.shape`.
+
+`layout_specs` is the port's own layout of the parameters on a mesh:
+`param_specs`, except for mamba2's concatenated leaves, whose dims a
+`Concat` entry lays out part by part (GSPMD may split them anywhere and
+reshard after; the port's blocks read each part in place).
 """
 from __future__ import annotations
 
@@ -45,6 +50,18 @@ def default_axes(mesh) -> MeshAxes:
     but "model" is dp, "model" (when there) is tp."""
     return MeshAxes(dp=tuple(a for a in mesh.axis_names if a != "model"),
                     tp="model" if "model" in mesh.axis_names else None)
+
+
+@dataclass(frozen=True)
+class Concat:
+    """A spec entry for a dim that concatenates parts: each part (size,
+    axis) is split over `axis`, or whole on every rank (axis None), and a
+    rank's shard of the dim is its piece of each part, in order."""
+    parts: Tuple[Tuple[int, Optional[str]], ...]
+
+    def local_sizes(self, mesh) -> Tuple[int, ...]:
+        return tuple(size // (mesh.shape[ax] if ax else 1)
+                     for size, ax in self.parts)
 
 
 def _div(dim: int, size: int) -> bool:
@@ -159,7 +176,7 @@ def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
 def _is_spec(x) -> bool:
     """A spec tuple (not a container of subtrees)."""
     return isinstance(x, tuple) and all(
-        e is None or isinstance(e, str)
+        e is None or isinstance(e, (str, Concat))
         or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
         for e in x)
 
@@ -172,6 +189,39 @@ def param_specs(cfg, params_shapes, mesh, axes: MeshAxes, *,
     return map_with_path(
         lambda path, leaf: _rule(path, tuple(leaf.shape), mesh, axes, fsdp),
         params_shapes)
+
+
+def layout_specs(cfg, params_shapes, mesh, axes: MeshAxes, *,
+                 fsdp: bool = True):
+    """The port's layout of a params tree on `mesh`: `param_specs`, but on
+    a tensor axis of more than one rank mamba2's leaves are laid out by
+    heads, since a split of the whole dim cuts across their parts:
+    `w_zx` (D, 2 d_inner), z then x, has each part's columns split, so a
+    rank holds z and x of its own heads; the conv weight (width, d_inner +
+    2 N), channels x | B | C, has its x channels split and B | C whole;
+    `w_bc` (D, 2 N) is whole, since every head reads B and C (their
+    gradient is summed over the axis, `models/mamba2.py`). A checkpoint
+    still holds the logical arrays (`core/meshrun.py::cut_leaf`,
+    `gather_leaf`)."""
+    specs = param_specs(cfg, params_shapes, mesh, axes, fsdp=fsdp)
+    if axes.tp is None or mesh.shape.get(axes.tp, 1) <= 1 \
+            or not cfg.ssm_state_dim:
+        return specs
+    d_inner, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim
+
+    def one(path, spec):
+        if "ssm" not in path:
+            return spec
+        lead, last = spec[:-1], None
+        if path[-1] == "w_zx":
+            last = Concat(((d_inner, axes.tp), (d_inner, axes.tp)))
+        elif path[-1] == "w" and path[-2] == "conv":
+            last = Concat(((d_inner, axes.tp), (2 * n, None)))
+        elif path[-1] != "w_bc":
+            return spec
+        return lead + (last,)
+
+    return map_with_path(one, specs)
 
 
 def batch_specs(batch_shapes, mesh, axes: MeshAxes):
@@ -214,5 +264,6 @@ def spec_tree_for_optstate(param_spec_tree, opt_shapes):
     return OptState(step=(), mu=mu, nu=nu)
 
 
-__all__ = ["MeshAxes", "batch_specs", "cache_specs", "default_axes",
-           "map_with_path", "param_specs", "spec_tree_for_optstate"]
+__all__ = ["Concat", "MeshAxes", "batch_specs", "cache_specs",
+           "default_axes", "layout_specs", "map_with_path", "param_specs",
+           "spec_tree_for_optstate"]

@@ -53,18 +53,21 @@ rank: `parallel/comm.py::init_mesh`) trains on a data x model mesh, as
 the JAX jit session does (`repro/session/session.py:132-166, 271-308`):
 `mesh_axes` (default: every axis but "model" is dp, "model" is tp) fills
 `settings.mesh / tp_axis / dp_axes`; each rank holds its shard of the
-parameters (`param_specs(fsdp=True)`, `init` cuts them from the seed's
+parameters (`layout_specs(fsdp=True)`, `init` cuts them from the seed's
 global weights) and of the moments (ZeRO), trains on its rows of the
 global batch, and with `io.host_offload="activations"` spools its layers
 through the mesh hooks (`core/hooks.py`) into one directory every rank
 shares (rank 0 makes it when `io.directory` is unset and removes it on
 close). The metrics rows gain the `shards` block (the step's hook traffic
 by shard, summed over the ranks), `comm_backend` and
-`comm_host_staged_bytes`. A mesh needs the jit engine, as JAX's, and an
-attention model (`core/meshrun.py::check_mesh_config`: dense and MoE
-decoders and encoders, hubert's embeddings input, llama-3.2-vision's
-cross blocks; T5, mamba2 and recurrentgemma wait for part 3 of slice
-12b). Checkpoints of a mesh hold the logical arrays, gathered over the
+`comm_host_staged_bytes`. A mesh needs the jit engine, as JAX's; every
+family trains on one (dense and MoE decoders and encoders, hubert's
+embeddings input, llama-3.2-vision's cross blocks, T5's two streams,
+mamba2 on each rank's SSM heads and recurrentgemma's RG-LRU on each
+rank's width), where the tensor axis divides those heads and that width
+(`core/meshrun.py::check_mesh_config`). The parameters are laid out by
+`parallel/sharding.py::layout_specs` (mamba2's concatenated leaves part
+by part). Checkpoints of a mesh hold the logical arrays, gathered over the
 ranks and written by rank 0, and restore onto any mesh or one device
 (`core/meshrun.py::ShardLayout`); the optimizer overlap and
 `io.host_offload="opt_state"` run on each rank's ZeRO-1 shards, their
@@ -97,7 +100,7 @@ from repro_torch.models.transformer import RunSettings
 from repro_torch.optim.optimizers import Optimizer, OptState, adamw, sgd
 from repro_torch.optim.overlap import OptBridge
 from repro_torch.parallel.comm import rank_device
-from repro_torch.parallel.sharding import default_axes, param_specs
+from repro_torch.parallel.sharding import default_axes, layout_specs
 from repro_torch.resilience import unwrap_chain
 from repro_torch.runtime.trainer import TrainLoop, TrainState, batch_tokens
 
@@ -294,11 +297,11 @@ class TrainSession:
             raise ValueError(
                 "mesh-sharded training is a jit-engine feature; the "
                 "staged engine runs one device")
-        check_mesh_config(self.cfg)
+        self.mesh_axes = mesh_axes or default_axes(self.mesh)
+        check_mesh_config(self.cfg, self.mesh, self.mesh_axes)
         if self.mesh.comm is None:
             raise ValueError("the mesh has no Comm: build it with "
                              "parallel.comm.init_mesh")
-        self.mesh_axes = mesh_axes or default_axes(self.mesh)
         if device != "cpu":
             torch.cuda.set_device(torch.device(rank_device("cuda")))
         if io is not None and io.directory is None:
@@ -373,8 +376,8 @@ class TrainSession:
             params = self.api.init(gen)
             if self.mesh is not None:
                 # this rank's shards (the moments follow: ZeRO)
-                specs = param_specs(self.cfg, params, self.mesh,
-                                    self.mesh_axes, fsdp=True)
+                specs = layout_specs(self.cfg, params, self.mesh,
+                                     self.mesh_axes, fsdp=True)
                 self.engine.mesh_run.set_specs(specs)
                 params = shard_tree(params, specs, self.mesh)
             self.params = params
@@ -390,8 +393,8 @@ class TrainSession:
         from repro_torch.models.convert import (params_from_jax,
                                                 shard_params_from_jax)
         if self.mesh is not None:
-            specs = param_specs(self.cfg, params, self.mesh,
-                                self.mesh_axes, fsdp=True)
+            specs = layout_specs(self.cfg, params, self.mesh,
+                                 self.mesh_axes, fsdp=True)
             self.engine.mesh_run.set_specs(specs)
             self.params = shard_params_from_jax(params, specs, self.mesh,
                                                 device=self.device)

@@ -42,6 +42,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import RunSettings
 from repro_torch.optim.optimizers import sgd
 from repro_torch.session import TrainSession
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 try:
     import jax

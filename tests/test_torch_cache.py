@@ -26,6 +26,7 @@ import repro_torch.core.adaptive as tadaptive  # noqa: E402
 import repro_torch.core.policies as tpolicies  # noqa: E402
 import repro_torch.core.spool as tspool  # noqa: E402
 import repro_torch.io as tio  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 MIN_OFF = 4
 

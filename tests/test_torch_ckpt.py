@@ -33,6 +33,7 @@ from repro_torch.ckpt import checkpoint as tckpt  # noqa: E402
 from repro_torch.core.tree import tree_flatten, tree_unflatten  # noqa
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 OPTS = {"sgd": (lambda m: m.sgd(1e-2)),
         "sgd-momentum": (lambda m: m.sgd(1e-2, momentum=0.9)),

@@ -36,6 +36,7 @@ from repro_torch.session import TrainSession
 from test_torch_plans import ATTN_CASES as PLAN_ATTN_CASES
 from test_torch_plans import RGLRU_CASES as PLAN_RGLRU_CASES
 from test_torch_plans import SSD_CASES as PLAN_SSD_CASES
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 

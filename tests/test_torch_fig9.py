@@ -33,6 +33,7 @@ from repro_torch.io.backends import StripedBackend  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.transformer import RunSettings  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
 def test_projection_matches_jax(capsys):

@@ -50,6 +50,7 @@ from repro_torch.models.transformer import (RunSettings,  # noqa: E402
                                             build_segments)
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.session import TrainSession  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 B, S = 2, 32
 MIN_OFF = 2 ** 8

@@ -22,6 +22,7 @@ from repro_torch.io import (FilesystemBackend, HostMemoryBackend,
                             deserialize_leaves, encode_parts,
                             serialize_leaves, serialize_parts, unpack)
 from repro_torch.io.codecs import pack
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 CODECS = ("raw", "zlib", "byteplane")
 

@@ -24,6 +24,7 @@ from repro.configs.base import SpoolIoConfig as JIo  # noqa: E402
 from repro.core.spool import ActivationSpool as JSpool  # noqa: E402
 from repro_torch.configs import SpoolIoConfig as TIo  # noqa: E402
 from repro_torch.core.spool import ActivationSpool as TSpool  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 BACKEND_KINDS = ["fs", "striped", "mem", "tiered", "aio"]
 CODEC_NAMES = ["raw", "zlib", "byteplane"]

@@ -18,6 +18,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import attention_reference  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 # (B, Sq, Skv, Hq, Hkv, D, causal, window, cap): tests/test_kernels.py
 ATTN_CASES = [

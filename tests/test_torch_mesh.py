@@ -45,6 +45,7 @@ from repro_torch.io.backends import (FilesystemBackend,  # noqa: E402
 from repro_torch.optim.optimizers import zero1_shardings  # noqa: E402
 from repro_torch.parallel import mesh as tmesh  # noqa: E402
 from repro_torch.parallel import sharding as tsh  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 MESHES = {"2x2": {"data": 2, "model": 2}, "2x4": {"data": 2, "model": 4}}
 
@@ -387,13 +388,34 @@ def test_blob_names_keep_a_slash_out_of_the_path(tmp_path):
 
 @pytest.mark.parametrize("arch", [
     "mamba2-2.7b:reduced", "recurrentgemma-9b:reduced", "small-t5"])
-def test_a_mesh_of_what_waits_for_12b_is_refused(arch):
+def test_recurrent_and_encoder_decoder_archs_build_a_mesh_session(arch):
+    """mamba2, recurrentgemma and T5 pass the mesh check (slice 12b part
+    3): a session over a stub mesh gets as far as asking for its Comm."""
     from repro_torch.configs import small_t5
     from repro_torch.session import TrainSession
     cfg = small_t5() if arch == "small-t5" else arch
-    with pytest.raises(NotImplementedError, match="part 3 of slice 12b"):
+    with pytest.raises(ValueError, match="init_mesh"):
         TrainSession(cfg, engine="jit", device="cpu",
                      mesh=tmesh.make_test_mesh((1, 2)))
+
+
+@pytest.mark.parametrize("arch,what", [
+    ("mamba2-2.7b:reduced", "the 8 SSM heads of 16"),
+    ("recurrentgemma-9b:reduced", "the RG-LRU width 64")])
+def test_a_tensor_axis_that_does_not_divide_a_recurrent_block_is_refused(
+        arch, what):
+    """A tensor axis of 3 ranks splits neither mamba2's 8 heads nor the
+    RG-LRU width 64: the session refuses it, naming the shapes, before it
+    asks for the Comm; a block asked to run so raises the same."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.transformer import check_tensor_axis
+    from repro_torch.session import TrainSession
+    with pytest.raises(ValueError, match=f"3 ranks does not divide {what}"):
+        TrainSession(arch, engine="jit", device="cpu",
+                     mesh=tmesh.make_test_mesh((1, 3)))
+    check_tensor_axis(resolve_config(arch), 2)
+    with pytest.raises(ValueError, match=what):
+        check_tensor_axis(resolve_config(arch), 3)
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b:reduced",

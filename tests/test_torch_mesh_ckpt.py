@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 B, S, SEED, LR = 4, 32, 3, 1e-3
 WORLD = 4

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 STEPS, B, S, SEED, LR, MIN_OFF = 2, 4, 32, 3, 1e-2, 256
 WORLD = 2

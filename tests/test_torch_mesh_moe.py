@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 ARCHS = ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"]
 B, S, SEED, LR, STEPS = 4, 16, 3, 1e-2, 2

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 STEPS, B, S, SEED, LR, MIN_OFF = 3, 4, 32, 3, 1e-3, 256
 WORLD = 4

@@ -30,6 +30,7 @@ from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.core.tree import tree_flatten  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import RunSettings  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-4
 B, S, CACHE = 2, 12, 24

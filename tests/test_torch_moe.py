@@ -46,6 +46,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import RunSettings  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.session import TrainSession  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 ARCHS = ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"]
 B, S, SEED, LR = 2, 16, 3, 1e-2

@@ -48,6 +48,7 @@ from repro_torch.session import TrainSession  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from benchmarks import torch_trace_split  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 MS = 1_000_000          # ns per millisecond
 B, S = 2, 32

@@ -45,6 +45,7 @@ from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.optim.overlap import OptBridge  # noqa: E402
 from repro_torch.resilience import unwrap_chain  # noqa: E402
 from repro_torch.session import TrainSession  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 CFG = dataclasses.replace(small_gpt(128, 2), dtype="float32")
 STEPS = 3

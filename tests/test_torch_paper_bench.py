@@ -29,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from benchmarks import fig10_overhead, fig11_rok, table4_offload  # noqa
 from benchmarks import torch_fig10, torch_fig11, torch_table4  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TINY = [(128, 1)]       # (hidden, layers): one small layer per family
 # T5 splits its layers into encoder and decoder: one of each

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 WORLD = 4
 N_STAGE, M, MB, DP = 4, 8, 2, 16

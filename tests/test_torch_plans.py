@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.build import SMEM_LIMIT
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 # (B, Sq, Skv, Hq, Hkv, D, causal, window, cap): tests/test_kernels.py,
 # the serve prefill (S 1024 and a ragged 1000), recurrentgemma-9b's MQA at

@@ -35,6 +35,7 @@ from repro_torch.core.policies import KeepPolicy, SpoolPolicy  # noqa: E402
 from repro_torch.core.spool import ActivationSpool as TSpool  # noqa: E402
 from repro_torch.core.spool import SpoolLoadError  # noqa: E402
 from repro_torch.session import TrainSession  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 MIN_OFF = 4
 

@@ -33,6 +33,7 @@ from repro_torch.kernels.rglru_scan import (CHUNK,  # noqa: E402
                                             rglru_sequential, scan_scale)
 from repro_torch.models import layers, rglru  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 # (B, S, W, chunk, blk_w): tests/test_kernels.py::RGLRU_CASES
 RGLRU_CASES = [

@@ -42,6 +42,7 @@ from repro_torch.obs.export import validate_trace  # noqa: E402
 from repro_torch.runtime.trainer import (StragglerWatchdog,  # noqa: E402
                                          TrainLoop, TrainState)
 from repro_torch.session import TrainSession  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 B, S = 2, 32
 MIN_OFF = 2 ** 10

@@ -18,6 +18,7 @@ from repro_torch.launch import serve
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import RunSettings
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-4
 N_REQ, MAX_NEW = 6, 9

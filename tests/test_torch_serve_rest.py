@@ -52,6 +52,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import RunSettings  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = 2e-4
 N_REQ, PROMPT, MAX_NEW = 4, 6, 7

@@ -26,6 +26,7 @@ from repro_torch.kernels.ssd_scan import (pick_chunk, ssd_chunked,  # noqa
                                           ssd_scan, ssd_scan_fwd)
 from repro_torch.models import layers, mamba2  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 # (B, S, H, P, N, chunk): tests/test_kernels.py::SSD_CASES
 SSD_CASES = [

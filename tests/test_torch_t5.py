@@ -53,6 +53,7 @@ from repro_torch.models.transformer import (BlockDef,  # noqa: E402
                                             RunSettings, apply_block)
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.session import TrainSession  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 B, S, SE = 2, 32, 40          # the encoder input is longer than the decoder's
 F32 = dict(dtype="float32")

@@ -38,6 +38,7 @@ from repro_torch.models.api import build_model
 from repro_torch.models.transformer import RunSettings
 from repro_torch.optim import optimizers as topt
 from repro_torch.session import TrainSession
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 try:
     import jax
