@@ -324,7 +324,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      recurrentgemma's rank (1, 1024, 8/1, 256, window 2048) and T5's (1,
      1024, 32, 128), non-causal and causal, all f32, each against its
      plain version with its times;
- 19. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 19. the dry run against the card (`repro_torch.launch.{steps,op_stats,
+     dryrun}`): each prediction is the dry run's count on the meta
+     device of the same step and placement; the card runs the step once
+     under the same counter and is timed on separate uncounted steps.
+     (a) gpt-h8192-l4 at phase 8's shape (B=4, S=1024, bf16, sgd)
+     through `make_train_step` on one device (the host tier: each layer
+     forward and recomputed, 8 flash launches a step): FLOPs, host bytes
+     and products equal to the prediction, the allocator's peak within
+     15% of the traced peak; its step time, mfu (6 N_active tokens over
+     t_step x PEAK_FLOPS_BF16) and t_compute / t_step printed. (b) a
+     prefill at (1, 1024) (4 flash launches) and a decode over a
+     1024-token cache: FLOPs equal. (c) mamba2-2.7b at 4 layers and
+     recurrentgemma-9b at one period, B=1, S=1024, one step each: FLOPs
+     equal and the SSD / RG-LRU calls the dry run counts. (d) in phase
+     15's spawn: each rank's `Comm` counters over one step of its model
+     through `make_train_step` equal a `DryComm`'s of that rank, op by
+     op, in calls and result bytes. (e) a bf16 8192^3 matmul and a 4
+     GiB device copy, printed beside PEAK_FLOPS_BF16 and HBM_BW; no rate
+     above 1.05x its constant. (f) `python -m repro_torch.launch.dryrun
+     --arch qwen2.5-3b --shape train_4k --mesh single` exits 0 with
+     status ok; its dominant term and t's printed;
+ 20. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -358,6 +379,8 @@ import torch  # noqa: E402
 
 T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.launch.mesh import H100_PEAKS, peaks_for  # noqa: E402
 ARCH = "gpt-h8192-l4"
 SERVE_ARGS = ["--arch", ARCH, "--seed", "0", "--device", "cuda",
               "--cache", "paged", "--batch", "4", "--requests", "12",
@@ -670,11 +693,9 @@ REC_FLASH_CASES = [
      torch.float32, TOL_F32),
 ]
 
-PEAKS = {
-    "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
-    "pcie": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12},
-    "nvl": {"bytes": 3.9e12, "bfloat16": 835e12, "float32": 60e12},
-}
+# the cards' datasheet peaks: one table, the dry run's
+# (`repro_torch/launch/mesh.py`)
+PEAKS = H100_PEAKS
 
 
 def fail(msg):
@@ -686,10 +707,6 @@ def check(cond, msg):
     if not cond:
         fail(msg)
 
-
-def peaks_for(name):
-    n = name.lower()
-    return PEAKS["pcie" if "pcie" in n else "nvl" if "nvl" in n else "sxm"]
 
 
 def time_ms(fn, runs=30, warmup=3):
@@ -846,49 +863,23 @@ def mirror_check():
           f"libraries in {n} checks")
 
 
-def unmasked_pairs(Sq, Skv, causal, window):
-    """(row, col) score pairs the masks keep: the work this input needs."""
-    total = 0
-    for r in range(Sq):
-        hi = min(Skv, r + 1) if causal else Skv
-        lo = max(0, r - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
-
-
 def bound_ms(q, k, v, causal, window, peaks):
     """Least time for the card: each input read once and the output
     written once over the memory rate, or the score and value products
-    of the unmasked pairs over the peak rate of the input type."""
-    B, Sq, Hq, D = q.shape
-    nbytes = 2 * q.numel() * q.element_size() + k.numel() * k.element_size() \
-        + v.numel() * v.element_size()
-    flops = 4 * B * Hq * D * unmasked_pairs(Sq, k.shape[1], causal, window)
-    t_bytes = nbytes / peaks["bytes"]
-    t_ops = flops / peaks[str(q.dtype).split(".")[-1]]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    of the unmasked pairs over the peak rate of the input type (the
+    kernel module's one count of its work, `flash_attention.work`)."""
+    from repro_torch.kernels.flash_attention import work
+    s, by = work(q, k, v, causal=causal, window=window).bound_s(peaks)
+    return 1e3 * s, by
 
 
 def ssd_bound_ms(xh, dA_log, B_s, C_s, chunk, peaks):
     """Least time for the SSD scan: inputs read once and y and the final
     state written once over the memory rate, or the products the
-    chunked algorithm needs (C B^T once per chunk, then per head the
-    causal Q x Q x P product, C state^T and the state update) over the
-    f32 rate (the kernel computes in f32, as the TPU kernel does)."""
-    from repro_torch.kernels.ssd_scan import pick_chunk
-    B, S, H, P = xh.shape
-    N = B_s.shape[-1]
-    Q = pick_chunk(S, chunk)
-    nc = S // Q
-    tri = Q * (Q + 1) // 2
-    nbytes = (2 * xh.numel() * 4 + dA_log.numel() * 4
-              + 2 * B_s.numel() * B_s.element_size() + B * H * P * N * 4)
-    flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
-    t_bytes = nbytes / peaks["bytes"]
-    t_ops = flops / peaks["float32"]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    chunked algorithm needs over the f32 rate (`ssd_scan.work`)."""
+    from repro_torch.kernels.ssd_scan import work
+    s, by = work(xh, dA_log, B_s, C_s, chunk).bound_s(peaks)
+    return 1e3 * s, by
 
 
 def ssd_phase(gen, peaks, smi):
@@ -950,13 +941,10 @@ def rglru_bound_ms(x, peaks, tensors=3):
     """Least time for the RG-LRU scan: `tensors` f32 tensors of x's size
     read or written once over the memory rate (3 forward: log_a, x, h; 5
     in the backward: log_a, g, h, dx, dlog_a), or one exp and one FMA per
-    element over the f32 rate (the memory side bounds it by far)."""
-    nbytes = tensors * x.numel() * 4
-    flops = 2 * x.numel()
-    t_bytes = nbytes / peaks["bytes"]
-    t_ops = flops / peaks["float32"]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    element over the f32 rate (`rglru_scan.work`)."""
+    from repro_torch.kernels.rglru_scan import work
+    s, by = work(x, tensors).bound_s(peaks)
+    return 1e3 * s, by
 
 
 def scan_err(got, want, tol, scale=None):
@@ -3245,6 +3233,8 @@ def _mesh_rank(rank, port, work):
         if rank == 0:
             shutil.rmtree(ck)
         res["ckpt_left"] = os.path.exists(ck) if rank == 0 else False
+        # phase 19 (d): the collectives of a step against the dry run's
+        res["counts"] = comm_count_check(mesh)
         dist.destroy_process_group()
     except BaseException:
         res = {"error": traceback.format_exc()}
@@ -3420,6 +3410,13 @@ def mesh_phase(gen, peaks, smi):
         check(res["b"]["staged"] > 0, "mesh (b): nothing staged through "
               "host memory under gloo")
     check(b0["ckpt_bytes"] > 0, "mesh (b): no checkpoint written")
+    for r, res in enumerate(ranks):
+        c = res["counts"]
+        print(f"  phase 19 (d) rank {r}: Comm over one step {c['card']}; "
+              f"DryComm {c['dry']}")
+        check(c["card"] == c["dry"] and c["card"], f"phase 19 (d) rank {r}: "
+              f"the card's collectives {c['card']} are not the dry run's "
+              f"{c['dry']}")
     n = MESH_LAYERS * MESH_STEPS
     c_sh, e_sh, f_sh = (ranks[0][x]["shards"] for x in "cef")
     check(sorted(c_sh) == ["0", "1"], f"mesh (c): shards {sorted(c_sh)}")
@@ -4332,6 +4329,268 @@ def kimi_phase(smi):
           f"GB; {time.perf_counter() - t0:.1f}s on {smi}")
 
 
+# phase 19: the dry run's counts against the card's. Peak within this
+# share of the prediction (the caching allocator's rounding and cuBLAS's
+# workspace are not in the trace); no rate above this share of its
+# datasheet peak
+TOL_P19_PEAK = 0.15
+P19_RATE_CAP = 1.05
+P19_MAMBA_LAYERS = 4
+
+
+def p19_counted(build, label):
+    """(the dry run's prediction on the meta device, the card's count of
+    the same step, the card's bundle, its kernel launches a step, the
+    card's allocator peak over the counted step): `build(device)` makes
+    the step's `StepBundle`; the card's step runs once under the
+    counter, its launches read from 0 just before."""
+    from repro_torch.kernels import rglru_scan, ssd_scan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.dryrun import trace_step
+    meta = build("meta")
+    _, pc, t_meta = trace_step(meta, "meta")
+    meta.close()
+    del meta
+    card = build("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"flash_attention": flash_attention,
+               "ssd_scan": ssd_scan.ssd_scan,
+               "rglru_scan": rglru_scan.rglru_scan}
+    for k in kernels.values():
+        k.launches = 0
+    _, cc, _ = trace_step(card, "cuda")
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    peak = torch.cuda.max_memory_allocated()
+    pred, got = pc.analysis(), cc.analysis()
+    print(f"  ({label}) predicted on meta in {t_meta:.1f}s: flops "
+          f"{pred.flops:.6e} dots {pred.dot_count} host "
+          f"{pred.host_bytes:.6e} B hbm {pred.hbm_bytes:.6e} B peak "
+          f"{pred.peak_bytes / 1e9:.3f} GB kernels {pred.kernels}; the "
+          f"card: flops {got.flops:.6e} dots {got.dot_count} host "
+          f"{got.host_bytes:.6e} B hbm {got.hbm_bytes:.6e} B launches "
+          f"{launches} allocator peak {peak / 1e9:.3f} GB")
+    check(got.flops == pred.flops, f"({label}) the card counted "
+          f"{got.flops} flops, the dry run {pred.flops}")
+    check(got.dot_count == pred.dot_count and got.host_bytes ==
+          pred.host_bytes, f"({label}) dots / host bytes {got.dot_count} "
+          f"/ {got.host_bytes} against the dry run's {pred.dot_count} / "
+          f"{pred.host_bytes}")
+    for n, k in pred.kernels.items():
+        check(launches.get(n, 0) == k["calls"] == got.kernels[n]["calls"],
+              f"({label}) {n}: {launches.get(n, 0)} launches, the dry "
+              f"run counts {k['calls']} calls")
+    return pred, got, card, launches, peak
+
+
+def p19_timed(bundle, steps):
+    """Seconds of each of `steps` uncounted steps."""
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.fn(*bundle.args)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def p19_free(*bundles):
+    for b in bundles:
+        b.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(smi):
+    """Phase 19 (see the module docstring). Returns its numbers for the
+    result line."""
+    t_phase = time.perf_counter()
+    # (f) runs on the host's CPU while (a)-(e) run on the card
+    d = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2.5-3b", "--shape", "train_4k", "--mesh", "single", "--out",
+         d, "--force"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=ROOT)
+    try:
+        return dryrun_checks(smi, cli, d, t_phase)
+    finally:
+        if cli.poll() is None:       # a check failed first
+            cli.kill()
+            cli.wait()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def dryrun_checks(smi, cli, d, t_phase):
+    """Phase 19's (a)-(f), with the CLI `cli` running into `d`."""
+    from repro_torch.configs import SpoolIoConfig, get_config, gpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import sgd
+    out = {}
+    io = SpoolIoConfig(backend="mem", pool_bytes=POOL_BYTES)
+    api = build_model(gpt(PAPER_HIDDEN, PAPER_LAYERS))
+    print("dry run against the card: gpt-h8192-l4 (bf16), counted under "
+          "launch/op_stats.py's OpCounter, timed uncounted")
+    # (a) training on the host tier
+    shape = ShapeConfig("phase19", PAPER_SEQ, PAPER_BATCH, "train")
+    pred, got, b, launches, peak = p19_counted(
+        lambda dev: make_train_step(api, None, None, sgd(PAPER_LR), shape,
+                                    device=dev, io_config=io), "a")
+    steps_s = p19_timed(b, 2)
+    t_step = steps_s[-1]
+    tokens = b.tokens_per_step
+    mfu = 6 * b.n_active * tokens / (t_step * PEAK_FLOPS_BF16)
+    t_compute = pred.flops / PEAK_FLOPS_BF16
+    rel_peak = peak / pred.peak_bytes - 1
+    print(f"  (a) train B={PAPER_BATCH} S={PAPER_SEQ} sgd on the host "
+          f"tier: steps {[round(x, 4) for x in steps_s]} s, mfu "
+          f"{mfu:.4f} (6 N_active tokens over t_step x PEAK_FLOPS_BF16, "
+          f"N_active {b.n_active}), t_compute/t_step "
+          f"{t_compute / t_step:.4f} (t_compute {t_compute:.4f} s), peak "
+          f"{peak / 1e9:.3f} GB against the predicted "
+          f"{pred.peak_bytes / 1e9:.3f} GB ({100 * rel_peak:+.1f}%)")
+    want = 2 * PAPER_LAYERS         # each layer forward and recomputed
+    check(launches.get("flash_attention") == want, f"(a) flash launches "
+          f"{launches}, want {want} (a forward and a recompute a layer)")
+    check(abs(rel_peak) <= TOL_P19_PEAK, f"(a) the card's peak "
+          f"{peak} is {100 * rel_peak:+.1f}% of the predicted "
+          f"{pred.peak_bytes}, not within {100 * TOL_P19_PEAK:.0f}%")
+    out.update(train_step_s=t_step, mfu=mfu,
+               t_compute_over_t_step=t_compute / t_step,
+               train_launches=launches.get("flash_attention", 0),
+               peak_bytes=peak, predicted_peak_bytes=pred.peak_bytes,
+               train_flops=pred.flops)
+    p19_free(b)
+    del b
+    # (b) prefill and decode
+    pshape = ShapeConfig("phase19p", PAPER_SEQ, 1, "prefill")
+    _, _, b, launches, _ = p19_counted(
+        lambda dev: make_prefill_step(api, None, None, pshape, device=dev),
+        "b prefill")
+    check(launches.get("flash_attention") == PAPER_LAYERS,
+          f"(b) prefill flash launches {launches}, want {PAPER_LAYERS}")
+    out["prefill_s"] = p19_timed(b, 1)[0]
+    p19_free(b)
+    del b
+    dshape = ShapeConfig("phase19d", PAPER_SEQ, 1, "decode")
+    _, _, b, _, _ = p19_counted(
+        lambda dev: make_decode_step(api, None, None, dshape, device=dev),
+        "b decode")
+    out["decode_s"] = p19_timed(b, 1)[0]
+    print(f"  (b) prefill (1, {PAPER_SEQ}) {out['prefill_s']:.4f} s, "
+          f"decode over a {PAPER_SEQ}-token cache {out['decode_s']:.4f} s")
+    p19_free(b)
+    del b, api
+    # (c) the recurrent kernels' work reports
+    for arch, layers in ((TRAIN_ARCH, P19_MAMBA_LAYERS), (RG_ARCH, 3)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        capi = build_model(cfg)
+        cshape = ShapeConfig("phase19c", PAPER_SEQ, 1, "train")
+        _, _, b, launches, _ = p19_counted(
+            lambda dev: make_train_step(capi, None, None, sgd(PAPER_LR),
+                                        cshape, device=dev, io_config=io),
+            f"c {arch} {layers} layers")
+        out[f"{arch}_launches"] = launches
+        p19_free(b)
+        del b, capi
+    # (e) the card against its constants
+    n = 8192
+    x = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    y = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: x @ y, runs=10)
+    del x, y
+    src = torch.empty(4 << 30, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(lambda: dst.copy_(src), runs=10)
+    del src, dst
+    torch.cuda.empty_cache()
+    mm_rate = 2 * n ** 3 / (mm_ms / 1e3)
+    cp_rate = 2 * (4 << 30) / (cp_ms / 1e3)
+    print(f"  (e) bf16 {n}^3 matmul {mm_ms:.4f} ms: {mm_rate / 1e12:.1f} "
+          f"TFLOP/s against PEAK_FLOPS_BF16 {PEAK_FLOPS_BF16 / 1e12:.0f} "
+          f"({mm_rate / PEAK_FLOPS_BF16:.3f}); 4 GiB device copy "
+          f"{cp_ms:.4f} ms: {cp_rate / 1e12:.3f} TB/s read + write against "
+          f"HBM_BW {HBM_BW / 1e12:.2f} ({cp_rate / HBM_BW:.3f})")
+    check(mm_rate <= P19_RATE_CAP * PEAK_FLOPS_BF16, f"(e) the matmul ran "
+          f"at {mm_rate:.4e} FLOP/s, above {P19_RATE_CAP} x its peak")
+    check(cp_rate <= P19_RATE_CAP * HBM_BW, f"(e) the copy ran at "
+          f"{cp_rate:.4e} B/s, above {P19_RATE_CAP} x HBM_BW")
+    out.update(matmul_tflops=mm_rate / 1e12, copy_tbps=cp_rate / 1e12)
+    # (f) one production cell through the CLI, started with the phase
+    try:
+        stdout, stderr = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+    t_cli = time.perf_counter() - t_phase
+    check(cli.returncode == 0, f"(f) the dry run CLI exited "
+          f"{cli.returncode}: {stdout[-1500:]} {stderr[-1500:]}")
+    with open(os.path.join(d, "qwen2_5-3b__train_4k__single.json")) as f:
+        rec = json.load(f)
+    check(rec.get("status") == "ok", f"(f) status {rec.get('status')}")
+    rl = rec["roofline"]
+    print(f"  (f) qwen2.5-3b x train_4k [single] status: ok within "
+          f"{t_cli:.1f}s of the phase's start (trace {rec['compile_s']}s): "
+          f"dominant "
+          f"{rl['dominant']}, t_compute {rl['t_compute_s']:.4e} s, "
+          f"t_memory {rl['t_memory_s']:.4e} s, t_collective "
+          f"{rl['t_collective_s']:.4e} s, traced peak "
+          f"{rec['memory_analysis']['peak_device_bytes'] / 1e9:.3f} GB")
+    out["cli_dominant"] = rl["dominant"]
+    dt = time.perf_counter() - t_phase
+    out["phase_s"] = dt
+    print(f"  dry run: (a)-(c) counts exact, (a)'s peak within "
+          f"{100 * TOL_P19_PEAK:.0f}%, (e) no rate above its peak, (f) ok; "
+          f"phase {dt:.1f}s on {smi}")
+    return out
+
+
+def comm_count_check(mesh):
+    """Phase 19 (d), in a rank of phase 15's spawn: one step of phase
+    15's model through `make_train_step` on this rank of `mesh`, its
+    `Comm` counters over the step beside those of a `DryComm` of the
+    same rank over the same step on the meta device."""
+    from repro_torch.configs import gpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.parallel.sharding import MeshAxes
+    api = build_model(dataclasses.replace(gpt(PAPER_HIDDEN, MESH_LAYERS),
+                                          dtype="float32"))
+    shape = ShapeConfig("phase19d", PAPER_SEQ, MESH_BATCH, "train")
+    real = make_train_step(api, mesh, MeshAxes(), sgd(PAPER_LR), shape,
+                           device="cuda")
+    before = mesh.comm.op_counts()
+    real.fn(*real.args)
+    torch.cuda.synchronize()
+    after = mesh.comm.op_counts()
+    real.close()
+    del real
+    card = {k: [v[0] - before.get(k, [0, 0])[0],
+                v[1] - before.get(k, [0, 0])[1]] for k, v in after.items()}
+    card = {k: v for k, v in card.items() if v[0]}
+    dmesh = make_test_mesh(mesh.devices_shape, mesh.axis_names,
+                           rank=mesh.rank, dry=True)
+    dry = make_train_step(api, dmesh, MeshAxes(), sgd(PAPER_LR), shape,
+                          device="meta")
+    dry.fn(*dry.args)
+    dry.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": card, "dry": dmesh.comm.op_counts()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4602,14 +4861,19 @@ def main():
     # and T5 on a 1x2 mesh: 2 ranks on the one card over gloo, one spawn
     fam_flash, rec_scans, fam_launches, (s17, s18) = family_phase(
         gen, peaks, smi, reg_keep[FAMILY_HUBERT])
+
+    # ---- 19. the dry run's counts against the card's ((d) ran in phase
+    # 15's spawn)
+    dry = dryrun_phase(smi)
     print(f"phase times: 13 the registry's archs {t8 - t7:.1f}s, 14 "
           f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes {t10 - t9:.1f}s, "
           f"16 expert parallelism, pipeline and compression "
           f"{t11 - t10:.1f}s, 17 hubert and vision on a mesh {s17:.1f}s, "
-          f"18 mamba2, recurrentgemma and T5 on a mesh {s18:.1f}s; the "
+          f"18 mamba2, recurrentgemma and T5 on a mesh {s18:.1f}s, 19 the "
+          f"dry run against the card {dry['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - T_START:.1f}s")
 
-    # ---- 19. result
+    # ---- result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -4697,6 +4961,10 @@ def main():
         # phase 15: a tp=2 rank of gpt-h8192-l1 (each rank's launches in
         # each mesh run), the f32 instance at its shape (2, 1024, 32, 128)
         "launches_per_mesh_rank_run": mesh["launches_per_rank_run"],
+        # phase 19: gpt-h8192-l4 through make_train_step on the host
+        # tier (a forward and a recompute a layer) and one prefill
+        "launches_per_dryrun_train_step": dry["train_launches"],
+        "launches_per_dryrun_prefill": PAPER_LAYERS,
         "tp_local_max_abs_err": mesh["float32_max_abs_err"],
         "tp_local_bf16_max_abs_err": mesh["bfloat16_max_abs_err"],
         "tp_local_ms": mesh["ms"],
@@ -4784,6 +5052,9 @@ def main():
         "tpu_kernel": "src/repro/kernels/ssd_scan.py::_ssd_kernel",
         "launches": ssd_launches,
         "launches_per_train_run": ssd_launches,
+        # phase 19 (c): mamba2-2.7b at 4 layers, one counted step
+        "launches_per_dryrun_step": dry[f"{TRAIN_ARCH}_launches"].get(
+            "ssd_scan", 0),
         "max_abs_err": ssd_err,
         "max_err": ssd_err,
         "tol": TOL_SSD,
@@ -4831,6 +5102,9 @@ def main():
         # block per step
         "launches": rg_launches["rglru_scan"],
         "launches_per_train_run": rg_launches["rglru_scan"],
+        # phase 19 (c): recurrentgemma-9b at one period, one counted step
+        "launches_per_dryrun_step": dry[f"{RG_ARCH}_launches"].get(
+            "rglru_scan", 0),
         "max_abs_err": rg["max_abs_err"],
         "max_err": rg["max_abs_err"],
         "max_err_over_bar": rg["max_err_over_bar"],

@@ -80,9 +80,12 @@ class ClassStats:
 
 # register under the backend registry so spec strings ("managed:64mb")
 # and SpoolIoConfig(backend="managed") resolve like any other kind
-from repro_torch.io.backend import (StorageBackend,  # noqa: E402
-                                    register_backend)
+from repro_torch.io.backend import (NOMINAL_WRITE_BW,  # noqa: E402
+                                    StorageBackend, register_backend)
 from repro_torch.io.backends import HostMemoryBackend  # noqa: E402
+
+NOMINAL_WRITE_BW.setdefault("managed", NOMINAL_WRITE_BW.get("tiered",
+                                                            20e9))
 
 
 @register_backend("managed")

@@ -107,6 +107,14 @@ storage shrunk to 0 bytes). Backward copies it back one stage ahead, on
 the `reuse_horizon` walk, before the stage's recompute. No spool record,
 backend or file is involved; the `MemoryTracker` counts an input off
 the device while it lies on the host.
+
+Counting (`launch/op_stats.py`): the host tier and the spool's offloads
+report the bytes they move off the device to the active op counter, and
+the host tier's copies run uncounted. On the meta device (a dry run,
+`launch/steps.py`) nothing can be copied: the host tier and the spool
+record the bytes and keep the tensor (the counter still sees the host
+tier's input leave the device and come back), and the loss is not read.
+No other device takes this path.
 """
 from __future__ import annotations
 
@@ -128,6 +136,7 @@ from repro_torch.core.report import StepReport
 from repro_torch.core.spool import (MIN_OFFLOAD_ELEMENTS, SpoolLoadError,
                                     build_spool)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.launch import op_stats
 from repro_torch.models.api import (MOE_LB_COEF, MOE_Z_COEF, ModelApi,
                                     ce_chunk_applies, ce_loss, chunked_ce,
                                     embed_in, encoder_config, head)
@@ -180,6 +189,7 @@ class _HostTier:
     def __init__(self, pool, tracker: MemoryTracker, device):
         self.pool, self.tracker, self.device = pool, tracker, device
         self.cuda = device.type == "cuda"
+        self.dry = device.type == "meta"
         self._stream = None
         self._held: Dict[int, Dict[str, Any]] = {}
         self._done: list = []       # (copy-back event, lease) of restored
@@ -221,15 +231,21 @@ class _HostTier:
         return event
 
     def offload(self, si: int, t: torch.Tensor, key) -> None:
-        src = self._bytes(t)
-        n = src.numel()
-        lease = self.pool.acquire(n)
-        host = torch.frombuffer(lease.mv[:n], dtype=torch.uint8)
-        event = self._copy(host, src)
-        if event is not None:
-            src.record_stream(self._stream)     # freed after the copy
-        del src
-        t.untyped_storage().resize_(0)
+        n = t.untyped_storage().nbytes()
+        op_stats.count_host(n)
+        op_stats.moved_off(t)
+        if self.dry:
+            lease = host = event = None
+        else:
+            with op_stats.uncounted():
+                src = self._bytes(t)
+                lease = self.pool.acquire(n)
+                host = torch.frombuffer(lease.mv[:n], dtype=torch.uint8)
+                event = self._copy(host, src)
+                if event is not None:
+                    src.record_stream(self._stream)  # freed after the copy
+                del src
+            t.untyped_storage().resize_(0)
         self.tracker.free(key, tag=f"host:{key[0]}")
         self._held[si] = {"t": t, "lease": lease, "host": host, "key": key,
                           "n": n, "event": event, "back": False}
@@ -238,9 +254,13 @@ class _HostTier:
         rec = self._held.get(si)
         if rec is None or rec["back"]:
             return
-        rec["t"].untyped_storage().resize_(rec["n"])
-        # the side stream is in order: the copy out has landed first
-        rec["event"] = self._copy(self._bytes(rec["t"]), rec["host"])
+        if not self.dry:
+            rec["t"].untyped_storage().resize_(rec["n"])
+            # the side stream is in order: the copy out has landed first
+            with op_stats.uncounted():
+                rec["event"] = self._copy(self._bytes(rec["t"]),
+                                          rec["host"])
+        op_stats.moved_back(rec["t"])
         rec["back"] = True
         self.tracker.alloc(rec["key"], rec["n"],
                            tag=f"host_back:{rec['key'][0]}")
@@ -265,7 +285,8 @@ class _HostTier:
                 (r["event"], r["lease"]) for r in self._held.values()]:
             if event is not None:
                 event.synchronize()
-            lease.release()
+            if lease is not None:
+                lease.release()
         self._done, self._held = [], {}
 
 
@@ -316,6 +337,9 @@ class StagedEngine:
         self.cfg = api.cfg
         self.settings = settings
         self.device = torch.device(settings.device)
+        #: a dry run (`launch/steps.py` on the meta device): offloads are
+        #: counted and kept, the loss is never read
+        self._dry = self.device.type == "meta"
         self.optimizer = optimizer
         self.policy: OffloadPolicy = resolve_policy(policy)
         self.on_fetch_fail = io_config.on_fetch_fail
@@ -663,12 +687,17 @@ class StagedEngine:
             if saved is not None:
                 profile = ModuleProfile(stage.name, _nbytes(saved), dt)
                 if self.policy.should_offload(si, profile):
-                    if self._mesh is not None:
+                    op_stats.count_host(profile.bytes)
+                    if self._dry:
+                        tx.keep(si, saved)
+                    elif self._mesh is not None:
                         # shard-qualified keys in the ranks' shared dir
-                        self._mesh.offload(step_key, si, saved, flags)
+                        with op_stats.uncounted():
+                            self._mesh.offload(step_key, si, saved, flags)
                         bridged.add(si)
                     else:
-                        tx.offload(si, saved)
+                        with op_stats.uncounted():
+                            tx.offload(si, saved)
                     counts["stages_offloaded"] += 1
                 else:
                     tx.keep(si, saved)
@@ -696,13 +725,14 @@ class StagedEngine:
         bwd_begin = self.tracker.current
         dev_bwd_begin = (torch.cuda.memory_allocated(self.device)
                          if self.device.type == "cuda" else 0)
-        loss_value = float(loss.detach())       # waits for the forward
+        # waits for the forward (a dry run's loss holds no value)
+        loss_value = 0.0 if self._dry else float(loss.detach())
         weight = 1.0
         if self._mesh is not None:
             # this rank's share of the dp mean (`MeshRun.loss_weight`)
             weight = self._mesh.loss_weight(batch["labels"])
             loss_value *= weight
-        if auxes:
+        if auxes and not self._dry:
             counts["ce"] += loss_value
             for k in ("moe_lb", "moe_z"):
                 counts[k] += float(torch.stack([a[k] for a in auxes]).sum())
@@ -761,7 +791,9 @@ class StagedEngine:
             elif si in bridged:
                 # on a mesh a fetch that fails raises: a recompute on one
                 # rank would run collectives the others do not
-                fetched = self._mesh.fetch(step_key, si)
+                with op_stats.uncounted():
+                    fetched = self._mesh.fetch(step_key, si)
+                op_stats.track(fetched)
                 counts["stages_fetched"] += 1
                 cells[si][:] = fetched
                 try:
@@ -772,7 +804,9 @@ class StagedEngine:
                 del fetched
             else:
                 try:
-                    fetched = tx.fetch(si)
+                    with op_stats.uncounted():
+                        fetched = tx.fetch(si)
+                    op_stats.track(fetched)
                     counts["stages_fetched"] += 1
                 except SpoolLoadError as e:
                     # the blob is gone: recompute the stage from its

@@ -9,7 +9,9 @@ storage, never by `id()`:
   * a parameter is any tensor whose storage is a registered parameter's
     storage (every view of a weight is excluded from offloading);
   * a duplicate is a tensor with the same storage, offset, shape, stride
-    and dtype as one already tracked *and still alive*. The registry
+    and dtype as one already tracked *and still alive*. On the meta
+    device (a dry run) a storage is told apart by its object, as every
+    meta pointer is 0. The registry
     holds a weak reference to the tracked tensor, so a recycled address
     (the caching allocator reuses memory within a step) never matches a
     dead entry.
@@ -28,7 +30,10 @@ Key = Tuple
 
 
 def storage_ptr(t: torch.Tensor) -> int:
-    return t.untyped_storage().data_ptr()
+    """The storage's address; on the meta device, where every address is
+    0, the storage object's identity (held alive with the tensor)."""
+    st = t.untyped_storage()
+    return id(st) if st.device.type == "meta" else st.data_ptr()
 
 
 def tensor_key(t: torch.Tensor) -> Key:

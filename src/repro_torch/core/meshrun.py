@@ -241,7 +241,6 @@ def mesh_bridge(run: "MeshRun", spool, io_config,
     process group's store, its keys prefixed by the bridge's number
     (every rank builds its engines in the same order, so the ranks of one
     session agree on it)."""
-    import torch.distributed as dist
     _BRIDGES[0] += 1
     link = None
     if offloads and io_config.dedupe_replicas and run.n_replicas > 1:
@@ -252,8 +251,7 @@ def mesh_bridge(run: "MeshRun", spool, io_config,
                 f"blobs from storage every rank sees; the {kind!r} backend "
                 f"holds them in one process's memory: use fs, striped or "
                 f"aio, or dedupe_replicas=False (--spool-no-dedupe)")
-        link = ReplicaLink(dist.distributed_c10d._get_default_store(),
-                           f"hooks{_BRIDGES[0]}")
+        link = ReplicaLink(run.comm.store(), f"hooks{_BRIDGES[0]}")
     return HookBridge(spool, dedupe_replicas=io_config.dedupe_replicas,
                       link=link)
 
@@ -279,7 +277,7 @@ class MeshRun:
         self.bridge: Optional[HookBridge] = None
         self._cuts: Dict[Any, List] = {}
         # the device a collective's small operands live on
-        self._small = ("cpu" if self.comm.backend == "gloo"
+        self._small = ("cpu" if self.comm.backend in ("gloo", "dry")
                        else torch.device("cuda", torch.cuda.current_device()))
 
     def set_specs(self, spec_tree) -> None:
@@ -307,7 +305,9 @@ class MeshRun:
         mean loss times this, averaged over dp, is the global mean."""
         if self.dp_size == 1:
             return 1.0
-        mine = float((labels >= 0).sum())
+        # a dry run's labels hold no values: every token counts
+        mine = (float(labels.numel()) if labels.device.type == "meta"
+                else float((labels >= 0).sum()))
         total = float(self.comm.all_reduce_sum(
             torch.tensor([mine], dtype=torch.float64, device=self._small),
             self.dp)[0])

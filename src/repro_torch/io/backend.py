@@ -74,6 +74,22 @@ def classify_io_error(exc: BaseException) -> str:
     return "fatal"
 
 
+# Nominal sequential-write rates (bytes/s) of storage devices per backend
+# kind, which the dry run's projections use where nothing is measured
+# yet (the JAX package's `repro/io/backend.py:97-105`): rates of storage,
+# not of a chip, carried across as they are. fs: one datacenter NVMe;
+# striped: the paper's 4x D7-P5810 array; mem / tiered: host DRAM over
+# PCIe 4.0 x16; aio: one NVMe through O_DIRECT, with no page-cache copy.
+# `cache/manager.py` adds "managed" at the tiered rate.
+NOMINAL_WRITE_BW: Dict[str, float] = {
+    "fs": 2.0e9,
+    "striped": 8.0e9,
+    "mem": 20.0e9,
+    "tiered": 20.0e9,
+    "aio": 3.0e9,
+}
+
+
 @dataclass
 class IoStats:
     """Bytes and busy time per direction. write_time / read_time are

@@ -20,17 +20,23 @@ and v, and backward is the VJP of `attention_reference` recomputed under
 `enable_grad` (the JAX package has no backward kernel either; the FA-2
 dq and dk/dv kernel pair is later speed work). `flash_attention.launches`
 counts kernel launches (and nothing else), so a run can show that its
-path went through the kernel.
+path went through the kernel. `work` is the one count of a call's work
+(the unmasked pairs' products, each input read and the output written
+once): each call reports it to the active op counter
+(`launch/op_stats.py`), on the card and on the meta device alike, and
+`chip_smoke.py` prices its bounds with it.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_reference
+from repro_torch.launch.op_stats import KernelWork, report_kernel
 
 HEAD_DIMS = (32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,6 +85,28 @@ def warp_live(k0, r_lo, bk, Sq, causal, window) -> bool:
     the kv tile starting at key k0 (bf16 kernel)."""
     return (r_lo < Sq and not (causal and k0 > r_lo + 15)
             and not (window > 0 and k0 + bk - 1 <= r_lo - window))
+
+
+def unmasked_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(row, col) score pairs the masks keep: the work this input needs
+    (causal rows see keys up to their own index, a window the last
+    `window` of them)."""
+    r = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Skv, r + 1) if causal else np.full(Sq, Skv)
+    lo = np.maximum(0, r - window + 1) if window else 0
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def work(q, k, v, *, causal: bool, window: int = 0) -> KernelWork:
+    """One call's work: the score and value products of the unmasked
+    pairs (4 B Hq D FLOPs a pair) in q's dtype, q, k and v read once and
+    the output (q's size) written once."""
+    B, Sq, Hq, D = q.shape
+    nbytes = (2 * q.numel() * q.element_size()
+              + k.numel() * k.element_size() + v.numel() * v.element_size())
+    flops = 4 * B * Hq * D * unmasked_pairs(Sq, k.shape[1], causal, window)
+    return KernelWork("flash_attention", float(flops), float(nbytes),
+                      str(q.dtype).split(".")[-1])
 
 
 def library_plan(D: int, dtype=torch.bfloat16) -> dict:
@@ -194,6 +222,7 @@ def _launch(q, k, v, *, causal, window, logit_cap):
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    report_kernel(work(q, k, v, causal=causal, window=window))
     if q.device.type == "meta":
         return o
     with torch.cuda.device(q.device):

@@ -27,7 +27,9 @@ engine stores one storage once). CPU tensors take the plain version
 both ways; CUDA tensors launch the kernel or raise.
 `rglru_scan.launches` counts calls of the kernel path (one per forward,
 one per backward, each launching `KERNELS_PER_CALL` CUDA kernels) and
-nothing else.
+nothing else. `work` is the one count of a call's work, which each call
+reports to the active op counter (`launch/op_stats.py`), on the card and
+on the meta device alike, and `chip_smoke.py` prices.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.launch.op_stats import KernelWork, report_kernel
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # csrc constants: steps per chunk, columns per block
@@ -44,6 +47,15 @@ CHUNK, THREADS = 64, 128
 PASSES = ("summary", "carry", "rescan")
 KERNELS_PER_CALL = len(PASSES)
 MAX_GRID_YZ = 65535
+
+
+def work(x, tensors: int = 3) -> KernelWork:
+    """One call's work: `tensors` f32 tensors of x's size read or written
+    once (3 forward: log_a, x, h; 5 in the backward: log_a, g, h, dx,
+    dlog_a), and one exp and one FMA per element in f32 (the memory side
+    bounds it by far)."""
+    return KernelWork("rglru_scan", float(2 * x.numel()),
+                      float(tensors * x.numel() * 4), "float32")
 
 
 # ------------------------------------------------------------ plain versions
@@ -235,11 +247,17 @@ def check_kernel_inputs(*ts) -> dict:
     return plan
 
 
-def _launch(fn, ts, outs, plan, *extra):
-    """Allocate the scratch, run `fn` on the current stream, count it."""
+def _launch(entry, ts, outs, plan, *extra):
+    """Allocate the scratch, report the call's work, run the library's
+    `entry` on the current stream, count it (on the meta device: the
+    scratch and the report only)."""
     dev = ts[0].device
     scratch = list(torch.empty(plan["scratch"], dtype=torch.float32,
                                device=dev))
+    report_kernel(work(ts[0], len(ts) + len(outs)))
+    if dev.type == "meta":
+        return
+    fn = getattr(_lib(), entry)
     B, S, W = ts[0].shape
     strides = [s for t in ts for s in (t.stride(0), t.stride(1))]
     with torch.cuda.device(dev):
@@ -252,7 +270,7 @@ def _launch(fn, ts, outs, plan, *extra):
 
 
 def _on_card(t):
-    if t.device.type != "cuda":
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, not "
                          f"{t.device.type}")
 
@@ -267,12 +285,10 @@ def rglru_scan_fwd(log_a, x, *, reverse: bool = False):
     _check(log_a, x)
     if x.device.type == "cpu":
         return rglru_sequential(log_a, x, reverse=reverse)
-    if x.device.type == "meta":      # shape-only (core/endurance.py)
-        return torch.empty(x.shape, dtype=torch.float32, device="meta")
     _on_card(x)
     plan = check_kernel_inputs(log_a, x)
     h = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    _launch(_lib().repro_rglru_scan_fwd, [log_a, x], [h], plan,
+    _launch("repro_rglru_scan_fwd", [log_a, x], [h], plan,
             int(reverse))
     return h
 
@@ -292,7 +308,7 @@ def rglru_scan_bwd(log_a, g, h):
     plan = check_kernel_inputs(log_a, g, h)
     gx, dla = (torch.empty(g.shape, dtype=torch.float32, device=g.device)
                for _ in range(2))
-    _launch(_lib().repro_rglru_scan_bwd, [log_a, g, h], [gx, dla], plan)
+    _launch("repro_rglru_scan_bwd", [log_a, g, h], [gx, dla], plan)
     return dla, gx
 
 

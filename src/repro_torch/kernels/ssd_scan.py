@@ -23,7 +23,9 @@ the VJP of the plain chunked version recomputed under `enable_grad`.
 (The JAX package differentiates the sequential `ssd_reference`; the
 chunked form is the same function without a per-step saved state.)
 `ssd_scan.launches` counts calls of the kernel path (each launching
-`KERNELS_PER_CALL` CUDA kernels) and nothing else.
+`KERNELS_PER_CALL` CUDA kernels) and nothing else. `work` is the one
+count of a call's work, which each call reports to the active op
+counter (`launch/op_stats.py`) and `chip_smoke.py` prices.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import SMEM_LIMIT
+from repro_torch.launch.op_stats import KernelWork, report_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -50,6 +53,23 @@ def pick_chunk(S: int, chunk: int) -> int:
     while S % chunk:
         chunk //= 2
     return chunk
+
+
+def work(xh, dA_log, B_s, C_s, chunk: int) -> KernelWork:
+    """One call's work: inputs read once and y and the final state
+    written once; the products the chunked algorithm needs (C B^T once
+    per chunk, then per head the causal Q x Q x P product, C state^T and
+    the state update), in f32 (the kernel computes in f32, as the TPU
+    kernel does)."""
+    B, S, H, P = xh.shape
+    N = B_s.shape[-1]
+    Q = pick_chunk(S, chunk)
+    nc = S // Q
+    tri = Q * (Q + 1) // 2
+    nbytes = (2 * xh.numel() * 4 + dA_log.numel() * 4
+              + 2 * B_s.numel() * B_s.element_size() + B * H * P * N * 4)
+    flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
+    return KernelWork("ssd_scan", float(flops), float(nbytes), "float32")
 
 
 # ------------------------------------------------------------ plain version
@@ -221,10 +241,11 @@ def ssd_scan_fwd(xh, dA_log, B_s, C_s, *, chunk: int = 128):
     f32 = dict(dtype=torch.float32, device=xh.device)
     y = torch.empty((B, S, H, P), **f32)
     st = torch.empty((B, H, P, N), **f32)
-    if xh.device.type == "meta":     # shape-only (core/endurance.py)
-        return y, st
     G, La, sc = (torch.empty(shape, **f32)
                  for shape in plan["scratch"].values())
+    report_kernel(work(xh, dA_log, B_s, C_s, chunk))
+    if xh.device.type == "meta":     # shape-only (core/endurance.py)
+        return y, st
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream(xh.device).cuda_stream
         err = _lib().repro_ssd_scan_fwd(

@@ -116,7 +116,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.launch.cacheargs import add_cache_args, cache_overrides
-from repro_torch.parallel.comm import mesh_from_arg
+from repro_torch.parallel.comm import mesh_from_arg, shutdown
 from repro_torch.parallel.mesh import parse_mesh
 from repro_torch.resilience import unwrap_chain
 from repro_torch.session import TrainSession
@@ -320,7 +320,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         _train(args, io, mesh)
     finally:
         if mesh is not None:
-            torch.distributed.destroy_process_group()
+            shutdown()
 
 
 def _train(args, io, mesh) -> None:

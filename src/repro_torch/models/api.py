@@ -12,6 +12,9 @@ mirroring the JAX package's `repro/models/api.py`.
   decode_step(params, cache, batch, pos, settings)  -> logits
   decode_step_paged(params, pools, resident, tables, batch, pos, settings)
       -> logits
+  input_specs(shape, for_loss=True, device="meta")
+      -> {"batch": ...} (decode: also "cache" and "pos")
+  init_cache(batch, seq_len, dtype=bfloat16, device="meta") -> caches
 
 Parameters are a nested dict of tensors with the JAX pytree keys and
 stacked layer dims (`segments[0]["b0"]["attn"]["wq"]` is (L, D, H, hd)),
@@ -30,7 +33,10 @@ the staged training engine runs as stages of their own; `chunked_ce` is
 the head and CE of `RunSettings.ce_chunk`, one sequence chunk at a time.
 Every mixer emits a decode cache and decodes: attention K/V, the
 encoder's K/V for cross blocks, the conv window and recurrent state of
-rglru and ssm blocks.
+rglru and ssm blocks. `input_specs` and `init_cache` give a cell's
+inputs and decode cache as tensors of the JAX package's shapes and
+dtypes, on the meta device unless the caller names another (the dry
+run's step builders, `launch/steps.py`).
 
 An encoder-decoder (T5, `family == "encdec"`) adds `enc_segments` (the
 bidirectional encoder stack) and `enc_norm`; the encoder embeds
@@ -63,7 +69,7 @@ from repro_torch.models.transformer import (BlockDef, RunSettings,
                                             apply_block_decode,
                                             apply_block_decode_paged,
                                             build_segments, init_block,
-                                            layer, stack)
+                                            init_cache, layer, stack)
 
 Params = Dict[str, Any]
 
@@ -83,6 +89,8 @@ class ModelApi:
     decode_step_paged: Callable
     # the encoder's segments (an encoder-decoder's only; else empty)
     enc_segments: Tuple[SegmentDef, ...] = ()
+    input_specs: Callable = None
+    init_cache: Callable = None
 
 
 def _to_decode_cache(bdef: BlockDef, cache, cache_len: int):
@@ -542,8 +550,43 @@ def build_model(cfg: ModelConfig) -> ModelApi:
                             layer(res_stack[bid], rep), pos, cfg, settings)
         return head(params, x, cfg)
 
+    def input_specs(shape, *, for_loss: bool = True, device="meta"):
+        """Every model input of a cell (`configs.ShapeConfig`) as an
+        empty tensor of the JAX package's shape and dtype (int32 ids,
+        bf16 embeddings) on `device`; a decode cell adds its cache
+        (`init_cache`) and the position."""
+        B, S = shape.global_batch, shape.seq_len
+
+        def empty(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device=device)
+
+        i32, bf16 = torch.int32, torch.bfloat16
+        if shape.kind == "decode":
+            batch = ({"embeddings": empty((B, 1, cfg.d_model), bf16)}
+                     if cfg.input_kind == "embeddings"
+                     else {"tokens": empty((B, 1), i32)})
+            return {"batch": batch,
+                    "cache": init_cache(cfg, B, S, device=device),
+                    "pos": empty((), i32)}
+        batch: Dict[str, Any] = {}
+        if cfg.input_kind == "embeddings":
+            batch["embeddings"] = empty((B, S, cfg.d_model), bf16)
+        else:
+            batch["tokens"] = empty((B, S), i32)
+        if cfg.family == "vlm":
+            batch["enc_embeddings"] = empty(
+                (B, cfg.encoder_seq_len, cfg.d_model), bf16)
+        if cfg.family == "encdec":
+            batch["enc_tokens"] = empty((B, S), i32)
+        if for_loss and shape.kind == "train":
+            batch["labels"] = empty((B, S), i32)
+        return {"batch": batch}
+
     return ModelApi(
         cfg=cfg, segments=segs, init=init, forward=forward, loss=loss,
         prefill=prefill, decode_step=decode_step,
         decode_step_paged=decode_step_paged, enc_segments=enc_segs,
+        input_specs=input_specs,
+        init_cache=lambda B, S, dtype=torch.bfloat16, device="meta":
+            init_cache(cfg, B, S, dtype, device),
     )

@@ -394,9 +394,13 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
 
 def check_tensor_axis(cfg: ModelConfig, tp_size: int) -> None:
     """A ValueError naming the shapes when a tensor axis of `tp_size`
-    ranks does not divide what a recurrent block of `cfg` splits over
-    it: mamba2's SSM heads, the RG-LRU width."""
+    ranks does not divide what a block of `cfg` splits over it: the
+    query heads of attention, mamba2's SSM heads, the RG-LRU width (JAX's
+    rules would replicate those leaves instead)."""
     mixers = {b.mixer for seg in build_segments(cfg) for b in seg.blocks}
+    if mixers & {"attn", "cross"} and cfg.num_heads % tp_size:
+        raise ValueError(f"{cfg.name}: a tensor axis of {tp_size} ranks "
+                         f"does not divide its {cfg.num_heads} query heads")
     if "ssm" in mixers:
         m2.tp_heads(m2.ssm_dims(cfg), tp_size)
     if "rglru" in mixers:
@@ -526,3 +530,14 @@ def init_block_cache(bdef: BlockDef, cfg: ModelConfig, batch: int,
                                 dims.state), torch.float32)}
     raise ValueError(bdef.mixer)
 
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16, device="meta") -> List[Dict[str, Any]]:
+    """The decode cache of `cfg` (the JAX package's `init_cache`): per
+    segment {f"b{i}": entry}, each leaf stacked over the segment's
+    repeats (`init_block_cache` with lead (n_repeat,)). On the meta
+    device by default: shapes and dtypes only, as the dry run needs."""
+    return [{f"b{i}": init_block_cache(bdef, cfg, batch, seq_len, dtype,
+                                       device, lead=(seg.n_repeat,))
+             for i, bdef in enumerate(seg.blocks)}
+            for seg in build_segments(cfg)]

@@ -59,6 +59,17 @@ also marks its input's storage as replicated, since the column-parallel
 products save it. `saved_replicated(t)` answers for the pack hook, and
 the engine stores a replicated tensor as a 1/tp slice per rank.
 
+Every collective counts itself once, whatever its transport does (gloo's
+`CHANNELS` pieces, an all-reduce's reduce-scatter and all-gather):
+`Comm.ops` holds, per op and group size, the calls and the result bytes,
+so the count is the same under any backend, and the active op counter
+(`launch/op_stats.py`) gets the same report, the transport's own tensor
+work left uncounted. `DryComm` builds no process group: each collective
+returns a tensor of its result's shape (on the meta device, one that
+holds nothing) and counts what `Comm` would; the dry run
+(`launch/dryrun.py`) sees a production mesh from one rank through it.
+No module of the port calls `torch.distributed` but this one.
+
 The fsdp gather of a leaf's "data"-sharded dim before a stage runs and
 the reduce-scatter of its gradient after the stage's backward are
 `all_gather_cat` and `reduce_scatter_sum` over the dp axes, which the
@@ -77,6 +88,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.ids import storage_ptr
+from repro_torch.launch.op_stats import report_collective, uncounted
 from repro_torch.parallel.mesh import Mesh, axes_size, parse_mesh
 
 
@@ -123,17 +136,8 @@ class Comm:
     def __init__(self, mesh: Mesh, *, host_staged: bool = False,
                  backend: Optional[str] = None, why: str = ""):
         import torch.distributed as dist
-        self.mesh = mesh
-        self.backend = backend or str(dist.get_backend())
-        self.host_staged = host_staged
-        self.why = why
-        #: bytes copied between the card and pinned host memory because
-        #: the backend takes no CUDA tensor (each direction counted)
-        self.host_staged_bytes = 0
-        #: host seconds inside collectives: copying into pinned host
-        #: memory ("stage"), waiting for the backend ("wait"), the whole
-        #: call ("total")
-        self.seconds = {"stage": 0.0, "wait": 0.0, "total": 0.0}
+        self._setup(mesh, backend or str(dist.get_backend()), host_staged,
+                    why)
         # gloo moves one message per connection at a time: a large
         # message goes out in pieces over CHANNELS groups of the same
         # ranks at once (PERF.md §6: chip_smoke.py phase 15's time)
@@ -154,6 +158,57 @@ class Comm:
                         mine = gs
                 self._groups[axes] = mine
         mesh.comm = self
+
+    def _setup(self, mesh, backend, host_staged, why) -> None:
+        self.mesh = mesh
+        self.backend = backend
+        self.host_staged = host_staged
+        self.why = why
+        #: bytes copied between the card and pinned host memory because
+        #: the backend takes no CUDA tensor (each direction counted)
+        self.host_staged_bytes = 0
+        #: host seconds inside collectives: copying into pinned host
+        #: memory ("stage"), waiting for the backend ("wait"), the whole
+        #: call ("total")
+        self.seconds = {"stage": 0.0, "wait": 0.0, "total": 0.0}
+        #: "op@group size" -> [calls, result bytes], each logical
+        #: collective once
+        self.ops: Dict[str, List[int]] = {}
+        self._tls = threading.local()
+
+    # ----------------------------------------------------------- counts
+
+    @contextlib.contextmanager
+    def _op(self):
+        """A collective's body: yields whether it is the outermost one
+        (an all-reduce's reduce-scatter and all-gather are its own), its
+        tensor work left out of the active op counter."""
+        depth = getattr(self._tls, "depth", 0)
+        self._tls.depth = depth + 1
+        try:
+            with uncounted():
+                yield depth == 0
+        finally:
+            self._tls.depth = depth
+
+    def _record(self, op: str, result, n: int) -> None:
+        if n <= 1:
+            return
+        ts = [t for t in (result if isinstance(result, (list, tuple))
+                          else [result]) if isinstance(t, torch.Tensor)]
+        rec = self.ops.setdefault(f"{op}@{n}", [0, 0])
+        rec[0] += 1
+        rec[1] += sum(t.numel() * t.element_size() for t in ts)
+        report_collective(op, ts, n)
+
+    def op_counts(self) -> Dict[str, List[int]]:
+        """A copy of `ops`."""
+        return {k: list(v) for k, v in self.ops.items()}
+
+    def store(self):
+        """The default process group's key-value store."""
+        import torch.distributed as dist
+        return dist.distributed_c10d._get_default_store()
 
     # ----------------------------------------------------------- groups
 
@@ -239,20 +294,31 @@ class Comm:
         if g is None:
             return [t]
         pgs, _, pos = g
-        buf = self._exchange(pgs, t.reshape(1, -1), len(pos), "gather")
-        buf = buf.view((len(pos),) + tuple(t.shape))
-        return [buf[p] for p in pos]
+        with self._op() as outer:
+            buf = self._exchange(pgs, t.reshape(1, -1), len(pos), "gather")
+            buf = buf.view((len(pos),) + tuple(t.shape))
+            out = [buf[p] for p in pos]
+        if outer:
+            self._record("all_gather", out, len(pos))
+        return out
 
     def all_gather_cat(self, t: torch.Tensor, axes, dim: int
                        ) -> torch.Tensor:
-        parts = self.all_gather(t, axes)
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+        with self._op() as outer:
+            parts = self.all_gather(t, axes)
+            out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+        if outer:
+            self._record("all_gather_cat", out, len(parts))
+        return out
 
     def all_reduce_max(self, t: torch.Tensor, axes) -> torch.Tensor:
-        parts = self.all_gather(t, axes)
-        out = parts[0]
-        for p in parts[1:]:
-            out = torch.maximum(out, p)
+        with self._op() as outer:
+            parts = self.all_gather(t, axes)
+            out = parts[0]
+            for p in parts[1:]:
+                out = torch.maximum(out, p)
+        if outer:
+            self._record("all_reduce_max", out, len(parts))
         return out
 
     def reduce_scatter_sum(self, t: torch.Tensor, axes, dim: int
@@ -268,17 +334,21 @@ class Comm:
         if t.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
                              f"split over {n} ranks")
-        chunks = t.movedim(dim, 0).chunk(n, dim=0)
-        # group rank j (the j-th lowest global rank) gets the chunk of
-        # its own linear index
-        by_rank = sorted(order)
-        src = torch.stack([chunks[order.index(r)] for r in by_rank])
-        buf = self._exchange(pgs, src.reshape(n, -1), n, "alltoall")
-        buf = buf.view(src.shape)
-        out = buf[pos[0]]
-        for p in pos[1:]:
-            out = out + buf[p]
-        return out.movedim(0, dim).contiguous()
+        with self._op() as outer:
+            chunks = t.movedim(dim, 0).chunk(n, dim=0)
+            # group rank j (the j-th lowest global rank) gets the chunk of
+            # its own linear index
+            by_rank = sorted(order)
+            src = torch.stack([chunks[order.index(r)] for r in by_rank])
+            buf = self._exchange(pgs, src.reshape(n, -1), n, "alltoall")
+            buf = buf.view(src.shape)
+            out = buf[pos[0]]
+            for p in pos[1:]:
+                out = out + buf[p]
+            out = out.movedim(0, dim).contiguous()
+        if outer:
+            self._record("reduce_scatter_sum", out, n)
+        return out
 
     def all_reduce_sum(self, t: torch.Tensor, axes) -> torch.Tensor:
         """The members' `t` summed in index order (a reduce-scatter of
@@ -287,13 +357,17 @@ class Comm:
         n = self.size(axes)
         if n == 1:
             return t
-        flat = t.reshape(-1)
-        pad = (-flat.numel()) % n
-        if pad:
-            flat = torch.cat([flat, flat.new_zeros(pad)])
-        mine = self.reduce_scatter_sum(flat, axes, 0)
-        out = self.all_gather_cat(mine, axes, 0)
-        return out[:t.numel()].reshape(t.shape)
+        with self._op() as outer:
+            flat = t.reshape(-1)
+            pad = (-flat.numel()) % n
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad)])
+            mine = self.reduce_scatter_sum(flat, axes, 0)
+            out = self.all_gather_cat(mine, axes, 0)
+            out = out[:t.numel()].reshape(t.shape)
+        if outer:
+            self._record("all_reduce_sum", out, n)
+        return out
 
     def gather_objects(self, obj, axes=None) -> List[Any]:
         """Every member's picklable `obj` (over the whole mesh by
@@ -316,6 +390,12 @@ class Comm:
     def send(self, t: torch.Tensor, axis: str, to: int) -> None:
         """Send `t` to the member at index `to` on `axis` (blocking; the
         receiver posts a `recv` of the same shape and dtype)."""
+        with self._op() as outer:
+            self._send(t, axis, to)
+        if outer:
+            self._record("send", t, self.mesh.shape[axis])
+
+    def _send(self, t, axis, to) -> None:
         import torch.distributed as dist
         t0 = time.perf_counter()
         pg, dst = self._peer(axis, to)
@@ -326,6 +406,13 @@ class Comm:
              ) -> torch.Tensor:
         """The tensor the member at index `frm` on `axis` sends, on
         `device`."""
+        with self._op() as outer:
+            buf = self._recv(shape, dtype, device, axis, frm)
+        if outer:
+            self._record("recv", buf, self.mesh.shape[axis])
+        return buf
+
+    def _recv(self, shape, dtype, device, axis, frm) -> torch.Tensor:
         import torch.distributed as dist
         t0 = time.perf_counter()
         pg, src = self._peer(axis, frm)
@@ -345,9 +432,16 @@ class Comm:
         """The member at index `src` on `axis` sends `t`; every member
         returns it (the others pass None with its shape, dtype and
         device)."""
-        import torch.distributed as dist
         if self.mesh.shape[axis] == 1:
             return t
+        with self._op() as outer:
+            out = self._broadcast(t, axis, src, shape, dtype, device)
+        if outer:
+            self._record("broadcast", out, self.mesh.shape[axis])
+        return out
+
+    def _broadcast(self, t, axis, src, shape, dtype, device):
+        import torch.distributed as dist
         t0 = time.perf_counter()
         pg, root = self._peer(axis, src)
         if self.mesh.coords[axis] == src:
@@ -375,6 +469,65 @@ class Comm:
                         for a in self.mesh.axis_names)
         return (f"mesh {dims} {self.mesh.axis_names} over "
                 f"{self.backend}: {self.why}")
+
+
+class DryComm(Comm):
+    """A `Comm` with no process group, for a dry run: every collective
+    returns a tensor of its result's shape, on the meta device one that
+    holds nothing, and counts itself as `Comm` does. Off the meta device
+    (a rank's small host operands) each member is taken to hold what
+    this one holds: a gather repeats it, a sum multiplies it by the
+    group's size. Object gathers return this member's object for each."""
+
+    def __init__(self, mesh: Mesh, *, why: str = (
+            "dry run: no process group, each collective counted and its "
+            "result's shape returned")):
+        self._setup(mesh, "dry", False, why)
+        self.channels = 1
+        self._groups = {}
+        mesh.comm = self
+
+    def _group(self, axes):
+        axes = tuple(a for a in axes if self.mesh.shape[a] > 1)
+        if not axes:
+            return None
+        order = self.mesh.group_ranks(axes)
+        by_rank = sorted(order)
+        # the "channels": this member's position in the group rank order
+        return [by_rank.index(self.mesh.rank)], order, [
+            by_rank.index(r) for r in order]
+
+    def _exchange(self, pgs, src, rows, kind):
+        if src.device.type == "meta":
+            return torch.empty((rows, src.shape[1]), dtype=src.dtype,
+                               device=src.device)
+        row = src[0] if kind == "gather" else src[pgs[0]]
+        return row.expand(rows, -1).clone()
+
+    def _send(self, t, axis, to) -> None:
+        pass
+
+    def _recv(self, shape, dtype, device, axis, frm):
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+    def _broadcast(self, t, axis, src, shape, dtype, device):
+        if self.mesh.coords[axis] == src:
+            return t
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+    def gather_objects(self, obj, axes=None) -> List[Any]:
+        return [obj] * self.size(self.mesh.axis_names if axes is None
+                                 else axes)
+
+    def store(self):
+        raise RuntimeError("a DryComm has no process group, so no store")
+
+
+def shutdown() -> None:
+    """Destroy the default process group, if there is one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def single_node_gloo() -> None:
@@ -459,7 +612,7 @@ def saved_replicated(t: torch.Tensor) -> bool:
     sc = getattr(_SCOPE, "cur", None)
     if sc is None:
         return False
-    return sc.region == "rep" or t.untyped_storage().data_ptr() in sc.ptrs
+    return sc.region == "rep" or storage_ptr(t) in sc.ptrs
 
 
 def _set_region(region: str, marked: Optional[torch.Tensor] = None):
@@ -475,7 +628,7 @@ def _mark_replicated(t: torch.Tensor) -> None:
     sc = getattr(_SCOPE, "cur", None)
     if sc is not None:
         sc.refs.append(t)
-        sc.ptrs.add(t.untyped_storage().data_ptr())
+        sc.ptrs.add(storage_ptr(t))
 
 
 class _CopyToTp(torch.autograd.Function):
@@ -717,8 +870,8 @@ def vocab_parallel_ce(z, labels, tp: TpGroup):
     return _VocabParallelCE.apply(z, labels, tp)
 
 
-__all__ = ["Comm", "TpGroup", "axis_group", "backend_rule", "init_mesh",
+__all__ = ["Comm", "DryComm", "TpGroup", "axis_group", "backend_rule", "init_mesh",
            "mesh_from_arg", "rank_device", "save_scope", "saved_replicated",
-           "sum_over", "tp_group",
+           "shutdown", "sum_over", "tp_group",
            "vocab_parallel_ce", "vocab_parallel_dlogits",
            "vocab_parallel_terms"]

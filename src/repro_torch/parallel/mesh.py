@@ -140,10 +140,14 @@ def spec_axes(spec) -> Tuple[str, ...]:
 
 def local_shape(global_shape: Tuple[int, ...], spec, mesh) \
         -> Tuple[int, ...]:
-    """Per-shard block shape of a value sharded as `spec` on `mesh`."""
+    """Per-shard block shape of a value sharded as `spec` on `mesh` (a
+    `sharding.Concat` dim holds its pieces of each part)."""
     dims = list(global_shape)
     for d, entry in enumerate(spec):
         if entry is None:
+            continue
+        if hasattr(entry, "local_sizes"):
+            dims[d] = sum(entry.local_sizes(mesh))
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
         dims[d] //= axes_size(mesh, axes)

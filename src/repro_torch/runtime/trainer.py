@@ -75,7 +75,10 @@ def batch_tokens(batch) -> int:
     only real targets count (labels >= 0); else the token count; 0 when
     the batch carries no tokens."""
     if isinstance(batch, dict) and "labels" in batch:
-        return int((torch.as_tensor(batch["labels"]) >= 0).sum())
+        labels = torch.as_tensor(batch["labels"])
+        if labels.device.type == "meta":     # a dry run's: no values
+            return labels.numel()
+        return int((labels >= 0).sum())
     if isinstance(batch, dict) and "tokens" in batch:
         return int(np.prod(tuple(batch["tokens"].shape)))
     return 0

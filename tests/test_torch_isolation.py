@@ -1,8 +1,8 @@
 """The port stands alone: every `repro_torch` module (the hybrid's
 config, RG-LRU scan and mixer, the ROK curve, the Table 4 count, the
 resilience layer, the pool, aio, fault and factory modules, the cache
-manager, the optimizer overlap and the jit engine's step builders among
-them), the root `chip_smoke.py` and the port's paper benchmarks
+manager, the optimizer overlap, the step builders, the dry run, its op
+counter and the H100's constants among them), the root `chip_smoke.py` and the port's paper benchmarks
 (`benchmarks/torch_*.py`) import with jax and ml_dtypes blocked and load
 nothing of the JAX package (`repro` / `repro.*`) nor the JAX benchmarks'
 `benchmarks.common`."""
@@ -27,7 +27,8 @@ spec = importlib.util.spec_from_file_location(
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 sys.path.insert(0, sys.argv[1])
 for bench in ("torch_common", "torch_fig10", "torch_fig11", "torch_table4",
-              "torch_fig9", "torch_serve_kv", "torch_trace_split"):
+              "torch_fig9", "torch_serve_kv", "torch_trace_split",
+              "torch_roofline"):
     importlib.import_module("benchmarks." + bench)
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
              or m == "benchmarks.common")
@@ -55,5 +56,6 @@ def test_port_imports_without_jax_or_the_jax_package():
                    "io.aio", "io.faults", "io.factory", "cache.placement",
                    "cache.manager", "launch.cacheargs", "optim.overlap",
                    "launch.steps", "parallel.pipeline",
-                   "parallel.compress"):
+                   "parallel.compress", "launch.mesh", "launch.op_stats",
+                   "launch.dryrun"):
         assert f"repro_torch.{module}" in names, module
