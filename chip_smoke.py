@@ -52,8 +52,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      both ways on the card); each adaptive plan is the one the paper's
      rule gives for the profiled stages and the calibrated write rate,
      and its steps read blobs back where it stores bytes;
-  7. train: recurrentgemma-9b at full width cut to 14 of its 38 layers
-     (4 super-layers of rglru, rglru, local attention and a remainder of
+  7. train: recurrentgemma-9b at full width cut to 8 of its 38 layers
+     (2 super-layers of rglru, rglru, local attention and a remainder of
      two rglru blocks; random weights from seed 0) through
      `TrainSession`, sgd
      (lr 3e-4, no momentum, clip 1.0), B=1, S=2048, 2 steps on the
@@ -167,9 +167,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      `TrainSession`, sgd (lr 3e-4, no momentum), S=1024, 2 steps, kept
      and spooled (fs, raw) as in phase 5: (a) qwen2.5-3b at full width
      and depth (36 layers, GQA 16/2, qkv biases, B=1), (b) gemma2-27b at
-     full width cut to 4 layers (2 local/global pairs: window 4096,
-     softcap 50, post-block norms; B=2), (c) hubert-xlarge at full width
-     cut to 24 of its 48 bidirectional layers (16 heads of 80, frame
+     full width cut to 2 layers (a local/global pair: window 4096,
+     softcap 50, post-block norms; B=2; 4 before phase 20), (c)
+     hubert-xlarge at full width cut to 12 of its 48 bidirectional
+     layers (24 before phase 20; 16 heads of 80, frame
      embeddings from a seeded generator through `loader`, B=2; in f32,
      its keep run phase 17's one-device reference), (d)
      llama4-scout-17b-a16e at full width cut to 2 layers (16 experts
@@ -285,8 +286,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      3e-4), S=1024, 2 steps, the jit engine, each (b) kept and (c)
      spooled (fs, one dir the ranks share) on a 1x2 mesh of 2 ranks
      sharing cuda:0 over gloo: hubert-xlarge at full width cut to phase
-     13's 24 layers (8 of 16 heads of 80 a rank, `frontend_proj` column-parallel
-     with its width gathered), f32, B=2, its (a) phase 13's keep run;
+     13's 12 layers (8 of 16 heads of 80 a rank, `frontend_proj`
+     column-parallel with its width gathered), f32, B=2, its (a) phase
+     13's keep run;
      llama-3.2-vision-90b at full width cut to one period (5 layers: four
      self-attention blocks and a cross block over the 1024 patch
      embeddings, column-parallel q/k/v and row-parallel wo; 6.4 B
@@ -345,7 +347,34 @@ Phases, each of which ends the run with a non-zero exit on failure:
      above 1.05x its constant. (f) `python -m repro_torch.launch.dryrun
      --arch qwen2.5-3b --shape train_4k --mesh single` exits 0 with
      status ok; its dominant term and t's printed;
- 20. a `kernels` JSON line, the nvidia-smi line, and the result line.
+ 20. serving on a mesh (`launch/steps.py::make_prefill_step` /
+     `make_decode_step`, ROADMAP item 22), random f32 weights from seed
+     0, run in phase 15's spawn ((a) in this process after phase 15's,
+     once the ranks have joined their process group, (b) and (c) in its
+     2 ranks after theirs) and checked after phase 19:
+     gpt-h8192 at 2 layers, B=2, a
+     prefill of 1008 tokens into a cache of 1024 and 16 decode steps
+     teacher-forced with (a)'s greedy tokens, as (a) one device, (b) a
+     1x2 mesh (TP-only weights, 32 of 64 heads a rank) and (c) a 2x1 mesh,
+     where its 9.74 GB are over SERVE_TP_ONLY_BUDGET and the weights are
+     fsdp (each layer gathered before it runs; 2 decode steps); mamba2-
+     2.7b at 4 layers and recurrentgemma-9b at one period, B=1, a prompt
+     of 1024 tokens and 16 decode steps, as (a) and (b). Each rank's
+     logits (prefill's last and every decode step's) and its caches
+     gathered after prefill within 1e-4 of (a)'s over the largest
+     magnitude; each run's prefill launches (2 flash for gpt, 4 SSD
+     calls, 2 RG-LRU forwards and 1 flash) and FLOPs equal to its meta
+     trace's, and each rank's collectives over the prefill and the first
+     decode step equal a `DryComm`'s over the same steps traced on the
+     meta device, in calls and bytes by op and group size; (c)'s device
+     peak under (a)'s and under its shard plus every gathered leaf. The
+     time to first token (a second prefill, outside the op counter), the
+     decode time a token and the bytes staged through host memory are
+     printed, with no bar. Phase 3's table gains
+     the flash kernel at gpt's ragged prompt at a tp=2 rank's (2, 1008,
+     32, 128) and under fsdp (1, 1008, 64, 128), and the SSD scan at a
+     rank's (1, 1024, 40, 64), f32, each against its plain version;
+ 21. a `kernels` JSON line, the nvidia-smi line, and the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -450,11 +479,13 @@ FLASH_D256_CASES = [
 RG_ARCH, RG_SEQ, RG_LR, RG_CLIP = "recurrentgemma-9b", 2048, 3e-4, 1.0
 # phases 5 and 7 train at full width cut in depth (to make room for
 # phases 15 and 17, after the whole script took 1131.7 s of its 1200 on
-# an H100 80GB HBM3 at 700 W, and again for phase 18): mamba2-2.7b to
-# TRAIN_LAYERS of its 64 layers (32 before phase 18), recurrentgemma-9b
-# to RG_LAYERS of its 38 (4 super-layers and the remainder of two rglru
-# blocks; 26 before phase 18); their checks scale with the depth
-TRAIN_LAYERS, RG_LAYERS = 16, 14
+# an H100 80GB HBM3 at 700 W, and again for phases 18 and 20):
+# mamba2-2.7b to TRAIN_LAYERS of its 64 layers (32 before phase 18; at 8
+# the adamw update, not the activations, sets both runs' device peak,
+# 10.29 GB), recurrentgemma-9b to RG_LAYERS of its 38 (2 super-layers
+# and the remainder of two rglru blocks; 26 before phase 18, 14 before
+# phase 20); their checks scale with the depth
+TRAIN_LAYERS, RG_LAYERS = 16, 8
 # the paper's GPT, BERT and T5 at its first scenario (§4.2): hidden 8192,
 # 4 layers, S=1024, sgd without momentum; B=4 keeps the phase short (the
 # paper's micro-batch of 16 runs in benchmarks/torch_fig10.py --paper).
@@ -523,8 +554,8 @@ OPT_DROP_GB = 3.22
 # (8.8 GB) beside that layer's activations in both runs (48.58 GB both
 # ways); from B=7 the first layer's backward, where keep also holds the
 # other layer's activations (1.4 GB a sample), is the higher
-REG_TRAIN = [("qwen2.5-3b", None, 1), ("gemma2-27b", 4, 2),
-             ("hubert-xlarge", 24, 2), ("llama4-scout-17b-a16e", 2, 8)]
+REG_TRAIN = [("qwen2.5-3b", None, 1), ("gemma2-27b", 2, 2),
+             ("hubert-xlarge", 12, 2), ("llama4-scout-17b-a16e", 2, 8)]
 # phase 13 trains these in f32: hubert-xlarge's keep run is then phase
 # 17's one-device reference (a), which phase 17 need not run again
 REG_F32 = ("hubert-xlarge",)
@@ -641,7 +672,8 @@ MOE_FLASH_CASES = [
 # phase 17: the families on a 1x2 mesh of MESH_RANKS ranks sharing the
 # card over gloo, sgd at PAPER_LR, S=REG_SEQ, MESH_STEPS steps (phase 13's
 # REG_STEPS): hubert-xlarge at full width in f32 cut to phase 13's depth
-# (24 of its 48 layers since phase 18 came; phase 13's keep run, in f32
+# (12 of its 48 layers since phase 20 came, 24 since phase 18; phase
+# 13's keep run, in f32
 # too, is its one-device (a)), and llama-3.2-vision-90b
 # at full width cut to one period (FAMILY_VISION_LAYERS layers: four
 # self-attention blocks and a cross block, 6.4 B parameters) in bf16 (in
@@ -692,6 +724,36 @@ REC_FLASH_CASES = [
     ("t5 self tp=2", (1, 1024, 1024, 32, 32, 128, True, 0, 0.0),
      torch.float32, TOL_F32),
 ]
+
+# phase 20: serving on a mesh through `make_prefill_step` /
+# `make_decode_step`, random f32 weights from seed 0 (the GSPMD bar), the
+# mesh ranks of phase 15 (2 sharing the card over gloo): gpt-h8192 at 2
+# layers, B=2, a prefill of 1008 tokens into a cache of 1024, then
+# SM_NEW decode steps teacher-forced with (a)'s greedy tokens, as (a) one
+# device, (b) on 1x2 (TP-only) and (c) on 2x1, where its 9.74 GB exceed
+# SERVE_TP_ONLY_BUDGET (8 GiB) and the weights are fsdp: each layer
+# gathered over gloo before it runs, 3.2 GB a layer staged through host
+# memory, so (c) decodes SM_FSDP_NEW steps; mamba2-2.7b at 4 layers and
+# recurrentgemma-9b at one period, B=1, a prompt of 1024 tokens into a
+# cache of 1040, as (a) and (b)
+SM_GPT = "gpt-h8192-l2"
+SM_ARCHS = (SM_GPT, REC_MAMBA, REC_RG)
+SM_LAYERS = {SM_GPT: 2, REC_MAMBA: 4, REC_RG: 3}
+SM_BATCH = {SM_GPT: 2, REC_MAMBA: 1, REC_RG: 1}
+SM_PROMPT = {SM_GPT: 1008, REC_MAMBA: 1024, REC_RG: 1024}
+SM_NEW, SM_FSDP_NEW = 16, 2
+SM_CACHE = {a: max(1024, SM_PROMPT[a] + SM_NEW) for a in SM_ARCHS}
+# the flash and SSD instances phase 20's ranks launch that no earlier
+# phase checks: gpt's prompt of 1008 at tp=2 (32 of 64 heads, B=2) and
+# under fsdp (64 heads, B=1), and mamba2's 40 heads at B=1 (phase 18
+# holds recurrentgemma's rank shapes); all f32, causal
+SM_FLASH_CASES = [
+    ("gpt serve tp=2", (2, 1008, 1008, 32, 32, 128, True, 0, 0.0),
+     torch.float32, TOL_F32),
+    ("gpt serve fsdp", (1, 1008, 1008, 64, 64, 128, True, 0, 0.0),
+     torch.float32, TOL_F32),
+]
+SM_SSD = (1, 1024, 40, 64, 128, 2560)
 
 # the cards' datasheet peaks: one table, the dry run's
 # (`repro_torch/launch/mesh.py`)
@@ -3170,8 +3232,8 @@ def mesh_run(label, work, *, mesh=None, axes=None, offload=False,
 
 def _rank_setup(rank, port, work):
     """A spawned rank of phases 15-17: gloo over the loopback device,
-    f32 matmuls without TF32, deterministic kernels, the process group;
-    then it waits for the parent's one-device run (a) to end and give the
+    f32 matmuls without TF32, deterministic kernels, the process group
+    (a file `ready<rank>` in `work` says it has joined); then it waits for the parent's one-device run (a) to end and give the
     card's memory back."""
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3182,6 +3244,7 @@ def _rank_setup(rank, port, work):
     deterministic()
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=MESH_RANKS)
+    open(os.path.join(work, f"ready{rank}"), "w").close()
     deadline = time.perf_counter() + 600
     while not os.path.exists(os.path.join(work, "a_done")):
         if time.perf_counter() > deadline:
@@ -3235,6 +3298,8 @@ def _mesh_rank(rank, port, work):
         res["ckpt_left"] = os.path.exists(ck) if rank == 0 else False
         # phase 19 (d): the collectives of a step against the dry run's
         res["counts"] = comm_count_check(mesh)
+        # phase 20's (b) and (c)
+        res["serve"] = sm_rank_runs(mesh, mesh2, work)
         dist.destroy_process_group()
     except BaseException:
         res = {"error": traceback.format_exc()}
@@ -3324,16 +3389,19 @@ def mesh_flash_check(gen, peaks, smi):
 
 
 def mesh_phase(gen, peaks, smi):
-    """Phase 15 (see the module docstring). Returns the flash row's mesh
-    numbers."""
+    """Phase 15 (see the module docstring), with phase 20's runs in its
+    spawn. Returns the flash row's mesh numbers, and phase 20's (a) and
+    each rank's phase-20 results."""
     t_phase = time.perf_counter()
     flash = mesh_flash_check(gen, peaks, smi)
     deterministic()
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     # the ranks start (CUDA, the process group) while (a) runs here;
     # they train once (a) has ended
-    a, ranks, ranks_s = spawn_ranks(_mesh_rank, work,
-                                    lambda: mesh_run("a", work))
+    # phase 20's (a) runs here after phase 15's, its (b) and (c) in the
+    # ranks after theirs
+    (a, sm_a), ranks, ranks_s = spawn_ranks(
+        _mesh_rank, work, lambda: (mesh_run("a", work), sm_one_device(work)))
     shutil.rmtree(work, ignore_errors=True)
     print(f"mesh: {ranks[0]['describe']}")
     print(f"  (a) one device: losses {a['losses']} device peak "
@@ -3446,7 +3514,7 @@ def mesh_phase(gen, peaks, smi):
           f"phase {dt:.1f}s on {smi}")
     flash["launches_per_rank_run"] = ranks[0]["b"]["launches"]
     flash["phase_s"] = dt
-    return flash
+    return flash, (sm_a, [res["serve"] for res in ranks])
 
 
 def family_cfg(arch):
@@ -4591,6 +4659,333 @@ def comm_count_check(mesh):
     return {"card": card, "dry": dmesh.comm.op_counts()}
 
 
+def sm_cfg(arch):
+    """Phase 20's config of `arch`: SM_LAYERS deep, f32."""
+    from repro_torch.configs import resolve_config
+    return dataclasses.replace(resolve_config(arch),
+                               num_layers=SM_LAYERS[arch], dtype="float32")
+
+
+def sm_rel(got, want):
+    """The largest difference over the reference's largest magnitude."""
+    want = want.float()
+    return ((got.float().cpu() - want.cpu()).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _tensors(tree):
+    from repro_torch.core.tree import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+def _ops_delta(after, before):
+    return {k: [v[0] - before.get(k, [0, 0])[0],
+                v[1] - before.get(k, [0, 0])[1]]
+            for k, v in after.items() if v[0] - before.get(k, [0, 0])[0]}
+
+
+def sm_run(arch, label, mesh=None, ref=None, new=SM_NEW):
+    """One phase-20 run of `arch` on this process's card: a prefill of
+    SM_PROMPT tokens through `make_prefill_step` counted under the op
+    counter, a second one timed outside it (the time to first token),
+    then `new` decode steps
+    through `make_decode_step`'s step on the prefill bundle's weights
+    (built on the meta device: its step only; the weights are the same
+    layout), teacher-forced with (a)'s greedy tokens (`ref`; (a) takes
+    its own). On a mesh: the caches gathered after prefill
+    (`cache_layout_specs`) and every logit against (a)'s, each rank's
+    collectives over the prefill and the first decode step beside a
+    `DryComm`'s over the same steps traced on the meta device, and the
+    prefill's FLOPs and kernel calls beside the trace's."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.meshrun import gather_leaf, wrap_specs
+    from repro_torch.kernels import rglru_scan, ssd_scan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.op_stats import OpCounter
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, rank_rows)
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import MeshAxes, cache_layout_specs
+    cfg = sm_cfg(arch)
+    api = build_model(cfg)
+    B, P, axes = SM_BATCH[arch], SM_PROMPT[arch], MeshAxes()
+    pshape = ShapeConfig("phase20p", SM_CACHE[arch], B, "prefill")
+    dshape = ShapeConfig("phase20d", SM_CACHE[arch], B, "decode")
+    t0 = time.perf_counter()
+    pb = make_prefill_step(api, mesh, axes, pshape, device="cuda", seed=0)
+    step = make_decode_step(api, mesh, axes, dshape, device="meta").fn
+    params = pb.args[0]
+    prompt = {"tokens": pb.args[1]["tokens"][:, :P]}
+    pb.args = ()
+    torch.cuda.synchronize()
+    dp = axes.dp_size(mesh) if mesh is not None else 1
+    leaves = _tensors(params)
+    specs = (_tensors(wrap_specs(pb.param_specs)) if mesh is not None
+             else [None] * len(leaves))
+    out = {"build_s": time.perf_counter() - t0, "fsdp": pb.fsdp,
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           # the leaves an fsdp gather makes whole, at their whole size
+           "gathered_bytes": sum(
+               t.numel() * t.element_size() * dp for t, sp in
+               zip(leaves, specs) if sp is not None and "data" in sp.spec)}
+    del leaves, specs
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"flash_attention": flash_attention,
+               "ssd_scan": ssd_scan.ssd_scan,
+               "rglru_scan": rglru_scan.rglru_scan}
+    comm = mesh.comm if mesh is not None else None
+    ops0 = comm.op_counts() if comm else {}
+    for k in kernels.values():
+        k.launches = 0
+    with OpCounter("cuda") as counter:
+        pb.fn(params, prompt)
+        torch.cuda.synchronize()
+    out["launches"] = {n: k.launches for n, k in kernels.items()
+                       if k.launches}
+    out["flops"] = counter.analysis().flops
+    if comm:
+        out["prefill_ops"] = _ops_delta(comm.op_counts(), ops0)
+    del counter
+    # the time to first token: a second prefill, outside the op counter
+    staged0 = comm.host_staged_bytes if comm else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pb.fn(params, prompt)
+    torch.cuda.synchronize()
+    out["ttft_s"] = time.perf_counter() - t0
+    vocab = cfg.vocab_size
+    lo, rows = 0, rank_rows(B, mesh, axes)
+    if mesh is not None and rows < B:
+        lo = mesh.coords["data"] * rows
+    got = [logits]
+    if mesh is not None:
+        specs = wrap_specs(cache_layout_specs(_meta_like(ref["cache"]),
+                                              mesh, axes))
+        out["cache_err"] = max(
+            sm_rel(gather_leaf(t, sp, mesh), w) for t, sp, w in zip(
+                _tensors(caches), _tensors(specs), _tensors(ref["cache"])))
+        tokens = ref["tokens"][lo:lo + rows].cuda()
+    else:
+        out["cache"] = _map_cpu(caches)
+        tokens = torch.empty((B, new), dtype=torch.int32, device="cuda")
+    itl = []
+    for i in range(new):
+        if ref is None:
+            tokens[:, i] = got[-1][:, 0, :vocab].argmax(-1)
+        ops1 = comm.op_counts() if comm else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got.append(step(params, caches, {"tokens": tokens[:, i:i + 1]},
+                        torch.tensor(P + i, dtype=torch.int32,
+                                     device="cuda")))
+        torch.cuda.synchronize()
+        itl.append(time.perf_counter() - t0)
+        if comm and i == 0:
+            out["decode_ops"] = _ops_delta(comm.op_counts(), ops1)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["itl_s"] = itl
+    if comm:
+        out["staged_bytes"] = comm.host_staged_bytes - staged0
+    if ref is None:
+        out["tokens"] = tokens.cpu()
+        out["logits"] = [t.cpu() for t in got]
+    else:
+        out["logit_err"] = max(
+            sm_rel(g[..., :vocab], w[lo:lo + rows, ..., :vocab])
+            for g, w in zip(got, ref["logits"]))
+    del params, caches, got, logits, step, pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same steps traced on the meta device, over a DryComm of this
+    # rank when on a mesh
+    dmesh = (make_test_mesh(mesh.devices_shape, mesh.axis_names,
+                            rank=mesh.rank, dry=True)
+             if mesh is not None else None)
+    mp = make_prefill_step(api, dmesh, axes, pshape, device="meta")
+    with OpCounter("meta") as mc:
+        _, mcache = mp.fn(mp.args[0], {"tokens": mp.args[1]["tokens"][
+            :, :P]})
+    ana = mc.analysis()
+    out["meta_flops"] = ana.flops
+    out["meta_kernels"] = {k: int(v["calls"]) for k, v in
+                           ana.kernels.items()}
+    if dmesh is not None:
+        out["dry_prefill_ops"] = dmesh.comm.op_counts()
+        md = make_decode_step(api, dmesh, axes, dshape, device="meta")
+        md.fn(mp.args[0], mcache, md.args[2], md.args[3])
+        out["dry_decode_ops"] = _ops_delta(dmesh.comm.op_counts(),
+                                           out["dry_prefill_ops"])
+    return out
+
+
+def _meta_like(tree):
+    """Meta tensors of the shapes of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_meta_like(v) for v in tree]
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def _map_cpu(tree):
+    """A host copy of a tree of dicts and lists (decode writes the
+    device's in place)."""
+    if isinstance(tree, dict):
+        return {k: _map_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_cpu(v) for v in tree]
+    return tree.to("cpu", copy=True)
+
+
+def sm_one_device(work):
+    """Phase 20's (a) runs, in phase 15's process once its ranks have
+    joined their process group (so that their start-up is not in (a)'s
+    times): each model on one device, its greedy tokens, logits and
+    caches saved into `work` for the ranks (`sm_rank_runs`)."""
+    deadline = time.perf_counter() + 600
+    while not all(os.path.exists(os.path.join(work, f"ready{r}"))
+                  for r in range(MESH_RANKS)):
+        check(time.perf_counter() < deadline, "phase 15's ranks did not "
+              "join their process group within 600 s")
+        time.sleep(0.05)
+    a = {}
+    for arch in SM_ARCHS:
+        t0 = time.perf_counter()
+        a[arch] = sm_run(arch, "a")
+        a[arch]["wall"] = time.perf_counter() - t0
+    torch.save({arch: {"tokens": r["tokens"], "logits": r["logits"],
+                       "cache": r["cache"]} for arch, r in a.items()},
+               os.path.join(work, "sm_ref.pt"))
+    for r in a.values():
+        del r["logits"], r["cache"]
+    return a
+
+
+def sm_rank_runs(mesh, mesh2, work):
+    """Phase 20's (b), every model on the 1x2 `mesh`, and (c), gpt on the
+    2x1 `mesh2`, in a rank of phase 15's spawn."""
+    ref = torch.load(os.path.join(work, "sm_ref.pt"))
+    res = {}
+    for arch, run, m, new in [(arch, "b", mesh, SM_NEW) for arch in SM_ARCHS
+                              ] + [(SM_GPT, "c", mesh2, SM_FSDP_NEW)]:
+        t0 = time.perf_counter()
+        res[(arch, run)] = sm_run(arch, run, m, ref[arch], new=new)
+        res[(arch, run)]["wall"] = time.perf_counter() - t0
+    return res
+
+
+def serve_mesh_kernels(gen, peaks, smi):
+    """Phase 20's flash instances (SM_FLASH_CASES) and the SSD scan at
+    SM_SSD against their plain versions at phase 3's bars."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_fwd
+    flash_registry_phase(gen, peaks, smi, cases=SM_FLASH_CASES)
+    B, S, H, P, N, inner = SM_SSD
+    conv = torch.randn((B, S, inner + 2 * N), generator=gen, device="cuda")
+    Bs, Cs = conv[..., inner:inner + N], conv[..., inner + N:]
+    xh = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    a = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    y, st = ssd_scan_fwd(xh, a, Bs, Cs, chunk=128)
+    torch.cuda.synchronize()
+    yr, sr = ssd_chunked(xh, a, Bs, Cs, 128)
+    scale = yr.abs().max().item()
+    err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
+    ok = err <= TOL_SSD_PATH * scale and bool(torch.isfinite(y).all())
+    print(f"  ssd_scan mamba2 serve tp=2 B={B} S={S} H={H} P={P} N={N} "
+          f"chunk=128 float32 (strided B/C): max_abs_err {err:.3e} (output "
+          f"scale {scale:.1f}, tol {TOL_SSD_PATH:g} relative) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "ssd_scan disagrees with its plain version at phase 20's "
+          "rank shape")
+    del conv, Bs, Cs, xh, a, y, st, yr, sr
+    torch.cuda.empty_cache()
+
+
+def serve_mesh_phase(gen, peaks, smi, a, ranks):
+    """Phase 20 (see the module docstring): its kernel instances, then
+    the checks of its runs, (a) `a` in phase 15's process and (b) and (c)
+    `ranks` in its ranks (`sm_rank_runs`). Returns each run's kernel
+    launches (prefill), the phase's seconds and those of its runs."""
+    t_phase = time.perf_counter()
+    serve_mesh_kernels(gen, peaks, smi)
+    launches = {}
+    for arch in SM_ARCHS:
+        r = a[arch]
+        itl = statistics.median(r["itl_s"])
+        print(f"  ({arch} a) one device: fsdp {r['fsdp']}, ttft "
+              f"{r['ttft_s']:.4f} s, itl p50 {1e3 * itl:.2f} ms over "
+              f"{len(r['itl_s'])} steps, peak {r['peak'] / 1e9:.2f} GB, "
+              f"launches {r['launches']}, flops {r['flops']:.6e} (meta "
+              f"{r['meta_flops']:.6e}), run {r['wall']:.1f}s")
+        check(r["flops"] == r["meta_flops"], f"({arch} a) the card counted "
+              f"{r['flops']} flops, the trace {r['meta_flops']}")
+        check(r["launches"] == r["meta_kernels"], f"({arch} a) launches "
+              f"{r['launches']}, the trace counts {r['meta_kernels']}")
+        launches[(arch, "a")] = r["launches"]
+    for (arch, run) in [(arch, "b") for arch in SM_ARCHS] + [(SM_GPT, "c")]:
+        for rank, res in enumerate(ranks):
+            r = res[(arch, run)]
+            itl = statistics.median(r["itl_s"])
+            print(f"  ({arch} {run}) rank {rank}: fsdp {r['fsdp']}, "
+                  f"weights {r['param_bytes'] / 1e9:.2f} GB, ttft "
+                  f"{r['ttft_s']:.4f} s, itl p50 {1e3 * itl:.2f} ms over "
+                  f"{len(r['itl_s'])} steps, staged "
+                  f"{r['staged_bytes'] / 1e9:.3f} GB through host memory "
+                  f"(comm_host_staged_bytes), peak {r['peak'] / 1e9:.2f} "
+                  f"GB; logits {r['logit_err']:.3e} and caches "
+                  f"{r['cache_err']:.3e} of (a)'s largest magnitude; "
+                  f"launches {r['launches']} (trace {r['meta_kernels']}); "
+                  f"flops {r['flops']:.6e} (trace {r['meta_flops']:.6e}); "
+                  f"prefill collectives {r['prefill_ops']}, a decode "
+                  f"step's {r['decode_ops']}; run {r['wall']:.1f}s")
+            check(r["logit_err"] <= TOL_MESH, f"({arch} {run}) rank {rank}'s "
+                  f"logits {r['logit_err']} from (a)'s, over {TOL_MESH}")
+            check(r["cache_err"] <= TOL_MESH, f"({arch} {run}) rank {rank}'s "
+                  f"gathered caches {r['cache_err']} from (a)'s")
+            check(r["launches"] == r["meta_kernels"], f"({arch} {run}) "
+                  f"rank {rank}: launches {r['launches']}, the trace "
+                  f"counts {r['meta_kernels']}")
+            check(r["flops"] == r["meta_flops"], f"({arch} {run}) rank "
+                  f"{rank} counted {r['flops']} flops, the trace "
+                  f"{r['meta_flops']}")
+            check(r["prefill_ops"] == r["dry_prefill_ops"] and
+                  r["decode_ops"] == r["dry_decode_ops"],
+                  f"({arch} {run}) rank {rank}'s collectives "
+                  f"{r['prefill_ops']} / {r['decode_ops']} against the "
+                  f"DryComm's "
+                  f"{r['dry_prefill_ops']} / {r['dry_decode_ops']}")
+            check(r["fsdp"] == (run == "c"), f"({arch} {run}) fsdp "
+                  f"{r['fsdp']}")
+            launches[(arch, run, rank)] = r["launches"]
+    want = {SM_GPT: {"flash_attention": SM_LAYERS[SM_GPT]},
+            REC_MAMBA: {"ssd_scan": SM_LAYERS[REC_MAMBA]},
+            REC_RG: {"rglru_scan": 2, "flash_attention": 1}}
+    for key, got in launches.items():
+        check(got == want[key[0]], f"({key}) launches {got}, want "
+              f"{want[key[0]]}")
+    # (c): fsdp holds a rank's shard and one gathered layer at a time
+    c = [res[(SM_GPT, "c")] for res in ranks]
+    peak_a = a[SM_GPT]["peak"]
+    for rank, r in enumerate(c):
+        every = r["param_bytes"] + r["gathered_bytes"]
+        print(f"  ({SM_GPT} c) rank {rank}: peak {r['peak'] / 1e9:.2f} GB "
+              f"against (a)'s {peak_a / 1e9:.2f} GB and "
+              f"{every / 1e9:.2f} GB to hold every gathered leaf beside "
+              f"the shard")
+        check(r["peak"] < peak_a and r["peak"] < every, f"({SM_GPT} c) "
+              f"rank {rank}'s peak {r['peak']} not under (a)'s {peak_a} "
+              f"and {every}")
+    runs_s = sum(r["wall"] for r in a.values()) + max(
+        sum(r["wall"] for r in res.values()) for res in ranks)
+    dt = time.perf_counter() - t_phase + runs_s
+    print(f"  serve on a mesh: logits and caches within {TOL_MESH:g} of "
+          f"one device, launches, FLOPs and collectives exact; (a) and the "
+          f"slower rank's runs {runs_s:.1f}s (in phase 15's spawn), phase "
+          f"{dt:.1f}s on {smi}")
+    return launches, dt, runs_s
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4637,12 +5032,14 @@ def main():
     if "--mesh-only" in sys.argv[1:]:
         # a short run for work on the meshes: no result line
         t15 = time.perf_counter()
-        mesh_phase(gen, peaks, smi)
+        _, (sm_a, sm_ranks) = mesh_phase(gen, peaks, smi)
+        _, s20, sm_runs = serve_mesh_phase(gen, peaks, smi, sm_a, sm_ranks)
         t16 = time.perf_counter()
         moe_phase(gen, peaks, smi)
         t17 = time.perf_counter()
         *_, (s17, s18) = family_phase(gen, peaks, smi)
-        print(f"chip_smoke --mesh-only: phases 15 ({t16 - t15:.1f}s), 16 "
+        print(f"chip_smoke --mesh-only: phases 15 "
+              f"({t16 - t15 - s20:.1f}s), 20 ({s20:.1f}s), 16 "
               f"({t17 - t16:.1f}s), 17 ({s17:.1f}s) and 18 ({s18:.1f}s) "
               f"passed in {time.perf_counter() - T_START:.1f}s")
         return 0
@@ -4848,8 +5245,9 @@ def main():
     vision = vision_phase(smi)
     t9 = time.perf_counter()
 
-    # ---- 15. meshes: 2 ranks on the one card over gloo
-    mesh = mesh_phase(gen, peaks, smi)
+    # ---- 15. meshes: 2 ranks on the one card over gloo (and phase 20's
+    # runs in its spawn)
+    mesh, (sm_a, sm_ranks) = mesh_phase(gen, peaks, smi)
     t10 = time.perf_counter()
 
     # ---- 16. expert parallelism, the pipeline and compression: 2 ranks
@@ -4865,13 +5263,20 @@ def main():
     # ---- 19. the dry run's counts against the card's ((d) ran in phase
     # 15's spawn)
     dry = dryrun_phase(smi)
+
+    # ---- 20. serving on a mesh: its kernels and the checks of its runs
+    # (in phase 15's spawn)
+    sm_launches, s20, sm_runs = serve_mesh_phase(gen, peaks, smi, sm_a,
+                                                 sm_ranks)
     print(f"phase times: 13 the registry's archs {t8 - t7:.1f}s, 14 "
-          f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes {t10 - t9:.1f}s, "
+          f"llama-3.2-vision {t9 - t8:.1f}s, 15 meshes "
+          f"{t10 - t9 - sm_runs:.1f}s, "
           f"16 expert parallelism, pipeline and compression "
           f"{t11 - t10:.1f}s, 17 hubert and vision on a mesh {s17:.1f}s, "
           f"18 mamba2, recurrentgemma and T5 on a mesh {s18:.1f}s, 19 the "
-          f"dry run against the card {dry['phase_s']:.1f}s; the "
-          f"script {time.perf_counter() - T_START:.1f}s")
+          f"dry run against the card {dry['phase_s']:.1f}s, 20 serving on "
+          f"a mesh {s20:.1f}s; the script "
+          f"{time.perf_counter() - T_START:.1f}s")
 
     # ---- result
     kernels = [{
@@ -4965,6 +5370,15 @@ def main():
         # tier (a forward and a recompute a layer) and one prefill
         "launches_per_dryrun_train_step": dry["train_launches"],
         "launches_per_dryrun_prefill": PAPER_LAYERS,
+        # phase 20: a rank's prefill of gpt-h8192 at 2 layers on the 1x2
+        # (TP-only) and 2x1 (fsdp) meshes, and of recurrentgemma-9b at
+        # one period on 1x2; decode launches no kernel
+        "launches_per_gpt_mesh_serve_prefill": sm_launches[
+            (SM_GPT, "b", 0)].get("flash_attention", 0),
+        "launches_per_gpt_fsdp_serve_prefill": sm_launches[
+            (SM_GPT, "c", 0)].get("flash_attention", 0),
+        "launches_per_rg_mesh_serve_prefill": sm_launches[
+            (REC_RG, "b", 0)].get("flash_attention", 0),
         "tp_local_max_abs_err": mesh["float32_max_abs_err"],
         "tp_local_bf16_max_abs_err": mesh["bfloat16_max_abs_err"],
         "tp_local_ms": mesh["ms"],
@@ -4995,7 +5409,7 @@ def main():
                      "ms_back_to_back", "plain_ms", "sdpa_ms",
                      "library_ms", "bound_ms", "bound_by")},
         # phase 17: each rank's launches in a 2-step run of hubert-xlarge
-        # (24 layers) and of llama-3.2-vision-90b at one period (4 self-
+        # (12 layers) and of llama-3.2-vision-90b at one period (4 self-
         # and 1 cross-attention blocks) on the 1x2 mesh, and their tp=2
         # instances; phase 13's hubert-xlarge runs in f32
         "launches_per_hubert_mesh_rank_run": fam_launches[FAMILY_HUBERT],
@@ -5086,6 +5500,9 @@ def main():
         # calls in a 2-step run) and a tp=2 rank's instance (40 heads)
         "launches_per_mesh_rank_run": fam_launches[REC_MAMBA][
             "ssd_launches"],
+        # phase 20: a rank's prefill of mamba2-2.7b at 4 layers on 1x2
+        "launches_per_mesh_serve_prefill": sm_launches[
+            (REC_MAMBA, "b", 0)].get("ssd_scan", 0),
         **{f"tp2_{k}": (rec_scans["ssd"]["bound"][0] if k == "bound_ms"
                         else rec_scans["ssd"]["bound"][1]
                         if k == "bound_by" else rec_scans["ssd"][k])
@@ -5133,6 +5550,10 @@ def main():
         # instance (2048 channels), forward and fused backward
         "launches_per_mesh_rank_run": fam_launches[REC_RG][
             "rglru_launches"],
+        # phase 20: a rank's prefill of recurrentgemma-9b at one period
+        # on 1x2 (forward only)
+        "launches_per_mesh_serve_prefill": sm_launches[
+            (REC_RG, "b", 0)].get("rglru_scan", 0),
         **{f"tp2_{k}": (rec_scans["rglru"]["bound"][0] if k == "bound_ms"
                         else rec_scans["rglru"]["bound"][1]
                         if k == "bound_by" else

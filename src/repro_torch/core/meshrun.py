@@ -22,6 +22,9 @@ calls it; the JAX package leaves all of it to GSPMD):
     ranks of the axis store it once between them, as `plan_shards`
     splits it in the JAX package.
 
+Serving (`models/api.py`) with fsdp weights gathers a layer's leaves
+just before the layer runs (`fsdp_gather`) and drops them after.
+
 The shard id is this rank's linear index over the writer axes (the dp
 axes that split the batch, and the tensor axis when the model is split
 over it); the other axes only replicate, and with replica dedup their
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hooks import HookBridge, ReplicaLink, plan_shards
+from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.parallel.comm import save_scope, tp_group
 from repro_torch.parallel.mesh import (axes_size, linear_axis_index,
                                        spec_axes)
@@ -213,6 +217,48 @@ def _zip_map(fn, tree, specs):
     return fn(tree, specs)
 
 
+def gather_leaves(comm, dp: Tuple[str, ...], leaves, specs, groups
+                  ) -> List[torch.Tensor]:
+    """`leaves` with the dp-sharded dims of those in `groups` (lists of
+    indices) gathered over the dp axes `dp`: the shards of a group go out
+    as one message. One exchange buffer is live at a time."""
+    out = list(leaves)
+    for idx in groups:
+        dims = [_dp_dim(specs[i].spec, dp) for i in idx]
+        moved = [leaves[i].detach().movedim(d, 0) for i, d in
+                 zip(idx, dims)]
+        parts = comm.all_gather(torch.cat([m.reshape(-1) for m in moved]),
+                                dp)
+        off = 0
+        for i, d, m in zip(idx, dims, moved):
+            n = m.numel()
+            out[i] = torch.cat([p[off:off + n].view(m.shape).movedim(0, d)
+                                for p in parts], dim=d)
+            off += n
+        del parts
+    return out
+
+
+def fsdp_gather(tree, spec_tree, settings):
+    """A serving weight tree (a layer's, the embedding's, the head's)
+    with its dp-sharded dims gathered over `settings.dp_axes`, or `tree`
+    itself when `spec_tree` is None (TP-only weights). `spec_tree`: the
+    tree's `LeafSpec`s (`wrap_specs`; a stacked tree's `layer()` slice
+    drops the layer dim). One message a leaf, so that a layer's gathered
+    leaves and one leaf's exchange buffer are live at once, not a second
+    copy of the layer; the caller drops the result after its use."""
+    if spec_tree is None:
+        return tree
+    mesh = settings.mesh
+    dp = tuple(a for a in settings.dp_axes if mesh.shape[a] > 1)
+    leaves, tdef = tree_flatten(tree)
+    specs = tree_flatten(spec_tree)[0]
+    groups = [[i] for i, sp in enumerate(specs)
+              if dp and _dp_dim(sp.spec, dp) is not None]
+    return tree_unflatten(tdef, gather_leaves(mesh.comm, dp, leaves, specs,
+                                              groups))
+
+
 def check_mesh_config(cfg, mesh=None, axes=None) -> None:
     """Refuse a mesh whose tensor axis does not divide what a recurrent
     block splits over it: mamba2's SSM heads, the RG-LRU width
@@ -327,21 +373,8 @@ class MeshRun:
         """A stage's leaves with their dp-sharded dims gathered: the
         shards of one dtype go out as one message, so a stage costs one
         all-gather, not one a leaf."""
-        out = list(leaves)
-        for idx in self._fsdp_groups(leaves, specs):
-            dims = [_dp_dim(specs[i].spec, self.dp) for i in idx]
-            moved = [leaves[i].detach().movedim(d, 0) for i, d in
-                     zip(idx, dims)]
-            flat = torch.cat([m.reshape(-1) for m in moved])
-            parts = self.comm.all_gather(flat, self.dp)
-            off = 0
-            for i, d, m in zip(idx, dims, moved):
-                n = m.numel()
-                whole = torch.cat([p[off:off + n].view(m.shape)
-                                   for p in parts])
-                out[i] = whole.movedim(0, d).contiguous()
-                off += n
-        return out
+        return gather_leaves(self.comm, self.dp, leaves, specs,
+                             self._fsdp_groups(leaves, specs))
 
     def _fsdp_groups(self, leaves, specs, fsdp: bool = True):
         """Indices of the leaves sharded over dp (`fsdp`) or not, by dtype."""

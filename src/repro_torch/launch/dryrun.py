@@ -28,9 +28,12 @@ maps to `ce_chunk=0` and the plain attention in one chunk of the whole
 sequence (`attn_impl="torch"`, `attn_chunk=S`: every score pair
 computed, no flash kernel and no blocked causal attention).
 
-The port serves on one device (`launch/steps.py`), so a prefill or
-decode cell on a production mesh is recorded as skipped, with that
-reason; so is a cell whose mesh the port refuses
+A prefill, decode or long_500k cell traces one rank's serving step
+(`launch/steps.py`): weights TP-only up to `SERVE_TP_ONLY_BUDGET` a
+card, fsdp above it (each layer gathered before it runs), the rank's
+rows and its share of the cache. A cell `cell_skip_reason` skips
+(decode of an encoder-only model, full attention at 524k) is recorded
+as skipped with its reason; so is a cell whose mesh the port refuses
 (`core/meshrun.py::check_mesh_config`: a tensor axis that does not
 divide the query heads, the SSM heads or the RG-LRU width, which JAX
 replicates).
@@ -213,9 +216,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "policy": policy, "attn_chunk": attn_chunk,
     }
     skip = cell_skip_reason(cfg, shape)
-    if skip is None and shape.kind != "train":
-        skip = ("the port serves on one device: tensor-parallel prefill "
-                "and decode are not ported (ROADMAP.md §1)")
     if skip is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
         try:

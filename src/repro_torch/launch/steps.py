@@ -23,12 +23,20 @@ parameters and the optimizer state are this rank's shards
 batch is the global one, of which the engine takes this rank's rows as
 it does from a loader. The moments follow the parameters' layout, as
 JAX's inherit the parameters' specs; the port's ZeRO-1 is that layout
-(mamba2's leaves by part), not a reshard of the moments. The port serves
-on one device, so the prefill and decode builders refuse a mesh of more
-than one rank.
+(mamba2's leaves by part), not a reshard of the moments.
+
+The prefill and decode builders serve on a mesh as JAX's do under GSPMD:
+the weights TP-only (`layout_specs(fsdp=False)`) while a rank's share of
+them is at most `SERVE_TP_ONLY_BUDGET`, fsdp above it
+(`RunSettings.fsdp_specs`: each layer's leaves gathered just before its
+blocks run); the batch is this rank's rows (over the dp axes where they
+divide it), the decode cache its share (`init_cache` with `tp_size`,
+`parallel/sharding.py::cache_layout_specs`), and a step returns the
+whole logits of the rank's rows on every rank of the tensor axis.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -39,7 +47,8 @@ from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.launch.op_stats import uncounted
 from repro_torch.models.transformer import RunSettings
 from repro_torch.parallel.mesh import local_shape
-from repro_torch.parallel.sharding import MeshAxes, map_with_path
+from repro_torch.parallel.sharding import (MeshAxes, batch_specs,
+                                          map_with_path)
 from repro_torch.runtime.trainer import batch_tokens
 
 # Serving keeps weights TP-only (no per-step all-gather) while they fit;
@@ -184,25 +193,46 @@ def _rank_params(global_params, specs, mesh, device: str):
         device="meta"), global_params, wrap_specs(specs))
 
 
+def rank_rows(n: int, mesh, axes: Optional[MeshAxes]) -> int:
+    """Rows of a global batch of `n` a rank of `mesh` holds: n over the
+    dp axes where they divide it, else all n (replicated, as JAX's
+    `batch_specs` lays them out)."""
+    if _one_device(mesh):
+        return n
+    dp = (axes or MeshAxes()).dp_size(mesh)
+    return n // dp if n % dp == 0 else n
+
+
 def _inputs(api, shape: ShapeConfig, device: str, seed: int, *,
-            for_loss: bool = True):
+            for_loss: bool = True, mesh=None,
+            axes: Optional[MeshAxes] = None):
     """`api.input_specs` of the cell on `device`: empty on the meta
     device; elsewhere token ids below the vocab and unit-normal
     embeddings from `seed` (a decode cell's cache zeroed, its position
-    the cache's last)."""
+    the cache's last). With a `mesh` (serving) the batch is this rank's
+    rows of the global one and the cache the rank's share (`rank_rows`,
+    `init_cache` with `tp_size`)."""
     spec = api.input_specs(shape, for_loss=for_loss, device=device)
-    if device == "meta":
-        return spec
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    vocab = api.cfg.vocab_size
+    if device != "meta":
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        vocab = api.cfg.vocab_size
 
-    def fill(t):
-        if t.is_floating_point():
-            return t.normal_(generator=gen)
-        return t.random_(0, vocab, generator=gen)
+        def fill(t):
+            if t.is_floating_point():
+                return t.normal_(generator=gen)
+            return t.random_(0, vocab, generator=gen)
 
-    spec["batch"] = {k: fill(v) for k, v in spec["batch"].items()}
-    if "cache" in spec:
+        spec["batch"] = {k: fill(v) for k, v in spec["batch"].items()}
+    if not _one_device(mesh):
+        from repro_torch.core.meshrun import shard_tree
+        axes = axes or MeshAxes()
+        spec["batch"] = shard_tree(spec["batch"], batch_specs(
+            spec["batch"], mesh, axes), mesh)
+        if "cache" in spec:
+            spec["cache"] = api.init_cache(
+                rank_rows(shape.global_batch, mesh, axes), shape.seq_len,
+                device=device, tp_size=axes.tp_size(mesh))
+    if "cache" in spec and device != "meta":
         for t in tree_flatten(spec["cache"])[0]:
             t.zero_()
         spec["pos"] = torch.tensor(shape.seq_len - 1, dtype=torch.int32,
@@ -296,12 +326,39 @@ def _serve_fsdp(mesh, axes: Optional[MeshAxes], params) -> bool:
     return param_bytes(params) // tp > SERVE_TP_ONLY_BUDGET
 
 
-def _serve_params(api, mesh, axes, device, seed):
-    if not _one_device(mesh):
-        raise NotImplementedError(
-            "the port's prefill and decode steps run on one device: "
-            "tensor-parallel serving is not ported (ROADMAP.md §1)")
-    return global_params(api, device, seed)
+@dataclass
+class _Served:
+    params: Any                   # this rank's (one device: the global)
+    specs: Any                    # the layout (None: one device)
+    settings: RunSettings
+    fsdp: bool
+    n_params: int
+    n_active: int
+
+
+def _serve_params(api, mesh, axes, settings: RunSettings, device: str,
+                  seed: int) -> _Served:
+    """The serving weights of a rank: the global parameters cut by the
+    layout of `mesh` (`layout_specs`, TP-only or, above the budget,
+    fsdp, which then sets `settings.fsdp_specs`), after
+    `check_mesh_config` has refused what the blocks cannot split."""
+    from repro_torch.core.meshrun import check_mesh_config, wrap_specs
+    from repro_torch.parallel.sharding import layout_specs
+    cfg = api.cfg
+    glob = global_params(api, device, seed)
+    n_params, n_active = count_params(glob), active_param_count(cfg, glob)
+    fsdp = _serve_fsdp(mesh, axes, glob)
+    if _one_device(mesh):
+        return _Served(glob, None, settings, fsdp, n_params, n_active)
+    axes = axes or MeshAxes()
+    check_mesh_config(cfg, mesh, axes)
+    specs = layout_specs(cfg, glob, mesh, axes, fsdp=fsdp)
+    params = _rank_params(glob, specs, mesh, device)
+    del glob
+    if fsdp:
+        settings = dataclasses.replace(settings,
+                                       fsdp_specs=wrap_specs(specs))
+    return _Served(params, specs, settings, fsdp, n_params, n_active)
 
 
 def make_prefill_step(api, mesh, axes: Optional[MeshAxes],
@@ -311,13 +368,16 @@ def make_prefill_step(api, mesh, axes: Optional[MeshAxes],
                       seed: int = 0) -> StepBundle:
     """A forward over the cell's prompts without gradients:
     `fn(params, batch)` -> (last logits, decode caches), or the logits
-    of a model with no decode step."""
+    of a model with no decode step. On a mesh `params` and `batch` are
+    this rank's (the module doc); `fn` takes any prompt length up to
+    the cache's `shape.seq_len`."""
     cfg = api.cfg
     settings = settings or build_settings(cfg, mesh, axes, kind="prefill",
                                           attn_impl=attn_impl,
                                           device=device)
     emit_cache = cfg.has_decode
-    params = _serve_params(api, mesh, axes, device, seed)
+    sv = _serve_params(api, mesh, axes, settings, device, seed)
+    settings = sv.settings
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -326,14 +386,13 @@ def make_prefill_step(api, mesh, axes: Optional[MeshAxes],
                                cache_len=shape.seq_len)
         return api.forward(params, batch, settings)
 
-    batch = _inputs(api, shape, device, seed, for_loss=False)["batch"]
+    batch = _inputs(api, shape, device, seed, for_loss=False, mesh=mesh,
+                    axes=axes)["batch"]
     return StepBundle(
-        fn=prefill_step, args=(params, batch),
-        settings=settings, param_specs=None,
-        n_params=count_params(params),
-        n_active=active_param_count(cfg, params),
-        tokens_per_step=shape.global_batch * shape.seq_len,
-        fsdp=_serve_fsdp(mesh, axes, params))
+        fn=prefill_step, args=(sv.params, batch),
+        settings=settings, param_specs=sv.specs, n_params=sv.n_params,
+        n_active=sv.n_active,
+        tokens_per_step=shape.global_batch * shape.seq_len, fsdp=sv.fsdp)
 
 
 def make_decode_step(api, mesh, axes: Optional[MeshAxes],
@@ -343,12 +402,14 @@ def make_decode_step(api, mesh, axes: Optional[MeshAxes],
                      seed: int = 0) -> StepBundle:
     """One token for every row against a cache of `shape.seq_len`
     positions: `fn(params, cache, batch, pos)` -> logits (the cache
-    updated in place)."""
+    updated in place). On a mesh `params`, `cache` and `batch` are this
+    rank's (the module doc)."""
     cfg = api.cfg
     settings = settings or build_settings(cfg, mesh, axes, kind="decode",
                                           attn_impl=attn_impl,
                                           device=device)
-    params = _serve_params(api, mesh, axes, device, seed)
+    sv = _serve_params(api, mesh, axes, settings, device, seed)
+    settings = sv.settings
 
     @torch.no_grad()
     def decode_step(params, cache, batch, pos):
@@ -359,15 +420,13 @@ def make_decode_step(api, mesh, axes: Optional[MeshAxes],
         return api.decode_step(params, cache, batch,
                                pos.reshape(1).expand(rows), settings)
 
-    spec = _inputs(api, shape, device, seed)
+    spec = _inputs(api, shape, device, seed, mesh=mesh, axes=axes)
     return StepBundle(
-        fn=decode_step, args=(params, spec["cache"], spec["batch"],
+        fn=decode_step, args=(sv.params, spec["cache"], spec["batch"],
                               spec["pos"]),
-        settings=settings, param_specs=None,
-        n_params=count_params(params),
-        n_active=active_param_count(cfg, params),
-        tokens_per_step=shape.global_batch,
-        fsdp=_serve_fsdp(mesh, axes, params))
+        settings=settings, param_specs=sv.specs, n_params=sv.n_params,
+        n_active=sv.n_active, tokens_per_step=shape.global_batch,
+        fsdp=sv.fsdp)
 
 
 def make_step(api, mesh, axes: Optional[MeshAxes], shape: ShapeConfig,
@@ -388,4 +447,4 @@ __all__ = ["SERVE_TP_ONLY_BUDGET", "StepBundle", "active_param_count",
            "build_settings", "count_params", "global_params", "make_decode_step",
            "make_host_train_step", "make_overlap_train_step",
            "make_prefill_step", "make_step", "make_train_step",
-           "param_bytes"]
+           "param_bytes", "rank_rows"]

@@ -14,7 +14,8 @@ mirroring the JAX package's `repro/models/api.py`.
       -> logits
   input_specs(shape, for_loss=True, device="meta")
       -> {"batch": ...} (decode: also "cache" and "pos")
-  init_cache(batch, seq_len, dtype=bfloat16, device="meta") -> caches
+  init_cache(batch, seq_len, dtype=bfloat16, device="meta", tp_size=1)
+      -> caches (a tensor axis of `tp_size` ranks: one rank's share)
 
 Parameters are a nested dict of tensors with the JAX pytree keys and
 stacked layer dims (`segments[0]["b0"]["attn"]["wq"]` is (L, D, H, hd)),
@@ -62,7 +63,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dtype_of, embed_init, init_norm,
                                        rms_norm, softcap)
-from repro_torch.parallel.comm import (vocab_parallel_dlogits,
+from repro_torch.core.meshrun import fsdp_gather
+from repro_torch.parallel.comm import (tp_group, vocab_parallel_dlogits,
                                        vocab_parallel_terms)
 from repro_torch.models.transformer import (BlockDef, RunSettings,
                                             SegmentDef, apply_block,
@@ -156,8 +158,9 @@ def embed_in(params, batch, cfg: ModelConfig, tp=None):
     for non-RoPE models. Under a tensor axis `tp`
     (`parallel/comm.py::TpGroup`) `embed` holds this rank's rows of the
     vocab (a token outside them looks up zeros; the ranks' lookups are
-    all-reduced), `pos_embed` its columns of the width (gathered), and
-    `frontend_proj` its columns of the width too (`_frontend_embed`)."""
+    all-reduced), `pos_embed` its columns of the width (the sequence's
+    rows gathered), and `frontend_proj` its columns of the width too
+    (`_frontend_embed`)."""
     if cfg.input_kind == "embeddings":
         x = _frontend_embed(params, batch["embeddings"], cfg, tp)
     elif tp is not None:
@@ -165,11 +168,10 @@ def embed_in(params, batch, cfg: ModelConfig, tp=None):
     else:
         x = _token_embed(params, batch["tokens"], cfg)
     if not cfg.use_rope:
-        S = x.shape[1]
-        pos = params["pos_embed"]
+        pos = params["pos_embed"][:x.shape[1]]
         if tp is not None and pos.shape[1] != x.shape[-1]:
             pos = tp.gather(pos, 1)
-        x = x + pos[:S][None].to(x.dtype)
+        x = x + pos[None].to(x.dtype)
     return x
 
 
@@ -238,6 +240,49 @@ def head(params, x, cfg: ModelConfig, tp=None):
         logits = softcap(logits, cfg.final_logit_softcap)
     off = tp.rank * logits.shape[-1] if tp is not None else 0
     return _vocab_bias(logits, cfg, off)
+
+
+#: the leaves the embedding and the head read (serving gathers each set
+#: just before its use when the weights are fsdp)
+_EMBED_KEYS = ("embed", "pos_embed", "frontend_proj")
+_HEAD_KEYS = ("final_norm", "unembed")
+
+
+def _serve_part(params, settings: RunSettings, keys):
+    """The leaves `keys` of `params` (those it has), their dp-sharded dims
+    gathered when the serving weights are fsdp (`settings.fsdp_specs`)."""
+    tree = {k: params[k] for k in keys if k in params}
+    specs = settings.fsdp_specs
+    return fsdp_gather(tree, None if specs is None else
+                       {k: specs[k] for k in tree}, settings)
+
+
+def _serve_layer(p_stack, spec_stack, rep: int, settings: RunSettings):
+    """Layer `rep` of a segment's stacked parameters (views), gathered
+    over the dp axes when the serving weights are fsdp."""
+    p_layer = layer(p_stack, rep)
+    if spec_stack is None:
+        return p_layer
+    return fsdp_gather(p_layer, layer(spec_stack, rep), settings)
+
+
+def _seg_specs(settings: RunSettings, key: str, si: int):
+    specs = settings.fsdp_specs
+    return None if specs is None else specs[key][si]
+
+
+def _serve_logits(params, x, cfg: ModelConfig, settings: RunSettings, *,
+                 last: bool = False):
+    """`head` of the final hidden state x, of its last position when
+    `last`. Under a tensor axis each rank computes its vocab columns (the
+    padded-vocab bias and the softcap per column slice) and the logits
+    are gathered over the axis, so every rank returns the whole f32
+    logits, as GSPMD's output is logically whole."""
+    tp = tp_group(settings)
+    z = head(_serve_part(params, settings, _HEAD_KEYS), x, cfg, tp)
+    if last:
+        z = z[:, -1:]
+    return z if tp is None else tp.all_gather(z, z.dim() - 1)
 
 
 def ce_chunk_applies(chunk: int, seq_len: int) -> bool:
@@ -402,17 +447,25 @@ def build_model(cfg: ModelConfig) -> ModelApi:
 
     def encode(params, batch, settings: RunSettings):
         """The encoder states of `batch["enc_tokens"]`: the shared tables'
-        embedding, the bidirectional encoder stack, then `enc_norm`."""
-        x = embed_in(params, {"tokens": batch["enc_tokens"]}, enc_cfg)
+        embedding, the bidirectional encoder stack, then `enc_norm`
+        (tensor-parallel on `settings`' axis, fsdp weights gathered a
+        layer at a time, as `hidden` runs the decoder)."""
+        tp = tp_group(settings)
+        x = embed_in(_serve_part(params, settings, _EMBED_KEYS),
+                     {"tokens": batch["enc_tokens"]}, enc_cfg, tp)
         positions = (torch.arange(x.shape[1], device=x.device)
                      if cfg.use_rope else None)
-        for seg, p_stack in zip(enc_segs, params["enc_segments"]):
+        for si, (seg, p_stack) in enumerate(zip(enc_segs,
+                                                params["enc_segments"])):
+            s_stack = _seg_specs(settings, "enc_segments", si)
             for rep in range(seg.n_repeat):
-                p_layer = layer(p_stack, rep)
+                p_layer = _serve_layer(p_stack, s_stack, rep, settings)
                 for i, bdef in enumerate(seg.blocks):
                     x, _ = apply_block(bdef, p_layer[f"b{i}"], x, enc_cfg,
                                        settings, positions=positions)
-        return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+                del p_layer
+        norm = _serve_part(params, settings, ("enc_norm",))["enc_norm"]
+        return rms_norm(x, norm["scale"], cfg.norm_eps)
 
     def enc_states(params, batch, settings: RunSettings):
         """What the cross blocks attend to: an encoder-decoder's encoder
@@ -426,37 +479,52 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         return None
 
     def hidden(params, batch, settings: RunSettings, *, emit_cache=False,
-               cache_len=0):
+               cache_len=0, with_aux=True):
         """The final hidden state (before the head), the decode caches
         when `emit_cache` (else an empty list), and the blocks' aux
-        losses summed over layers."""
+        losses summed over layers (none collected without `with_aux`).
+
+        With a tensor axis in `settings` (`parallel/comm.py::tp_group`)
+        the embedding is vocab-parallel (`embed_in`) and every block
+        runs this rank's share (`apply_block`), so the caches are the
+        rank's (`init_cache` with `tp_size`); with fsdp serving weights
+        (`settings.fsdp_specs`) each layer's leaves are gathered over
+        the dp axes just before its blocks run and dropped after, the
+        embedding's around the lookup."""
+        tp = tp_group(settings)
         enc = enc_states(params, batch, settings)
-        x = embed_in(params, batch, cfg)
+        x = embed_in(_serve_part(params, settings, _EMBED_KEYS), batch, cfg,
+                     tp)
         S = x.shape[1]
         positions = (torch.arange(S, device=x.device) if cfg.use_rope
                      else None)
         cache_len = cache_len or S
-        caches, aux = [], {}
-        for seg, p_stack in zip(segs, params["segments"]):
+        caches, aux = [], ({} if with_aux else None)
+        for si, (seg, p_stack) in enumerate(zip(segs, params["segments"])):
+            s_stack = _seg_specs(settings, "segments", si)
             entries = {f"b{i}": [] for i in range(len(seg.blocks))}
             for rep in range(seg.n_repeat):
-                p_layer = layer(p_stack, rep)
+                p_layer = _serve_layer(p_stack, s_stack, rep, settings)
                 for i, bdef in enumerate(seg.blocks):
                     x, kv = apply_block(bdef, p_layer[f"b{i}"], x, cfg,
                                         settings, positions=positions,
-                                        enc_kv=enc, aux=aux)
+                                        enc_kv=enc, aux=aux,
+                                        emit_cache=emit_cache)
                     if emit_cache:
                         entries[f"b{i}"].append(
                             _to_decode_cache(bdef, kv, cache_len))
+                del p_layer
             if emit_cache:
                 caches.append({bid: stack(e) for bid, e in entries.items()})
-        return x, caches, aux
+        return x, caches, aux or {}
 
     def forward(params, batch, settings: RunSettings, *, emit_cache=False,
                 cache_len=0, with_aux=False):
         x, caches, aux = hidden(params, batch, settings,
-                                emit_cache=emit_cache, cache_len=cache_len)
-        out = (head(params, x, cfg),) + ((caches,) if emit_cache else ())
+                                emit_cache=emit_cache, cache_len=cache_len,
+                                with_aux=with_aux)
+        out = (_serve_logits(params, x, cfg, settings),)
+        out += (caches,) if emit_cache else ()
         out += (aux,) if with_aux else ()
         return out if len(out) > 1 else out[0]
 
@@ -481,41 +549,61 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         return total, metrics
 
     def prefill(params, batch, settings: RunSettings, *, cache_len=0):
-        logits, caches = forward(params, batch, settings, emit_cache=True,
-                                 cache_len=cache_len)
-        return logits[:, -1:], caches
+        """(the last position's f32 logits (B, 1, V), the decode caches
+        of `cache_len` positions); on a mesh this rank's rows, the whole
+        logits on every rank of the tensor axis (`_serve_logits`) and the
+        rank's share of the caches."""
+        x, caches, _ = hidden(params, batch, settings, emit_cache=True,
+                              cache_len=cache_len, with_aux=False)
+        return _serve_logits(params, x, cfg, settings, last=True), caches
 
-    def _decode_embed(params, batch, pos):
+    def _decode_embed(params, batch, pos, settings: RunSettings):
         """One decode token per row, embedded as `embed_in` embeds a
         prefill token (the JAX package's `api.py::_decode_embed`): scaled
         by sqrt(d_model) in the parameter dtype when `cfg.scale_embed`,
         plus the learned position `pos_embed[pos]` for non-RoPE models,
         per row for a (B,) `pos` and shared for a scalar one; an
         embeddings-input model's `batch["embeddings"]` (B, 1, D) through
-        `frontend_proj`."""
+        `frontend_proj`. Under a tensor axis the lookup is
+        vocab-parallel and the position's row of `pos_embed` is gathered
+        over the axis, added once."""
+        tp = tp_group(settings)
+        emb = _serve_part(params, settings, _EMBED_KEYS)
         if cfg.input_kind == "embeddings":
-            x = _frontend_embed(params, batch["embeddings"], cfg)
+            x = _frontend_embed(emb, batch["embeddings"], cfg, tp)
+        elif tp is not None:
+            x = _vocab_parallel_embed(emb, batch["tokens"], cfg, tp)
         else:
-            x = _token_embed(params, batch["tokens"], cfg)
+            x = _token_embed(emb, batch["tokens"], cfg)
         if not cfg.use_rope:
-            pe = params["pos_embed"][pos].to(x.dtype)
+            pe = emb["pos_embed"][pos]
+            if tp is not None and pe.shape[-1] != cfg.d_model:
+                pe = tp.all_gather(pe, pe.dim() - 1)
+            pe = pe.to(x.dtype)
             x = x + (pe[:, None] if pos.dim() == 1 else pe)
         return x
 
     def decode_step(params, cache, batch, pos, settings: RunSettings):
         """One token for the whole batch against dense caches (updated in
         place). batch: {"tokens": (B, 1)}. pos: int / 0-d tensor, or a
-        (B,) tensor of per-row positions. Returns (B, 1, V) f32 logits."""
+        (B,) tensor of per-row positions. Returns (B, 1, V) f32 logits.
+        On a mesh: this rank's rows and its share of the caches
+        (`apply_block_decode`), fsdp weights gathered a layer at a time,
+        and the whole logits on every rank (`_serve_logits`)."""
         pos = torch.as_tensor(pos, device=params["unembed"].device)
-        x = _decode_embed(params, batch, pos)
-        for seg, p_stack, c_stack in zip(segs, params["segments"], cache):
+        x = _decode_embed(params, batch, pos, settings)
+        for si, (seg, p_stack, c_stack) in enumerate(
+                zip(segs, params["segments"], cache)):
+            s_stack = _seg_specs(settings, "segments", si)
             for rep in range(seg.n_repeat):
-                p_layer, c_layer = layer(p_stack, rep), layer(c_stack, rep)
+                p_layer = _serve_layer(p_stack, s_stack, rep, settings)
+                c_layer = layer(c_stack, rep)
                 for i, bdef in enumerate(seg.blocks):
                     x = apply_block_decode(bdef, p_layer[f"b{i}"], x,
                                            c_layer[f"b{i}"], pos, cfg,
                                            settings)
-        return head(params, x, cfg)
+                del p_layer
+        return _serve_logits(params, x, cfg, settings)
 
     def decode_step_paged(params, pools, resident, tables, batch, pos,
                           settings: RunSettings):
@@ -532,7 +620,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
 
         Returns (B, 1, V) f32 logits."""
         pos = torch.as_tensor(pos, device=params["unembed"].device)
-        x = _decode_embed(params, batch, pos)
+        x = _decode_embed(params, batch, pos, settings)
         for seg, p_stack, pool_stack, res_stack in zip(
                 segs, params["segments"], pools, resident):
             for rep in range(seg.n_repeat):
@@ -587,6 +675,6 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         prefill=prefill, decode_step=decode_step,
         decode_step_paged=decode_step_paged, enc_segments=enc_segs,
         input_specs=input_specs,
-        init_cache=lambda B, S, dtype=torch.bfloat16, device="meta":
-            init_cache(cfg, B, S, dtype, device),
+        init_cache=lambda B, S, dtype=torch.bfloat16, device="meta",
+        tp_size=1: init_cache(cfg, B, S, dtype, device, tp_size),
     )

@@ -106,6 +106,31 @@ def _split_proj(p, x, dims: SSMDims):
     return z, xs, bc, dt
 
 
+def _rank_share(p, dims: SSMDims, tp):
+    """(p, its conv, dims) of this rank's heads on a tensor axis `tp`
+    (the module doc): `dt_bias`, `A_log` and `D_skip` sliced to them,
+    the conv weight's x channels of these heads beside the whole B | C
+    channels (and the bias cut alike), `d_inner` the rank's share; each
+    replicated value read after `grad_sum`."""
+    n_heads = tp_heads(dims, tp.size)
+    h0, inner = tp.rank * n_heads, n_heads * dims.head_dim
+    w_bc, conv_w, conv_b, dt_bias, A_log, D_skip = tp.grad_sum(
+        p["w_bc"], p["conv"]["w"], p["conv"]["b"], p["dt_bias"],
+        p["A_log"], p["D_skip"])
+    heads = slice(h0, h0 + n_heads)
+    p = dict(p, w_bc=w_bc, dt_bias=dt_bias[heads], A_log=A_log[heads],
+             D_skip=D_skip[heads])
+    # the local conv weight is [x channels of these heads | B | C]: its
+    # x part is this rank's own, its B | C part (and the whole bias)
+    # replicated
+    conv = {"w": torch.cat([p["conv"]["w"][:, :inner], conv_w[:, inner:]],
+                           dim=1),
+            "b": torch.cat([conv_b[h0 * dims.head_dim:
+                                   h0 * dims.head_dim + inner],
+                            conv_b[dims.d_inner:]])}
+    return p, conv, dims._replace(d_inner=inner, n_heads=n_heads)
+
+
 def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
     """Training / prefill. x: (B, S, D) -> (y, final_cache). Under a
     tensor axis `tp` x is the parallel region's input (`TpGroup.enter`)
@@ -114,25 +139,10 @@ def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
         raise ValueError(f"unknown ssm impl {impl!r} (torch | cuda)")
     dims = ssm_dims(cfg)
     B, S, _ = x.shape
-    n_heads, conv = dims.n_heads, p["conv"]
+    conv = p["conv"]
     if tp is not None:
-        n_heads = tp_heads(dims, tp.size)
-        h0, inner = tp.rank * n_heads, n_heads * dims.head_dim
-        w_bc, conv_w, conv_b, dt_bias, A_log, D_skip = tp.grad_sum(
-            p["w_bc"], p["conv"]["w"], p["conv"]["b"], p["dt_bias"],
-            p["A_log"], p["D_skip"])
-        heads = slice(h0, h0 + n_heads)
-        p = dict(p, w_bc=w_bc, dt_bias=dt_bias[heads], A_log=A_log[heads],
-                 D_skip=D_skip[heads])
-        # the local conv weight is [x channels of these heads | B | C]:
-        # its x part is this rank's own, its B | C part (and the whole
-        # bias) replicated
-        conv = {"w": torch.cat([conv["w"][:, :inner], conv_w[:, inner:]],
-                               dim=1),
-                "b": torch.cat([conv_b[h0 * dims.head_dim:
-                                       h0 * dims.head_dim + inner],
-                                conv_b[dims.d_inner:]])}
-        dims = dims._replace(d_inner=inner)
+        p, conv, dims = _rank_share(p, dims, tp)
+    n_heads = dims.n_heads
     z, xs, bc, dt = _split_proj(p, x, dims)
     conv_out, conv_state = apply_conv1d(conv, torch.cat([xs, bc], dim=-1))
     conv_out = silu(conv_out.float()).to(x.dtype)
@@ -157,15 +167,21 @@ def apply_mamba2(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
     return out, {"conv": conv_state, "state": final_state}
 
 
-def decode_mamba2(p, x1, cache, cfg: ModelConfig):
+def decode_mamba2(p, x1, cache, cfg: ModelConfig, *, tp=None):
     """One-token decode. x1: (B, 1, D); cache {"conv": (B, W-1, C),
     "state": (B, H, P, N) f32}, both advanced IN PLACE. The state update
-    and y = C.state + D_skip.x run in f32, as the JAX package's do."""
+    and y = C.state + D_skip.x run in f32, as the JAX package's do. Under
+    a tensor axis `tp` the cache holds this rank's heads (its conv window
+    x of those heads beside B | C whole) and the output is its partial
+    sum, as `apply_mamba2`'s."""
     dims = ssm_dims(cfg)
     B = x1.shape[0]
+    conv = p["conv"]
+    if tp is not None:
+        p, conv, dims = _rank_share(p, dims, tp)
     z, xs, bc, dt = _split_proj(p, x1, dims)
     conv_in = torch.cat([xs, bc], dim=-1)
-    conv_out, conv_state = apply_conv1d(p["conv"], conv_in, cache["conv"])
+    conv_out, conv_state = apply_conv1d(conv, conv_in, cache["conv"])
     conv_out = silu(conv_out.float()).to(x1.dtype)
     xs = conv_out[..., :dims.d_inner]
     B_s = conv_out[..., dims.d_inner:dims.d_inner + dims.state]
@@ -180,7 +196,7 @@ def decode_mamba2(p, x1, cache, cfg: ModelConfig):
     y = torch.einsum("bn,bhpn->bhp", C_s[:, 0].float(), state)
     y = y + xh * p["D_skip"][:, None]
     y = y.reshape(B, 1, dims.d_inner)
-    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x1.dtype)
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps, tp).to(x1.dtype)
     cache["conv"].copy_(conv_state)
     cache["state"].copy_(state)
     return y @ p["w_out"]

@@ -78,6 +78,18 @@ def _gates(p, u, u_all=None):
     return log_a, scaled
 
 
+def _rank_share(p, cfg: ModelConfig, tp):
+    """`p` with the conv bias, `b_a`, `b_i` and `lambda_p` cut to this
+    rank's share of the width (each whole on every rank, read after
+    `grad_sum`)."""
+    n = tp_width(cfg.rglru_width or cfg.d_model, tp.size)
+    mine = slice(tp.rank * n, (tp.rank + 1) * n)
+    conv_b, b_a, b_i, lam = (t[mine] for t in tp.grad_sum(
+        p["conv"]["b"], p["b_a"], p["b_i"], p["lambda_p"]))
+    return dict(p, conv={"w": p["conv"]["w"], "b": conv_b}, b_a=b_a,
+                b_i=b_i, lambda_p=lam)
+
+
 def apply_rglru(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
     """Training / prefill. x: (B, S, D) -> (y, cache). Under a tensor axis
     `tp` x is the parallel region's input (`TpGroup.enter`) and y this
@@ -87,12 +99,7 @@ def apply_rglru(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
     gate = gelu_tanh((x @ p["w_branch_gate"]).float())
     u = x @ p["w_in"]
     if tp is not None:
-        n = tp_width(cfg.rglru_width or cfg.d_model, tp.size)
-        mine = slice(tp.rank * n, (tp.rank + 1) * n)
-        conv_b, b_a, b_i, lam = (t[mine] for t in tp.grad_sum(
-            p["conv"]["b"], p["b_a"], p["b_i"], p["lambda_p"]))
-        p = dict(p, conv={"w": p["conv"]["w"], "b": conv_b}, b_a=b_a,
-                 b_i=b_i, lambda_p=lam)
+        p = _rank_share(p, cfg, tp)
     u, conv_state = apply_conv1d(p["conv"], u)
     u_all = None if tp is None else tp.gather_partial(u, u.dim() - 1)
     log_a, scaled = _gates(p, u, u_all)
@@ -103,14 +110,20 @@ def apply_rglru(p, x, cfg: ModelConfig, *, impl: str = "torch", tp=None):
     return out, {"conv": conv_state, "h": h[:, -1]}
 
 
-def decode_rglru(p, x1, cache, cfg: ModelConfig):
+def decode_rglru(p, x1, cache, cfg: ModelConfig, *, tp=None):
     """One-token decode. x1: (B, 1, D); cache {"conv": (B, W-1, W),
     "h": (B, W) f32}, both advanced IN PLACE: h = exp(log_a) h + scaled,
-    in f32."""
+    in f32. Under a tensor axis `tp` the cache and the output are this
+    rank's share of the width, as `apply_rglru`'s are; the gates read the
+    whole conv output, gathered over the axis (`TpGroup.all_gather`: no
+    backward at serving)."""
     gate = gelu_tanh((x1 @ p["w_branch_gate"]).float())
     u = x1 @ p["w_in"]
+    if tp is not None:
+        p = _rank_share(p, cfg, tp)
     u, conv_state = apply_conv1d(p["conv"], u, cache["conv"])
-    log_a, scaled = _gates(p, u)
+    u_all = None if tp is None else tp.all_gather(u, u.dim() - 1)
+    log_a, scaled = _gates(p, u, u_all)
     h = torch.exp(log_a[:, 0]) * cache["h"] + scaled[:, 0]    # (B, W)
     y = (h[:, None] * gate).to(x1.dtype)
     cache["conv"].copy_(conv_state)

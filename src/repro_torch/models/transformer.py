@@ -160,6 +160,13 @@ class RunSettings:
     # (`models/moe.py`); it must be the axis that splits the experts,
     # `tp_axis` ("model")
     ep_axis: Optional[str] = None
+    # serving weights laid out fsdp (`launch/steps.py::_serve_fsdp`): the
+    # parameters' `LeafSpec` tree (`core/meshrun.py::wrap_specs`). Each
+    # layer's leaves, the embedding's and the head's are gathered over
+    # `dp_axes` just before their use and dropped after
+    # (`core/meshrun.py::fsdp_gather`). None: every leaf is the rank's
+    # whole share (one device, TP-only serving, the training engine)
+    fsdp_specs: Any = None
 
 
 # ====================================================================
@@ -261,19 +268,34 @@ def _kv_weights(p, cfg: ModelConfig, tp=None):
     return wk, wv, bk, bv, whole
 
 
-def _qkv(p, x, cfg: ModelConfig, positions, tp=None):
+def _qkv(p, x, cfg: ModelConfig, positions, tp=None, *,
+         whole_kv: bool = False):
     """q, k, v of x. Under a tensor axis `tp` the projections hold this
-    rank's heads (`_kv_weights` for kv heads the axis does not divide)."""
+    rank's heads (`_kv_weights` for kv heads the axis does not divide:
+    k and v keep only the heads this rank's queries read, or with
+    `whole_kv` every kv head, for a cache that holds them whole;
+    `_rank_kv` then picks the rank's)."""
     wk, wv, bk, bv, kv_whole = _kv_weights(p, cfg, tp)
     q, k, v = _proj(x, p["wq"]), _proj(x, wk), _proj(x, wv)
     if "bq" in p:
         q, k, v = q + p["bq"], k + bk, v + bv
-    if kv_whole:
+    if kv_whole and not whole_kv:
         k, v = _local_kv(k, v, cfg, tp)
     if cfg.use_rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _rank_kv(k, v, cfg: ModelConfig, tp):
+    """The kv heads this rank's queries read of k, v (B, S, H, D) that
+    hold every kv head (the axis does not divide them: a cache kept whole
+    on every rank, `parallel/sharding.py::cache_layout_specs`); k, v
+    themselves when they are already the rank's."""
+    if tp is None or k.shape[2] != cfg.num_kv_heads \
+            or cfg.num_kv_heads % tp.size == 0:
+        return k, v
+    return _local_kv(k, v, cfg, tp)
 
 
 def _local_kv(k, v, cfg: ModelConfig, tp):
@@ -318,10 +340,13 @@ def _mlp_sublayer(bdef: BlockDef, p, x, cfg: ModelConfig,
         m = _parallel_mlp(p["mlp"], h, cfg.act, cfg.mlp_glu, tp)
     else:
         s = settings or RunSettings()
+        # the router's statistics are summed over the dp axes only for
+        # aux losses someone reads (not at serving)
         m, moe_aux = apply_moe(
             p["moe"], h, MoESettings(cfg.moe_num_experts, cfg.moe_top_k,
                                      s.moe_capacity_factor, cfg.act),
-            mesh=s.mesh, ep_axis=s.ep_axis, dp_axes=s.dp_axes,
+            mesh=s.mesh, ep_axis=s.ep_axis,
+            dp_axes=s.dp_axes if aux is not None else (),
             tp_axis=s.tp_axis)
         if aux is not None:
             for k, v in moe_aux.items():
@@ -340,7 +365,7 @@ def _post_norm(mix, p, name: str, cfg: ModelConfig):
 
 def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
                 settings: RunSettings, *, positions=None, enc_kv=None,
-                aux: Optional[Dict] = None):
+                aux: Optional[Dict] = None, emit_cache: bool = False):
     """Full-sequence block. Returns (x, cache entry): (k, v) for an
     attention block, the encoder's (k, v) for a cross block,
     {"conv", "state"} for an ssm block, {"conv", "h"} for an rglru block.
@@ -356,7 +381,10 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
     region too), an ssm block its SSM heads (`models/mamba2.py`), an
     rglru block its share of the width (`models/rglru.py`); the dense
     MLP and shared expert are column- then row-parallel, and the MoE FFN
-    runs this rank's experts."""
+    runs this rank's experts. A block whose kv heads the axis does not
+    divide attends with the rank's (`_rank_kv`); with `emit_cache`
+    (serving) an attention block returns them all as its cache entry,
+    which every rank holds whole, as a cross block always does."""
     tp = tp_group(settings)
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     if tp is not None:
@@ -366,14 +394,12 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
         # no RoPE, no mask, no window, no softcap
         if tp is not None:
             enc_kv = tp.enter(enc_kv)
-        wk, wv, _, _, kv_whole = _kv_weights(p["attn"], cfg, tp)
+        wk, wv = _kv_weights(p["attn"], cfg, tp)[:2]
         q = _proj(h, p["attn"]["wq"])
-        ek, ev = _proj(enc_kv, wk), _proj(enc_kv, wv)
-        if kv_whole:
-            ek, ev = _local_kv(ek, ev, cfg, tp)
-        o = attend(q, ek, ev, causal=False, chunk=settings.attn_chunk,
-                   impl=settings.attn_impl)
-        mix, cache = _out_proj(o, p["attn"]["wo"]), (ek, ev)
+        cache = ek, ev = _proj(enc_kv, wk), _proj(enc_kv, wv)
+        o = attend(q, *_rank_kv(ek, ev, cfg, tp), causal=False,
+                   chunk=settings.attn_chunk, impl=settings.attn_impl)
+        mix = _out_proj(o, p["attn"]["wo"])
     elif bdef.mixer == "ssm":
         mix, cache = m2.apply_mamba2(p["ssm"], h, cfg,
                                      impl=settings.attn_impl, tp=tp)
@@ -381,11 +407,15 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
         mix, cache = rg.apply_rglru(p["rglru"], h, cfg,
                                     impl=settings.attn_impl, tp=tp)
     else:
-        q, k, v = _qkv(p["attn"], h, cfg, positions, tp)
+        q, k, v = _qkv(p["attn"], h, cfg, positions, tp,
+                       whole_kv=emit_cache)
+        cache = (k, v)
+        if emit_cache:
+            k, v = _rank_kv(k, v, cfg, tp)
         o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
                    logit_cap=cfg.attn_logit_softcap,
                    chunk=settings.attn_chunk, impl=settings.attn_impl)
-        mix, cache = _out_proj(o, p["attn"]["wo"]), (k, v)
+        mix = _out_proj(o, p["attn"]["wo"])
     if tp is not None:
         mix = tp.reduce(mix)
     x = x + _post_norm(mix, p, "post_norm", cfg)
@@ -423,31 +453,48 @@ def apply_block_decode(bdef: BlockDef, p, x1, cache, pos,
     {"k", "v"}: (B, S, Hkv, D) for attn, the encoder's (B, Se, Hkv, D)
     for cross (read only), {"conv", "h"} for rglru, {"conv", "state"}
     for ssm. pos: 0-d tensor, or (B,) tensor of per-row positions.
-    Returns x1."""
+    Returns x1.
+
+    With a tensor axis in `settings` the parameters and the cache are
+    this rank's shares (`init_block_cache` with `tp_size`), as in
+    `apply_block`: the normed input enters the parallel region, the
+    mixer decodes this rank's heads (kv heads the axis does not divide
+    are held whole and the rank's picked, `_rank_kv`), its share of the
+    RG-LRU width or its SSM heads, and the output is summed over the
+    axis; the MLP, the shared expert and the MoE FFN run as in
+    `apply_block`."""
+    tp = tp_group(settings)
     h = rms_norm(x1, p["norm"]["scale"], cfg.norm_eps)
+    if tp is not None:
+        h = tp.enter(h)
     if bdef.mixer == "cross":
         q = _proj(h, p["attn"]["wq"])
         ck = cache["k"]
-        o = attend_decode(q, ck, cache["v"],
+        o = attend_decode(q, *_rank_kv(ck, cache["v"], cfg, tp),
                           torch.tensor(ck.shape[1] - 1, device=x1.device))
         mix = _out_proj(o, p["attn"]["wo"])
     elif bdef.mixer == "rglru":
-        mix = rg.decode_rglru(p["rglru"], h, cache, cfg)
+        mix = rg.decode_rglru(p["rglru"], h, cache, cfg, tp=tp)
     elif bdef.mixer == "ssm":
-        mix = m2.decode_mamba2(p["ssm"], h, cache, cfg)
+        mix = m2.decode_mamba2(p["ssm"], h, cache, cfg, tp=tp)
     else:
-        mix = _attn_decode(bdef, p["attn"], h, cache, pos, cfg)
+        mix = _attn_decode(bdef, p["attn"], h, cache, pos, cfg, tp)
+    if tp is not None:
+        mix = tp.reduce(mix)
     return _mlp_sublayer(bdef, p, x1 + _post_norm(mix, p, "post_norm", cfg),
-                         cfg)
+                         cfg, None, tp, settings)
 
 
-def _attn_decode(bdef: BlockDef, p, h, cache, pos, cfg: ModelConfig):
+def _attn_decode(bdef: BlockDef, p, h, cache, pos, cfg: ModelConfig,
+                 tp=None):
     """Self-attention of one decode token: writes its K/V into the
-    (B, S, Hkv, D) cache (a ring when S is the window) and attends."""
+    (B, S, Hkv, D) cache (a ring when S is the window) and attends.
+    Under a tensor axis `tp` the cache holds this rank's kv heads, or
+    all of them where the axis does not divide them (`_rank_kv`)."""
     ck, cv = cache["k"], cache["v"]
     S = ck.shape[1]
     ring = bool(bdef.window) and S == bdef.window
-    q, k, v = _qkv(p, h, cfg, _decode_positions(pos))
+    q, k, v = _qkv(p, h, cfg, _decode_positions(pos), tp, whole_kv=True)
     slot = torch.remainder(pos, S) if ring else pos
     if pos.dim() == 1:
         rows = torch.arange(h.shape[0], device=h.device)
@@ -457,8 +504,9 @@ def _attn_decode(bdef: BlockDef, p, h, cache, pos, cfg: ModelConfig):
         s = int(slot)
         ck[:, s:s + 1] = k.to(ck.dtype)
         cv[:, s:s + 1] = v.to(cv.dtype)
-    o = attend_decode(q, ck, cv, pos, window=bdef.window,
-                      logit_cap=cfg.attn_logit_softcap, ring=ring)
+    o = attend_decode(q, *_rank_kv(ck, cv, cfg, tp), pos,
+                      window=bdef.window, logit_cap=cfg.attn_logit_softcap,
+                      ring=ring)
     return _out_proj(o, p["wo"])
 
 
@@ -501,11 +549,18 @@ def apply_block_decode_paged(bdef: BlockDef, p, x1, pool, tables, pos,
 # ====================================================================
 
 def init_block_cache(bdef: BlockDef, cfg: ModelConfig, batch: int,
-                     seq_len: int, dtype, device, lead=()) -> Any:
+                     seq_len: int, dtype, device, lead=(),
+                     tp_size: int = 1) -> Any:
     """Zeroed cache entry for one block, with leading dims `lead`: K/V
     (a ring of `window` slots for a windowed layer; the encoder's length
     `cfg.encoder_seq_len` for cross), or the conv window in `dtype` and
-    the recurrent state in float32 whatever `dtype` is (rglru, ssm)."""
+    the recurrent state in float32 whatever `dtype` is (rglru, ssm).
+
+    `tp_size`: a rank's entry on a tensor axis of that many ranks
+    (`parallel/sharding.py::cache_layout_specs`): the kv heads it
+    divides split (else whole), the rank's share of the RG-LRU width,
+    and the rank's SSM heads, its conv window x of those heads beside
+    the whole B | C channels (`models/mamba2.py`)."""
     lead = tuple(lead)
 
     def zeros(shape, dt=dtype):
@@ -516,28 +571,36 @@ def init_block_cache(bdef: BlockDef, cfg: ModelConfig, batch: int,
             S = cfg.encoder_seq_len
         else:
             S = min(bdef.window, seq_len) if bdef.window else seq_len
-        shape = (batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+        kv = cfg.num_kv_heads
+        if kv % tp_size == 0:
+            kv //= tp_size
+        shape = (batch, S, kv, cfg.resolved_head_dim)
         return {"k": zeros(shape), "v": zeros(shape)}
     if bdef.mixer == "rglru":
-        W = cfg.rglru_width or cfg.d_model
+        W = rg.tp_width(cfg.rglru_width or cfg.d_model, tp_size)
         return {"conv": zeros((batch, cfg.rglru_conv_width - 1, W)),
                 "h": zeros((batch, W), torch.float32)}
     if bdef.mixer == "ssm":
         dims = m2.ssm_dims(cfg)
-        return {"conv": zeros((batch, cfg.ssm_conv_width - 1,
-                               dims.conv_channels)),
-                "state": zeros((batch, dims.n_heads, dims.head_dim,
-                                dims.state), torch.float32)}
+        heads = m2.tp_heads(dims, tp_size)
+        channels = heads * dims.head_dim + 2 * dims.state
+        return {"conv": zeros((batch, cfg.ssm_conv_width - 1, channels)),
+                "state": zeros((batch, heads, dims.head_dim, dims.state),
+                               torch.float32)}
     raise ValueError(bdef.mixer)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               dtype=torch.bfloat16, device="meta") -> List[Dict[str, Any]]:
+               dtype=torch.bfloat16, device="meta",
+               tp_size: int = 1) -> List[Dict[str, Any]]:
     """The decode cache of `cfg` (the JAX package's `init_cache`): per
     segment {f"b{i}": entry}, each leaf stacked over the segment's
     repeats (`init_block_cache` with lead (n_repeat,)). On the meta
-    device by default: shapes and dtypes only, as the dry run needs."""
+    device by default: shapes and dtypes only, as the dry run needs.
+    On a mesh `batch` is the rank's rows and `tp_size` its tensor axis:
+    the rank's share (`init_block_cache`)."""
     return [{f"b{i}": init_block_cache(bdef, cfg, batch, seq_len, dtype,
-                                       device, lead=(seg.n_repeat,))
+                                       device, lead=(seg.n_repeat,),
+                                       tp_size=tp_size)
              for i, bdef in enumerate(seg.blocks)}
             for seg in build_segments(cfg)]

@@ -40,6 +40,10 @@ The Functions a tensor-parallel block runs (Megatron's pair, on the
   * `TpGroup.sum(t)`: all-reduce forward and backward: a value every
     rank's outputs read (the sum of squares of mamba2's gated norm over
     the whole inner width);
+  * `TpGroup.all_gather(t, dim)`: all-gather with no backward, for
+    serving: the logits' vocab columns (a prefill or decode step returns
+    the whole logits on every rank, as GSPMD's output is logically
+    whole) and the RG-LRU gates' input at decode;
   * `vocab_parallel_ce`: the mean cross-entropy over a vocab split across
     the axis (global max, sum of exponentials and picked logit by
     all-reduce);
@@ -69,6 +73,10 @@ returns a tensor of its result's shape (on the meta device, one that
 holds nothing) and counts what `Comm` would; the dry run
 (`launch/dryrun.py`) sees a production mesh from one rank through it.
 No module of the port calls `torch.distributed` but this one.
+
+At serving (`models/api.py`) fsdp weights are gathered a layer at a
+time before the layer runs, one `all_gather` over the dp axes a leaf
+(`core/meshrun.py::fsdp_gather`), and dropped after.
 
 The fsdp gather of a leaf's "data"-sharded dim before a stage runs and
 the reduce-scatter of its gradient after the stage's backward are
@@ -748,6 +756,12 @@ class TpGroup:
         out = _GatherToTp.apply(t, dim, self)
         _mark_replicated(out)
         return out
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of `t` (this rank's slice along `dim`) on every
+        rank, with no backward: serving's gathers (the logits' vocab
+        columns, the RG-LRU gates' input at decode)."""
+        return self.comm.all_gather_cat(t, self.axes, dim)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """`t` summed over the axis, where every rank's outputs read the

@@ -9,7 +9,8 @@ Layout (production mesh ("pod",)"data","model"):
     (ZeRO-1 falls out: moments inherit the parameter specs);
   * kv heads / odd dims   — over "model" only when divisible (qwen kv=2,
     rg-lru kv=1 stay replicated; gemma2 kv=16 shards);
-  * decode caches         — batch over dp when divisible.
+  * decode caches         — batch over dp when divisible
+    (`cache_layout_specs`: the port's, a rank's share of each block).
 
 A spec is a tuple with one entry per dimension: None, an axis name or a
 tuple of axis names (`parallel/mesh.py`). Trees are the port's nested
@@ -253,6 +254,46 @@ def cache_specs(cache_shapes, mesh, axes: MeshAxes):
     return map_with_path(one, cache_shapes)
 
 
+def cache_layout_specs(cache_shapes, mesh, axes: MeshAxes):
+    """The port's layout of a decode cache on `mesh` (the global shapes
+    of `init_cache`: per segment {f"b{i}": entry}, leaves (L, B, ...)):
+    the rows over the dp axes where they divide, and what a rank's block
+    decodes over the tensor axis: K/V (L, B, S, KV, hd) by kv heads where
+    the axis divides them, else whole on every rank (`cache_specs`'
+    replication); the RG-LRU conv window (L, B, K-1, W) and state
+    (L, B, W) by the width; the SSM state (L, B, H, P, N) by heads and
+    its conv window (L, B, K-1, x | B | C) by part, the rank's x channels
+    beside the whole B | C (`layout_specs`' conv weight). JAX's
+    `cache_specs` keeps the recurrent caches whole over the tensor axis;
+    the port's blocks decode a rank's share of them. `core/meshrun.py::
+    cut_leaf` / `gather_leaf` cut and gather a cache by these specs."""
+    tp = axes.tp
+
+    def rows(leaf):
+        return _axis_if(leaf.shape[1], axes.dp, mesh)
+
+    def entry(e):
+        if "state" in e:                                   # ssm
+            n, c = e["state"].shape[-1], e["conv"].shape[-1]
+            return {
+                "conv": (None, rows(e["conv"]), None,
+                         Concat(((c - 2 * n, tp), (2 * n, None)))
+                         if _axis_if(e["state"].shape[2], tp, mesh)
+                         else None),
+                "state": (None, rows(e["state"]),
+                          _axis_if(e["state"].shape[2], tp, mesh), None,
+                          None)}
+        if "h" in e:                                       # rglru
+            w = _axis_if(e["h"].shape[-1], tp, mesh)
+            return {"conv": (None, rows(e["conv"]), None, w),
+                    "h": (None, rows(e["h"]), w)}
+        kv = _axis_if(e["k"].shape[3], tp, mesh)           # attn, cross
+        return {k: (None, rows(e[k]), None, kv, None) for k in ("k", "v")}
+
+    return [{bid: entry(e) for bid, e in seg.items()}
+            for seg in cache_shapes]
+
+
 def spec_tree_for_optstate(param_spec_tree, opt_shapes):
     """Optimizer state specs: step replicated; moments inherit the
     parameter specs (=> ZeRO: moments are dp+tp sharded exactly like the
@@ -264,6 +305,7 @@ def spec_tree_for_optstate(param_spec_tree, opt_shapes):
     return OptState(step=(), mu=mu, nu=nu)
 
 
-__all__ = ["Concat", "MeshAxes", "batch_specs", "cache_specs",
+__all__ = ["Concat", "MeshAxes", "batch_specs", "cache_layout_specs",
+           "cache_specs",
            "default_axes", "layout_specs", "map_with_path", "param_specs",
            "spec_tree_for_optstate"]

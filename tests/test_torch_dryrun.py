@@ -15,9 +15,13 @@ dryrun}`), on the CPU, against the JAX package's:
     compiled one-device step: within 1%. No product is counted
     differently by the two (the products and their count are equal), so
     the test holds the dot counts equal too;
+  * a serving rank of a 1x2 and a 2x1 gloo CPU mesh: its meta trace
+    over a `DryComm` equals its CPU step in FLOPs, HBM bytes, products,
+    kernel calls and collectives;
   * one production cell's `run_cell` on the meta device: status ok, the
-    JAX record's keys, within 30 s; a serving cell and a cell whose mesh
-    the port refuses are skipped with their reasons.
+    JAX record's keys, within 30 s; serving cells on the production
+    mesh: status ok; the cells `cell_skip_reason` skips and a cell whose
+    mesh the port refuses are skipped with their reasons.
 """
 import os
 import time
@@ -206,14 +210,109 @@ def test_serve_builders_count_the_same_on_meta_and_the_cpu(kind):
     assert got["meta"].hbm_bytes == got["cpu"].hbm_bytes
 
 
-def test_serve_builders_refuse_a_mesh():
-    from repro_torch.launch.mesh import make_test_mesh, mesh_axes
-    mesh = make_test_mesh((1, 2), dry=True)
-    with pytest.raises(NotImplementedError):
-        steps.make_prefill_step(build_model(resolve_config("small-gpt")),
-                                mesh, mesh_axes(mesh),
-                                ShapeConfig("s", 64, 2, "prefill"),
-                                device="meta")
+# ----------------------------------- a serving rank, meta against gloo
+
+SERVE_ARCHS = ("small-gpt", "mamba2-2.7b:reduced")
+SERVE_MESHES = {"tp": (1, 2), "dp": (2, 1)}
+
+
+def _serve_counts(mesh, dmesh) -> dict:
+    """Each serving step of this rank counted twice: run for real on the
+    CPU over gloo (`mesh`), and traced on the meta device over a
+    `DryComm` of the same rank (`dmesh`); with each mesh's collectives
+    over the step."""
+    from repro_torch.parallel.sharding import MeshAxes
+    out = {}
+    for arch in SERVE_ARCHS:
+        api = build_model(resolve_config(arch))
+        for kind in ("prefill", "decode"):
+            shape = ShapeConfig("s", 32, 2, kind)
+            rec = {}
+            for dev, m in (("cpu", mesh), ("meta", dmesh)):
+                b = steps.make_step(api, m, MeshAxes(), shape,
+                                    attn_impl="torch", device=dev)
+                before = m.comm.op_counts()
+                ana = _count(b, dev)
+                after = m.comm.op_counts()
+                rec[dev] = {
+                    "flops": ana.flops, "hbm": ana.hbm_bytes,
+                    "dots": ana.dot_count, "kernels": ana.kernels,
+                    "fsdp": b.fsdp,
+                    "comm": {k: [v[0] - before.get(k, [0, 0])[0],
+                                 v[1] - before.get(k, [0, 0])[1]]
+                             for k, v in after.items()}}
+            out[(arch, kind)] = rec
+    return out
+
+
+def _serve_worker(rank, port, d):
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.comm import init_mesh
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2)
+        out = {}
+        for name, shape in SERVE_MESHES.items():
+            mesh = init_mesh(shape, ("data", "model"), device="cpu")
+            dmesh = make_test_mesh(shape, rank=rank, dry=True)
+            budget = steps.SERVE_TP_ONLY_BUDGET
+            if name == "dp":
+                steps.SERVE_TP_ONLY_BUDGET = -1      # fsdp: the gathers
+            try:
+                out[name] = _serve_counts(mesh, dmesh)
+            finally:
+                steps.SERVE_TP_ONLY_BUDGET = budget
+        dist.destroy_process_group()
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+@pytest.fixture(scope="module")
+def serve_counts(tmp_path_factory):
+    import pickle
+    import socket
+    import torch.multiprocessing as mp
+    d = str(tmp_path_factory.mktemp("serve_counts"))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    mp.start_processes(_serve_worker, args=(port, d), nprocs=2,
+                       start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+        assert "error" not in ranks[r], ranks[r]["error"]
+    return ranks
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("mesh", sorted(SERVE_MESHES))
+def test_a_serving_rank_counts_the_same_on_meta_and_gloo(serve_counts,
+                                                        mesh, kind):
+    """A serving rank of a 1x2 (TP-only) and a 2x1 (fsdp) mesh: its meta
+    trace over a `DryComm` counts what its CPU step over gloo counts, in
+    FLOPs, HBM bytes, products and kernel calls, and the collectives
+    (calls and bytes by op and group size) are the same."""
+    for res in serve_counts:
+        for arch in SERVE_ARCHS:
+            rec = res[mesh][(arch, kind)]
+            cpu, meta = rec["cpu"], rec["meta"]
+            assert meta["flops"] == cpu["flops"] > 0
+            assert meta["hbm"] == cpu["hbm"] > 0
+            assert meta["dots"] == cpu["dots"]
+            assert meta["kernels"] == cpu["kernels"]
+            assert meta["comm"] == cpu["comm"]
+            assert meta["fsdp"] == cpu["fsdp"] == (mesh == "dp")
+            # tp: the blocks' all-reduces and the logits' gather; dp
+            # under fsdp: the weights' gathers
+            assert any(v[0] for v in cpu["comm"].values())
 
 
 @pytest.mark.parametrize("arch", ["small-gpt", "small-bert",
@@ -281,15 +380,46 @@ def test_a_production_cell_runs_on_meta(tmp_path):
     assert os.path.exists(tmp_path / "qwen2_5-3b__train_4k__single.json")
 
 
-def test_a_serving_cell_on_the_mesh_is_skipped_with_its_reason(tmp_path):
+def test_serving_cells_run_on_the_mesh_and_skips_keep_their_reason(
+        tmp_path):
+    """qwen2.5-3b's prefill_32k and decode_32k on the production mesh:
+    status ok, TP-only (3 GB of bf16 weights over 16 ranks is under the
+    budget, as JAX decides), the tensor axis's collectives; hubert's
+    decode_32k is still skipped with `cell_skip_reason`'s words."""
     from repro_torch.launch import dryrun
-    rec = dryrun.run_cell("qwen2.5-3b", "decode_32k", multi_pod=False,
-                          out_dir=str(tmp_path), force=True)
-    assert rec["status"] == "skip" and "one device" in rec["skip_reason"]
+    for shape in ("prefill_32k", "decode_32k"):
+        rec = dryrun.run_cell("qwen2.5-3b", shape, multi_pod=False,
+                              out_dir=str(tmp_path), force=True)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert JAX_RECORD_KEYS <= set(rec)
+        assert rec["fsdp"] is False and rec["kind"] == shape.split("_")[0]
+        assert "all-reduce" in rec["hlo"]["collectives"]
+        assert "all-gather" in rec["hlo"]["collectives"]    # the logits
+        assert rec["memory_analysis"]["peak_device_bytes"] > 0
     rec = dryrun.run_cell("hubert-xlarge", "decode_32k", multi_pod=False,
                           out_dir=str(tmp_path), force=True)
+    assert rec["status"] == "skip"
     assert rec["skip_reason"] == cell_skip_reason(
         get_config("hubert-xlarge"), SHAPES["decode_32k"])
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("mamba2-2.7b", "long_500k"), ("recurrentgemma-9b", "decode_32k"),
+    ("gemma2-27b", "prefill_32k"), ("qwen2.5-3b", "long_500k")])
+def test_a_serving_cell_of_each_kind_on_the_mesh(tmp_path, arch, shape):
+    """mamba2's SSM heads and recurrentgemma's RG-LRU width split over
+    the 16 "model" ranks at 524k and 32k tokens, gemma2's window ring at
+    prefill; full attention at 524k keeps `cell_skip_reason`'s skip."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                          out_dir=str(tmp_path), force=True)
+    reason = cell_skip_reason(get_config(arch), SHAPES[shape])
+    if reason is not None:
+        assert rec["status"] == "skip" and rec["skip_reason"] == reason
+        return
+    assert rec["status"] == "ok", rec.get("traceback")
+    rl = rec["roofline"]
+    assert rl["flops_per_device"] > 0 and rl["t_collective_s"] > 0
 
 
 def test_a_mesh_the_port_refuses_is_skipped_with_its_reason(tmp_path):
