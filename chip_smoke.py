@@ -69,7 +69,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      cross-attention over the encoder states, its encoder reading the
      decoder's tokens; random weights from seed 0) through
      `TrainSession`, sgd (lr 3e-4, no momentum), B=4 (T5 B=8), S=1024, 3
-     steps on the flash kernel, kept and spooled (fs, raw). The checks of
+     steps for GPT and 2 for BERT and T5 (3 before the named tiers below)
+     on the flash kernel, kept and spooled (fs, raw). The checks of
      phase 5 with the stage count from the engine, which must be 6 (GPT,
      BERT) and 8 (T5: enc_embed, 2 encoder layers, enc_final, embed, 2
      decoder layers, head), and the flash kernel launched once per
@@ -83,7 +84,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
      bitwise to each other, its spool losses within 1e-3 relative of the
      unchunked spool run's, a head stage that stores less than the
      (B, S, V) f32 logits; its stored bytes and both device peaks
-     printed beside the unchunked run's;
+     printed beside the unchunked run's. And the GPT under the memory
+     tiers' names inside a layer (the jit name, 2 steps, step 1 under the
+     op counter, step 2 timed outside it): (i) "save_names" of "attn_out" and "mlp_hidden" (layers
+     recomputed, the two kept on the card) and (ii) "offload" of
+     "blk_in", "attn_out" and "mlp_hidden" (the three in pinned host
+     memory between a layer's forward and its recompute): losses and
+     parameters bitwise equal to the keep run's after 2 steps, 4 flash
+     launches a step (the recompute takes the held "attn_out" and
+     launches no attention forward), (i)'s tracked footprint at backward
+     begin remat's plus the named tensors' 1.342 GB, (ii)'s keep's less
+     the layer stages' saved bytes, 1.610 GB off the card in step 1 by
+     the op counter and its device peak below keep's; every pool lease back,
+     nothing stored;
   9. checkpoints and tracing on the paper's GPT (gpt-h8192-l4, phase 8's
      spool settings: B=4, S=1024, sgd, fs, raw, seed 0): a traced run of
      2 steps checkpointing every 2 steps prints each step's `obs_*`
@@ -195,7 +208,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      periods: three layer stages of four self-attention blocks and a
      cross block over 1024 patch embeddings; random bf16 weights from
      seed 0, batches of `data.pipeline.vision_batches`), sgd (lr 3e-4,
-     no momentum), B=1, S=1024, 3 steps: (a) kept and spooled (fs, raw)
+     no momentum), B=1, S=1024, 2 steps (3 before phase 8's named tiers):
+     (a) kept and spooled (fs, raw)
      through `drained_spool_policy`, with phase 13's checks (6 stages:
      vlm_enc, embed, 3 layers, head; 15 flash launches a step); (b) the
      jit name under `activation_policy="offload"`, the host tier (layers
@@ -259,7 +273,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
      block on the flash kernel, against the 2 layers in sequence on the
      rank; (g) the compressed and the exact mean over a ("data",) mesh
      of 2 of each rank's stage gradients from (f) (one gpt-h8192 layer's),
-     then 16 error-feedback rounds. (b)'s losses within 1e-4 of (a)'s,
+     then 16 error-feedback rounds; and (a) again, in this process, on
+     the host tier of "moe_hidden" (the experts' hidden, (16, 1024,
+     8192) f32, in pinned host memory between the layer's forward and its
+     recompute), step 1 under the op counter, step 2 timed outside it:
+     losses and parameters bitwise equal to (a)'s, 536.9 MB held a step
+     and off the card in step 1 by the op counter, 2 flash launches a
+     step (the recompute launches the kernel again), every pool lease
+     back; then (a) under remat, bitwise equal to (a), its device peak
+     and step 2 printed beside the tier's. (b)'s losses within 1e-4 of (a)'s,
      and its first-step gradients within 1e-4 of (a)'s shards of them
      (at 65536 seeded positions a leaf, over (a)'s largest magnitude);
      (c) = (b), (d) = (b) and (e2) = (e) bitwise in losses and
@@ -379,6 +401,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -497,6 +520,15 @@ TRAIN_LAYERS, RG_LAYERS = 16, 8
 PAPER_HIDDEN, PAPER_LAYERS, PAPER_SEQ, PAPER_BATCH = 8192, 4, 1024, 4
 T5_BATCH = 8
 PAPER_LR = 3e-4
+# phase 8's BERT and T5 run PAPER_SHORT_STEPS steps (3 before the named
+# tiers, to make room for them: T5's third spooled step took 9.8 s, the
+# named tiers' three runs 10.6 s on an H100 80GB HBM3 at 700 W); the GPT
+# keeps TRAIN_STEPS, which phases 9 and 10 resume and replay
+PAPER_SHORT_STEPS = 2
+# phase 8's named tiers: the GPT's runs (i) "save_names" of NAMED_GPT and
+# (ii) "offload" of "blk_in" and NAMED_GPT, NAMED_STEPS steps each, held
+# to its keep run after as many steps
+NAMED_GPT, NAMED_STEPS = ("attn_out", "mlp_hidden"), 2
 # the idle cap of the spool's aligned pool in every spool run but phase
 # 10's striped one (which keeps the default): three
 # blobs of the largest class (a recurrentgemma-9b stage, ~1.5 GB, is in
@@ -587,7 +619,7 @@ REG_FLASH_CASES = [
 # phase 14: llama-3.2-vision-90b at full width cut to VISION_LAYERS
 # layers, three periods: three layer stages of four self-attention
 # blocks and a cross block each; random bf16 weights from seed 0, sgd at
-# PAPER_LR, S=REG_SEQ, TRAIN_STEPS steps. A layer stage saves 1.69 GB a
+# PAPER_LR, S=REG_SEQ, VISION_STEPS steps. A layer stage saves 1.69 GB a
 # sample (the exact counter). With two stages the device peak sits in
 # the last backward stage, beside the whole stacked gradient tree, where
 # keep and spool hold the same tensors (72.67 GB both at 10 layers and
@@ -600,6 +632,8 @@ REG_FLASH_CASES = [
 VISION_ARCH = "llama-3.2-vision-90b"
 VISION_LAYERS = 15
 VISION_BATCH = 1
+# its training steps (TRAIN_STEPS, 3, before phase 8's named tiers)
+VISION_STEPS = 2
 VISION_PROMPT, VISION_NEW, VISION_PAGE = 48, 16, 16
 # phase 3 adds the vision layers' flash instances at that batch: causal
 # self-attention and the cross-attention over the 1024 patch embeddings
@@ -1394,7 +1428,8 @@ def drained_adaptive_policy():
 
 def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
               batch=1, keep_params=None, snap=None, settings=None,
-              stage_bytes=None, engine="staged", steps=TRAIN_STEPS):
+              stage_bytes=None, engine="staged", steps=TRAIN_STEPS,
+              counter=None):
     """TrainSession steps at B=batch, S=seq on the card. Every kernel's
     launch count is set to 0 just before the steps and read just after.
     Returns (losses, params, reports, {kernel: launches}, run peak, stage
@@ -1409,7 +1444,10 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
     A spool run prints its pool's stats; `steps` steps (TRAIN_STEPS by
     default). `engine="jit"` runs the jit
     name (policy None, its placement from `settings`); its reports carry
-    the loss, the tracked footprints and the device peak."""
+    the loss, the tracked footprints and the device peak, and at its end
+    every pool lease has come back. Given an `OpCounter` as `counter`, the
+    first step runs under it and the later ones outside it, so their
+    step times carry none of its cost."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.data.pipeline import (embedding_batches,
                                            encoder_decoder_batches,
@@ -1454,6 +1492,10 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
             snap["params"] = [t.detach().cpu()
                               for t in tree_flatten(sess.params)[0]]
             reports += sess.run(steps - 2).reports
+        elif counter is not None:
+            with counter:
+                reports = sess.run(1).reports
+            reports += sess.run(steps - 1).reports
         else:
             reports = sess.run(steps).reports
         launches = {k.__name__: k.launches for k in kernels}
@@ -1464,8 +1506,12 @@ def train_run(cfg, policy, io, label, *, optimizer="adamw", seq=TRAIN_SEQ,
             # the jit name's placement stores nothing: no record, no byte
             st = sess.engine.spool.stats
             check(sess.spool is None and st.bytes_offloaded == 0
-                  and sess.engine.spool.backend.stats.bytes_written == 0,
+                  and sess.engine.spool.backend.stats.bytes_written == 0
+                  and sess.engine.spool.live_keys() == [],
                   f"{label}: the jit run stored {st.bytes_offloaded} bytes")
+            leased = sess.engine.spool.pool._leased_bytes
+            check(leased == 0, f"{label}: {leased} bytes of the pool still "
+                  f"leased after the run")
         leaves = tree_flatten(sess.params)[0]
         if keep_params is None:
             params = [t.detach().cpu() for t in leaves]
@@ -1672,21 +1718,124 @@ def paper_train_phase(smi):
     the keep run's parameters after step 2."""
     from repro_torch.configs import bert, gpt, t5
     from repro_torch.optim.optimizers import sgd
-    out = {}
+    out, keep = {}, {}
     for fam, make in (("gpt", gpt), ("bert", bert), ("t5", t5)):
         cfg = make(PAPER_HIDDEN, PAPER_LAYERS)
         encdec = cfg.family == "encdec"
         # each decoder layer of T5 attends twice: to itself, then to enc
         per_step = cfg.num_layers + 2 * cfg.num_decoder_layers
+        steps = TRAIN_STEPS if fam == "gpt" else PAPER_SHORT_STEPS
         out[fam] = keep_vs_spool(
             cfg, PAPER_SEQ, sgd(PAPER_LR),
-            {"flash_attention": per_step * TRAIN_STEPS, "ssd_scan": 0,
+            {"flash_attention": per_step * steps, "ssd_scan": 0,
              "rglru_scan": 0}, smi,
             batch=T5_BATCH if encdec else PAPER_BATCH,
-            stages=PAPER_LAYERS + 2 + 2 * encdec, hold=fam == "gpt")
+            stages=PAPER_LAYERS + 2 + 2 * encdec, hold=fam == "gpt",
+            keep_out=keep if fam == "gpt" else None, steps=steps)
+        if fam == "gpt":
+            # the named tiers, held to the keep run after NAMED_STEPS
+            out["named"] = named_tier_runs(smi, keep, out["gpt"][4])
+        keep.clear()
     out["gpt"], *gpt_run = out["gpt"]
     ce_chunk_runs(smi, gpt_run[0], *gpt_run[4:])
     return out, gpt_run[:4]
+
+
+def named_tier_runs(smi, keep, keep_params2):
+    """Phase 8's named tiers on the paper's GPT (gpt-h8192-l4, bf16, sgd,
+    B=PAPER_BATCH, S=PAPER_SEQ, the jit name, the flash kernel),
+    NAMED_STEPS steps each: (i) "save_names" of NAMED_GPT (layers
+    recomputed, "attn_out" and "mlp_hidden" kept on the card) and (ii)
+    "offload" of "blk_in" and NAMED_GPT (the three in pinned host memory
+    between a layer's forward and its recompute), each with its first
+    step under the op counter and its step 2 timed outside it, beside
+    keep's step 2. `keep`: the keep run's losses, reports and device peak;
+    `keep_params2`: its parameters after step 2 (host copy). Losses and
+    parameters bitwise equal to keep's; one flash launch per layer per
+    step (the recompute takes the held "attn_out"); (i)'s tracked
+    footprint at backward begin remat's (keep's less the layer stages'
+    saved bytes, plus their inputs) plus the named tensors' bytes; (ii)'s
+    the keep's less the layer stages' saved bytes, the named tensors and
+    the inputs off the card in step 1 by the op counter, and its device
+    peak below
+    keep's. Returns {run: flash launches}."""
+    from repro_torch.configs import gpt
+    from repro_torch.launch.op_stats import OpCounter
+    from repro_torch.models.transformer import RunSettings
+    from repro_torch.optim.optimizers import sgd
+    t0 = time.perf_counter()
+    cfg = gpt(PAPER_HIDDEN, PAPER_LAYERS)
+    L, tokens, es = PAPER_LAYERS, PAPER_BATCH * PAPER_SEQ, 2
+    attn_out = tokens * cfg.num_heads * cfg.resolved_head_dim * es
+    hidden = tokens * cfg.d_ff * es
+    blk_in = tokens * cfg.d_model * es
+    rk = keep["reports"][:NAMED_STEPS]
+    out = {}
+    for run, policy, names in (
+            ("i", "save_names", NAMED_GPT),
+            ("ii", "offload", ("blk_in",) + NAMED_GPT)):
+        label = f"{cfg.name} {policy} {'+'.join(names)}"
+        settings = RunSettings(attn_impl="cuda", attn_chunk=256,
+                               param_dtype=cfg.dtype, device="cuda",
+                               activation_policy=policy,
+                               offload_names=names)
+        counter = OpCounter("cuda")
+        t_run = time.perf_counter()
+        losses, same, reps, launches, peak, _ = train_run(
+            cfg, None, None, label, optimizer=sgd(PAPER_LR), seq=PAPER_SEQ,
+            batch=PAPER_BATCH, keep_params=keep_params2, settings=settings,
+            engine="jit", steps=NAMED_STEPS, counter=counter)
+        host = counter.analysis().host_bytes
+        peak_k = max(r.extra["device_peak_bytes"] for r in rk)
+        print(f"train: {label} (jit name), B={PAPER_BATCH}: losses {losses} "
+              f"(keep {keep['losses'][:NAMED_STEPS]}); step times "
+              f"{[round(r.step_time, 4) for r in reps]} s, step 1 under "
+              f"the op counter (keep "
+              f"{[round(r.step_time, 4) for r in rk]}, no counter); step "
+              f"2 {reps[1].step_time:.4f} s against keep's "
+              f"{rk[1].step_time:.4f} s, neither counted; tracked at "
+              f"backward begin {[r.backward_begin_bytes for r in reps]} "
+              f"(keep {[r.backward_begin_bytes for r in rk]}, its layers' "
+              f"saved {[r.extra['layer_saved_bytes'] for r in rk]}); named "
+              f"bytes a step {[r.extra['named_bytes'] for r in reps]}; off "
+              f"the card by the op counter {host / 1e9:.4f} GB in step 1; "
+              f"device peak {peak / 1e9:.2f} GB (keep "
+              f"{peak_k / 1e9:.2f}); launches {launches}; "
+              f"{time.perf_counter() - t_run:.1f}s on {smi}")
+        check(losses == keep["losses"][:NAMED_STEPS], f"{label}: losses "
+              f"{losses} differ from keep's {keep['losses']}")
+        check(same, f"{label}: parameters differ from keep's after "
+              f"{NAMED_STEPS} steps")
+        check(launches["flash_attention"] == L * NAMED_STEPS,
+              f"{label}: {launches['flash_attention']} flash launches, "
+              f"want {L * NAMED_STEPS} (no attention forward in the "
+              f"recompute)")
+        for r, k in zip(reps, rk):
+            check(r.extra["named_bytes"] == L * (attn_out + hidden),
+                  f"{label} step {r.step}: named bytes "
+                  f"{r.extra['named_bytes']}, want {L * (attn_out + hidden)}")
+            less = k.backward_begin_bytes - k.extra["layer_saved_bytes"]
+            want = (less + L * (blk_in + attn_out + hidden)
+                    if policy == "save_names" else less)
+            check(r.backward_begin_bytes == want, f"{label} step {r.step}: "
+                  f"tracked {r.backward_begin_bytes} at backward begin, "
+                  f"want {want}")
+        if policy == "offload":
+            want = L * (blk_in + attn_out + hidden)
+            check(host == want, f"{label}: {host} bytes off the card in "
+                  f"step 1 by the op counter, want {want}")
+            check(peak < peak_k, f"{label}: device peak {peak} not below "
+                  f"keep's {peak_k}")
+        else:
+            check(host == 0, f"{label}: {host} bytes off the card")
+        out[run] = launches["flash_attention"]
+        del counter
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  named tiers: (i) and (ii) bitwise equal to keep after "
+          f"{NAMED_STEPS} steps, {L} flash launches a step; "
+          f"{time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def ce_chunk_runs(smi, plain_losses, plain_bytes, plain_peaks):
@@ -2863,9 +3012,10 @@ def vision_phase(smi):
     keep = {}
     train_launches = keep_vs_spool(
         cfg, REG_SEQ, sgd(PAPER_LR),
-        {k: n * TRAIN_STEPS for k, n in per_step.items()}, smi, batch=B,
+        {k: n * VISION_STEPS for k, n in per_step.items()}, smi, batch=B,
         stages=VISION_LAYERS // cfg.cross_attn_period + 3, label=label,
-        policy=drained_spool_policy(), act_lower=True, keep_out=keep)
+        policy=drained_spool_policy(), act_lower=True, keep_out=keep,
+        steps=VISION_STEPS)
     t_a = time.perf_counter()
     print(f"  (a) keep vs spool: {t_a - t0:.1f}s")
 
@@ -2877,7 +3027,7 @@ def vision_phase(smi):
     lh, same, rh, nh, peak_h, _ = train_run(
         cfg, None, None, f"{label} host tier", optimizer=sgd(PAPER_LR),
         seq=REG_SEQ, batch=B, keep_params=keep.pop("params"),
-        settings=tier, engine="jit")
+        settings=tier, engine="jit", steps=VISION_STEPS)
     rk, peak_k = keep["reports"], keep["peak"]
     act_k = max(r.peak_activation_bytes for r in rk)
     act_h = max(r.peak_activation_bytes for r in rh)
@@ -2898,8 +3048,8 @@ def vision_phase(smi):
           f"{keep['losses']}")
     check(same, "host tier parameters differ from keep's")
     for name, n in per_step.items():
-        check(nh[name] == 2 * n * TRAIN_STEPS, f"host tier {name} launches "
-              f"{nh[name]}, want {2 * n * TRAIN_STEPS}")
+        check(nh[name] == 2 * n * VISION_STEPS, f"host tier {name} launches "
+              f"{nh[name]}, want {2 * n * VISION_STEPS}")
     for r, k in zip(rh, rk):
         check(r.backward_begin_bytes == k.backward_begin_bytes
               - k.extra["layer_saved_bytes"], f"host tier step {r.step}: "
@@ -3930,14 +4080,17 @@ def sample_errors(grads, want):
 
 
 def moe_run(cfg, label, work, *, steps, mesh=None, offload=False,
-            ep_axis=None, cap=1.25, probe=None):
+            ep_axis=None, cap=1.25, probe=None, tier=None):
     """One MoE training run of phase 16 (or of `--kimi-4card`) in this
     process: one device (`mesh` None) or this rank of `mesh`, sgd, B=1,
     S=PAPER_SEQ, the jit engine keeping every layer, or with `offload`
     spooling them into `work/label` (a directory every rank shares);
     `ep_axis` and `cap` the expert-parallel path's axis and capacity
     factor; `probe(grads, params)` is called on the first step's
-    gradients, before its update, and its result returned. Flash launches
+    gradients, before its update, and its result returned. `tier`: a
+    memory tier's (activation_policy, offload_names) in place of keep,
+    its first step under the op counter (`host`: the bytes it counts off
+    the card) and the later ones outside it. Flash launches
     and the rows the capacity drops (`moe.dropped_rows`) are set to 0
     just before the steps and read just after. Returns losses, launches,
     dropped rows, the tracked and device peaks, the shard totals over the
@@ -3954,10 +4107,13 @@ def moe_run(cfg, label, work, *, steps, mesh=None, offload=False,
     io = SpoolIoConfig(backend="fs", directory=d, codec="raw",
                        pool_bytes=POOL_BYTES,
                        host_offload="activations") if offload else None
+    from repro_torch.launch.op_stats import OpCounter
+    policy, names = tier or ("spool" if offload else "keep", ("blk_in",))
     settings = RunSettings(
         attn_impl="cuda", attn_chunk=256, param_dtype=cfg.dtype,
-        device="cuda", activation_policy="spool" if offload else "keep",
+        device="cuda", activation_policy=policy, offload_names=names,
         ep_axis=ep_axis, moe_capacity_factor=cap)
+    counter = OpCounter("cuda") if tier else contextlib.nullcontext()
     opt, probed = sgd(PAPER_LR), []
     if probe is not None:
         base = opt.update
@@ -3977,7 +4133,10 @@ def moe_run(cfg, label, work, *, steps, mesh=None, offload=False,
         flash_attention.launches = 0
         moe.dropped_rows.reset()
         t0 = time.perf_counter()
-        reps = sess.run(steps).reports
+        with counter:
+            reps = sess.run(1 if tier else steps).reports
+        if tier:
+            reps += sess.run(steps - 1).reports
         out = {"s": time.perf_counter() - t0,
                "launches": flash_attention.launches,
                "dropped": moe.dropped_rows.read(),
@@ -3994,7 +4153,10 @@ def moe_run(cfg, label, work, *, steps, mesh=None, offload=False,
                            if mesh is not None else None),
                "fp": bit_fingerprint(tree_flatten(sess.params)[0]),
                "steps_s": [r.step_time for r in reps],
-               "probe": probed[0] if probed else None}
+               "probe": probed[0] if probed else None,
+               "host": counter.analysis().host_bytes if tier else 0,
+               "named": [r.extra.get("named_bytes", 0) for r in reps],
+               "leased": sess.engine.spool.pool._leased_bytes}
     finally:
         sess.close()      # on a mesh: after every rank's spool closed
         del sess
@@ -4004,6 +4166,55 @@ def moe_run(cfg, label, work, *, steps, mesh=None, offload=False,
         out["left"] = sorted(os.listdir(d))
     out["wall"] = time.perf_counter() - t_wall
     return out
+
+
+def moe_named_check(a, named, smi):
+    """Phase 16's (a) on the host tier of "moe_hidden": losses and
+    parameters (fingerprint) bitwise equal to (a)'s; the expert buffer's
+    hidden, (E, C, d_ff) f32 with C the dropless capacity B x S, held
+    each step and off the card in step 1 by the op counter (step 2 runs
+    outside the counter, timed beside (a)'s step 2); the flash kernel
+    twice a layer a step ("attn_out" is not held, so the recompute
+    launches it); every pool lease back. `named["remat"]`: (a) under remat, bitwise equal
+    to (a) too, its device peak and step 2 printed beside the tier's."""
+    cfg = moe_cfg(MOE_ARCH, MOE_LAYERS, "float32")
+    remat = named["remat"]
+    per_step = MOE_LAYERS * cfg.moe_num_experts * PAPER_SEQ * cfg.d_ff * 4
+    print(f"  (a) on the host tier of moe_hidden: losses {named['losses']} "
+          f"(keep {a['losses']}); named bytes a step {named['named']}; off "
+          f"the card by the op counter {named['host'] / 1e6:.1f} MB in "
+          f"step 1; device peak {named['device'] / 1e9:.2f} GB "
+          f"(keep {a['device'] / 1e9:.2f}); tracked "
+          f"{named['tracked'] / 1e9:.3f} GB (keep {a['tracked'] / 1e9:.3f}); "
+          f"flash launches "
+          f"{named['launches']}; steps "
+          f"{[round(x, 4) for x in named['steps_s']]} s, step 1 under the "
+          f"op counter (keep {[round(x, 4) for x in a['steps_s']]}, no "
+          f"counter); step 2 {named['steps_s'][1]:.4f} s against keep's "
+          f"{a['steps_s'][1]:.4f} s, neither counted; {named['wall']:.1f}s "
+          f"on {smi}")
+    print(f"  (a) under remat: losses {remat['losses']}; device peak "
+          f"{remat['device'] / 1e9:.3f} GB (moe_hidden "
+          f"{named['device'] / 1e9:.3f}, keep {a['device'] / 1e9:.3f}); "
+          f"tracked {remat['tracked'] / 1e9:.3f} GB; flash launches "
+          f"{remat['launches']}; step 2 {remat['steps_s'][1]:.4f} s, not "
+          f"counted; {remat['wall']:.1f}s on {smi}")
+    check(remat["losses"] == a["losses"] and remat["fp"] == a["fp"],
+          f"moe (a) remat: losses {remat['losses']} or parameters differ "
+          f"from (a)'s {a['losses']}")
+    check(named["losses"] == a["losses"] and named["fp"] == a["fp"],
+          f"moe (a) moe_hidden: losses {named['losses']} or parameters "
+          f"differ from (a)'s {a['losses']}")
+    check(named["named"] == [per_step] * MOE_STEPS
+          and named["host"] == per_step,
+          f"moe (a) moe_hidden: {named['named']} named bytes a step, "
+          f"{named['host']} off the card, want {per_step} a step")
+    check(named["launches"] == 2 * MOE_LAYERS * MOE_STEPS,
+          f"moe (a) moe_hidden: flash launches {named['launches']}, want "
+          f"{2 * MOE_LAYERS * MOE_STEPS}")
+    check(named["leased"] == 0 and named["dropped"] == 0,
+          f"moe (a) moe_hidden: {named['leased']} bytes still leased, "
+          f"{named['dropped']} rows dropped")
 
 
 def pipe_run(pmesh):
@@ -4179,11 +4390,18 @@ def moe_phase(gen, peaks, smi):
         a = moe_run(cfg, "a", work, steps=MOE_STEPS, probe=shard_samples)
         with open(os.path.join(work, "a_grads.pkl"), "wb") as f:
             pickle.dump(a["probe"], f)
-        return a
+        # (a) again on the host tier of "moe_hidden" (phase 8's named
+        # tiers on an MoE model)
+        named = moe_run(cfg, "a_named", work, steps=MOE_STEPS,
+                        tier=("offload", ("moe_hidden",)))
+        # and under remat, the peak and the step the tier is read beside
+        named["remat"] = moe_run(cfg, "a_remat", work, steps=MOE_STEPS,
+                                 tier=("remat", ("blk_in",)))
+        return a, named
 
     # the ranks start (CUDA, the process group) while (a) runs here; they
     # allocate once (a) has ended
-    a, ranks, ranks_s = spawn_ranks(_moe_rank, work, one_device)
+    (a, named), ranks, ranks_s = spawn_ranks(_moe_rank, work, one_device)
     shutil.rmtree(work, ignore_errors=True)
     runs = ("b", "c", "d", "e", "e2")
     print(f"moe: {MOE_ARCH} at {MOE_LAYERS} layer(s), f32, sgd, B=1, "
@@ -4223,6 +4441,7 @@ def moe_phase(gen, peaks, smi):
     n = MOE_LAYERS * MOE_STEPS
     check(a["launches"] == n, f"moe (a): flash launches {a['launches']}")
     check(a["dropped"] == 0, f"moe (a): {a['dropped']} rows dropped")
+    moe_named_check(a, named, smi)
     for r, res in enumerate(ranks):
         for run in runs:
             x = res[run]
@@ -4290,6 +4509,7 @@ def moe_phase(gen, peaks, smi):
           f"phase {dt:.1f}s on {smi}")
     return flash, {"moe_rank_run": ranks[0]["b"]["launches"],
                    "moe_one_device_run": a["launches"],
+                   "moe_hidden_run": named["launches"],
                    "pipeline_rank_run": ranks[0]["f"]["launches"],
                    "phase_s": dt}
 
@@ -5358,7 +5578,7 @@ def main():
         "launches_per_qwen_serve_run": reg_serve_launches[
             "flash_attention"],
         # phase 14: llama-3.2-vision-90b at 15 layers (12 self, 3 cross):
-        # the spool run (3 steps), the host tier's run (each attention
+        # the spool run (2 steps), the host tier's run (each attention
         # block again in its layer's recompute) and one prefill
         "launches_per_vision_train_run": vision["train"],
         "launches_per_vision_host_tier_run": vision["host_tier"],
@@ -5396,6 +5616,14 @@ def main():
         "launches_per_moe_rank_run": moe_launches["moe_rank_run"],
         "launches_per_moe_one_device_run": moe_launches[
             "moe_one_device_run"],
+        # phase 16: (a) on the host tier of "moe_hidden" (the recompute
+        # launches the kernel again); phase 8: gpt-h8192-l4 under
+        # "save_names" (i) and "offload" (ii) of "attn_out" (the
+        # recompute takes the held output: one launch a layer a step)
+        "launches_per_moe_hidden_run": moe_launches["moe_hidden_run"],
+        "launches_per_gpt_save_names_run": paper_launches["named"]["i"],
+        "launches_per_gpt_named_offload_run": paper_launches["named"][
+            "ii"],
         "launches_per_pipeline_stage_run": moe_launches[
             "pipeline_rank_run"],
         **{f"{pre}_{k}": (moe_flash[label]["bound"][0] if k == "bound_ms"

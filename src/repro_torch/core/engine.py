@@ -100,21 +100,27 @@ recompute on one rank would run collectives the others do not.
 The host tier (`core/policies.py::HostTierPolicy`, the jit name's
 `activation_policy` "offload" / "offload_ssd"): layer stages are
 recomputed, and after each one's forward its input (the previous
-stage's output, a graph leaf) is copied on a side stream into a buffer
-of the spool's CUDA-registered pool (`io/bufpool.py`), and its device
-storage is freed once the copy has landed (`record_stream`, then the
-storage shrunk to 0 bytes). Backward copies it back one stage ahead, on
-the `reuse_horizon` walk, before the stage's recompute. No spool record,
-backend or file is involved; the `MemoryTracker` counts an input off
-the device while it lies on the host.
+stage's output, a graph leaf; "blk_in") and the tensors its forward
+marked of the policy's names ("attn_out", "mlp_hidden", "moe_hidden";
+`models/marks.py`) are copied on a side stream into buffers of the
+spool's CUDA-registered pool (`io/bufpool.py`), and their device
+storages are freed once the copies have landed (`record_stream`, then
+the storage shrunk to 0 bytes). Backward copies them back one stage
+ahead, on the `reuse_horizon` walk, before the stage's recompute. No
+spool record, backend or file is involved; the `MemoryTracker` counts
+an input off the device while it lies on the host. Under
+`SaveNamesPolicy` ("save_names") the marked tensors stay on the device,
+tracked. Either way the recompute runs under `marks.replaying`: each
+mark answers with its held tensor (with "attn_out" held no attention
+forward runs), and every value is the one keep computes.
 
 Counting (`launch/op_stats.py`): the host tier and the spool's offloads
 report the bytes they move off the device to the active op counter, and
 the host tier's copies run uncounted. On the meta device (a dry run,
 `launch/steps.py`) nothing can be copied: the host tier and the spool
 record the bytes and keep the tensor (the counter still sees the host
-tier's input leave the device and come back), and the loss is not read.
-No other device takes this path.
+tier's tensors leave the device and come back), and the loss is not
+read. No other device takes this path.
 """
 from __future__ import annotations
 
@@ -140,6 +146,7 @@ from repro_torch.launch import op_stats
 from repro_torch.models.api import (MOE_LB_COEF, MOE_Z_COEF, ModelApi,
                                     ce_chunk_applies, ce_loss, chunked_ce,
                                     embed_in, encoder_config, head)
+from repro_torch.models import marks
 from repro_torch.models.layers import dtype_of, rms_norm
 from repro_torch.models.transformer import RunSettings, apply_block, layer
 from repro_torch.parallel.comm import (saved_replicated, tp_group,
@@ -179,19 +186,20 @@ def _nbytes(tensors) -> int:
 
 
 class _HostTier:
-    """The host tier's stage inputs, by stage index: each one's device
-    storage copied into a lease of the spool's pool and freed (`offload`),
-    copied back into a storage of its size one stage ahead (`prefetch`),
-    and waited for before its stage's recompute (`restore`). Bytes move
-    through uint8 aliases of the storage, whose version counters are
-    their own: the stage input, a graph leaf, keeps its."""
+    """The host tier's tensors, by stage index (a stage's input and the
+    tensors marked inside it): each one's device storage copied into a
+    lease of the spool's pool and freed (`offload`), copied back into a
+    storage of its size one stage ahead (`prefetch`), and waited for
+    before its stage's recompute (`restore`). Bytes move through uint8
+    aliases of the storage, whose version counters are their own: the
+    stage input, a graph leaf, keeps its."""
 
     def __init__(self, pool, tracker: MemoryTracker, device):
         self.pool, self.tracker, self.device = pool, tracker, device
         self.cuda = device.type == "cuda"
         self.dry = device.type == "meta"
         self._stream = None
-        self._held: Dict[int, Dict[str, Any]] = {}
+        self._held: Dict[int, List[Dict[str, Any]]] = {}
         self._done: list = []       # (copy-back event, lease) of restored
 
     def _side(self):
@@ -246,43 +254,48 @@ class _HostTier:
                     src.record_stream(self._stream)  # freed after the copy
                 del src
             t.untyped_storage().resize_(0)
+        # a tensor the tracker never counted (one marked inside a stage)
+        # frees nothing here
         self.tracker.free(key, tag=f"host:{key[0]}")
-        self._held[si] = {"t": t, "lease": lease, "host": host, "key": key,
-                          "n": n, "event": event, "back": False}
+        self._held.setdefault(si, []).append(
+            {"t": t, "lease": lease, "host": host, "key": key, "n": n,
+             "event": event, "back": False})
 
     def prefetch(self, si: int) -> None:
-        rec = self._held.get(si)
-        if rec is None or rec["back"]:
-            return
-        if not self.dry:
-            rec["t"].untyped_storage().resize_(rec["n"])
-            # the side stream is in order: the copy out has landed first
-            with op_stats.uncounted():
-                rec["event"] = self._copy(self._bytes(rec["t"]),
-                                          rec["host"])
-        op_stats.moved_back(rec["t"])
-        rec["back"] = True
-        self.tracker.alloc(rec["key"], rec["n"],
-                           tag=f"host_back:{rec['key'][0]}")
+        for rec in self._held.get(si, ()):
+            if rec["back"]:
+                continue
+            if not self.dry:
+                rec["t"].untyped_storage().resize_(rec["n"])
+                # the side stream is in order: the copy out has landed
+                with op_stats.uncounted():
+                    rec["event"] = self._copy(self._bytes(rec["t"]),
+                                              rec["host"])
+            op_stats.moved_back(rec["t"])
+            rec["back"] = True
+            self.tracker.alloc(rec["key"], rec["n"],
+                               tag=f"host_back:{rec['key'][0]}")
 
     def restore(self, si: int) -> None:
-        """Stage si's input back on the device: the card's stream waits
-        for the copy. The record lets go of the input, which its stage's
-        backward frees; its lease waits for `clear`."""
+        """Stage si's tensors back on the device: the card's stream
+        waits for their copies. The records let go of the tensors, which
+        the stage's backward frees; their leases wait for `clear`."""
         if si not in self._held:
             return
         self.prefetch(si)
-        rec = self._held.pop(si)
-        if rec["event"] is not None:
-            torch.cuda.current_stream(self.device).wait_event(rec["event"])
-        self._done.append((rec["event"], rec["lease"]))
+        for rec in self._held.pop(si):
+            if rec["event"] is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    rec["event"])
+            self._done.append((rec["event"], rec["lease"]))
 
     def clear(self) -> None:
         """Release every lease once its copies have run: the end of a
-        microbatch's backward, or one that raised (an input still on the
+        microbatch's backward, or one that raised (a tensor still on the
         host is lost with its step)."""
         for event, lease in self._done + [
-                (r["event"], r["lease"]) for r in self._held.values()]:
+                (r["event"], r["lease"]) for recs in self._held.values()
+                for r in recs]:
             if event is not None:
                 event.synchronize()
             if lease is not None:
@@ -368,8 +381,14 @@ class StagedEngine:
         self._aux_seed = (float(self._mesh.dp_size) if self._mesh is not None
                           else 1.0)
         self._stages = self._build_stages()
+        # the names a recomputed stage holds from its forward to its
+        # recompute (`models/marks.py`), and the host tier, where they or
+        # the stages' inputs wait in pinned host memory
+        self._inner = tuple(self.policy.inner_names)
         self._host = (_HostTier(self.spool.pool, self.tracker, self.device)
-                      if self.policy.host_inputs else None)
+                      if self.policy.host_inputs or (
+                          self._inner and self.policy.inner_on_host)
+                      else None)
         self._step = 0
         self._closed = False
         self._flags: list = []          # the current stage's (`_hooks`)
@@ -557,6 +576,10 @@ class StagedEngine:
         if self._host is not None:
             # layer stages whose input went to the host tier
             counts["stages_host"] = 0
+        if self._inner:
+            # the bytes of the tensors marked inside the layer stages
+            # that were held (on the host or on the device)
+            counts["named_bytes"] = 0
         loss_total, bwd_begin, dev_bwd_begin = 0.0, 0, 0
         sink = self.settings.opt_sink
         # the tap's step: the optimizer's, as the JAX hooks key it
@@ -644,6 +667,7 @@ class StagedEngine:
         ins: Dict[int, torch.Tensor] = {}      # stage input (graph leaf)
         outs: Dict[int, torch.Tensor] = {}     # stage output (graph root)
         cells: Dict[int, list] = {}            # fetched saved tensors
+        named: Dict[int, list] = {}            # held (name, tensor, key)
         terms: Dict[int, torch.Tensor] = {}    # MoE aux terms (graph roots)
         auxes = []                             # every aux stage's values
         recompute = set()
@@ -655,7 +679,7 @@ class StagedEngine:
             args = self._args_for(stage, batch, x, enc)
             tin = time.perf_counter()
             if self.policy.recomputes(stage.role):
-                with torch.no_grad():
+                with torch.no_grad(), marks.recording(self._inner) as held:
                     out = stage.fn(stage_params[si], *args)
                 if stage.aux:
                     out, aux = out
@@ -665,9 +689,13 @@ class StagedEngine:
                                    tag=f"ckpt:{tx.key(si)}")
                 counts["stages_recomputed"] += 1
                 saved = None
-                if self._host is not None and _HostTier.movable(ins.get(si)):
+                if self.policy.host_inputs and \
+                        _HostTier.movable(ins.get(si)):
                     self._host.offload(si, ins[si], (tx.key(si), "k"))
                     counts["stages_host"] += 1
+                if held:
+                    named[si] = self._hold(tx, si, held, counts)
+                del held
             else:
                 saved, cell = [], []
                 flags = self._flags = []
@@ -746,7 +774,7 @@ class StagedEngine:
         try:
             self._backward(tx, batch, stage_params, params, grads, ins,
                            outs, cells, terms, recompute, enc, counts, tap,
-                           weight, bridged, step_key)
+                           weight, bridged, step_key, named)
             if bridged:
                 # the replicas in other processes have read every stage
                 # this rank stored for them
@@ -761,12 +789,13 @@ class StagedEngine:
         return loss_value, bwd_begin, dev_bwd_begin
 
     def _backward(self, tx, batch, stage_params, params, grads, ins, outs,
-                  cells, terms, recompute, enc, counts, tap, weight=1.0,
-                  bridged=(), step_key=None):
+                  cells, terms, recompute, enc, counts, tap, weight,
+                  bridged, step_key, named):
         """The stages' backward in reverse order, prefetching one stage
         ahead; accumulates into `grads` (`_run_microbatch`). `weight`
         seeds the loss's gradient; `bridged` stages come back through
-        the mesh hooks (key `step_key`)."""
+        the mesh hooks (key `step_key`); `named` holds the tensors each
+        recomputed stage's forward held (`_hold`)."""
         carry = torch.full((), weight, dtype=torch.float32,
                            device=self.device)
         enc_grad = None          # d loss / d enc, summed over cross stages
@@ -784,10 +813,17 @@ class StagedEngine:
             if si in recompute:
                 if host is not None:
                     host.restore(si)
+                held = named.pop(si, [])
+                keys = [key for _, _, key in held]
+                # the recompute takes each tensor out of this list, and
+                # its graph frees it once the backward has read it
+                held = [(n, t) for n, t, _ in held]
                 got = self._recompute(stage, stage_params[si], batch, ins,
-                                      enc, si, inputs, carry)
+                                      enc, si, inputs, carry, held)
                 self.tracker.free((tx.key(si), "k"),
                                   tag=f"ckpt_done:{tx.key(si)}")
+                for key in keys:
+                    self.tracker.free(key, tag=f"named_done:{key[0]}")
             elif si in bridged:
                 # on a mesh a fetch that fails raises: a recompute on one
                 # rank would run collectives the others do not
@@ -905,12 +941,36 @@ class StagedEngine:
             return (x, enc)
         return (x,)
 
-    def _recompute(self, stage, p, batch, ins, enc, si, inputs, carry):
+    def _hold(self, tx, si, held, counts) -> list:
+        """Keep the tensors a recomputed stage's forward marked (`held`,
+        (name, tensor) in order) until its recompute: on the device,
+        tracked, or in pinned host memory through the host tier (a
+        tensor that is not its whole storage copied first, so that
+        freeing it frees its bytes). Returns (name, tensor, key) each."""
+        out = []
+        for j, (name, t) in enumerate(held):
+            key = (tx.key(si), f"n{j}")
+            n = t.numel() * t.element_size()
+            if self.policy.inner_on_host:
+                if not _HostTier.movable(t):
+                    t = t.clone()
+                self._host.offload(si, t, key)
+            else:
+                self.tracker.alloc(key, n, tag=f"named:{key[0]}")
+            counts["named_bytes"] += n
+            out.append((name, t, key))
+        return out
+
+    def _recompute(self, stage, p, batch, ins, enc, si, inputs, carry,
+                   held=None):
         """The stage's forward again, under autograd, then its backward
-        (RecomputePolicy stages, and the fetch-failure fallback)."""
+        (RecomputePolicy stages, and the fetch-failure fallback). `held`:
+        the (name, tensor) its forward held, which its marks take out of
+        the list in place of computing them (`models/marks.py`)."""
         with torch.enable_grad():
-            out = stage.fn(p, *self._args_for(stage, batch, ins.get(si),
-                                              enc))
+            with marks.replaying(self._inner, [] if held is None else held):
+                out = stage.fn(p, *self._args_for(stage, batch, ins.get(si),
+                                                  enc))
             term = None
             if stage.aux:
                 out, aux = out

@@ -25,13 +25,22 @@ profiling).
 
 The jit engine of the port is the staged engine with its placement set
 by `RunSettings.activation_policy` (`policy_for_jit`): "keep" is
-KeepPolicy, "remat" RecomputePolicy, "offload" and "offload_ssd" (the
+KeepPolicy, "remat" RecomputePolicy, and "spool" `LayerSpoolPolicy`
+(layer stages through the spool, decoder layers as
+`RunSettings.spool_stages` marks them). "offload" and "offload_ssd" (the
 JAX package's one host-memory tier, `repro/models/transformer.py:
-130-146`) `HostTierPolicy` (recomputed layers whose inputs, JAX's
-"blk_in", wait in pinned host memory), "save_names" of "blk_in"
-RecomputePolicy (a layer's input kept on the device is what it keeps),
-and "spool" `LayerSpoolPolicy` (layer stages through the spool, decoder
-layers as `RunSettings.spool_stages` marks them).
+131-155`, `save_and_offload_only_these_names`) are `HostTierPolicy`,
+and "save_names" (`save_only_these_names`) `SaveNamesPolicy`: layer
+stages are recomputed, and of `RunSettings.offload_names` (the names
+the layers mark, `OFFLOAD_NAMES`) the host tier moves a layer stage's
+input ("blk_in") and the tensors marked inside the stage ("attn_out",
+"mlp_hidden", "moe_hidden"; `models/marks.py`) into pinned host memory
+until the stage's backward, while "save_names" keeps the inner ones on
+the device (a stage's input is held on the device by every recomputed
+stage, so "save_names" of "blk_in" alone is RecomputePolicy). The
+recompute then takes each held tensor where it would compute it: with
+"attn_out" held it runs no attention forward. No name is remat; a name
+outside `OFFLOAD_NAMES` is refused, where JAX ignores it.
 """
 from __future__ import annotations
 
@@ -52,9 +61,9 @@ RECOMPUTABLE_ROLES = ("layer", "enc_layer")
 JIT_ACTIVATION_POLICIES = ("keep", "remat", "offload", "offload_ssd",
                            "save_names", "spool")
 
-#: the tensors the JAX package's layers name for its memory tiers; the
-#: port places "blk_in" (a layer stage's input) only
-OFFLOAD_NAMES = ("blk_in",)
+#: the tensors the layers name for the memory tiers: a layer stage's
+#: input, then the marks inside a stage (`models/marks.py`)
+OFFLOAD_NAMES = ("blk_in", "attn_out", "mlp_hidden", "moe_hidden")
 
 
 def _scale_bandwidths(bw: BandwidthLike, scale: float) -> BandwidthLike:
@@ -120,6 +129,12 @@ class OffloadPolicy:
     #: until its backward (the host tier)
     host_inputs = False
 
+    #: the names marked inside a recomputed stage that the engine holds
+    #: from its forward to its recompute: in pinned host memory with
+    #: `inner_on_host`, else on the device
+    inner_names: Tuple[str, ...] = ()
+    inner_on_host = False
+
     def recomputes(self, role: str) -> bool:
         """True if this stage's backward should re-run forward instead of
         saving residuals."""
@@ -173,15 +188,49 @@ class RecomputePolicy(OffloadPolicy):
         return False
 
 
+def _inner(names: Sequence[str]) -> Tuple[str, ...]:
+    """The names of `names` marked inside a stage, checked."""
+    names = tuple(names)
+    bad = [n for n in names if n not in OFFLOAD_NAMES]
+    if bad:
+        raise ValueError(
+            f"offload_names {names!r}: the layers mark {OFFLOAD_NAMES!r}, "
+            f"not {bad!r} (JAX ignores an unknown name, and the tier "
+            "then holds nothing it names)")
+    return tuple(n for n in names if n != "blk_in")
+
+
 class HostTierPolicy(RecomputePolicy):
     """The JAX jit engine's host-memory tier ("offload" /
     "offload_ssd"): layer stages are recomputed, as under
-    RecomputePolicy, and each one's input waits in pinned host memory
-    from its forward to its backward instead of on the device (no spool
-    record, backend or file)."""
+    RecomputePolicy, and of `names` each stage's input ("blk_in") and
+    the tensors marked inside it wait in pinned host memory from its
+    forward to its backward instead of on the device (no spool record,
+    backend or file)."""
 
     strategy = "offload"
-    host_inputs = True
+    inner_on_host = True
+
+    def __init__(self, names: Sequence[str] = ("blk_in",)):
+        self.inner_names = _inner(names)
+        self.host_inputs = "blk_in" in names
+
+    def __repr__(self):
+        return (f"HostTierPolicy(host_inputs={self.host_inputs}, "
+                f"inner_names={self.inner_names})")
+
+
+class SaveNamesPolicy(RecomputePolicy):
+    """The JAX jit engine's "save_names": layer stages are recomputed,
+    and the tensors of `names` marked inside a stage stay on the device
+    from its forward to its recompute, which takes them in place of
+    computing them."""
+
+    def __init__(self, names: Sequence[str]):
+        self.inner_names = _inner(names)
+
+    def __repr__(self):
+        return f"SaveNamesPolicy(inner_names={self.inner_names})"
 
 
 class LayerSpoolPolicy(OffloadPolicy):
@@ -217,22 +266,19 @@ def policy_for_jit(settings, decoder_layers: Sequence[str] = ()
                    ) -> OffloadPolicy:
     """The staged engine's policy for a jit-engine RunSettings: "keep" ->
     KeepPolicy, "remat" -> RecomputePolicy, "offload" / "offload_ssd" ->
-    HostTierPolicy, "save_names" -> RecomputePolicy, "spool" ->
+    HostTierPolicy of `settings.offload_names`, "save_names" ->
+    SaveNamesPolicy of the names inside a stage, "spool" ->
     LayerSpoolPolicy over `decoder_layers` (the decoder layer stage names
-    in order). The tiers take `settings.offload_names` of "blk_in" only:
-    the other names the JAX layers mark lie inside a stage."""
+    in order). A tier with no name to hold is RecomputePolicy (remat); a
+    name outside OFFLOAD_NAMES raises."""
     name = settings.activation_policy
     if name in ("offload", "offload_ssd", "save_names"):
         names = tuple(settings.offload_names)
-        if any(n not in OFFLOAD_NAMES for n in names):
-            raise ValueError(
-                f"offload_names {names!r}: the port places "
-                f"{OFFLOAD_NAMES!r} only; saving a tensor inside a layer "
-                "without recomputing its producers needs selective "
-                "recompute within a stage (ROADMAP §1 item 16)")
-        # no name: nothing saved or moved, which is remat
-        return HostTierPolicy() if names and name != "save_names" \
-            else RecomputePolicy()
+        inner = _inner(names)
+        if name == "save_names":
+            # every recomputed stage keeps its input on the device
+            return SaveNamesPolicy(inner) if inner else RecomputePolicy()
+        return HostTierPolicy(names) if names else RecomputePolicy()
     if name == "keep":
         return KeepPolicy()
     if name == "remat":

@@ -16,8 +16,8 @@ A CPU tensor goes to the plain reference (`kernels/ref.py`); a CUDA
 tensor launches the kernel or raises. On the card the launch sits in a
 `torch.autograd.Function` mirroring the JAX package's
 `kernels/ops.py::flash_attention` (`custom_vjp`): forward saves only q, k
-and v, and backward is the VJP of `attention_reference` recomputed under
-`enable_grad` (the JAX package has no backward kernel either; the FA-2
+and v, and backward, `flash_attention_vjp`, is the VJP of
+`attention_reference` recomputed under `enable_grad` (the JAX package has no backward kernel either; the FA-2
 dq and dk/dv kernel pair is later speed work). `flash_attention.launches`
 counts kernel launches (and nothing else), so a run can show that its
 path went through the kernel. `work` is the one count of a call's work
@@ -180,11 +180,22 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            o = attention_reference(*qkv, **ctx.opts)
-            dq, dk, dv = torch.autograd.grad(o, qkv, g)
-        return dq, dk, dv, None, None, None
+        return (*flash_attention_vjp(ctx.saved_tensors, g, **ctx.opts),
+                None, None, None)
+
+
+def flash_attention_vjp(qkv, g, *, causal, window, logit_cap):
+    """The kernel's backward: (dq, dk, dv) of `flash_attention` at
+    qkv = (q, k, v) against the output's gradient `g`, the VJP of
+    `attention_reference` recomputed under `enable_grad`. The one
+    backward of every node whose output is the kernel's: the kernel's
+    own autograd Function and a held "attn_out"
+    (`models/attention.py::attend_marked`)."""
+    xs = [t.detach().requires_grad_(True) for t in qkv]
+    with torch.enable_grad():
+        o = attention_reference(*xs, causal=causal, window=window,
+                                logit_cap=logit_cap)
+        return torch.autograd.grad(o, xs, g)
 
 
 def _aligned16(t) -> bool:

@@ -5,13 +5,16 @@ attention against full or ring caches, and the `attend` dispatcher.
 
 `impl="torch"` runs the plain path; `impl="cuda"` runs the hand-written
 flash-attention kernel (`repro_torch.kernels.flash_attention`), the
-port's counterpart of the JAX package's `impl="pallas"`.
+port's counterpart of the JAX package's `impl="pallas"`. `attend_marked`
+is `attend` with its output marked for the memory tiers ("attn_out").
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_vjp)
+from repro_torch.models import marks
 from repro_torch.models.layers import softcap
 
 NEG_INF = -1.0e30
@@ -142,6 +145,22 @@ def attend_decode(q, cache_k, cache_v, pos, *, window: int = 0,
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+def _attend_torch(q, k, v, *, causal: bool, window: int = 0,
+                  logit_cap: float = 0.0, q_offset=0, kv_len=None,
+                  chunk: int = 1024):
+    """The plain path: blocked for a causal or windowed square
+    attention longer than a chunk, else the chunked scan."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if ((causal or window) and Sq == Skv and kv_len is None
+            and isinstance(q_offset, int) and q_offset == 0
+            and Sq > chunk):
+        return attend_blocked(q, k, v, causal=causal, window=window,
+                              logit_cap=logit_cap, chunk=chunk)
+    return attend_chunked(q, k, v, causal=causal, window=window,
+                          logit_cap=logit_cap, q_offset=q_offset,
+                          kv_len=kv_len, chunk=chunk)
+
+
 def attend(q, k, v, *, causal: bool, window: int = 0,
            logit_cap: float = 0.0, q_offset=0, kv_len=None,
            chunk: int = 1024, impl: str = "torch"):
@@ -149,15 +168,9 @@ def attend(q, k, v, *, causal: bool, window: int = 0,
     "cuda" (the flash-attention kernel; on CPU tensors its plain
     reference)."""
     if impl == "torch":
-        Sq, Skv = q.shape[1], k.shape[1]
-        if ((causal or window) and Sq == Skv and kv_len is None
-                and isinstance(q_offset, int) and q_offset == 0
-                and Sq > chunk):
-            return attend_blocked(q, k, v, causal=causal, window=window,
-                                  logit_cap=logit_cap, chunk=chunk)
-        return attend_chunked(q, k, v, causal=causal, window=window,
-                              logit_cap=logit_cap, q_offset=q_offset,
-                              kv_len=kv_len, chunk=chunk)
+        return _attend_torch(q, k, v, causal=causal, window=window,
+                             logit_cap=logit_cap, q_offset=q_offset,
+                             kv_len=kv_len, chunk=chunk)
     if impl == "cuda":
         if kv_len is not None or not (isinstance(q_offset, int)
                                       and q_offset == 0):
@@ -166,3 +179,27 @@ def attend(q, k, v, *, causal: bool, window: int = 0,
         return flash_attention(q, k, v, causal=causal, window=window,
                                logit_cap=logit_cap)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def attend_marked(name: str, q, k, v, *, causal: bool, window: int = 0,
+                  logit_cap: float = 0.0, chunk: int = 1024,
+                  impl: str = "torch"):
+    """`attend` of a full-sequence block, its output marked `name` for
+    the memory tiers (`models/marks.py::mark_output`). Where a tier
+    replays the held output, no attention forward runs in the recompute,
+    and the held output's backward is the one `attend` would have had:
+    for "cuda" the kernel's (`kernels/flash_attention.py::
+    flash_attention_vjp`), for "torch" the plain path's, each of which
+    runs the plain forward again inside the VJP."""
+    opts = dict(causal=causal, window=window, logit_cap=logit_cap)
+    if impl == "cuda":
+        def vjp(qkv, g):
+            return flash_attention_vjp(qkv, g, **opts)
+    else:
+        def vjp(qkv, g):
+            return marks.vjp_of(
+                lambda *a: _attend_torch(*a, chunk=chunk, **opts), qkv, g)
+
+    return marks.mark_output(
+        name, lambda *a: attend(*a, chunk=chunk, impl=impl, **opts), vjp,
+        q, k, v)

@@ -21,6 +21,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.marks import checkpoint_name
+
 Params = Dict[str, Any]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -257,6 +259,8 @@ def apply_mlp(p: Params, x, act: str = "gelu", glu: bool = False):
     f = activation(act)
     h = x @ p["w_in"]
     h = f(x @ p["w_gate"]) * h if glu else f(h)
+    # the memory tiers' "mlp_hidden" (`models/marks.py`)
+    h = checkpoint_name(h, "mlp_hidden")
     return h @ p["w_out"]
 
 

@@ -52,6 +52,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import activation, dense_init
+from repro_torch.models.marks import checkpoint_name
 from repro_torch.parallel.comm import axis_group, sum_over
 
 
@@ -133,7 +134,9 @@ def _expert_ffn(buf, w_in, w_gate, w_out, act_name):
     expert."""
     h = torch.bmm(buf, w_in)
     g = torch.bmm(buf, w_gate)
-    return torch.bmm(activation(act_name)(g) * h, w_out)
+    # the memory tiers' "moe_hidden" (`models/marks.py`)
+    h = checkpoint_name(activation(act_name)(g) * h, "moe_hidden")
+    return torch.bmm(h, w_out)
 
 
 class _DropCount:

@@ -24,7 +24,9 @@ and recurrent state for rglru and ssm).
 
 A block's aux losses (MoE: `moe_lb`, `moe_z`) are added into the `aux`
 dict a caller passes to `apply_block`; decode steps drop them, as JAX's
-do.
+do. Self-attention's output ("attn_out"), the MLP's hidden ("mlp_hidden")
+and the experts' hidden ("moe_hidden") carry the memory tiers' marks
+(`models/marks.py`), where the JAX layers carry theirs.
 
 Decode steps update their caches IN PLACE (`index_put_` and `copy_` on
 views of the stacked cache tensors) where JAX returns new, donated
@@ -40,7 +42,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rglru as rg
-from repro_torch.models.attention import attend, attend_decode
+from repro_torch.models.attention import (attend, attend_decode,
+                                         attend_marked)
 from repro_torch.models.layers import (apply_mlp, apply_rope, dense_init,
                                        init_mlp, init_norm, rms_norm)
 from repro_torch.models.moe import MoESettings, apply_moe, init_moe
@@ -125,13 +128,17 @@ class RunSettings:
     device: str = "cuda"
     # the jit engine's activation placement (the staged engine takes an
     # OffloadPolicy instead): "keep" | "remat" (layers recomputed in
-    # backward) | "offload" / "offload_ssd" (recomputed, each layer's
-    # input in pinned host memory until its backward) | "save_names"
-    # (recomputed, the `offload_names` kept on the device) | "spool"
-    # (layer residuals through the spool)
+    # backward) | "offload" / "offload_ssd" (recomputed, the named
+    # tensors in pinned host memory until the layer's backward) |
+    # "save_names" (recomputed, the named tensors kept on the device) |
+    # "spool" (layer residuals through the spool)
     activation_policy: str = "keep"
-    # the tensors "offload" moves to the host and "save_names" keeps:
-    # "blk_in", a layer's input, is the one the port places
+    # the tensors "offload" moves to the host and "save_names" keeps, of
+    # the names the layers mark (`core/policies.py::OFFLOAD_NAMES`):
+    # "blk_in", a layer stage's input; "attn_out", self-attention's
+    # output (the recompute then runs no attention forward);
+    # "mlp_hidden", "moe_hidden", the MLP's and the experts' hidden. No
+    # name is remat; another name is refused
     offload_names: Tuple[str, ...] = ("blk_in",)
     # "spool" only: a per-decoder-layer mask (None: every layer spools;
     # False keeps that layer's residuals on the device), as
@@ -412,9 +419,12 @@ def apply_block(bdef: BlockDef, p, x, cfg: ModelConfig,
         cache = (k, v)
         if emit_cache:
             k, v = _rank_kv(k, v, cfg, tp)
-        o = attend(q, k, v, causal=cfg.causal, window=bdef.window,
-                   logit_cap=cfg.attn_logit_softcap,
-                   chunk=settings.attn_chunk, impl=settings.attn_impl)
+        # the memory tiers' "attn_out" (self-attention only, as in JAX)
+        o = attend_marked("attn_out", q, k, v, causal=cfg.causal,
+                          window=bdef.window,
+                          logit_cap=cfg.attn_logit_softcap,
+                          chunk=settings.attn_chunk,
+                          impl=settings.attn_impl)
         mix = _out_proj(o, p["attn"]["wo"])
     if tp is not None:
         mix = tp.reduce(mix)

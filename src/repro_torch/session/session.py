@@ -448,8 +448,9 @@ class TrainSession:
 
     def _jit_report(self, step, dt, metrics) -> StepReport:
         """The JAX jit session's row: the step's metrics (`ce`, `tokens`,
-        `loss`), the bridge's counter deltas, and on the card the
-        engine's device peak."""
+        `loss`), the bridge's counter deltas, on the card the engine's
+        device peak, and under a tier of names inside a layer the bytes
+        it held (`named_bytes`)."""
         rep = metrics["report"]
         extra = {}
         for k, v in metrics.items():
@@ -463,7 +464,8 @@ class TrainSession:
             extra.update({k: cur[k] - prev.get(k, 0) for k in cur})
             self._optb_snapshot = cur
         for k, v in rep.extra.items():
-            if k == "device_peak_bytes" or k.startswith("comm_"):
+            if k in ("device_peak_bytes", "named_bytes") \
+                    or k.startswith("comm_"):
                 extra[k] = v
         return StepReport(
             loss=extra["loss"], step_time=dt,

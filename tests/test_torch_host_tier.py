@@ -6,9 +6,11 @@ the port's one engine (`core/policies.py::HostTierPolicy`,
 `core/engine.py::_HostTier`), on the CPU in float32:
 
   * `policy_for_jit` maps "offload" and "offload_ssd" to the host tier
-    and "save_names" of "blk_in" to RecomputePolicy, and refuses the
-    names inside a layer ("attn_out", "mlp_hidden", "moe_hidden") with a
-    message naming ROADMAP item 16;
+    and "save_names" of "blk_in" to RecomputePolicy; the names inside a
+    layer ("attn_out", "mlp_hidden", "moe_hidden") map to the host tier's
+    and SaveNamesPolicy's inner names (their runs are in
+    `tests/test_torch_named_tiers.py`), and a name no layer marks is
+    refused;
   * on small-gpt and llama-3.2-vision at `:reduced`, "offload" and
     "offload_ssd" are bitwise equal to "keep" (losses and final
     parameters), "save_names" to "remat";
@@ -30,7 +32,8 @@ from repro_torch.configs import SpoolIoConfig, resolve_config
 from repro_torch.configs.paper_models import small_gpt
 from repro_torch.core.engine import StagedEngine, _HostTier
 from repro_torch.core.policies import (JIT_ACTIVATION_POLICIES,
-                                       HostTierPolicy, RecomputePolicy,
+                                       OFFLOAD_NAMES, HostTierPolicy,
+                                       RecomputePolicy, SaveNamesPolicy,
                                        policy_for_jit)
 from repro_torch.core.tree import tree_flatten
 from repro_torch.data.pipeline import vision_batches
@@ -100,10 +103,23 @@ def test_policy_for_jit_maps_the_tiers():
                                      offload_names=()))
     assert type(pol) is RecomputePolicy
     for name in ("attn_out", "mlp_hidden", "moe_hidden"):
-        for tier in ("offload", "save_names"):
-            with pytest.raises(ValueError, match="ROADMAP §1 item 16"):
-                policy_for_jit(RunSettings(activation_policy=tier,
-                                           offload_names=("blk_in", name)))
+        names = ("blk_in", name)
+        for tier in ("offload", "offload_ssd"):
+            pol = policy_for_jit(RunSettings(activation_policy=tier,
+                                             offload_names=names))
+            assert isinstance(pol, HostTierPolicy) and pol.host_inputs
+            assert pol.inner_names == (name,) and pol.inner_on_host
+        pol = policy_for_jit(RunSettings(activation_policy="save_names",
+                                         offload_names=names))
+        assert type(pol) is SaveNamesPolicy and not pol.host_inputs
+        assert pol.inner_names == (name,) and not pol.inner_on_host
+    pol = policy_for_jit(RunSettings(
+        activation_policy="offload", offload_names=OFFLOAD_NAMES))
+    assert pol.host_inputs and pol.inner_names == OFFLOAD_NAMES[1:]
+    for tier in ("offload", "save_names"):
+        with pytest.raises(ValueError, match="the layers mark"):
+            policy_for_jit(RunSettings(activation_policy=tier,
+                                       offload_names=("blk_in", "mlp")))
     with pytest.raises(ValueError, match="unknown activation_policy"):
         policy_for_jit(RunSettings(activation_policy="pinned"))
 

@@ -18,8 +18,8 @@ staged engine and against the JAX package's jit engine.
     checkpoint of a port overlap session restores in a JAX session and a
     JAX one in a port overlap session; the metric rows' keys match key
     for key.
-  * The refusals the JAX session makes, the names the host tier cannot
-    place, and the CLI on the CPU.
+  * The refusals the JAX session makes, the mapping of the tiers' names
+    and the one name they refuse, and the CLI on the CPU.
 """
 import dataclasses
 import os
@@ -176,13 +176,19 @@ def test_refusals():
                                   host_offload="activations"),
                  settings=RunSettings(device="cpu",
                                       activation_policy="keep"))
-    # the host tier places a layer's input; the names inside a layer
-    # wait for selective recompute (tests/test_torch_host_tier.py)
+    # the tiers take the names the layers mark (a layer's input and the
+    # names inside it, tests/test_torch_named_tiers.py); a fifth name is
+    # refused, where JAX ignores it
     for tier in ("offload", "offload_ssd", "save_names"):
         for name in ("attn_out", "mlp_hidden", "moe_hidden"):
-            with pytest.raises(ValueError, match="ROADMAP §1 item 16"):
-                policy_for_jit(RunSettings(activation_policy=tier,
-                                           offload_names=(name,)))
+            pol = policy_for_jit(RunSettings(activation_policy=tier,
+                                             offload_names=(name,)))
+            assert pol.inner_names == (name,) and not pol.host_inputs
+            assert pol.inner_on_host == (tier != "save_names")
+            assert pol.recomputes("layer") and not pol.recomputes("head")
+        with pytest.raises(ValueError, match="the layers mark"):
+            policy_for_jit(RunSettings(activation_policy=tier,
+                                       offload_names=("attn_in",)))
     with pytest.raises(ValueError, match="unknown engine"):
         _session(engine="xla")
     with pytest.raises(ValueError, match="device"):
